@@ -1,0 +1,72 @@
+"""The port stands alone: no module of ``torchmdnet_tpu_torch`` and not
+``chip_smoke.py`` imports JAX, flax or the JAX package, and the entry
+points never fall back to the CPU on their own."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import SMALL_ARGS
+from torchmdnet_tpu_torch.md.integrators import make_md_step
+from torchmdnet_tpu_torch.models.model import create_model
+from torchmdnet_tpu_torch.ops.config import resolve_device
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torchmdnet_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "torchmdnet_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and (
+                getattr(node.func, "id", None) == "__import__"
+                or getattr(node.func, "attr", None) == "import_module"):
+            yield from (a.value for a in node.args
+                        if isinstance(a, ast.Constant))
+
+
+def test_port_imports_no_jax():
+    files = _port_files()
+    assert len(files) > 10 and all(f.exists() for f in files)
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_model(SMALL_ARGS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_model(SMALL_ARGS, device="cuda")
+    pot = create_model(SMALL_ARGS, device="cpu")
+    assert pot.device == torch.device("cpu")
+    assert all(p.device.type == "cpu" for p in pot.module.parameters())
+    z = np.ones(8, np.int64)
+    init, _, _ = make_md_step(pot, z, np.zeros(8), np.ones(8), dt=0.5,
+                              box=np.eye(3, dtype=np.float32) * 12.0)
+    pos = np.random.RandomState(0).uniform(0, 12, (8, 3))
+    assert init(pos).pos.device.type == "cpu"
+
+
+def test_tf32_is_off_after_create_model():
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    create_model(SMALL_ARGS, device="cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32

@@ -1,0 +1,73 @@
+"""The port's TensorNet2 + ScalarPlusWeightedCoulomb potential against the
+JAX package with both Pallas kernels on (interpret mode), given the same
+weights through ``params_from_jax``."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import (ATOL, RTOL, SMALL_ARGS, jax_and_port, jax_apply,
+                          lattice_system, to_np)
+from torchmdnet_tpu_torch.models.model import create_model
+from torchmdnet_tpu_torch.utils.jax_params import (
+    flax_path_to_torch_key, params_from_jax)
+
+
+@pytest.fixture(scope="module")
+def system():
+    z, pos, box = lattice_system()
+    jpot, variables, tpot, flat = jax_and_port(SMALL_ARGS, z, pos, box)
+    return z, pos, box, jpot, variables, tpot, flat
+
+
+def test_weights_load_strict(system):
+    *_, tpot, flat = system
+    sd = params_from_jax(flat)
+    fresh = create_model(SMALL_ARGS, device="cpu")
+    result = fresh.module.load_state_dict(sd, strict=True)
+    assert not result.missing_keys and not result.unexpected_keys
+    assert set(sd) == set(fresh.module.state_dict())
+    assert len(sd) == len(flat)
+
+
+def test_energy_and_forces_match_jax(system):
+    z, pos, box, jpot, variables, tpot, _ = system
+    y_j, f_j = jax_apply(jpot, variables, z, pos, box)
+    y_t, f_t = tpot.apply(z, pos, None, num_mols=1, box=box)
+    assert y_t.shape == (1, 1) and f_t.shape == pos.shape
+    np.testing.assert_allclose(to_np(y_t), y_j, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(to_np(f_t), f_j, rtol=RTOL, atol=ATOL)
+
+
+def test_plain_branches_match_the_kernel_ops(system):
+    """pallas_* off runs the plain chains under autograd; on the CPU the
+    kernel ops run their plain versions: both give the same numbers."""
+    z, pos, box, *_, tpot, flat = system
+    args = dict(SMALL_ARGS, pallas_embedding=False, pallas_edge_mlp=False)
+    plain = create_model(args, device="cpu")
+    plain.module.load_state_dict(params_from_jax(flat), strict=True)
+    y_p, f_p = plain.apply(z, pos, None, num_mols=1, box=box)
+    y_t, f_t = tpot.apply(z, pos, None, num_mols=1, box=box)
+    np.testing.assert_allclose(to_np(y_p), to_np(y_t), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(to_np(f_p), to_np(f_t), rtol=1e-5, atol=1e-5)
+
+
+def test_key_mapping():
+    assert flax_path_to_torch_key(
+        ("representation_model", "layers_1", "linears_scalar_2", "kernel")
+    ) == "representation_model.layers.1.linears_scalar.2.weight"
+    assert flax_path_to_torch_key(
+        ("representation_model", "charge_predict_0", "q_norm", "scale")
+    ) == "representation_model.charge_predict_0.q_norm.weight"
+    assert flax_path_to_torch_key(
+        ("representation_model", "tensor_embedding", "emb", "embedding")
+    ) == "representation_model.tensor_embedding.emb.weight"
+
+
+@pytest.mark.parametrize("key,value", [
+    ("cell_block_spec", object()), ("remat", True), ("model", "tensornet"),
+    ("prior_model", "ZBL"), ("coulomb_window_spec", "auto")])
+def test_uncovered_options_raise(key, value):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_model(dict(SMALL_ARGS, **{key: value}), device="cpu")

@@ -1,0 +1,196 @@
+"""Molecular dynamics on the port's potentials (the list path).
+
+Counterpart of ``torchmdnet_tpu/md/integrators.py``: velocity Verlet with
+the force carried in the state (one gradient per step, ``vv_step``
+``:373-397``), an optional Langevin (OU) thermostat, and a neighbor
+rebuild with a ``skin`` every ``rebuild_every`` steps (``_rebuild``
+``:479-493``).  Between rebuilds the model and the Coulomb head consume
+their skin-cached lists; edges beyond the true cutoffs contribute exactly
+zero.  One ``chunk`` is one rebuild and ``rebuild_every`` steps
+(``:507-511``).  The loop is plain Python; the Langevin noise and the
+initial velocities come from a ``torch.Generator`` seeded by ``seed``.
+
+Units: Å, eV, amu, fs.  ``ACC_FACTOR`` converts (eV/Å)/amu → Å/fs².
+"""
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from torchmdnet_tpu_torch.ops.neighbors import (
+    NeighborMatrix, build_neighbor_matrix, pick_cell_grid)
+
+ACC_FACTOR = 9.648533212331024e-3  # (eV/Å)/amu → Å/fs²
+KB_EV = 8.617333262e-5  # Boltzmann constant, eV/K
+# velocity variance at temperature T: v² ~ kT/m with kT in eV → Å²/fs²
+VEL2_FACTOR = KB_EV * ACC_FACTOR
+
+
+class MDState(NamedTuple):
+    pos: torch.Tensor  # [N, 3] Å
+    vel: torch.Tensor  # [N, 3] Å/fs
+    force: torch.Tensor  # [N, 3] eV/Å at ``pos`` (carried: 1 grad/step)
+    energy: torch.Tensor  # [num_mols, 1] eV at ``pos``
+    nbr_idx: torch.Tensor
+    nbr_mask: torch.Tensor
+    nbr_rev: torch.Tensor
+    generator: torch.Generator
+    step: int
+    overflow: torch.Tensor  # [] bool, sticky across rebuilds
+    # skin-cached Coulomb-head list (None without a cutoff-Coulomb head)
+    cnbr_idx: Optional[torch.Tensor] = None
+    cnbr_mask: Optional[torch.Tensor] = None
+
+
+def maxwell_boltzmann_velocities(generator, masses, temperature, like):
+    sigma = torch.sqrt(VEL2_FACTOR * temperature / masses)[:, None]
+    return sigma * torch.randn(like.shape, generator=generator,
+                               dtype=like.dtype, device=like.device)
+
+
+def kinetic_energy(vel, masses):
+    """Kinetic energy in eV."""
+    return 0.5 * torch.sum(masses[:, None] * vel * vel) / ACC_FACTOR
+
+
+def _box_diag(box) -> np.ndarray:
+    b = box.detach().cpu().numpy()
+    if b.ndim == 3:
+        b = b[0]
+    return np.diag(b).astype(np.float64)
+
+
+def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
+                 box=None, q=None, rebuild_every: int = 25, skin: float = 1.0,
+                 k_max: Optional[int] = None,
+                 temperature: Optional[float] = None, gamma: float = 0.01,
+                 neighbor_strategy: str = "brute", cells_per_dim=None,
+                 cell_block_spec=None, coulomb_window_spec=None):
+    """Build ``(init_state, chunk, energy)`` for ``potential`` (a
+    :class:`~torchmdnet_tpu_torch.models.model.Potential`).
+
+    ``chunk(state)`` rebuilds the neighbor lists and advances
+    ``rebuild_every`` steps; ``state.overflow`` is sticky.  ``energy(pos,
+    state)`` is the potential energy on the state's cached lists.
+    """
+    if cell_block_spec is not None:
+        raise NotImplementedError(
+            "cell_block_spec (the blocked q-tier MD path) is not ported yet "
+            "(ROADMAP Queue 2, rows 12-13 of the kernel table)")
+    if coulomb_window_spec is not None:
+        raise NotImplementedError(
+            "coulomb_window_spec (the windowed Coulomb) is not ported yet "
+            "(ROADMAP Queue 2, rows 14-15 of the kernel table)")
+    dev = potential.device
+    rep = potential.module.representation_model
+    out_mod = potential.module.output_model
+    cutoff = float(rep.cutoff_upper)
+    z = torch.as_tensor(z, device=dev).long()
+    batch = torch.as_tensor(batch, device=dev).long()
+    masses = torch.as_tensor(masses, dtype=torch.float32, device=dev)
+    inv_m = (1.0 / masses)[:, None]
+    if box is not None:
+        box = torch.as_tensor(box, dtype=torch.float32, device=dev)
+    # ghosts (extra segment num_mols) are kept out of the neighbor lists
+    atom_mask = batch < num_mols
+
+    nbr_kwargs = dict(strategy=neighbor_strategy,
+                      k_max=int(k_max if k_max is not None
+                                else rep.max_num_neighbors),
+                      cutoff_upper=cutoff + skin,
+                      cutoff_lower=float(rep.cutoff_lower), loop=True, box=box)
+    if neighbor_strategy == "cell":
+        if box is None:
+            raise ValueError("neighbor_strategy='cell' requires a box")
+        if cells_per_dim is None:
+            dims = np.maximum(np.floor(_box_diag(box) / (cutoff + skin)), 3)
+            cells_per_dim = tuple(int(d) for d in dims)
+        nbr_kwargs["cells_per_dim"] = cells_per_dim
+
+    # Cutoff-Coulomb head: a second skin-cached list at coulomb_cutoff +
+    # skin.  Its budget scales the head's default (which already carries
+    # ×1.35+16 headroom) by the skin volume and adds ×1.35+16 again — the
+    # JAX package's doubled headroom (integrators.py:213-214), mirrored on
+    # purpose so both build the same lists.
+    coulomb_rc = getattr(out_mod, "coulomb_cutoff", None)
+    ckwargs = None
+    if coulomb_rc is not None:
+        rc_skin = coulomb_rc + skin
+        ckwargs = dict(
+            strategy=neighbor_strategy,
+            k_max=int(out_mod.coulomb_max_neighbors()
+                      * (rc_skin / coulomb_rc) ** 3 * 1.35) + 16,
+            cutoff_upper=rc_skin, cutoff_lower=0.0, loop=False, box=box)
+        if neighbor_strategy == "cell":
+            dims, stencil, cap = pick_cell_grid(
+                _box_diag(box), rc_skin, int(atom_mask.sum()))
+            ckwargs.update(cells_per_dim=dims, stencil=stencil,
+                           cell_capacity=cap)
+
+    def _nbr(st: MDState):
+        return NeighborMatrix(st.nbr_idx, st.nbr_mask, rev_slot=st.nbr_rev)
+
+    def _cnbr(st: MDState):
+        if st.cnbr_idx is None:
+            return None
+        return NeighborMatrix(st.cnbr_idx, st.cnbr_mask)
+
+    def energy_forces(pos, st: MDState):
+        return potential.apply(z, pos, batch, num_mols=num_mols, box=box,
+                               q=q, nbr=_nbr(st), coulomb_nbr=_cnbr(st))
+
+    def energy(pos, st: MDState):
+        with torch.no_grad():
+            return potential.energy(z, pos, batch, num_mols=num_mols, box=box,
+                                    q=q, nbr=_nbr(st), coulomb_nbr=_cnbr(st))
+
+    def vv_step(st: MDState) -> MDState:
+        vel_half = st.vel + 0.5 * dt * st.force * inv_m * ACC_FACTOR
+        pos_new = st.pos + dt * vel_half
+        e2, f2 = energy_forces(pos_new, st)
+        vel_new = vel_half + 0.5 * dt * f2 * inv_m * ACC_FACTOR
+        if temperature is not None:
+            c1 = math.exp(-gamma * dt)
+            sigma = (math.sqrt(VEL2_FACTOR * temperature * (1.0 - c1 * c1))
+                     * torch.sqrt(inv_m))
+            vel_new = c1 * vel_new + sigma * torch.randn(
+                vel_new.shape, generator=st.generator, dtype=vel_new.dtype,
+                device=vel_new.device)
+        return st._replace(pos=pos_new, vel=vel_new, force=f2, energy=e2,
+                           step=st.step + 1)
+
+    def rebuild(st: MDState) -> MDState:
+        nbr = build_neighbor_matrix(st.pos, batch, atom_mask=atom_mask,
+                                    **nbr_kwargs)
+        st = st._replace(nbr_idx=nbr.idx, nbr_mask=nbr.mask,
+                         nbr_rev=nbr.rev_slot,
+                         overflow=st.overflow | nbr.overflow)
+        if ckwargs is not None:
+            cnbr = build_neighbor_matrix(st.pos, batch, atom_mask=atom_mask,
+                                         **ckwargs)
+            st = st._replace(cnbr_idx=cnbr.idx, cnbr_mask=cnbr.mask,
+                             overflow=st.overflow | cnbr.overflow)
+        return st
+
+    def chunk(st: MDState) -> MDState:
+        st = rebuild(st)
+        for _ in range(rebuild_every):
+            st = vv_step(st)
+        return st
+
+    def init_state(pos, vel=None, seed: int = 0) -> MDState:
+        pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        if vel is None:
+            vel = (maxwell_boltzmann_velocities(gen, masses, temperature, pos)
+                   if temperature is not None else torch.zeros_like(pos))
+        vel = torch.as_tensor(vel, dtype=torch.float32, device=dev)
+        st = MDState(pos, vel, None, None, None, None, None, gen, 0,
+                     torch.zeros((), dtype=torch.bool, device=dev))
+        st = rebuild(st)
+        e, f = energy_forces(st.pos, st)
+        return st._replace(force=f, energy=e)
+
+    return init_state, chunk, energy

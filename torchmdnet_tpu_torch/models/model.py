@@ -1,0 +1,181 @@
+"""Model composition: ``TorchMDNet``, ``Potential`` and ``create_model``.
+
+Counterpart of ``torchmdnet_tpu/models/model.py`` (``TorchMDNet``
+``:26-111``, ``Potential``, ``create_model``) for ``model="tensornet2"``
+with the ``Scalar`` or ``ScalarPlusWeightedCoulomb`` head.  Forces are
+``−∂Σy/∂pos`` from ``torch.autograd.grad``.  ``create_model`` takes the
+JAX package's args dict as it is and raises ``NotImplementedError`` on
+what this port does not cover yet, naming the ROADMAP item.
+"""
+
+import torch
+from torch import nn
+
+from torchmdnet_tpu_torch.models.common import reset_parameters
+from torchmdnet_tpu_torch.models.output_modules import (
+    Scalar, ScalarPlusWeightedCoulomb)
+from torchmdnet_tpu_torch.models.tensornet2 import TensorNet2
+from torchmdnet_tpu_torch.ops.config import resolve_device, set_matmul_precision
+
+
+class TorchMDNet(nn.Module):
+    """representation → output.pre_reduce → ×std → reduce → +mean
+    (reference ``model.py:530-631``); returns ``y [num_mols, 1]``."""
+
+    def __init__(self, representation_model, output_model, mean=0.0, std=1.0):
+        super().__init__()
+        self.representation_model = representation_model
+        self.output_model = output_model
+        self.mean = float(mean)
+        self.std = float(std)
+
+    def forward(self, z, pos, batch, *, num_mols: int, box=None, q=None,
+                nbr=None, coulomb_nbr=None):
+        atom_mask = batch < num_mols
+        x, _ = self.representation_model(z, pos, batch, box=box, q=q,
+                                          atom_mask=atom_mask, nbr=nbr,
+                                          num_mols=num_mols)
+        x = self.output_model.pre_reduce(x, z, pos, batch, box=box,
+                                         num_mols=num_mols, nbr=coulomb_nbr)
+        y = self.output_model.reduce(x * self.std, batch, num_mols)
+        return y + self.mean
+
+
+class Potential:
+    """(energy, forces) around a :class:`TorchMDNet` whose weights live on
+    ``device``.  Inputs may be tensors or arrays; they are moved there."""
+
+    def __init__(self, module: TorchMDNet, device: torch.device,
+                 derivative: bool = True):
+        self.module = module
+        self.device = device
+        self.derivative = derivative
+
+    def _inputs(self, z, pos, batch, box):
+        dev = self.device
+        z = torch.as_tensor(z, device=dev).long()
+        pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+        if batch is None:
+            batch = torch.zeros(z.shape[0], dtype=torch.long, device=dev)
+        batch = torch.as_tensor(batch, device=dev).long()
+        if box is not None:
+            box = torch.as_tensor(box, dtype=torch.float32, device=dev)
+        return z, pos, batch, box
+
+    def energy(self, z, pos, batch=None, *, num_mols: int = 1, box=None,
+               q=None, nbr=None, coulomb_nbr=None):
+        """Per-molecule energies ``y [num_mols, 1]``."""
+        z, pos, batch, box = self._inputs(z, pos, batch, box)
+        return self.module(z, pos, batch, num_mols=num_mols, box=box, q=q,
+                           nbr=nbr, coulomb_nbr=coulomb_nbr)
+
+    def apply(self, z, pos, batch=None, *, num_mols: int = 1, box=None,
+              q=None, nbr=None, coulomb_nbr=None):
+        """``(y, −∂Σy/∂pos)``; the second item is None unless the model was
+        built with ``derivative``."""
+        z, pos, batch, box = self._inputs(z, pos, batch, box)
+        kw = dict(num_mols=num_mols, box=box, q=q, nbr=nbr,
+                  coulomb_nbr=coulomb_nbr)
+        if not self.derivative:
+            with torch.no_grad():
+                return self.module(z, pos, batch, **kw), None
+        pos = pos.detach().requires_grad_(True)
+        with torch.enable_grad():
+            y = self.module(z, pos, batch, **kw)
+            (dy,) = torch.autograd.grad(y.sum(), pos)
+        return y.detach(), -dy
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _check_supported(args: dict) -> None:
+    if args["model"] != "tensornet2":
+        _not_ported(f"model={args['model']!r}",
+                    "Queue 1, 'TensorNet model' / 'torchmd_et, _t, _gn'")
+    if args.get("cell_block_spec") is not None:
+        _not_ported("cell_block_spec (the blocked q-tier)",
+                    "Queue 2, rows 12-13 of the kernel table")
+    if args.get("coulomb_window_spec") is not None:
+        _not_ported("coulomb_window_spec (the windowed Coulomb)",
+                    "Queue 2, rows 14-15 of the kernel table")
+    if args.get("remat"):
+        _not_ported("remat=True", "Queue 1, 'Training'")
+    if args.get("prior_model"):
+        _not_ported("prior_model", "Queue 1, 'priors/'")
+    if args.get("precision", 32) != 32:
+        _not_ported(f"precision={args['precision']}", "Queue 1, 'Training'")
+    if args.get("atom_filter", -1) > -1:
+        _not_ported("atom_filter", "Queue 1, 'Remaining heads and wrappers'")
+    if args.get("output_model", "Scalar") not in (
+            "Scalar", "ScalarPlusWeightedCoulomb"):
+        _not_ported(f"output_model={args['output_model']!r}",
+                    "Queue 1, 'Remaining heads and wrappers'")
+
+
+def create_model(args: dict, device=None, seed: int = 0) -> Potential:
+    """Build a :class:`Potential` from a reference-compatible args dict
+    (reference ``model.py:21-164``).
+
+    Weights are drawn from a ``torch.Generator`` seeded with ``seed`` and
+    frozen (``requires_grad=False``): this port runs inference and MD, not
+    training.  ``device`` defaults to CUDA and raises when CUDA is absent.
+    Float32 matmuls run in full float32 (TF32 off) unless
+    ``args["matmul_precision"]`` says otherwise.
+    """
+    device = resolve_device(device)
+    args = dict(args)
+    _check_supported(args)
+    set_matmul_precision(args.get("matmul_precision") or "highest")
+    output_model = args.get("output_model", "Scalar")
+    F = args["embedding_dimension"]
+    cpd = args.get("cells_per_dim")
+    rep = TensorNet2(
+        hidden_channels=F,
+        q_dim=args.get("q_dim", 0),
+        num_layers=args["num_layers"],
+        num_rbf=args["num_rbf"],
+        rbf_type=args["rbf_type"],
+        trainable_rbf=args["trainable_rbf"],
+        activation=args["activation"],
+        cutoff_lower=float(args["cutoff_lower"]),
+        cutoff_upper=float(args["cutoff_upper"]),
+        max_num_neighbors=args["max_num_neighbors"],
+        max_z=args["max_z"],
+        equivariance_invariance_group=args["equivariance_invariance_group"],
+        output_charges="Coul" in output_model,
+        neighbor_strategy=args.get("neighbor_strategy", "brute"),
+        cells_per_dim=tuple(int(c) for c in cpd) if cpd else None,
+        cell_capacity=int(args.get("cell_capacity", 64)),
+        pallas_edge_mlp=bool(args.get("pallas_edge_mlp", False)),
+        pallas_embedding=bool(args.get("pallas_embedding", False)),
+    )
+    head_kwargs = dict(hidden_channels=F, activation=args["activation"],
+                       reduce_op=args.get("reduce_op", "sum"))
+    if output_model == "ScalarPlusWeightedCoulomb":
+        ccpd = args.get("coulomb_cells_per_dim")
+        head = ScalarPlusWeightedCoulomb(
+            num_hidden_layers=args.get("output_mlp_num_layers", 0),
+            q_dim=args.get("q_dim", 0),
+            num_interaction_layers=args["num_layers"],
+            q_weights=tuple(tuple(w) if isinstance(w, (list, tuple)) else (w,)
+                            for w in args.get("q_weights", [])),
+            coulomb_cutoff=args.get("coulomb_cutoff"),
+            coulomb_max_num_neighbors=args.get("coulomb_max_num_neighbors"),
+            coulomb_neighbor_strategy=args.get("coulomb_neighbor_strategy",
+                                               "brute"),
+            coulomb_cells_per_dim=(tuple(int(c) for c in ccpd)
+                                   if ccpd else None),
+            coulomb_cell_stencil=int(args.get("coulomb_cell_stencil", 1) or 1),
+            coulomb_cell_capacity=int(args.get("coulomb_cell_capacity", 64)
+                                      or 64),
+            **head_kwargs)
+    else:
+        # reference quirk (issue #343): Scalar's MLP depth is pinned to 0
+        head = Scalar(num_hidden_layers=0, **head_kwargs)
+    module = TorchMDNet(rep, head)
+    reset_parameters(module, torch.Generator().manual_seed(int(seed)))
+    module.requires_grad_(False)
+    return Potential(module.to(device), device,
+                     derivative=bool(args.get("derivative", False)))

@@ -1,0 +1,223 @@
+"""TensorNet2: TensorNet with AIMNet2-style neutral charge equilibration.
+
+Counterpart of ``torchmdnet_tpu/models/tensornet2.py``: ``ChargePredict``,
+the gather branch of ``Interaction2`` (``:211-260``) and ``TensorNet2``
+(``:284-462``).  Per-layer MLPs predict multi-channel partial charges that
+are redistributed so each molecule's channel sums equal its total charge;
+the charges feed the next interaction layer as edge features (folded into
+per-node vectors) and, with ``output_charges``, are appended to the node
+features for the Coulomb head.
+
+With ``pallas_edge_mlp`` the edge MLP tail runs kernel 3
+(``ops/edge_mlp.py``); otherwise it is the plain chain.
+"""
+
+import torch
+from torch import nn
+
+from torchmdnet_tpu_torch.models.common import (
+    MLP, LayerNorm, Linear, get_activation, make_rbf)
+from torchmdnet_tpu_torch.models.tensornet import (
+    TensorEmbedding, edge_message_passing, linear_irreps)
+from torchmdnet_tpu_torch.ops import rbf as rbf_ops
+from torchmdnet_tpu_torch.ops.edge_mlp import edge_mlp_pre
+from torchmdnet_tpu_torch.ops.message_passing import gather_nodes, reverse_slots
+from torchmdnet_tpu_torch.ops.neighbors import (
+    NeighborMatrix, build_neighbor_matrix, neighbor_geometry)
+from torchmdnet_tpu_torch.ops.segment import segment_sum
+from torchmdnet_tpu_torch.ops.tensor_algebra import (
+    Irreps, compose_tensor, decompose_tensor, irreps_norm2, irreps_norm3,
+    tensor_frobenius_norm2, tensor_matmul_o3, tensor_matmul_so3)
+
+
+def _scale(irr: Irreps, s) -> Irreps:
+    """Divide every irrep part by the per-(node, channel) ``s [N, F]``."""
+    return Irreps(irr.I / s, irr.A / s[:, None, :], irr.S / s[:, None, :])
+
+
+class ChargePredict(nn.Module):
+    """Charge head and neutral charge equilibration (reference
+    ``tensornet2.py:49-156``)."""
+
+    def __init__(self, hidden_channels, activation="silu", q_dim=16):
+        super().__init__()
+        self.q_dim = q_dim
+        self.q_norm = LayerNorm(3 * hidden_channels)
+        self.q_mlp = MLP(3 * hidden_channels, 2 * q_dim, hidden_channels,
+                         activation, num_hidden_layers=1)
+
+    @staticmethod
+    def qeq(old_charges, f, batch, Q_atom, num_mols: int):
+        """new = q + f²/(Σ_mol f² + ε)·(Q − Σ_mol q)."""
+        f_u = f * f
+        F_u = segment_sum(f_u, batch, num_mols + 1) + 1.0e-6
+        Q_u = segment_sum(old_charges, batch, num_mols + 1)
+        dQ = Q_atom[:, None] - Q_u[batch]
+        return old_charges + f_u / F_u[batch] * dQ
+
+    def forward(self, X: Irreps, batch, Q_atom, num_mols: int):
+        # feature (I, ‖A‖², ‖S‖²): the raw I, unlike the readout's 3I²
+        _, nA, nS = irreps_norm2(X)
+        cf = self.q_mlp(self.q_norm(torch.cat([X.I, nA, nS], dim=-1)))
+        charges, f = cf[:, :self.q_dim], cf[:, self.q_dim:]
+        return self.qeq(charges, f, batch, Q_atom, num_mols)
+
+
+class Interaction2(nn.Module):
+    """TensorNet2 interaction layer, gather branch (reference
+    ``tensornet2.py:465-626``)."""
+
+    def __init__(self, hidden_channels, num_rbf, q_dim, activation="silu",
+                 cutoff_lower=0.0, cutoff_upper=4.5,
+                 equivariance_invariance_group="O(3)", pallas_edge_mlp=False):
+        super().__init__()
+        F = hidden_channels
+        self.num_rbf = num_rbf
+        self.cutoff_lower = cutoff_lower
+        self.cutoff_upper = cutoff_upper
+        self.group = equivariance_invariance_group
+        self.fused = pallas_edge_mlp and activation == "silu"
+        self.act = get_activation(activation)
+        self.linears_scalar = nn.ModuleList([
+            Linear(num_rbf + 2 * q_dim, F), Linear(F, 2 * F),
+            Linear(2 * F, 3 * F)])
+        self.linears_tensor = nn.ModuleList(
+            [Linear(F, F, bias=False) for _ in range(6)])
+
+    def _mlp_tail(self, pre1, cw):
+        l2, l3 = self.linears_scalar[1], self.linears_scalar[2]
+        if self.fused:
+            return edge_mlp_pre(pre1, cw, l2.weight.t().contiguous(), l2.bias,
+                                l3.weight.t().contiguous(), l3.bias)
+        h = self.act(l3(self.act(l2(self.act(pre1)))))
+        return h * cw[..., None]
+
+    def forward(self, X: Irreps, charges, nbr: NeighborMatrix, edge_weight,
+                edge_attr, rev_slot):
+        R, Q = self.num_rbf, charges.shape[-1]
+        C = rbf_ops.cosine_cutoff(edge_weight, self.cutoff_upper,
+                                  self.cutoff_lower)
+        # Charge-fold of the first edge linear:
+        # W1·[rbf; q_i; q_j] = rbf·W1a + (q·W1b + b1)[i] + (q·W1c)[j]
+        w1 = self.linears_scalar[0].weight.t()
+        u_i = charges @ w1[R:R + Q] + self.linears_scalar[0].bias
+        u_j = charges @ w1[R + Q:]
+        base = edge_attr @ w1[:R]
+        pre1 = base + u_i[:, None, :] + gather_nodes(u_j, nbr.idx, rev_slot,
+                                                     nbr.mask)
+        cw = C * nbr.mask.to(pre1.dtype)
+        attr = self._mlp_tail(pre1, cw)
+        # Reverse-edge weights (same MLP, q_i and q_j swapped) for the
+        # scatter-free backward of the asymmetric neighbor sum, which gives
+        # them a zero cotangent: computed without a graph.
+        with torch.no_grad():
+            pre1_rev = base + u_j[:, None, :] + gather_nodes(
+                u_i, nbr.idx, rev_slot, nbr.mask)
+            attr_rev = self._mlp_tail(pre1_rev, cw)
+
+        X = _scale(X, tensor_frobenius_norm2(X) + 1.0)
+        Y = linear_irreps(X, self.linears_tensor[:3])
+        M = edge_message_passing(attr, Y, nbr, attr_rev)
+        Yf, Mf = compose_tensor(Y), compose_tensor(M)
+        if self.group == "O(3)":
+            Cf = tensor_matmul_o3(Yf, Mf)
+        else:
+            Cf = 2.0 * tensor_matmul_so3(Yf, Mf)
+        B = decompose_tensor(Cf)
+        B = _scale(B, tensor_frobenius_norm2(B) + 1.0)
+        dX = linear_irreps(B, self.linears_tensor[3:])
+        dXf = compose_tensor(dX)
+        dX2 = decompose_tensor(tensor_matmul_so3(dXf, dXf))
+        return Irreps(X.I + dX.I + dX2.I, X.A + dX.A + dX2.A,
+                      X.S + dX.S + dX2.S)
+
+
+class TensorNet2(nn.Module):
+    """Representation model with charge equilibration (reference
+    ``tensornet2.py:159-462``).  Returns ``(x, None)``; with
+    ``output_charges`` the per-layer charges are appended to ``x``."""
+
+    def __init__(self, hidden_channels=128, q_dim=16, num_layers=2,
+                 num_rbf=32, rbf_type="expnorm", trainable_rbf=False,
+                 activation="silu", cutoff_lower=0.0, cutoff_upper=4.5,
+                 max_num_neighbors=64, max_z=128,
+                 equivariance_invariance_group="O(3)", output_charges=False,
+                 neighbor_strategy="brute", cells_per_dim=None,
+                 cell_capacity=64, pallas_edge_mlp=False,
+                 pallas_embedding=False):
+        super().__init__()
+        if equivariance_invariance_group not in ("O(3)", "SO(3)"):
+            raise ValueError(f'Unknown group "{equivariance_invariance_group}". '
+                             "Choose O(3) or SO(3).")
+        F = hidden_channels
+        self.cutoff_lower = cutoff_lower
+        self.cutoff_upper = cutoff_upper
+        self.max_num_neighbors = max_num_neighbors
+        self.output_charges = output_charges
+        self.neighbor_strategy = neighbor_strategy
+        self.cells_per_dim = cells_per_dim
+        self.cell_capacity = cell_capacity
+        self.act = get_activation(activation)
+        self.distance_expansion = make_rbf(rbf_type, cutoff_lower,
+                                           cutoff_upper, num_rbf,
+                                           trainable_rbf)
+        self.tensor_embedding = TensorEmbedding(
+            F, num_rbf, activation, cutoff_lower, cutoff_upper, max_z,
+            pallas_embedding=pallas_embedding)
+        self.charge_predict_0 = ChargePredict(F, activation, q_dim)
+        self.layers = nn.ModuleList([
+            Interaction2(F, num_rbf, q_dim, activation, cutoff_lower,
+                         cutoff_upper, equivariance_invariance_group,
+                         pallas_edge_mlp=pallas_edge_mlp)
+            for _ in range(num_layers)])
+        self.charge_predicts = nn.ModuleList(
+            [ChargePredict(F, activation, q_dim) for _ in range(num_layers)])
+        self.out_norm = LayerNorm(3 * F)
+        self.linear = Linear(3 * F, F)
+
+    def build_neighbors(self, pos, batch, box=None, atom_mask=None):
+        kwargs = {}
+        if self.neighbor_strategy == "cell":
+            kwargs = dict(cells_per_dim=self.cells_per_dim,
+                          cell_capacity=self.cell_capacity)
+        return build_neighbor_matrix(
+            pos, batch, strategy=self.neighbor_strategy,
+            k_max=self.max_num_neighbors, cutoff_upper=self.cutoff_upper,
+            cutoff_lower=self.cutoff_lower, loop=True, box=box,
+            atom_mask=atom_mask, **kwargs)
+
+    def forward(self, z, pos, batch, box=None, q=None, atom_mask=None,
+                nbr=None, num_mols=None):
+        if num_mols is None:
+            num_mols = int(batch.shape[0])
+        if nbr is None:
+            nbr = self.build_neighbors(pos, batch, box=box, atom_mask=atom_mask)
+        rev_slot = (nbr.rev_slot if nbr.rev_slot is not None
+                    else reverse_slots(nbr.idx, nbr.mask))
+        delta, dist = neighbor_geometry(pos, nbr, box=box, batch=batch)
+
+        # per-atom total charge Q (reference :376-380); ghosts get 0
+        if q is None:
+            Q_atom = torch.zeros(z.shape, dtype=pos.dtype, device=pos.device)
+        else:
+            q = torch.as_tensor(q, dtype=pos.dtype, device=pos.device)
+            Q_atom = torch.cat([q, q.new_zeros(1)])[
+                torch.clamp(batch, max=q.shape[0])]
+
+        edge_attr = self.distance_expansion(dist)
+        safe_w = torch.where(dist > 0, dist, 1.0)
+        edge_vec_norm = delta / safe_w[..., None]
+
+        X = self.tensor_embedding(z, nbr, dist, edge_vec_norm, edge_attr,
+                                  rev_slot)
+        charges = self.charge_predict_0(X, batch, Q_atom, num_mols)
+        charge_list = [charges]
+        for layer, predict in zip(self.layers, self.charge_predicts):
+            X = layer(X, charges, nbr, dist, edge_attr, rev_slot)
+            charges = predict(X, batch, Q_atom, num_mols)
+            charge_list.append(charges)
+
+        x = self.act(self.linear(self.out_norm(irreps_norm3(X))))
+        if self.output_charges:
+            x = torch.cat([x] + charge_list, dim=-1)
+        return x, None

@@ -1,0 +1,2 @@
+"""Tensor ops of the port: plain PyTorch, plus the wrappers of the
+hand-written CUDA kernels (``radial_embedding``, ``edge_mlp``)."""

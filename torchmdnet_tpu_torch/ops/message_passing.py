@@ -1,0 +1,129 @@
+"""Neighbor gathers and the asymmetric packed neighbor sum.
+
+Counterpart of ``torchmdnet_tpu/ops/message_passing.py`` (the gather
+path).  The neighbor matrix holds both directions of every pair, so the
+map ``(n, k) → (idx[n,k], rev_slot[n,k])`` is an involution on the valid
+slots: the transpose of a masked gather is the sum over ``k`` of a masked
+*reverse* gather, and every backward here is a gather, never a scatter.
+
+The packed neighbor sum works over row chunks: gathering ``feats9[idx]``
+whole is an ``[N, K, 9F]`` block (11.1 GB per layer at N=25,088, K=96,
+F=128), so neither direction ever holds more than one chunk of it.
+"""
+
+import torch
+from torch.autograd.function import once_differentiable
+
+# Transient budget of one row chunk of an [N, K, width] gathered block.
+CHUNK_BUDGET_BYTES = 512 * 1024 * 1024
+
+
+def row_chunk(n: int, k: int, width: int, budget_bytes=None) -> int:
+    """Rows per chunk so a [chunk, K, width] float32 block fits the budget
+    (``CHUNK_BUDGET_BYTES`` unless given)."""
+    if budget_bytes is None:
+        budget_bytes = CHUNK_BUDGET_BYTES
+    return int(min(n, max(budget_bytes // (k * width * 4), 8)))
+
+
+def reverse_slots(idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``rev_slot[n,k]`` = position of ``n`` among the VALID slots of row
+    ``idx[n,k]`` (0 on invalid slots).  The [C, K, K] comparison is built
+    over row chunks so it stays bounded."""
+    n, k = idx.shape
+    out = torch.zeros_like(idx)
+    chunk = row_chunk(n, k, k, budget_bytes=128 * 1024 * 1024)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        idx_c = idx[s:e]
+        me = torch.arange(s, e, device=idx.device)
+        hit = (idx[idx_c] == me[:, None, None]) & mask[idx_c]
+        out[s:e] = hit.to(torch.uint8).argmax(dim=-1)
+    return torch.where(mask, out, 0)
+
+
+def gather_rev(g, idx, rev_slot, mask):
+    """Masked reverse gather ``g[idx[n,k], rev_slot[n,k]]`` (self-adjoint)."""
+    return torch.where(mask[..., None], g[idx, rev_slot], 0.0)
+
+
+class _GatherNodes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx, rev_slot, mask):
+        ctx.save_for_backward(idx, rev_slot, mask)
+        return torch.where(mask[..., None], x[idx], 0.0)
+
+    @staticmethod
+    def backward(ctx, ct):
+        idx, rev_slot, mask = ctx.saved_tensors
+        return gather_rev(ct, idx, rev_slot, mask).sum(dim=1), None, None, None
+
+
+def gather_nodes(x, idx, rev_slot, mask):
+    """Masked node-feature gather ``x[idx]`` → ``[N, K, C]`` (0 on invalid
+    slots), whose transpose is the reverse gather summed over ``k``."""
+    return _GatherNodes.apply(x, idx, rev_slot, mask)
+
+
+def _pns_impl(attr3f, feats9, idx):
+    """``msg[n] = Σ_k expand9(attr3f[n,k]) ⊙ feats9[idx[n,k]]`` → [N, 9F];
+    ``attr3f`` carries the cutoff/pad mask already."""
+    n, k, c3 = attr3f.shape
+    f = c3 // 3
+    out = attr3f.new_empty((n, 9 * f))
+    chunk = row_chunk(n, k, 9 * f)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        xj = feats9[idx[s:e]].view(e - s, k, 9, f)
+        w = attr3f[s:e].view(e - s, k, 3, f)
+        o = out[s:e].view(e - s, 9, f)
+        o[:, 0:1] = (w[:, :, 0:1] * xj[:, :, 0:1]).sum(1)
+        o[:, 1:4] = (w[:, :, 1:2] * xj[:, :, 1:4]).sum(1)
+        o[:, 4:9] = (w[:, :, 2:3] * xj[:, :, 4:9]).sum(1)
+    return out
+
+
+def _pns_dattr(g9, feats9, idx, mask):
+    """∂/∂attr3f of the packed sum: ``fold9(g9[n] ⊙ feats9[idx[n,k]])``,
+    zero on invalid slots → [N, K, 3F]."""
+    n, k = idx.shape
+    f = g9.shape[-1] // 9
+    out = g9.new_empty((n, k, 3 * f))
+    chunk = row_chunk(n, k, 9 * f)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        xj = feats9[idx[s:e]].view(e - s, k, 9, f)
+        prod = g9[s:e].view(e - s, 1, 9, f) * xj
+        o = out[s:e].view(e - s, k, 3, f)
+        o[:, :, 0] = prod[:, :, 0]
+        o[:, :, 1] = prod[:, :, 1:4].sum(2)
+        o[:, :, 2] = prod[:, :, 4:9].sum(2)
+        o.mul_(mask[s:e, :, None, None])
+    return out
+
+
+class _PackedNeighborSumAsym(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, attr3f, attr_rev, feats9, idx, mask):
+        ctx.save_for_backward(attr_rev, feats9, idx, mask)
+        return _pns_impl(attr3f, feats9, idx)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        attr_rev, feats9, idx, mask = ctx.saved_tensors
+        g = g.contiguous()
+        dattr = _pns_dattr(g, feats9, idx, mask) if ctx.needs_input_grad[0] else None
+        dfeats = _pns_impl(attr_rev, g, idx) if ctx.needs_input_grad[2] else None
+        return dattr, None, dfeats, None, None
+
+
+def packed_neighbor_sum_asym(attr3f, attr_rev, feats9, idx, mask):
+    """Packed neighbor sum for direction-dependent edge weights whose
+    reverse-edge weights ``attr_rev[j,k] = attr3f[idx[j,k], rev_slot[j,k]]``
+    the caller recomputes (the swapped-argument edge MLP).  The backward
+    needs row gathers only: ``∂attr = fold9(g ⊙ feats9[idx])`` and
+    ``∂feats9 = packed_sum(attr_rev, g)``; ``attr_rev`` gets a zero
+    first-order cotangent.  Saves ``attr_rev`` and ``feats9`` only; the
+    gathered blocks are rebuilt per chunk in the backward."""
+    return _PackedNeighborSumAsym.apply(attr3f, attr_rev, feats9, idx, mask)

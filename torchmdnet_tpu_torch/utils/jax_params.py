@@ -1,0 +1,53 @@
+"""Carry the JAX package's weights into the port.
+
+:func:`params_from_jax` maps the flax ``params`` tree, flattened to
+``/``-joined paths, onto the port's state dict.  Keys are the upstream
+torchmd-net names, as ``torchmdnet_tpu/utils/torch_ckpt.py::
+_flax_path_to_torch_key`` (``:212``) writes them: a trailing ``_<int>``
+becomes a list index (``layers_0`` → ``layers.0``) except on names whose
+suffix is literal (``charge_predict_0``), ``kernel`` becomes a transposed
+``weight``, and ``embedding``/``scale`` become ``weight``.  This is a copy
+of that mapping, not an import of the JAX package.
+"""
+
+from collections import OrderedDict
+from typing import Dict
+
+import numpy as np
+import torch
+
+# names whose trailing _<int> is part of the torch attribute name
+_LITERAL = {"charge_predict_0", "output_network_0", "output_network_1"}
+
+
+def flax_path_to_torch_key(path) -> str:
+    """``("layers_0", "linears_scalar_1", "kernel")`` →
+    ``"layers.0.linears_scalar.1.weight"``."""
+    tokens = []
+    for tok in path[:-1]:
+        head, _, tail = tok.rpartition("_")
+        if tok not in _LITERAL and head and tail.isdigit():
+            tokens += [head, tail]
+        else:
+            tokens.append(tok)
+    leaf = path[-1]
+    tokens.append("weight" if leaf in ("kernel", "embedding", "scale")
+                  else leaf)
+    return ".".join(tokens)
+
+
+def params_from_jax(flat: Dict[str, np.ndarray]) -> "OrderedDict[str, torch.Tensor]":
+    """``{"representation_model/tensor_embedding/emb/embedding": array, …}``
+    → a state dict the port's :class:`~torchmdnet_tpu_torch.models.model.
+    TorchMDNet` loads with ``strict=True``."""
+    out = OrderedDict()
+    for name, value in flat.items():
+        path = tuple(name.split("/"))
+        arr = np.asarray(value, dtype=np.float32)
+        if path[-1] == "kernel":
+            arr = arr.T
+        key = flax_path_to_torch_key(path)
+        if key in out:
+            raise KeyError(f"two JAX parameters map to {key!r}")
+        out[key] = torch.from_numpy(np.array(arr, copy=True, order="C"))
+    return out
