@@ -6,22 +6,33 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``torchmdnet_tpu_torch/csrc`` with
-``nvcc`` (all sources at once), holds each kernel against its plain
-PyTorch version on the card at the main path's shapes (N=25,088 atoms,
-K=96 slots, F=128 channels, R=32 rbf), then drives the main path:
+``nvcc`` (one process per source, all at once) and holds each kernel
+against its plain PyTorch version on the card at the main path's shapes:
+the embedding and edge-MLP kernels at N=25,088 atoms, K=96 slots, F=128
+channels, R=32 rbf; the q-tier kernels A/B at the 27,024 cell-blocked
+rows of the same lattice with T=64 series terms; the windowed-Coulomb
+kernels C/D at 48 charge channels over the lattice's real stencil
+windows.  Then it drives both paths of the port on the north star,
 TensorNet2 (2 layers x 128) + the 10 Å ScalarPlusWeightedCoulomb head on
-a 25,088-atom periodic lattice, energy+forces once with the kernels and
-once through the plain versions, and a Langevin MD chunk (rebuild every
-25 steps, 1 Å skin).  Weights are random, drawn from a seed.
+the 25,088-atom periodic lattice, weights random from a seed:
+
+- the gather path (no cell_block_spec, Coulomb list): energy+forces with
+  the kernels and through the plain versions, a profile, and a short MD
+  run (a 5-step chunk timed after a 5-step warm-up chunk);
+- the blocked path (the JAX north-star default: cell-blocked q-tier and
+  windowed Coulomb): energy+forces with the kernels and through the plain
+  versions, against the gather path, a profile, and a Langevin MD chunk
+  (rebuild every 25 steps, 1 Å skin) timed after a warm-up chunk.
 
 Each phase prints one JSON line; the card's name and power limit (as
 ``nvidia-smi`` gives them) and a ``{"kernels": [...]}`` line follow, and
 the last line is ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before that line.  All float32 matmuls run in full float32
-(TF32 off).  Long logs (compiler output, the profile) go to ``logs/`` in
+(TF32 off).  Long logs (compiler output, the profiles) go to ``logs/`` in
 the checkout, or to the directory named by ``SMOKE_LOG_DIR``.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -38,14 +49,61 @@ import torch
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / os.environ.get("SMOKE_LOG_DIR", "logs")
 TOL = 1e-4  # max |kernel − plain| / max |plain|, float32 with reordered sums
+# blocked against gather path forces, relative to max |F|: the q_tab
+# series approximation of the edge-MLP base is the difference.  Two runs
+# on an H100 read 3.3e-6 and 2.5e-6; the limit leaves 30x room for the
+# reordered sums and stays 10x inside the 1e-3 the series is held to.
+BLOCKED_VS_GATHER_TOL = 1e-4
 
 N_ATOMS, K, F, R, Q_DIM = 25088, 96, 128, 32, 16
-COULOMB_RC = 10.0
+COULOMB_RC, SKIN, CAP, Q_TAB, C_CH = 10.0, 1.0, 16, 64, 48
 
 # Published peaks, NVIDIA data sheets (dense, no sparsity): float32 outside
 # the tensor cores in FLOP/s and device memory in B/s, by board.
 PEAKS = {"H100 PCIe": (51.2e12, 2.0e12), "H100 NVL": (60.0e12, 3.9e12),
          "H100": (67.0e12, 3.35e12), "H200": (67.0e12, 4.8e12)}
+
+SRC = "torchmdnet_tpu_torch/csrc/"
+# kernel name → (source, TPU kernel it replaces, path whose MD run counts it)
+KERNELS = {
+    "radial_embedding_fwd": (SRC + "radial_embedding.cu",
+                             "torchmdnet_tpu/ops/pallas_embedding.py:80",
+                             "blocked"),
+    "radial_embedding_bwd": (SRC + "radial_embedding.cu",
+                             "torchmdnet_tpu/ops/pallas_embedding.py:178",
+                             "blocked"),
+    "edge_mlp_pre": (SRC + "edge_mlp.cu",
+                     "torchmdnet_tpu/ops/pallas_kernels.py:182", "gather"),
+    "blocked_q_fwd": (SRC + "blocked_q.cu",
+                      "torchmdnet_tpu/ops/pallas_blocked_mp.py:1211",
+                      "blocked"),
+    "blocked_q_fwd_du": (SRC + "blocked_q.cu",
+                         "torchmdnet_tpu/ops/pallas_blocked_mp.py:1211",
+                         "blocked"),
+    "blocked_q_dq": (SRC + "blocked_q.cu",
+                     "torchmdnet_tpu/ops/pallas_blocked_mp.py:1504",
+                     "blocked"),
+    "windowed_coulomb_fwd": (SRC + "windowed_coulomb.cu",
+                             "torchmdnet_tpu/ops/pallas_coulomb.py:280",
+                             "blocked"),
+    "windowed_coulomb_bwd": (SRC + "windowed_coulomb.cu",
+                             "torchmdnet_tpu/ops/pallas_coulomb.py:297",
+                             "blocked"),
+}
+
+
+def counters():
+    """Kernel name → its launch counter (``Kernel`` objects)."""
+    from torchmdnet_tpu_torch.ops import (
+        blocked_q, edge_mlp, radial_embedding, windowed_coulomb)
+    return {"radial_embedding_fwd": radial_embedding.FORWARD,
+            "radial_embedding_bwd": radial_embedding.BACKWARD,
+            "edge_mlp_pre": edge_mlp.FORWARD,
+            "blocked_q_fwd": blocked_q.FORWARD,
+            "blocked_q_fwd_du": blocked_q.FORWARD_DU,
+            "blocked_q_dq": blocked_q.DQ,
+            "windowed_coulomb_fwd": windowed_coulomb.FORWARD,
+            "windowed_coulomb_bwd": windowed_coulomb.BACKWARD}
 
 
 def emit(obj):
@@ -96,9 +154,27 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-# ---------------------------------------------------------------- phase 1
+@contextlib.contextmanager
+def plain_versions():
+    """Route the q-tier and windowed-Coulomb ops through their plain
+    versions for CUDA tensors too, so a whole-model run can be held
+    against the kernels (the embedding and edge-MLP kernels are switched
+    off by the model's own flags)."""
+    from torchmdnet_tpu_torch.ops import blocked_q as bq
+    from torchmdnet_tpu_torch.ops import windowed_coulomb as wc
+    saved = (bq.q_fwd, bq.q_dq, wc.wc_fwd, wc.wc_bwd)
+    bq.q_fwd, bq.q_dq = bq.q_fwd_ref, bq.q_dq_ref
+    wc.wc_fwd, wc.wc_bwd = wc.wc_fwd_ref, wc.wc_bwd_ref
+    try:
+        yield
+    finally:
+        bq.q_fwd, bq.q_dq, wc.wc_fwd, wc.wc_bwd = saved
+
+
+# ---------------------------------------------------------------- device
 def phase_device():
-    from torchmdnet_tpu_torch.ops import edge_mlp, radial_embedding
+    from torchmdnet_tpu_torch.ops import (
+        blocked_q, edge_mlp, radial_embedding, windowed_coulomb)
     from torchmdnet_tpu_torch.ops.kernels import build
 
     smi = subprocess.run(
@@ -108,8 +184,8 @@ def phase_device():
     name = torch.cuda.get_device_name(0)
     board, peak = peaks(name)
     t0 = time.perf_counter()
-    logs = build([radial_embedding.SOURCE, edge_mlp.SOURCE],
-                 extra_flags=("-Xptxas", "-v"))
+    logs = build([radial_embedding.SOURCE, edge_mlp.SOURCE, blocked_q.SOURCE,
+                  windowed_coulomb.SOURCE], extra_flags=("-Xptxas", "-v"))
     secs = time.perf_counter() - t0
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "nvcc.log").write_text(
@@ -126,7 +202,7 @@ def phase_device():
     return smi, name, peak
 
 
-# ---------------------------------------------------------------- phase 2
+# ---------------------------------------------------------------- inputs
 def embedding_inputs(gen, dev):
     """Main-path shapes; 60-84 valid slots per row, valid first."""
     def rand(*shape):
@@ -146,7 +222,153 @@ def embedding_inputs(gen, dev):
             randn(R, 3 * F) / math.sqrt(R), randn(3 * F) * 0.1]
 
 
-def phase_kernels(peak):
+def blocked_inputs(pos, L, cap, k, f, t, c, model_rc, coulomb_rc, seed,
+                   cutoff=4.5):
+    """Real cell-blocked geometry of ``pos`` on the card and random
+    operands for kernels A-D: the sorted-space neighbor matrix at
+    ``model_rc`` (cutoff + skin, ``k`` slots), its distances and cutoff
+    weights, and the stencil windows at ``coulomb_rc``."""
+    from torchmdnet_tpu_torch.ops import cell_blocks as cb
+    from torchmdnet_tpu_torch.ops import rbf
+    from torchmdnet_tpu_torch.ops.neighbors import (
+        build_neighbor_matrix, neighbor_geometry)
+    from torchmdnet_tpu_torch.ops.windowed_coulomb import make_coulomb_windows
+
+    dev = torch.device("cuda")
+    n_atoms = len(pos)
+    bd = [L, L, L]
+    pt = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    box = torch.diag(torch.tensor(bd, dtype=torch.float32, device=dev))
+    spec = cb.tune_cell_block_spec(pt, bd, model_rc, cap=cap)
+    wspec = cb.tune_stencil_window_spec(pt, bd, spec, coulomb_rc)
+    blocks, win = cb.plan_cell_blocks_and_windows(pt, bd, spec, wspec)
+    perm = torch.clamp(blocks.perm, max=n_atoms - 1)
+    am = blocks.mask_rows
+    pos_s = torch.where(am[:, None], pt[perm], 0.0).contiguous()
+    nbr = build_neighbor_matrix(
+        pos_s, (~am).long(), strategy="cell", k_max=k,
+        cutoff_upper=model_rc, loop=True, box=box, atom_mask=am,
+        cells_per_dim=tuple(max(int(L // model_rc), 3) for _ in range(3)))
+    check(not bool(nbr.overflow), "kernel inputs: neighbor overflow")
+    _, d = neighbor_geometry(pos_s, nbr, box=box)
+    cw = rbf.cosine_cutoff(d, cutoff, 0.0) * nbr.mask
+    cwin = make_coulomb_windows(win, am, bd)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = spec.n_pad
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    q = dict(d=d.contiguous(), cw=cw.contiguous(), mask=nbr.mask, idx=nbr.idx,
+             urow=randn(n, f, scale=0.5), ucol=randn(n, f, scale=0.5),
+             xwin=randn(n, 9 * f),
+             coeffs=randn(t, f) * (0.7 ** torch.arange(t, device=dev))[:, None],
+             w2=randn(f, 2 * f, scale=f ** -0.5), b2=randn(2 * f, scale=0.1),
+             w3=randn(2 * f, 3 * f, scale=(2 * f) ** -0.5),
+             b3=randn(3 * f, scale=0.1), grow=randn(n, 9 * f))
+    w = dict(pos_s=pos_s, b_s=randn(n, c, scale=0.1),
+             qw=torch.ones(c, device=dev), ct=am.float(), cwin=cwin)
+    return spec, wspec, q, w
+
+
+Q_ARGS = ("d", "cw", "mask", "idx", "urow", "ucol", "xwin")
+Q_WEIGHTS = ("coeffs", "w2", "b2", "w3", "b3")
+
+
+def q_calls(q):
+    """(kernel A, A with du, B) of the q-tier on ``q``, each as a pair of
+    (kernel, plain) callables."""
+    from torchmdnet_tpu_torch.ops import blocked_q as bq
+    from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs
+
+    a = [q[k] for k in Q_ARGS]
+    wts = [q[k] for k in Q_WEIGHTS]
+    dser = cheb_deriv_coeffs(q["coeffs"]).contiguous()
+    return {
+        "blocked_q_fwd": (lambda: bq.q_fwd_cuda(*a, *wts, 0.0, 4.5),
+                          lambda: bq.q_fwd_ref(*a, *wts, 0.0, 4.5)),
+        "blocked_q_fwd_du": (
+            lambda: bq.q_fwd_cuda(*a, *wts, 0.0, 4.5, grow=q["grow"]),
+            lambda: bq.q_fwd_ref(*a, *wts, 0.0, 4.5, grow=q["grow"])),
+        "blocked_q_dq": (
+            lambda: bq.q_dq_cuda(*a, q["grow"], q["coeffs"], dser, *wts[1:],
+                                 0.0, 4.5),
+            lambda: bq.q_dq_ref(*a, q["grow"], q["coeffs"], dser, *wts[1:],
+                                0.0, 4.5))}
+
+
+def wc_calls(w, rc):
+    from torchmdnet_tpu_torch.ops import windowed_coulomb as wc
+
+    args = (w["pos_s"], w["b_s"])
+    bwd = (w["pos_s"], w["b_s"], w["ct"], w["qw"])
+    consts = (rc, 78.3, 7.2)
+    return {
+        "windowed_coulomb_fwd": (
+            lambda: wc.wc_fwd_cuda(*args, w["cwin"], *consts),
+            lambda: wc.wc_fwd_ref(*args, w["cwin"], *consts)),
+        "windowed_coulomb_bwd": (
+            lambda: wc.wc_bwd_cuda(*bwd, w["cwin"], *consts),
+            lambda: wc.wc_bwd_ref(*bwd, w["cwin"], *consts))}
+
+
+def as_list(x):
+    return list(x) if isinstance(x, tuple) else [x]
+
+
+def compare(kern, plain):
+    """Run both; the worst (max abs err, rel err) over their outputs."""
+    got, want = as_list(kern()), as_list(plain())
+    torch.cuda.synchronize()
+    check(all(torch.isfinite(t).all() for t in got), "non-finite output")
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    return max(e[0] for e in errs), max(e[1] for e in errs), got
+
+
+# ---------------------------------------------------------------- kernels
+def q_work(q, f, t):
+    """(FLOP, bytes) each q-tier kernel needs on ``q``: kernel A runs the
+    chain on the slots with cw ≠ 0, kernel B on every valid slot."""
+    live = float((q["cw"] != 0).sum())
+    valid = float(q["mask"].sum())
+    base, l2, l3, g9 = t * f, 2 * f * f, 6 * f * f, 9 * f
+    ins = nbytes(*(q[k] for k in Q_ARGS + Q_WEIGHTS))
+    n = q["urow"].shape[0]
+    out9, outf, outk = n * 9 * f * 4, n * f * 4, q["d"].numel() * 4
+    return {
+        "blocked_q_fwd": (2 * live * (base + l2 + l3 + g9), ins + out9),
+        "blocked_q_fwd_du": (2 * live * (base + 2 * (l2 + l3) + 2 * g9),
+                             ins + nbytes(q["grow"]) + out9 + outf),
+        "blocked_q_dq": (2 * valid * (base + l2 + l3 + g9 + 3 * f)
+                         + 2 * live * (l3 + l2 + base),
+                         ins + nbytes(q["grow"]) + t * f * 4 + outf
+                         + 2 * outk)}
+
+
+def wc_work(w, rc, c):
+    """(FLOP, bytes) kernels C and D need on ``w``: every candidate pair
+    of a real row with a live window row pays its geometry (~20 FLOP);
+    only the pairs inside ``rc`` need G (~40 FLOP) and the channel FMAs
+    (2C for Φ; in D 2C for S2, 2C for pd and ~70 for G, G' and dpos)."""
+    from torchmdnet_tpu_torch.ops import windowed_coulomb as wc
+
+    cwin = w["cwin"]
+    _, live = wc.window_partners(cwin)
+    real = cwin.row_valid.view(-1, cwin.cap).sum(1).float()
+    cand = float((real * live.sum(1).float()).sum())
+    inside = sum(float(v.sum()) for *_, v in
+                 wc._pair_blocks(w["pos_s"], cwin, rc, c))
+    n = cwin.row_valid.shape[0]
+    plan = nbytes(cwin.a1, cwin.e1, cwin.a2, cwin.e2, cwin.row_valid)
+    src = n * (4 + c) * 4
+    return {"windowed_coulomb_fwd": (cand * 20 + inside * (2 * c + 40),
+                                     src + plan + n * c * 4),
+            "windowed_coulomb_bwd": (cand * 20 + inside * (4 * c + 70),
+                                     src + plan + c * 4 + n * (c + 3) * 4),
+            "pairs": (cand, inside)}
+
+
+def phase_kernels(peak, system):
     from torchmdnet_tpu_torch.ops import edge_mlp as em_ops
     from torchmdnet_tpu_torch.ops import radial_embedding as re_ops
 
@@ -196,14 +418,15 @@ def phase_kernels(peak):
             ms=time_ms(lambda: re_ops.radial_embedding_bwd_cuda(
                 x, g, True, want_dk)),
             plain_ms=time_ms(lambda: re_ops.radial_embedding_bwd_ref(
-                x, g, needs)),
+                x, g, needs), reps=3, warmup=1),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             gflop=flops / 1e9, gbytes=nbytes(*x, g, *outs) / 1e9)
         rows["radial_embedding_bwd" + ("_dkall" if want_dk else "")] = row
         del got, ref
     del x, g
 
-    # kernel 3: edge MLP tail, one of the four calls of an evaluation
+    # kernel 3: edge MLP tail, one of the four calls of a gather-path
+    # evaluation
     count = torch.randint(60, 85, (N_ATOMS, 1), generator=gen, device=dev)
     mask = (torch.arange(K, device=dev)[None, :] < count).float()
     w = [torch.randn((N_ATOMS, K, F), generator=gen, device=dev),
@@ -234,7 +457,39 @@ def phase_kernels(peak):
     del out_k, out_p, w
     torch.cuda.empty_cache()
 
-    emit({"phase": "kernels", "tolerance": TOL, "rows": rows})
+    # kernels A, A with du, B and C, D on the lattice's real blocked
+    # geometry (the MD rebuild's: lists at cutoff + skin, windows at the
+    # Coulomb cutoff + skin)
+    _, pos, _, _, L = system
+    spec, wspec, q, wv = blocked_inputs(
+        pos, L, CAP, K, F, Q_TAB, C_CH, 4.5 + SKIN, COULOMB_RC + SKIN, 77)
+    work = q_work(q, F, Q_TAB)
+    work.update(wc_work(wv, COULOMB_RC + SKIN, C_CH))
+    calls = q_calls(q)
+    calls.update(wc_calls(wv, COULOMB_RC + SKIN))
+    for name, (kern, plain) in calls.items():
+        err, rel, got = compare(kern, plain)
+        flops, nb = work[name]
+        b_ms, b_by = bound(flops, nb, peak)
+        rows[name] = dict(
+            max_abs_err=err, max_rel_err=rel, ms=time_ms(kern),
+            plain_ms=time_ms(plain, reps=3, warmup=1), bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, gflop=flops / 1e9,
+            gbytes=nb / 1e9)
+        del got
+        torch.cuda.empty_cache()
+    cand, inside = work["pairs"]
+    geometry = {"n_pad": spec.n_pad, "blocks": spec.n_blocks,
+                "nx": spec.nx, "nzf": spec.nzf, "stencil_s": wspec.s,
+                "cut_bins": wspec.cut_bins,
+                "valid_slots": int(q["mask"].sum()),
+                "live_slots": int((q["cw"] != 0).sum()),
+                "window_pairs": cand, "pairs_inside_rc": inside}
+    del q, wv
+    torch.cuda.empty_cache()
+
+    emit({"phase": "kernels", "tolerance": TOL, "geometry": geometry,
+          "rows": rows})
     for name, row in rows.items():
         check(row["max_rel_err"] <= TOL,
               f"{name}: max rel err {row['max_rel_err']:.3g} > {TOL}")
@@ -242,8 +497,10 @@ def phase_kernels(peak):
 
 
 def phase_shapes():
-    """Every compiled rbf width and a range of channel counts, at small
-    ragged sizes: each kernel against its plain version on the card."""
+    """Every kernel against its plain version at small ragged shapes:
+    every compiled rbf width and a range of channel counts for kernels
+    1-3; for A-D a partial last row block, ghost rows, several channel
+    counts and block sizes, and z-wrapped window pieces."""
     from torchmdnet_tpu_torch.ops import edge_mlp as em_ops
     from torchmdnet_tpu_torch.ops import radial_embedding as re_ops
 
@@ -274,12 +531,35 @@ def phase_shapes():
         errs.append(rel_err(em_ops.edge_mlp_pre_cuda(*w),
                             em_ops.edge_mlp_pre_ref(*w))[1])
         worst[f"n{n}_k{k}_r{r}_f{f}"] = max(errs)
+
+    # q-tier and windowed Coulomb on small random boxes: (atoms, box,
+    # block rows, slots, channels, series terms, Coulomb channels, list
+    # cutoff, Coulomb cutoff)
+    rng = np.random.RandomState(5)
+    for n, L, cap, k, f, t, c, mrc, rc in (
+            (150, 12.5, 8, 40, 32, 16, 8, 4.0, 4.0),
+            (500, 19.0, 16, 96, 64, 32, 48, 5.5, 6.0),
+            (400, 18.0, 32, 96, 128, 8, 20, 5.5, 5.5)):
+        pos = rng.uniform(0, L, (n, 3)).astype(np.float32)
+        spec, wspec, q, wv = blocked_inputs(pos, L, cap, k, f, t, c, mrc,
+                                            rc, n)
+        calls = q_calls(q)
+        calls.update(wc_calls(wv, rc))
+        errs = [compare(*pair)[1] for pair in calls.values()]
+        # the same rows cut short of a whole row block of the kernels
+        cut = spec.n_pad - 5
+        qc = dict(q, **{key: q[key][:cut] for key in
+                        ("d", "cw", "mask", "urow", "ucol", "xwin", "grow")})
+        qc["idx"] = torch.clamp(q["idx"][:cut], max=cut - 1)
+        qc["mask"] = qc["mask"] & (q["idx"][:cut] < cut)
+        errs += [compare(*pair)[1] for pair in q_calls(qc).values()]
+        worst[f"blocked_n{n}_cap{cap}_f{f}_c{c}_s{wspec.s}"] = max(errs)
     torch.cuda.synchronize()
     emit({"phase": "shapes", "max_rel_err": worst, "tolerance": TOL})
     check(max(worst.values()) <= TOL, "a kernel disagrees at a small shape")
 
 
-# ---------------------------------------------------------------- phase 3
+# ---------------------------------------------------------------- systems
 def near_cubic_dims(n):
     best = None
     for nx in range(2, int(round(n ** (1 / 3))) + 9):
@@ -315,7 +595,8 @@ def northstar_system(n=N_ATOMS, seed=0):
 
 def northstar_args(L):
     """``bench.py::bench_northstar`` args (``:270-286``) on the gather
-    path: no cell_block_spec, remat off."""
+    path: no cell_block_spec, remat off.  Add a ``cell_block_spec`` for
+    the blocked path."""
     from torchmdnet_tpu_torch.ops.neighbors import pick_cell_grid
 
     cd, cs, cc = pick_cell_grid([L] * 3, COULOMB_RC, N_ATOMS)
@@ -331,6 +612,15 @@ def northstar_args(L):
         q_weights=[[1.0] * Q_DIM] * 3, coulomb_cutoff=COULOMB_RC,
         coulomb_neighbor_strategy="cell", coulomb_cells_per_dim=list(cd),
         coulomb_cell_stencil=cs, coulomb_cell_capacity=cc)
+
+
+def northstar_spec(system):
+    """The north star's ungrouped cell-block spec (``bench.py:292-301``:
+    cutoff + skin, 16-row blocks)."""
+    from torchmdnet_tpu_torch.ops.cell_blocks import tune_cell_block_spec
+
+    _, pos, _, _, L = system
+    return tune_cell_block_spec(pos, [L] * 3, 4.5 + SKIN, cap=CAP)
 
 
 def phase_small():
@@ -359,6 +649,7 @@ def phase_small():
     check(e_err <= TOL and f_rel <= TOL, "small system: GPU vs CPU mismatch")
 
 
+# ---------------------------------------------------------------- gather
 def phase_energy(system):
     from torchmdnet_tpu_torch.models.model import create_model
     from torchmdnet_tpu_torch.ops.neighbors import build_neighbor_matrix
@@ -421,7 +712,8 @@ def phase_energy(system):
           "non-finite energy or forces")
     e_err = abs(float(y_k) - float(y_p)) / max(abs(float(y_p)), 1e-30)
     f_abs, f_rel = rel_err(f_k, f_p)
-    emit({"phase": "energy_forces", "atoms": N_ATOMS, "energy": float(y_k),
+    emit({"phase": "energy_forces", "path": "gather", "atoms": N_ATOMS,
+          "energy": float(y_k),
           "energy_plain": float(y_p), "energy_rel_err": e_err,
           "force_max_abs_err": f_abs, "force_rel_err": f_rel,
           "max_abs_force": float(f_p.abs().max()), "tolerance": TOL,
@@ -434,10 +726,10 @@ def phase_energy(system):
     check(f_rel <= TOL, f"forces: kernels vs plain rel err {f_rel:.3g}")
     del plain, y_p, f_p
     torch.cuda.empty_cache()
-    return pot, nbr, cnbr, run
+    return pot, (y_k, f_k), lambda: run(pot)
 
 
-def phase_profile(pot, run):
+def phase_profile(name, run):
     """Device time by kernel over one energy+forces evaluation, and the
     device's idle share of the (profiled) wall time."""
     from torch.autograd import DeviceType
@@ -447,7 +739,7 @@ def phase_profile(pot, run):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(pot)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -463,20 +755,21 @@ def phase_profile(pot, run):
     total = sum(dev_ms(e) for e in kernels)
     groups = {}
     for e in kernels:
-        name = e.key
         group = next((g for g, keys in PROFILE_GROUPS if any(
-            k in name for k in keys)), "elementwise and other")
+            k in e.key for k in keys)), "elementwise and other")
         groups[group] = groups.get(group, 0.0) + dev_ms(e)
-    (OUT_DIR / "profile_eval.txt").write_text("\n".join(
+    (OUT_DIR / f"profile_{name}.txt").write_text("\n".join(
         f"{dev_ms(e):12.3f} ms {e.count:6d} calls  {e.key}" for e in kernels))
-    emit({"phase": "profile_eval", "wall_ms": wall_ms,
+    emit({"phase": f"profile_{name}", "wall_ms": wall_ms,
           "device_ms": total, "idle_share": max(0.0, 1 - total / wall_ms),
           "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
           "top": [{"name": e.key[:80], "ms": dev_ms(e), "calls": e.count}
-                  for e in kernels[:10]]})
+                  for e in kernels[:12]]})
 
 
 PROFILE_GROUPS = (
+    ("kernel A/B q-tier", ("q_kernel",)),
+    ("kernel C/D windowed Coulomb", ("wc_kernel",)),
     ("kernel 3 edge_mlp_pre", ("edge_mlp_pre_kernel",)),
     ("kernel 2 embedding bwd", ("emb_bwd_kernel", "sum_partials_kernel")),
     ("kernel 1 embedding fwd", ("emb_fwd_kernel",)),
@@ -484,96 +777,210 @@ PROFILE_GROUPS = (
     ("gather", ("gather", "index_elementwise", "index_kernel")),
     ("scatter (index backward, index_add)", ("indexing_backward",
                                              "indexFunc")),
+    ("sort (cell blocks, neighbor build)", ("sort", "Sort", "radix")),
     ("reductions", ("reduce_kernel",)),
 )
 
 
-# ---------------------------------------------------------------- phase 4
-def phase_md(pot, system):
+def md_run(pot, system, steps, chunks, **kw):
+    """``init_state`` plus ``chunks`` chunks of ``steps`` Langevin steps;
+    the last chunk is timed.  Returns its JSON fields and the state."""
     from torchmdnet_tpu_torch.md.integrators import (
         KB_EV, kinetic_energy, make_md_step)
 
     z, pos, masses, box, _ = system
     init_state, chunk, _ = make_md_step(
         pot, z, np.zeros(len(z)), masses, dt=0.05, num_mols=1, box=box,
-        q=torch.zeros(1, device="cuda"), rebuild_every=25, skin=1.0,
-        temperature=300.0, neighbor_strategy="cell")
+        q=torch.zeros(1, device="cuda"), rebuild_every=steps, skin=SKIN,
+        temperature=300.0, neighbor_strategy="cell", **kw)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     st = init_state(pos, seed=1)
-    st = chunk(st)  # warm-up chunk
+    for _ in range(chunks - 1):  # warm-up chunks
+        st = chunk(st)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     e_warm = float(st.energy)
     t0 = time.perf_counter()
     st = chunk(st)
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / 25
+    ms = (time.perf_counter() - t0) * 1e3 / steps
     ok = (not bool(st.overflow) and bool(torch.isfinite(st.pos).all())
           and bool(torch.isfinite(st.energy).all())
           and bool(torch.isfinite(st.force).all()))
     m = torch.as_tensor(masses, dtype=torch.float32, device=st.vel.device)
     temp_k = float(2.0 * kinetic_energy(st.vel, m) / (3.0 * len(z) * KB_EV))
-    emit({"phase": "md", "steps": st.step, "rebuild_every": 25,
-          "kinetic_temperature_k": temp_k,
-          "ms_per_step": ms, "warmup_chunk_s": warm_s,
-          "energy_after_warmup": e_warm, "energy_final": float(st.energy),
-          "overflow": bool(st.overflow), "finite": ok,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    check(ok, "MD: overflow or non-finite state")
-    return st.step
+    return {"steps": st.step, "rebuild_every": steps,
+            "kinetic_temperature_k": temp_k, "ms_per_step": ms,
+            "warmup_s": warm_s, "energy_after_warmup": e_warm,
+            "energy_final": float(st.energy),
+            "overflow": bool(st.overflow), "finite": ok,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}, ok
+
+
+def counted_run(fn):
+    """Launches of every kernel over ``fn()``: the counts are set to 0
+    just before and read just after."""
+    kernels = counters()
+    for kern in kernels.values():
+        kern.launches = 0
+    out = fn()
+    return out, {name: kern.launches for name, kern in kernels.items()}
+
+
+def phase_md_gather(pot, system):
+    """The gather path's MD at reduced depth: a 5-step warm-up chunk, then
+    a timed 5-step chunk (a rebuild every 5 steps, not 25)."""
+    (row, ok), launches = counted_run(lambda: md_run(pot, system, 5, 2))
+    emit(dict({"phase": "md", "path": "gather"}, **row,
+              launches=launches))
+    check(ok, "gather MD: overflow or non-finite state")
+    return row["steps"], launches
+
+
+# ---------------------------------------------------------------- blocked
+def phase_blocked_energy(system, spec, gather_pot, gather_out):
+    """Energy+forces on the blocked path (q-tier + windowed Coulomb) with
+    the kernels and through the plain versions, and against the gather
+    path's forces at the same positions."""
+    from torchmdnet_tpu_torch.md.integrators import make_md_step
+    from torchmdnet_tpu_torch.models.model import create_model
+    from torchmdnet_tpu_torch.ops.cell_blocks import tune_stencil_window_spec
+
+    z, pos, masses, box, L = system
+    dev = torch.device("cuda")
+    args = dict(northstar_args(L), cell_block_spec=spec, q_tab=Q_TAB)
+    pot = create_model(args, device=dev, seed=0)
+    pot.module.load_state_dict(gather_pot.module.state_dict())
+    wspec = tune_stencil_window_spec(pos, [L] * 3, spec, COULOMB_RC + SKIN)
+    kw = dict(dt=0.05, num_mols=1, box=box, q=torch.zeros(1, device=dev),
+              skin=SKIN, neighbor_strategy="cell", cell_block_spec=spec,
+              coulomb_window_spec=wspec)
+    init_state, chunk, _ = make_md_step(pot, z, np.zeros(len(z)), masses,
+                                        **kw)
+    st = init_state(pos)  # a rebuild and a first evaluation
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = chunk.rebuild(st)
+    torch.cuda.synchronize()
+    rebuild_ms = (time.perf_counter() - t0) * 1e3
+    check(not bool(st.overflow), "blocked rebuild: neighbor overflow")
+
+    def run():
+        return chunk.energy_forces(st.pos, st)
+
+    torch.cuda.reset_peak_memory_stats()
+    y_k, f_k = run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak_k = torch.cuda.max_memory_allocated()
+
+    plain = create_model(dict(args, pallas_embedding=False,
+                              pallas_edge_mlp=False), device=dev, seed=0)
+    plain.module.load_state_dict(pot.module.state_dict())
+    _, chunk_p, _ = make_md_step(plain, z, np.zeros(len(z)), masses, **kw)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_versions():
+        t0 = time.perf_counter()
+        y_p, f_p = chunk_p.energy_forces(st.pos, st)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    peak_p = torch.cuda.max_memory_allocated()
+
+    check(y_k.shape == (1, 1) and f_k.shape == (N_ATOMS, 3), "bad shapes")
+    check(torch.isfinite(y_k).all() and torch.isfinite(f_k).all(),
+          "blocked: non-finite energy or forces")
+    e_err = abs(float(y_k) - float(y_p)) / max(abs(float(y_p)), 1e-30)
+    f_abs, f_rel = rel_err(f_k, f_p)
+    y_g, f_g = gather_out
+    g_abs, g_rel = rel_err(f_k, f_g)
+    ge = abs(float(y_k) - float(y_g)) / max(abs(float(y_g)), 1e-30)
+    emit({"phase": "energy_forces", "path": "blocked", "atoms": N_ATOMS,
+          "n_pad": spec.n_pad, "blocks": spec.n_blocks, "q_tab": Q_TAB,
+          "coulomb_stencil_s": wspec.s, "energy": float(y_k),
+          "energy_plain": float(y_p), "energy_rel_err": e_err,
+          "force_max_abs_err": f_abs, "force_rel_err": f_rel,
+          "max_abs_force": float(f_p.abs().max()), "tolerance": TOL,
+          "rebuild_ms": rebuild_ms, "ms_per_eval": statistics.median(times),
+          "ms_per_eval_all": times, "plain_ms_per_eval": plain_ms,
+          "peak_mem_gb": peak_k / 1e9, "plain_peak_mem_gb": peak_p / 1e9,
+          "vs_gather": {"energy_rel_diff": ge, "force_max_abs_diff": g_abs,
+                        "force_rel_diff": g_rel,
+                        "tolerance": BLOCKED_VS_GATHER_TOL}})
+    check(e_err <= TOL, f"blocked energy: kernels vs plain {e_err:.3g}")
+    check(f_rel <= TOL, f"blocked forces: kernels vs plain {f_rel:.3g}")
+    check(g_rel <= BLOCKED_VS_GATHER_TOL,
+          f"blocked vs gather forces: {g_rel:.3g} of max |F|")
+    del plain, chunk_p, y_p, f_p
+    torch.cuda.empty_cache()
+    return pot, run
+
+
+def phase_md_blocked(pot, system, spec):
+    """The north-star MD: blocked q-tier and windowed Coulomb ("auto"),
+    a warm-up chunk, then a timed 25-step chunk."""
+    (row, ok), launches = counted_run(lambda: md_run(
+        pot, system, 25, 2, cell_block_spec=spec,
+        coulomb_window_spec="auto"))
+    emit(dict({"phase": "md", "path": "blocked"}, **row, launches=launches))
+    check(ok, "blocked MD: overflow or non-finite state")
+    return row["steps"], launches
 
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from torchmdnet_tpu_torch.ops import edge_mlp, radial_embedding
     from torchmdnet_tpu_torch.ops.config import set_matmul_precision
 
     set_matmul_precision("highest")
     smi, name, peak = phase_device()
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 must be off")
-    rows = phase_kernels(peak)
+    system = northstar_system()
+    rows = phase_kernels(peak, system)
     phase_shapes()
     phase_small()
-    system = northstar_system()
-    pot, nbr, cnbr, run = phase_energy(system)
-    phase_profile(pot, run)
-    del nbr, cnbr
+
+    gather_pot, gather_out, gather_run = phase_energy(system)
+    phase_profile("gather", gather_run)
+    g_steps, g_launch = phase_md_gather(gather_pot, system)
+
+    spec = northstar_spec(system)
+    pot, blocked_run = phase_blocked_energy(system, spec, gather_pot,
+                                            gather_out)
+    del gather_pot, gather_out, gather_run
     torch.cuda.empty_cache()
+    phase_profile("blocked", blocked_run)
+    b_steps, b_launch = phase_md_blocked(pot, system, spec)
 
-    counted = {"radial_embedding_fwd": radial_embedding.FORWARD,
-               "radial_embedding_bwd": radial_embedding.BACKWARD,
-               "edge_mlp_pre": edge_mlp.FORWARD}
-    for kern in counted.values():
-        kern.launches = 0
-    steps = phase_md(pot, system)
-    launches = {k: kern.launches for k, kern in counted.items()}
-    emit({"phase": "launches", "md_steps": steps, "launches": launches,
-          "per_step": {k: v / steps for k, v in launches.items()}})
+    by_path = {"gather": (g_steps, g_launch), "blocked": (b_steps, b_launch)}
+    launches = {k: by_path[path][1][k] for k, (_, _, path) in KERNELS.items()}
+    emit({"phase": "launches", "md_steps": {p: s for p, (s, _) in
+                                            by_path.items()},
+          "launches": {p: ln for p, (_, ln) in by_path.items()},
+          "per_step": {k: launches[k] / by_path[KERNELS[k][2]][0]
+                       for k in KERNELS}})
     for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the main path")
+        check(v > 0, f"kernel {k} was not launched on its MD path")
+    check(g_launch["edge_mlp_pre"] > 0 and b_launch["edge_mlp_pre"] == 0,
+          "kernel 3 runs on the gather path only")
 
-    sources = {"radial_embedding_fwd": ("torchmdnet_tpu_torch/csrc/"
-                                        "radial_embedding.cu",
-                                        "torchmdnet_tpu/ops/"
-                                        "pallas_embedding.py:80"),
-               "radial_embedding_bwd": ("torchmdnet_tpu_torch/csrc/"
-                                        "radial_embedding.cu",
-                                        "torchmdnet_tpu/ops/"
-                                        "pallas_embedding.py:178"),
-               "edge_mlp_pre": ("torchmdnet_tpu_torch/csrc/edge_mlp.cu",
-                                "torchmdnet_tpu/ops/pallas_kernels.py:182")}
     kernels = []
-    for k, (src, tpu) in sources.items():
+    for k, (src, tpu, path) in KERNELS.items():
         row = rows[k]
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": launches[k], "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]})
+            "path": path, "launches": launches[k],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

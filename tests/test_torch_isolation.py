@@ -12,6 +12,7 @@ import torch
 from torch_parity import SMALL_ARGS
 from torchmdnet_tpu_torch.md.integrators import make_md_step
 from torchmdnet_tpu_torch.models.model import create_model
+from torchmdnet_tpu_torch.ops.cell_blocks import make_cell_block_spec
 from torchmdnet_tpu_torch.ops.config import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -62,6 +63,24 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
                               box=np.eye(3, dtype=np.float32) * 12.0)
     pos = np.random.RandomState(0).uniform(0, 12, (8, 3))
     assert init(pos).pos.device.type == "cpu"
+
+
+def test_blocked_md_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    L = 20.0
+    pos = np.random.RandomState(1).uniform(0, L, (12, 3))
+    spec = make_cell_block_spec([L] * 3, 5.5, 12, cap=8)
+    args = dict(SMALL_ARGS, cell_block_spec=spec)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_model(args)
+    pot = create_model(args, device="cpu")
+    init, chunk, _ = make_md_step(
+        pot, np.ones(12, np.int64), np.zeros(12), np.ones(12), dt=0.5,
+        box=np.eye(3, dtype=np.float32) * L, cell_block_spec=spec,
+        coulomb_window_spec="auto", rebuild_every=1)
+    st = chunk(init(pos))
+    assert st.pos.device.type == "cpu" and st.cwin is not None
+    assert st.cwin.a1.device.type == "cpu" and torch.isfinite(st.force).all()
 
 
 def test_tf32_is_off_after_create_model():

@@ -10,6 +10,7 @@ import torch
 from torch_parity import (ATOL, RTOL, SMALL_ARGS, jax_and_port, jax_apply,
                           lattice_system, to_np)
 from torchmdnet_tpu_torch.models.model import create_model
+from torchmdnet_tpu_torch.ops.cell_blocks import make_cell_block_spec
 from torchmdnet_tpu_torch.utils.jax_params import (
     flax_path_to_torch_key, params_from_jax)
 
@@ -65,9 +66,15 @@ def test_key_mapping():
     ) == "representation_model.tensor_embedding.emb.weight"
 
 
+# the grouped (col_slots) q-tier is not ported; the ungrouped blocked path
+# and the Coulomb windows are (tests/test_torch_blocked_model.py)
+GROUPED_SPEC = make_cell_block_spec([20.0] * 3, 5.5, 64)._replace(
+    col_slots=(8,) * 9)
+
+
 @pytest.mark.parametrize("key,value", [
-    ("cell_block_spec", object()), ("remat", True), ("model", "tensornet"),
-    ("prior_model", "ZBL"), ("coulomb_window_spec", "auto")])
+    ("cell_block_spec", GROUPED_SPEC), ("remat", True),
+    ("model", "tensornet"), ("prior_model", "ZBL"), ("precision", 16)])
 def test_uncovered_options_raise(key, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model(dict(SMALL_ARGS, **{key: value}), device="cpu")

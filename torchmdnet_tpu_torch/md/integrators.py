@@ -1,14 +1,24 @@
-"""Molecular dynamics on the port's potentials (the list path).
+"""Molecular dynamics on the port's potentials.
 
 Counterpart of ``torchmdnet_tpu/md/integrators.py``: velocity Verlet with
 the force carried in the state (one gradient per step, ``vv_step``
 ``:373-397``), an optional Langevin (OU) thermostat, and a neighbor
 rebuild with a ``skin`` every ``rebuild_every`` steps (``_rebuild``
-``:479-493``).  Between rebuilds the model and the Coulomb head consume
+``:405-493``).  Between rebuilds the model and the Coulomb head consume
 their skin-cached lists; edges beyond the true cutoffs contribute exactly
 zero.  One ``chunk`` is one rebuild and ``rebuild_every`` steps
 (``:507-511``).  The loop is plain Python; the Langevin noise and the
 initial velocities come from a ``torch.Generator`` seeded by ``seed``.
+
+With a ``cell_block_spec`` (the blocked path, ``:245-290``) every rebuild
+sorts the atoms into cell-blocked order (``ops/cell_blocks.py``); the
+model runs in that sorted row space on the q-tier, the state stays in
+the original order, and forces come back through ``permute_rows``,
+whose backward is the inverse gather.  ``coulomb_window_spec`` (a
+``StencilWindowSpec``, or ``"auto"`` to tune it from the ``init_state``
+positions at the skin-padded Coulomb cutoff) replaces the Coulomb list
+with stencil windows over the same sort (kernels C and D); without it
+the Coulomb list is built in sorted space.  K overflow stays sticky.
 
 Units: Å, eV, amu, fs.  ``ACC_FACTOR`` converts (eV/Å)/amu → Å/fs².
 """
@@ -19,8 +29,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from torchmdnet_tpu_torch.ops.cell_blocks import (
+    CellBlockSpec, StencilWindowSpec, permute_rows,
+    plan_cell_blocks_and_windows, tune_stencil_window_spec)
 from torchmdnet_tpu_torch.ops.neighbors import (
     NeighborMatrix, build_neighbor_matrix, pick_cell_grid)
+from torchmdnet_tpu_torch.ops.windowed_coulomb import (
+    CoulombWindows, make_coulomb_windows)
 
 ACC_FACTOR = 9.648533212331024e-3  # (eV/Å)/amu → Å/fs²
 KB_EV = 8.617333262e-5  # Boltzmann constant, eV/K
@@ -42,6 +57,15 @@ class MDState(NamedTuple):
     # skin-cached Coulomb-head list (None without a cutoff-Coulomb head)
     cnbr_idx: Optional[torch.Tensor] = None
     cnbr_mask: Optional[torch.Tensor] = None
+    # blocked path: the rebuild's sort, the sorted-space atom types and
+    # molecules (ghost rows: type 0, molecule num_mols) and the Coulomb
+    # windows; the neighbor lists above are then in sorted space
+    perm: Optional[torch.Tensor] = None       # [n_pad] sorted row → atom
+    inv_perm: Optional[torch.Tensor] = None   # [N] atom → sorted row
+    mask_rows: Optional[torch.Tensor] = None  # [n_pad] real-atom rows
+    zs: Optional[torch.Tensor] = None
+    batchs: Optional[torch.Tensor] = None
+    cwin: Optional[CoulombWindows] = None
 
 
 def maxwell_boltzmann_velocities(generator, masses, temperature, like):
@@ -74,15 +98,19 @@ def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
     ``chunk(state)`` rebuilds the neighbor lists and advances
     ``rebuild_every`` steps; ``state.overflow`` is sticky.  ``energy(pos,
     state)`` is the potential energy on the state's cached lists.
+    ``cell_block_spec`` (the spec the potential was built with) and
+    ``coulomb_window_spec`` select the blocked path (module docstring);
+    it needs an orthogonal ``box``.
     """
-    if cell_block_spec is not None:
-        raise NotImplementedError(
-            "cell_block_spec (the blocked q-tier MD path) is not ported yet "
-            "(ROADMAP Queue 2, rows 12-13 of the kernel table)")
-    if coulomb_window_spec is not None:
-        raise NotImplementedError(
-            "coulomb_window_spec (the windowed Coulomb) is not ported yet "
-            "(ROADMAP Queue 2, rows 14-15 of the kernel table)")
+    use_blocked = cell_block_spec is not None
+    if use_blocked:
+        spec = CellBlockSpec(**cell_block_spec._asdict())
+        if spec.col_slots is not None:
+            raise NotImplementedError(
+                "cell_block_spec with col_slots (the grouped q-tier) is not "
+                "ported yet (ROADMAP Queue 2, 'grouped rows 12-13')")
+        if box is None:
+            raise ValueError("cell_block_spec requires an orthogonal box")
     dev = potential.device
     rep = potential.module.representation_model
     out_mod = potential.module.output_model
@@ -95,6 +123,10 @@ def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
         box = torch.as_tensor(box, dtype=torch.float32, device=dev)
     # ghosts (extra segment num_mols) are kept out of the neighbor lists
     atom_mask = batch < num_mols
+    n_atoms = int(z.shape[0])
+    if use_blocked:
+        bd = _box_diag(box)
+        bd_t = torch.as_tensor(bd, dtype=torch.float32, device=dev)
 
     nbr_kwargs = dict(strategy=neighbor_strategy,
                       k_max=int(k_max if k_max is not None
@@ -109,14 +141,20 @@ def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
             cells_per_dim = tuple(int(d) for d in dims)
         nbr_kwargs["cells_per_dim"] = cells_per_dim
 
-    # Cutoff-Coulomb head: a second skin-cached list at coulomb_cutoff +
-    # skin.  Its budget scales the head's default (which already carries
-    # ×1.35+16 headroom) by the skin volume and adds ×1.35+16 again — the
-    # JAX package's doubled headroom (integrators.py:213-214), mirrored on
-    # purpose so both build the same lists.
     coulomb_rc = getattr(out_mod, "coulomb_cutoff", None)
+    use_cwin = (use_blocked and coulomb_rc is not None
+                and coulomb_window_spec is not None)
+    wspec = {"spec": None}  # "auto": tuned by init_state
+    if use_cwin and not isinstance(coulomb_window_spec, str):
+        wspec["spec"] = StencilWindowSpec(**coulomb_window_spec._asdict())
+    # Cutoff-Coulomb head without windows: a second skin-cached list at
+    # coulomb_cutoff + skin.  Its budget scales the head's default (which
+    # already carries ×1.35+16 headroom) by the skin volume and adds
+    # ×1.35+16 again — the JAX package's doubled headroom
+    # (integrators.py:213-214), mirrored on purpose so both build the same
+    # lists.
     ckwargs = None
-    if coulomb_rc is not None:
+    if coulomb_rc is not None and not use_cwin:
         rc_skin = coulomb_rc + skin
         ckwargs = dict(
             strategy=neighbor_strategy,
@@ -138,11 +176,27 @@ def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
         return NeighborMatrix(st.cnbr_idx, st.cnbr_mask)
 
     def energy_forces(pos, st: MDState):
-        return potential.apply(z, pos, batch, num_mols=num_mols, box=box,
-                               q=q, nbr=_nbr(st), coulomb_nbr=_cnbr(st))
+        if not use_blocked:
+            return potential.apply(z, pos, batch, num_mols=num_mols, box=box,
+                                   q=q, nbr=_nbr(st), coulomb_nbr=_cnbr(st))
+        # the model in sorted space; forces in the original order
+        pos = pos.detach().requires_grad_(True)
+        with torch.enable_grad():
+            y = energy_state(pos, st)
+            (dy,) = torch.autograd.grad(y.sum(), pos)
+        return y.detach(), -dy
+
+    def energy_state(pos, st: MDState):
+        pos_s = permute_rows(pos, st.perm, st.mask_rows, st.inv_perm)
+        return potential.module(st.zs, pos_s, st.batchs, num_mols=num_mols,
+                                box=box, q=q, nbr=_nbr(st),
+                                coulomb_nbr=_cnbr(st), blocked=True,
+                                coulomb_win=st.cwin)
 
     def energy(pos, st: MDState):
         with torch.no_grad():
+            if use_blocked:
+                return energy_state(pos, st)
             return potential.energy(z, pos, batch, num_mols=num_mols, box=box,
                                     q=q, nbr=_nbr(st), coulomb_nbr=_cnbr(st))
 
@@ -161,7 +215,33 @@ def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
         return st._replace(pos=pos_new, vel=vel_new, force=f2, energy=e2,
                            step=st.step + 1)
 
+    def rebuild_blocked(st: MDState) -> MDState:
+        blocks, win = plan_cell_blocks_and_windows(
+            st.pos, bd_t, spec, wspec["spec"] if use_cwin else None)
+        perm = torch.clamp(blocks.perm, max=n_atoms - 1)
+        batch_perm = batch[perm]
+        am_s = blocks.mask_rows & (batch_perm < num_mols)
+        pos_s = torch.where(am_s[:, None], st.pos[perm], 0.0)
+        batchs = torch.where(am_s, batch_perm, num_mols)
+        nbr = build_neighbor_matrix(pos_s, batchs, atom_mask=am_s,
+                                    **nbr_kwargs)
+        st = st._replace(
+            nbr_idx=nbr.idx, nbr_mask=nbr.mask, nbr_rev=nbr.rev_slot,
+            overflow=st.overflow | nbr.overflow, perm=perm,
+            inv_perm=blocks.inv_perm, mask_rows=am_s,
+            zs=torch.where(am_s, z[perm], 0), batchs=batchs)
+        if use_cwin:
+            st = st._replace(cwin=make_coulomb_windows(win, am_s, bd_t))
+        elif ckwargs is not None:
+            cnbr = build_neighbor_matrix(pos_s, batchs, atom_mask=am_s,
+                                         **ckwargs)
+            st = st._replace(cnbr_idx=cnbr.idx, cnbr_mask=cnbr.mask,
+                             overflow=st.overflow | cnbr.overflow)
+        return st
+
     def rebuild(st: MDState) -> MDState:
+        if use_blocked:
+            return rebuild_blocked(st)
         nbr = build_neighbor_matrix(st.pos, batch, atom_mask=atom_mask,
                                     **nbr_kwargs)
         st = st._replace(nbr_idx=nbr.idx, nbr_mask=nbr.mask,
@@ -189,8 +269,14 @@ def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
         vel = torch.as_tensor(vel, dtype=torch.float32, device=dev)
         st = MDState(pos, vel, None, None, None, None, None, gen, 0,
                      torch.zeros((), dtype=torch.bool, device=dev))
+        if use_cwin and wspec["spec"] is None:
+            wspec["spec"] = tune_stencil_window_spec(
+                pos, bd, spec, float(coulomb_rc) + skin)
         st = rebuild(st)
         e, f = energy_forces(st.pos, st)
         return st._replace(force=f, energy=e)
 
+    # one rebuild, and one energy+forces evaluation on a state's lists
+    chunk.rebuild = rebuild
+    chunk.energy_forces = energy_forces
     return init_state, chunk, energy

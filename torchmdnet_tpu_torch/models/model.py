@@ -15,6 +15,7 @@ from torchmdnet_tpu_torch.models.common import reset_parameters
 from torchmdnet_tpu_torch.models.output_modules import (
     Scalar, ScalarPlusWeightedCoulomb)
 from torchmdnet_tpu_torch.models.tensornet2 import TensorNet2
+from torchmdnet_tpu_torch.ops.cell_blocks import CellBlockSpec
 from torchmdnet_tpu_torch.ops.config import resolve_device, set_matmul_precision
 
 
@@ -30,13 +31,22 @@ class TorchMDNet(nn.Module):
         self.std = float(std)
 
     def forward(self, z, pos, batch, *, num_mols: int, box=None, q=None,
-                nbr=None, coulomb_nbr=None):
+                nbr=None, coulomb_nbr=None, blocked=False, coulomb_win=None,
+                nbr_emb=None):
+        """``blocked``: the rows are in a cell-blocked sort
+        (``ops/cell_blocks.py``) and the model was built with a
+        ``cell_block_spec``, so the interactions run the q-tier;
+        ``coulomb_win``: the windows of the windowed Coulomb head."""
+        if nbr_emb is not None:
+            _not_ported("nbr_emb (the dual-list embedding of the grouped "
+                        "tier)", "Queue 2, 'dual-list nbr_emb'")
         atom_mask = batch < num_mols
         x, _ = self.representation_model(z, pos, batch, box=box, q=q,
                                           atom_mask=atom_mask, nbr=nbr,
-                                          num_mols=num_mols)
+                                          num_mols=num_mols, blocked=blocked)
         x = self.output_model.pre_reduce(x, z, pos, batch, box=box,
-                                         num_mols=num_mols, nbr=coulomb_nbr)
+                                         num_mols=num_mols, nbr=coulomb_nbr,
+                                         win=coulomb_win)
         y = self.output_model.reduce(x * self.std, batch, num_mols)
         return y + self.mean
 
@@ -63,19 +73,23 @@ class Potential:
         return z, pos, batch, box
 
     def energy(self, z, pos, batch=None, *, num_mols: int = 1, box=None,
-               q=None, nbr=None, coulomb_nbr=None):
+               q=None, nbr=None, coulomb_nbr=None, blocked=False,
+               coulomb_win=None, nbr_emb=None):
         """Per-molecule energies ``y [num_mols, 1]``."""
         z, pos, batch, box = self._inputs(z, pos, batch, box)
         return self.module(z, pos, batch, num_mols=num_mols, box=box, q=q,
-                           nbr=nbr, coulomb_nbr=coulomb_nbr)
+                           nbr=nbr, coulomb_nbr=coulomb_nbr, blocked=blocked,
+                           coulomb_win=coulomb_win, nbr_emb=nbr_emb)
 
     def apply(self, z, pos, batch=None, *, num_mols: int = 1, box=None,
-              q=None, nbr=None, coulomb_nbr=None):
+              q=None, nbr=None, coulomb_nbr=None, blocked=False,
+              coulomb_win=None, nbr_emb=None):
         """``(y, −∂Σy/∂pos)``; the second item is None unless the model was
         built with ``derivative``."""
         z, pos, batch, box = self._inputs(z, pos, batch, box)
         kw = dict(num_mols=num_mols, box=box, q=q, nbr=nbr,
-                  coulomb_nbr=coulomb_nbr)
+                  coulomb_nbr=coulomb_nbr, blocked=blocked,
+                  coulomb_win=coulomb_win, nbr_emb=nbr_emb)
         if not self.derivative:
             with torch.no_grad():
                 return self.module(z, pos, batch, **kw), None
@@ -94,12 +108,12 @@ def _check_supported(args: dict) -> None:
     if args["model"] != "tensornet2":
         _not_ported(f"model={args['model']!r}",
                     "Queue 1, 'TensorNet model' / 'torchmd_et, _t, _gn'")
-    if args.get("cell_block_spec") is not None:
-        _not_ported("cell_block_spec (the blocked q-tier)",
-                    "Queue 2, rows 12-13 of the kernel table")
-    if args.get("coulomb_window_spec") is not None:
-        _not_ported("coulomb_window_spec (the windowed Coulomb)",
-                    "Queue 2, rows 14-15 of the kernel table")
+    spec = args.get("cell_block_spec")
+    if spec is not None and spec.col_slots is not None:
+        _not_ported("cell_block_spec with col_slots (the grouped q-tier)",
+                    "Queue 2, 'grouped rows 12-13'")
+    if spec is not None and not int(args.get("q_tab", 64)):
+        _not_ported("q_tab=0 (the exact-rbf q operand)", "Queue 2, 'q_tab=0'")
     if args.get("remat"):
         _not_ported("remat=True", "Queue 1, 'Training'")
     if args.get("prior_model"):
@@ -127,6 +141,7 @@ def create_model(args: dict, device=None, seed: int = 0) -> Potential:
     device = resolve_device(device)
     args = dict(args)
     _check_supported(args)
+    spec = args.get("cell_block_spec")
     set_matmul_precision(args.get("matmul_precision") or "highest")
     output_model = args.get("output_model", "Scalar")
     F = args["embedding_dimension"]
@@ -150,6 +165,9 @@ def create_model(args: dict, device=None, seed: int = 0) -> Potential:
         cell_capacity=int(args.get("cell_capacity", 64)),
         pallas_edge_mlp=bool(args.get("pallas_edge_mlp", False)),
         pallas_embedding=bool(args.get("pallas_embedding", False)),
+        cell_block_spec=(None if spec is None
+                         else CellBlockSpec(**spec._asdict())),
+        q_tab=int(args.get("q_tab", 64)),
     )
     head_kwargs = dict(hidden_channels=F, activation=args["activation"],
                        reduce_op=args.get("reduce_op", "sum"))

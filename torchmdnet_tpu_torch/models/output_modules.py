@@ -1,5 +1,5 @@
 """Output heads; counterpart of ``torchmdnet_tpu/models/output_modules.py``
-(``reduce_atoms``, ``Scalar`` and the list path of
+(``reduce_atoms``, ``Scalar`` and the list and windowed paths of
 ``ScalarPlusWeightedCoulomb``).
 
 Ghost (padding) atoms sit in the extra segment ``num_mols`` and are
@@ -15,6 +15,7 @@ from torchmdnet_tpu_torch.models.common import MLP
 from torchmdnet_tpu_torch.ops.coulomb import coulomb_cutoff_energy_w
 from torchmdnet_tpu_torch.ops.neighbors import build_neighbor_matrix
 from torchmdnet_tpu_torch.ops.segment import segment_sum
+from torchmdnet_tpu_torch.ops.windowed_coulomb import windowed_coulomb_energy
 
 
 def reduce_atoms(x, batch, num_mols: int, reduce_op: str = "sum"):
@@ -37,7 +38,8 @@ class Scalar(nn.Module):
         self.output_network = MLP(hidden_channels, 1, hidden_channels // 2,
                                   activation, num_hidden_layers)
 
-    def pre_reduce(self, x, z, pos, batch, box=None, num_mols=None, nbr=None):
+    def pre_reduce(self, x, z, pos, batch, box=None, num_mols=None, nbr=None,
+                   win=None):
         return self.output_network(x)
 
     def reduce(self, x, batch, num_mols):
@@ -109,11 +111,21 @@ class ScalarPlusWeightedCoulomb(Scalar):
             atom_mask=(batch < num_mols) if num_mols is not None else None,
             **kwargs)
 
-    def pre_reduce(self, x, z, pos, batch, box=None, num_mols=None, nbr=None):
+    def pre_reduce(self, x, z, pos, batch, box=None, num_mols=None, nbr=None,
+                   win=None):
         """``nbr``: a Coulomb neighbor list (MD passes a skin-cached one;
-        edges beyond the cutoff are re-masked by the energy op)."""
+        edges beyond the cutoff are re-masked by the energy op).  ``win``:
+        the rebuild's :class:`~torchmdnet_tpu_torch.ops.windowed_coulomb.
+        CoulombWindows` over the cell-blocked sort ``pos`` is in; the head
+        then evaluates every window pair directly (kernels C and D,
+        ``output_modules.py:254-275``) and needs no list."""
         charges = x[:, self.hidden_channels:]
         x = self.output_network(x[:, :self.hidden_channels])
+        if win is not None:
+            e_i = windowed_coulomb_energy(
+                pos, self.qweights.to(x.dtype), charges, win,
+                self.coulomb_cutoff, self.epsilon_solvent, self.factor)
+            return x + e_i[:, None]
         if nbr is None:
             nbr = self.build_coulomb_neighbors(pos, batch, box, num_mols)
         e_i = coulomb_cutoff_energy_w(

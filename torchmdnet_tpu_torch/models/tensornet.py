@@ -26,6 +26,13 @@ def linear_irreps(irr: Irreps, linears) -> Irreps:
     return Irreps(linears[0](irr.I), linears[1](irr.A), linears[2](irr.S))
 
 
+def pack9(irr: Irreps):
+    """``(I, A×3, S×5)`` rows ``[N, 9F]``, the inverse of :func:`split9`."""
+    n, f = irr.I.shape
+    return torch.cat([irr.I, irr.A.reshape(n, 3 * f),
+                      irr.S.reshape(n, 5 * f)], dim=-1)
+
+
 def split9(msg, n, f) -> Irreps:
     return Irreps(msg[:, :f], msg[:, f:4 * f].reshape(n, 3, f),
                   msg[:, 4 * f:].reshape(n, 5, f))
@@ -38,9 +45,8 @@ def edge_message_passing(attr3f, irr: Irreps, nbr: NeighborMatrix,
     pad-masked; block 0 weights I, 1 weights A, 2 weights S) and their
     recomputed reverse ``attr_rev``."""
     n, f = irr.I.shape
-    feats9 = torch.cat([irr.I, irr.A.reshape(n, 3 * f),
-                        irr.S.reshape(n, 5 * f)], dim=-1)
-    msg = packed_neighbor_sum_asym(attr3f, attr_rev, feats9, nbr.idx, nbr.mask)
+    msg = packed_neighbor_sum_asym(attr3f, attr_rev, pack9(irr), nbr.idx,
+                                   nbr.mask)
     return split9(msg, n, f)
 
 

@@ -1,7 +1,7 @@
 """TensorNet2: TensorNet with AIMNet2-style neutral charge equilibration.
 
 Counterpart of ``torchmdnet_tpu/models/tensornet2.py``: ``ChargePredict``,
-the gather branch of ``Interaction2`` (``:211-260``) and ``TensorNet2``
+both branches of ``Interaction2`` (``:147-260``) and ``TensorNet2``
 (``:284-462``).  Per-layer MLPs predict multi-channel partial charges that
 are redistributed so each molecule's channel sums equal its total charge;
 the charges feed the next interaction layer as edge features (folded into
@@ -9,7 +9,13 @@ per-node vectors) and, with ``output_charges``, are appended to the node
 features for the Coulomb head.
 
 With ``pallas_edge_mlp`` the edge MLP tail runs kernel 3
-(``ops/edge_mlp.py``); otherwise it is the plain chain.
+(``ops/edge_mlp.py``); otherwise it is the plain chain.  With a
+``cell_block_spec`` and ``blocked=True`` (the MD path in cell-blocked
+sorted rows) each interaction runs the fused charge-fold q-tier instead
+(``ops/blocked_q.py``, kernels A and B, the blocked branch of
+``tensornet2.py:147-209``): its edge-MLP base ``rbf(d)·W1a`` is a
+``q_tab``-term Chebyshev series fitted at the rbf's nodes, and neither
+the edge weights nor their reverse reach memory.
 """
 
 import torch
@@ -18,8 +24,10 @@ from torch import nn
 from torchmdnet_tpu_torch.models.common import (
     MLP, LayerNorm, Linear, get_activation, make_rbf)
 from torchmdnet_tpu_torch.models.tensornet import (
-    TensorEmbedding, edge_message_passing, linear_irreps)
+    TensorEmbedding, edge_message_passing, linear_irreps, pack9, split9)
 from torchmdnet_tpu_torch.ops import rbf as rbf_ops
+from torchmdnet_tpu_torch.ops.blocked_q import blocked_neighbor_sum_asym_q_tab
+from torchmdnet_tpu_torch.ops.cheb import cheb_fit_matrix, cheb_nodes
 from torchmdnet_tpu_torch.ops.edge_mlp import edge_mlp_pre
 from torchmdnet_tpu_torch.ops.message_passing import gather_nodes, reverse_slots
 from torchmdnet_tpu_torch.ops.neighbors import (
@@ -64,12 +72,13 @@ class ChargePredict(nn.Module):
 
 
 class Interaction2(nn.Module):
-    """TensorNet2 interaction layer, gather branch (reference
-    ``tensornet2.py:465-626``)."""
+    """TensorNet2 interaction layer: the gather branch (reference
+    ``tensornet2.py:465-626``) and the blocked q-tier branch."""
 
     def __init__(self, hidden_channels, num_rbf, q_dim, activation="silu",
                  cutoff_lower=0.0, cutoff_upper=4.5,
-                 equivariance_invariance_group="O(3)", pallas_edge_mlp=False):
+                 equivariance_invariance_group="O(3)", pallas_edge_mlp=False,
+                 cell_block_spec=None):
         super().__init__()
         F = hidden_channels
         self.num_rbf = num_rbf
@@ -77,6 +86,7 @@ class Interaction2(nn.Module):
         self.cutoff_upper = cutoff_upper
         self.group = equivariance_invariance_group
         self.fused = pallas_edge_mlp and activation == "silu"
+        self.q_tier = cell_block_spec is not None and activation == "silu"
         self.act = get_activation(activation)
         self.linears_scalar = nn.ModuleList([
             Linear(num_rbf + 2 * q_dim, F), Linear(F, 2 * F),
@@ -93,7 +103,7 @@ class Interaction2(nn.Module):
         return h * cw[..., None]
 
     def forward(self, X: Irreps, charges, nbr: NeighborMatrix, edge_weight,
-                edge_attr, rev_slot):
+                edge_attr, rev_slot, blocked=False, rbf_nodes=None):
         R, Q = self.num_rbf, charges.shape[-1]
         C = rbf_ops.cosine_cutoff(edge_weight, self.cutoff_upper,
                                   self.cutoff_lower)
@@ -102,22 +112,39 @@ class Interaction2(nn.Module):
         w1 = self.linears_scalar[0].weight.t()
         u_i = charges @ w1[R:R + Q] + self.linears_scalar[0].bias
         u_j = charges @ w1[R + Q:]
-        base = edge_attr @ w1[:R]
-        pre1 = base + u_i[:, None, :] + gather_nodes(u_j, nbr.idx, rev_slot,
-                                                     nbr.mask)
-        cw = C * nbr.mask.to(pre1.dtype)
-        attr = self._mlp_tail(pre1, cw)
-        # Reverse-edge weights (same MLP, q_i and q_j swapped) for the
-        # scatter-free backward of the asymmetric neighbor sum, which gives
-        # them a zero cotangent: computed without a graph.
-        with torch.no_grad():
-            pre1_rev = base + u_j[:, None, :] + gather_nodes(
-                u_i, nbr.idx, rev_slot, nbr.mask)
-            attr_rev = self._mlp_tail(pre1_rev, cw)
-
+        cw = C * nbr.mask.to(C.dtype)
         X = _scale(X, tensor_frobenius_norm2(X) + 1.0)
         Y = linear_irreps(X, self.linears_tensor[:3])
-        M = edge_message_passing(attr, Y, nbr, attr_rev)
+        if (blocked and self.q_tier and rbf_nodes is not None
+                and edge_weight.dtype == torch.float32):
+            # base(d) = rbf(d)·W1a as a T-term Chebyshev series (one
+            # [T, T]·[T, F] fit); d and cw are equal on both slots of a
+            # pair, as the op's mirrored backward requires
+            T = rbf_nodes.shape[0]
+            coeffs = cheb_fit_matrix(T, device=w1.device) @ (
+                rbf_nodes @ w1[:R])
+            l2, l3 = self.linears_scalar[1], self.linears_scalar[2]
+            n, f = Y.I.shape
+            msg9 = blocked_neighbor_sum_asym_q_tab(
+                edge_weight, cw, u_i, u_j, pack9(Y), nbr.mask, nbr.idx,
+                rev_slot, coeffs, l2.weight.t().contiguous(), l2.bias,
+                l3.weight.t().contiguous(), l3.bias, self.cutoff_lower,
+                self.cutoff_upper)
+            M = split9(msg9, n, f)
+        else:
+            base = edge_attr @ w1[:R]
+            pre1 = base + u_i[:, None, :] + gather_nodes(
+                u_j, nbr.idx, rev_slot, nbr.mask)
+            attr = self._mlp_tail(pre1, cw)
+            # Reverse-edge weights (same MLP, q_i and q_j swapped) for the
+            # scatter-free backward of the asymmetric neighbor sum, which
+            # gives them a zero cotangent: computed without a graph.
+            with torch.no_grad():
+                pre1_rev = base + u_j[:, None, :] + gather_nodes(
+                    u_i, nbr.idx, rev_slot, nbr.mask)
+                attr_rev = self._mlp_tail(pre1_rev, cw)
+            M = edge_message_passing(attr, Y, nbr, attr_rev)
+
         Yf, Mf = compose_tensor(Y), compose_tensor(M)
         if self.group == "O(3)":
             Cf = tensor_matmul_o3(Yf, Mf)
@@ -144,7 +171,7 @@ class TensorNet2(nn.Module):
                  equivariance_invariance_group="O(3)", output_charges=False,
                  neighbor_strategy="brute", cells_per_dim=None,
                  cell_capacity=64, pallas_edge_mlp=False,
-                 pallas_embedding=False):
+                 pallas_embedding=False, cell_block_spec=None, q_tab=64):
         super().__init__()
         if equivariance_invariance_group not in ("O(3)", "SO(3)"):
             raise ValueError(f'Unknown group "{equivariance_invariance_group}". '
@@ -157,6 +184,8 @@ class TensorNet2(nn.Module):
         self.neighbor_strategy = neighbor_strategy
         self.cells_per_dim = cells_per_dim
         self.cell_capacity = cell_capacity
+        self.cell_block_spec = cell_block_spec
+        self.q_tab = int(q_tab)
         self.act = get_activation(activation)
         self.distance_expansion = make_rbf(rbf_type, cutoff_lower,
                                            cutoff_upper, num_rbf,
@@ -168,7 +197,8 @@ class TensorNet2(nn.Module):
         self.layers = nn.ModuleList([
             Interaction2(F, num_rbf, q_dim, activation, cutoff_lower,
                          cutoff_upper, equivariance_invariance_group,
-                         pallas_edge_mlp=pallas_edge_mlp)
+                         pallas_edge_mlp=pallas_edge_mlp,
+                         cell_block_spec=cell_block_spec)
             for _ in range(num_layers)])
         self.charge_predicts = nn.ModuleList(
             [ChargePredict(F, activation, q_dim) for _ in range(num_layers)])
@@ -187,7 +217,7 @@ class TensorNet2(nn.Module):
             atom_mask=atom_mask, **kwargs)
 
     def forward(self, z, pos, batch, box=None, q=None, atom_mask=None,
-                nbr=None, num_mols=None):
+                nbr=None, num_mols=None, blocked=False):
         if num_mols is None:
             num_mols = int(batch.shape[0])
         if nbr is None:
@@ -205,6 +235,12 @@ class TensorNet2(nn.Module):
                 torch.clamp(batch, max=q.shape[0])]
 
         edge_attr = self.distance_expansion(dist)
+        # the rbf at the Chebyshev nodes of the q-tier's series fit
+        rbf_nodes = None
+        if self.q_tab and self.cell_block_spec is not None:
+            rbf_nodes = self.distance_expansion(cheb_nodes(
+                self.q_tab, self.cutoff_lower, self.cutoff_upper,
+                dtype=dist.dtype, device=dist.device))
         safe_w = torch.where(dist > 0, dist, 1.0)
         edge_vec_norm = delta / safe_w[..., None]
 
@@ -213,7 +249,8 @@ class TensorNet2(nn.Module):
         charges = self.charge_predict_0(X, batch, Q_atom, num_mols)
         charge_list = [charges]
         for layer, predict in zip(self.layers, self.charge_predicts):
-            X = layer(X, charges, nbr, dist, edge_attr, rev_slot)
+            X = layer(X, charges, nbr, dist, edge_attr, rev_slot,
+                      blocked=blocked, rbf_nodes=rbf_nodes)
             charges = predict(X, batch, Q_atom, num_mols)
             charge_list.append(charges)
 

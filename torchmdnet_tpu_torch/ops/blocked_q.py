@@ -1,0 +1,272 @@
+"""TensorNet2 fused charge-fold message passing, θ-tabulated (the blocked
+q-tier; kernels A and B of the port).
+
+Counterpart of ``blocked_neighbor_sum_asym_q_tab`` and its two Pallas
+kernels (``torchmdnet_tpu/ops/pallas_blocked_mp.py:1120-2211``): per slot
+``(n, k)`` of the sorted-space neighbor matrix, ``j = idx[n, k]``,
+
+    pre1 = Σ_t cos(t·θ)·coeffs[t] + u_i[n] + u_j[j]
+    attr = silu(silu(silu(pre1)·W2 + b2)·W3 + b3) · cwfm[n, k]
+    out[n] = Σ_k expand9(attr) ⊙ feats9[j]
+
+with ``θ = arccos(clip(2(d − lo)/(hi − lo) − 1, −1, 1))``: the edge MLP and
+the neighbor sum in one pass, so neither ``attr`` nor its reverse ever
+reaches memory.  The backward follows ``_make_blocked_q_op_tab.bwd``
+(``:2170-2190``): kernel A in its ``with_du`` form on the mirrored
+operands (``u_i``↔``u_j``, window ``g``, fold rows ``feats9``) gives
+``dfeats`` and ``du_j``; kernel B gives ``du_i``, ``dd`` and ``dcw``.
+``coeffs``, W2, b2, W3 and b3 get zero gradients (the MD-only contract of
+``:1146-1149``).  It requires ``d`` and ``cwfm`` to be equal on the two
+slots of a pair, as the JAX op does.
+
+Numerics: f32 throughout, what the JAX package computes with
+``spec.precise=True``.  Its fast tier (the bench default) rounds the
+window features and the basis dot to bf16 (~1e-3 relative,
+``pallas_blocked_mp.py:24-34, 679-684``); the port does not reproduce
+that rounding.
+
+On CUDA tensors each function launches its kernel (``csrc/blocked_q.cu``)
+or raises; on CPU tensors it runs the plain version beside it.
+"""
+
+import torch
+import torch.nn.functional as F_
+from torch.autograd.function import once_differentiable
+
+from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs, cheb_theta, cos_basis
+from torchmdnet_tpu_torch.ops.kernels import (
+    F32, I32, I64, P, CudaSource, Kernel, ptr)
+from torchmdnet_tpu_torch.ops.message_passing import row_chunk
+
+SOURCE = CudaSource("blocked_q.cu")
+_COMMON = [P] * 7  # d, cw, mask, idx, urow, ucol, xwin
+FORWARD = Kernel(SOURCE, "tmd_blocked_q_fwd",
+                 _COMMON + [P] * 6 + [I64, I32, I32, I32, F32, F32])
+FORWARD_DU = Kernel(SOURCE, "tmd_blocked_q_fwd_du",
+                    _COMMON + [P] * 10 + [I64, I32, I32, I32, F32, F32])
+DQ = Kernel(SOURCE, "tmd_blocked_q_dq",
+            _COMMON + [P] * 12 + [I64, I32, I32, I32, F32, F32])
+# bytes of dynamic shared memory one Hopper block may use, less the
+# kernel's static arrays
+_SMEM_LIMIT = 232448 - 4096
+
+
+def smem_bytes(mode: int, f: int, t: int, k: int) -> int:
+    """Dynamic shared memory of a launch (mode 0 = A, 1 = A with du,
+    2 = B), as ``q_kernel`` lays it out."""
+    tm = 64 if mode == 0 else 32
+    lda, ldh, ldb, ldz, ldt = f + 4, 2 * f + 4, t + 4, 3 * f + 4, 132
+    floats = 32 * 128 + tm * (ldb + lda + ldh + ldt)
+    if mode:
+        floats += tm * (lda + ldh + ldt + ldz)
+    return 4 * floats + 4 * 16 * k
+
+
+def _dsilu(x):
+    s = torch.sigmoid(x)
+    return s * (1.0 + x * (1.0 - s))
+
+
+def _chain(theta, urow_c, ucol_j, coeffs, w2, b2, w3, b3):
+    pre1 = cos_basis(theta, coeffs.shape[0]) @ coeffs + urow_c[:, None] + ucol_j
+    z2 = F_.silu(pre1) @ w2 + b2
+    z3 = F_.silu(z2) @ w3 + b3
+    return pre1, z2, z3
+
+
+def _fold9(g9_rows, xj, f):
+    """``Σ_{d∈w} g9[row, d] ⊙ xj[d]`` per weight block w → [c, K, 3F]."""
+    prod = g9_rows.view(-1, 1, 9, f) * xj
+    return torch.cat([prod[:, :, 0], prod[:, :, 1:4].sum(2),
+                      prod[:, :, 4:9].sum(2)], dim=-1)
+
+
+def _backprop(da, pre1, z2, z3, w2, w3):
+    dz3 = da * _dsilu(z3)
+    dz2 = (dz3 @ w3.t()) * _dsilu(z2)
+    return (dz2 @ w2.t()) * _dsilu(pre1)
+
+
+def q_fwd_ref(d, cw, mask, idx, urow, ucol, xwin, coeffs, w2, b2, w3, b3,
+              lo: float, hi: float, grow=None):
+    """Plain kernel A: ``out [N, 9F]``; with ``grow [N, 9F]`` also ``du
+    [N, F]``, the ∂/∂pre1 row sums of ``Σ ⟨grow[n], expand9(attr) ⊙ x_j⟩``
+    (row-chunked gather chain)."""
+    n, k = idx.shape
+    f = coeffs.shape[1]
+    out = xwin.new_empty((n, 9 * f))
+    du = xwin.new_empty((n, f)) if grow is not None else None
+    theta = cheb_theta(d, lo, hi)
+    chunk = row_chunk(n, k, 40 * f + coeffs.shape[0])
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        m = mask[s:e]
+        pre1, z2, z3 = _chain(theta[s:e], urow[s:e], ucol[idx[s:e]], coeffs,
+                              w2, b2, w3, b3)
+        xj = (xwin[idx[s:e]] * m[..., None]).view(e - s, k, 9, f)
+        a = (F_.silu(z3) * cw[s:e, :, None]).view(e - s, k, 3, f)
+        o = out[s:e].view(e - s, 9, f)
+        o[:, 0:1] = (a[:, :, 0:1] * xj[:, :, 0:1]).sum(1)
+        o[:, 1:4] = (a[:, :, 1:2] * xj[:, :, 1:4]).sum(1)
+        o[:, 4:9] = (a[:, :, 2:3] * xj[:, :, 4:9]).sum(1)
+        if grow is not None:
+            da = _fold9(grow[s:e], xj, f) * cw[s:e, :, None]
+            du[s:e] = _backprop(da, pre1, z2, z3, w2, w3).sum(1)
+    return out if grow is None else (out, du)
+
+
+def q_dq_ref(d, cw, mask, idx, urow, ucol, xwin, g9, coeffs, dser, w2, b2,
+             w3, b3, lo: float, hi: float):
+    """Plain kernel B: ``(du [N, F], dd [N, K], dcw [N, K])``; ``dd`` is the
+    derivative in ``x`` (the caller applies ``2/(hi − lo)``)."""
+    n, k = idx.shape
+    T, f = coeffs.shape
+    du = xwin.new_empty((n, f))
+    dd = xwin.new_empty((n, k))
+    dcw = xwin.new_empty((n, k))
+    theta = cheb_theta(d, lo, hi)
+    chunk = row_chunk(n, k, 40 * f + T)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        m = mask[s:e]
+        pre1, z2, z3 = _chain(theta[s:e], urow[s:e], ucol[idx[s:e]], coeffs,
+                              w2, b2, w3, b3)
+        xj = (xwin[idx[s:e]] * m[..., None]).view(e - s, k, 9, f)
+        fold = _fold9(g9[s:e], xj, f)
+        dcw[s:e] = (fold * F_.silu(z3)).sum(-1)
+        dpre = _backprop(fold * cw[s:e, :, None], pre1, z2, z3, w2, w3)
+        du[s:e] = dpre.sum(1)
+        dd[s:e] = (dpre * (cos_basis(theta[s:e], T) @ dser)).sum(-1)
+    return du, dd, dcw
+
+
+def _check(name, tensors, mode):
+    """Raise unless every tensor is on one CUDA device, contiguous, of its
+    type and shape, and the launch fits shared memory."""
+    n, k = tensors["idx"].shape
+    T, f = tensors["coeffs"].shape
+    shapes = dict(d=(n, k), cw=(n, k), mask=(n, k), idx=(n, k), urow=(n, f),
+                  ucol=(n, f), xwin=(n, 9 * f), grow=(n, 9 * f),
+                  coeffs=(T, f), dser=(T, f), w2=(f, 2 * f), b2=(2 * f,),
+                  w3=(2 * f, 3 * f), b3=(3 * f,), w2t=(2 * f, f),
+                  w3t=(3 * f, 2 * f))
+    dev = tensors["d"].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: expects CUDA tensors, got {dev}")
+    for key, x in tensors.items():
+        if x.device != dev:
+            raise ValueError(f"{name}: {key} is on {x.device}, expected {dev}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        want = {"idx": torch.int64, "mask": torch.bool}.get(key, torch.float32)
+        if x.dtype != want:
+            raise TypeError(f"{name}: {key} must be {want}, got {x.dtype}")
+        if tuple(x.shape) != shapes[key]:
+            raise ValueError(f"{name}: {key} has shape {tuple(x.shape)}, "
+                             f"expected {shapes[key]}")
+        if x.data_ptr() % 16:  # weights are read as float4
+            raise ValueError(f"{name}: {key} is not 16-byte aligned")
+    if f % 4:
+        raise ValueError(f"{name}: channels {f} must be a multiple of 4")
+    smem = smem_bytes(mode, f, T, k)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{name}: F={f}, T={T}, K={k} needs {smem} bytes of "
+                         f"shared memory (> {_SMEM_LIMIT})")
+    return dev, n, k, f, T
+
+
+def q_fwd_cuda(d, cw, mask, idx, urow, ucol, xwin, coeffs, w2, b2, w3, b3,
+               lo: float, hi: float, grow=None):
+    """Kernel A (``grow`` given: its with-du form) on CUDA tensors."""
+    tensors = dict(d=d, cw=cw, mask=mask, idx=idx, urow=urow, ucol=ucol,
+                   xwin=xwin, coeffs=coeffs, w2=w2, b2=b2, w3=w3, b3=b3)
+    if grow is not None:
+        tensors.update(grow=grow, w2t=w2.t().contiguous(),
+                       w3t=w3.t().contiguous())
+    dev, n, k, f, T = _check("blocked_q_fwd", tensors,
+                             0 if grow is None else 1)
+    common = [ptr(tensors[key]) for key in
+              ("d", "cw", "mask", "idx", "urow", "ucol", "xwin")]
+    tail = [n, k, f, T, float(lo), float(hi - lo)]
+    with torch.cuda.device(dev):
+        out = torch.empty((n, 9 * f), dtype=torch.float32, device=dev)
+        if grow is None:
+            FORWARD(*common, ptr(coeffs), ptr(w2), ptr(b2), ptr(w3), ptr(b3),
+                    ptr(out), *tail)
+            return out
+        du = torch.empty((n, f), dtype=torch.float32, device=dev)
+        FORWARD_DU(*common, ptr(grow), ptr(coeffs), ptr(w2), ptr(b2), ptr(w3),
+                   ptr(b3), ptr(tensors["w2t"]), ptr(tensors["w3t"]),
+                   ptr(out), ptr(du), *tail)
+        return out, du
+
+
+def q_dq_cuda(d, cw, mask, idx, urow, ucol, xwin, g9, coeffs, dser, w2, b2,
+              w3, b3, lo: float, hi: float):
+    """Kernel B on CUDA tensors: ``(du, dd, dcw)``."""
+    tensors = dict(d=d, cw=cw, mask=mask, idx=idx, urow=urow, ucol=ucol,
+                   xwin=xwin, grow=g9, coeffs=coeffs, dser=dser, w2=w2, b2=b2,
+                   w3=w3, b3=b3, w2t=w2.t().contiguous(),
+                   w3t=w3.t().contiguous())
+    dev, n, k, f, T = _check("blocked_q_dq", tensors, 2)
+    with torch.cuda.device(dev):
+        du = torch.empty((n, f), dtype=torch.float32, device=dev)
+        dd = torch.empty((n, k), dtype=torch.float32, device=dev)
+        dcw = torch.empty((n, k), dtype=torch.float32, device=dev)
+        DQ(*[ptr(t) for t in tensors.values()], ptr(du), ptr(dd), ptr(dcw),
+           n, k, f, T, float(lo), float(hi - lo))
+    return du, dd, dcw
+
+
+def q_fwd(*args, **kwargs):
+    """Kernel A on CUDA tensors, its plain version on CPU tensors."""
+    return (q_fwd_cuda if args[0].is_cuda else q_fwd_ref)(*args, **kwargs)
+
+
+def q_dq(*args, **kwargs):
+    """Kernel B on CUDA tensors, its plain version on CPU tensors."""
+    return (q_dq_cuda if args[0].is_cuda else q_dq_ref)(*args, **kwargs)
+
+
+class _BlockedQTab(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, d, cwfm, u_i, u_j, feats9, mask, idx, coeffs, w2, b2,
+                w3, b3, lo, hi):
+        ctx.save_for_backward(d, cwfm, u_i, u_j, feats9, mask, idx, coeffs,
+                              w2, b2, w3, b3)
+        ctx.lo, ctx.hi = lo, hi
+        return q_fwd(d, cwfm, mask, idx, u_i, u_j, feats9, coeffs, w2, b2,
+                     w3, b3, lo, hi)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        d, cwfm, u_i, u_j, feats9, mask, idx, coeffs, w2, b2, w3, b3 = \
+            ctx.saved_tensors
+        lo, hi = ctx.lo, ctx.hi
+        g = g.contiguous()
+        # dfeats and du_j: the mirrored forward (u_i ↔ u_j, window g, fold
+        # rows feats9) — pre1 of slot (m, k') equals pre1 of its reverse
+        dfeats, du_j = q_fwd(d, cwfm, mask, idx, u_j, u_i, g, coeffs, w2, b2,
+                             w3, b3, lo, hi, grow=feats9)
+        du_i, dd, dcw = q_dq(d, cwfm, mask, idx, u_i, u_j, feats9, g, coeffs,
+                             cheb_deriv_coeffs(coeffs).contiguous(), w2, b2,
+                             w3, b3, lo, hi)
+        dd = dd * (2.0 / (hi - lo))
+        zeros = [torch.zeros_like(t) if need else None
+                 for t, need in zip((coeffs, w2, b2, w3, b3),
+                                    ctx.needs_input_grad[7:12])]
+        return (dd, dcw, du_i, du_j, dfeats, None, None, *zeros, None, None)
+
+
+def blocked_neighbor_sum_asym_q_tab(d, cwfm, u_i, u_j, feats9, mask, idx,
+                                    rev_slot, coeffs, w2, b2, w3, b3,
+                                    lo: float, hi: float):
+    """Fused charge-fold asymmetric neighbor sum → ``[N, 9F]`` (see the
+    module docstring).  ``d``/``cwfm`` ``[N, K]`` must be equal on both
+    slots of every pair; ``rev_slot`` is accepted for the JAX signature
+    (the kernels gather by ``idx`` in both directions).  Weights in the
+    JAX layout: ``coeffs [T, F]``, ``w2 [F, 2F]``, ``w3 [2F, 3F]``."""
+    del rev_slot
+    return _BlockedQTab.apply(d, cwfm, u_i, u_j, feats9, mask, idx, coeffs,
+                              w2, b2, w3, b3, float(lo), float(hi))

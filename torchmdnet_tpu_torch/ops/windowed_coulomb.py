@@ -1,0 +1,249 @@
+"""Windowed direct-pair reaction-field Coulomb (kernels C and D of the port).
+
+Counterpart of ``torchmdnet_tpu/ops/pallas_coulomb.py``: atoms are in the
+cell-blocked sorted row space of ``ops/cell_blocks.py`` and each block of
+``cap`` rows meets every partner row of its ±S stencil columns' exact
+z-pieces directly, with no neighbor list:
+
+    Φ_ic = Σ_{j ∈ window(i), 0 < d_ij < rc} G(d_ij) · b_jc
+    E_i  = row_valid_i · Σ_c qw_c · b_ic · Φ_ic
+
+with the reaction-field kernel ``G`` of ``ops/coulomb.py`` and
+minimum-image deltas.  The backward stays row-local, as ``_wce_bwd``
+(``:489-504``) folds it:
+
+    S2_i   = Σ_j G(d_ij) · ct_j · b_j
+    ∂pos_i = Σ_j G'(d_ij) · pd_ij · (ct_i + ct_j) / d_ij · Δ_ij,
+             pd_ij = Σ_c qw_c b_ic b_jc
+    ∂b_i   = qw ⊙ (ct_i · Φ_i + S2_i),   ∂qw_c = Σ_i ct_i · b_ic · Φ_ic
+
+On CUDA tensors Φ and (∂pos, S2) are the hand-written kernels of
+``csrc/windowed_coulomb.cu``; on CPU tensors they are the per-block dense
+pair loops beside them.  Numerics: f32, what the JAX package computes
+(its hi/lo bf16 split of every matmul is f32-grade; the port has no
+split).
+"""
+
+from typing import NamedTuple
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from torchmdnet_tpu_torch.ops.cell_blocks import StencilWindows
+from torchmdnet_tpu_torch.ops.coulomb import _rf_constants, g_and_grad
+from torchmdnet_tpu_torch.ops.kernels import (
+    F32, I32, I64, P, CudaSource, Kernel, ptr)
+
+SOURCE = CudaSource("windowed_coulomb.cu")
+_TAIL = [I64, I32, I32, I32] + [F32] * 7  # n_blocks, cap, nsc, c, box, rc², rf
+FORWARD = Kernel(SOURCE, "tmd_windowed_coulomb_fwd", [P] * 7 + _TAIL)
+BACKWARD = Kernel(SOURCE, "tmd_windowed_coulomb_bwd", [P] * 9 + _TAIL)
+_MAX_PIECES = 2 * 121  # csrc/windowed_coulomb.cu kMaxPieces: S <= 5
+_MAX_CHANNELS = 128    # csrc/windowed_coulomb.cu 16 * kMaxCg
+# Transient budget of one block chunk of the plain pair loops.
+_PAIR_BUDGET_BYTES = 512 * 1024 * 1024
+
+
+class CoulombWindows(NamedTuple):
+    """Rebuild-time bundle the windowed head consumes (sorted space)."""
+
+    a1: torch.Tensor         # [n_blocks, (2S+1)²] int64 exact piece bounds
+    e1: torch.Tensor
+    a2: torch.Tensor
+    e2: torch.Tensor
+    row_valid: torch.Tensor  # [n_pad] bool: real-atom rows
+    box_diag: torch.Tensor   # [3] float32
+
+    @property
+    def cap(self) -> int:
+        return self.row_valid.shape[0] // self.a1.shape[0]
+
+
+def make_coulomb_windows(win: StencilWindows, mask_rows,
+                         box_diag) -> CoulombWindows:
+    """Package a :func:`~torchmdnet_tpu_torch.ops.cell_blocks.
+    plan_stencil_windows` plan and the real-row mask for
+    :func:`windowed_coulomb_energy`."""
+    box_diag = torch.as_tensor(box_diag, dtype=torch.float32,
+                               device=mask_rows.device).reshape(3)
+    return CoulombWindows(*(t.contiguous() for t in win),
+                          mask_rows.contiguous(), box_diag.contiguous())
+
+
+def window_partners(cwin: CoulombWindows):
+    """``(rows, live)``: every block's partner rows, its pieces in order
+    and padded to the longest block, ``[n_blocks, W]``, and whether a slot
+    holds a real atom."""
+    a = torch.cat([cwin.a1, cwin.a2], dim=1)
+    length = (torch.cat([cwin.e1, cwin.e2], dim=1) - a).clamp_min(0)
+    end = torch.cumsum(length, dim=1)
+    total = end[:, -1]
+    w = int(total.max()) if total.numel() else 0
+    slot = torch.arange(w, device=a.device).expand(a.shape[0], w).contiguous()
+    piece = torch.searchsorted(end, slot, right=True).clamp(max=a.shape[1] - 1)
+    rows = a.gather(1, piece) + slot - (end - length).gather(1, piece)
+    live = slot < total[:, None]
+    rows = torch.where(live, rows, 0)
+    return rows, live & cwin.row_valid[rows]
+
+
+def _pair_blocks(pos_s, cwin: CoulombWindows, rc: float, width: int):
+    """Yield, per chunk of blocks, ``(rows_i, rows_j, delta, d, valid)``:
+    block rows ``[cb·cap]``, partner rows ``[cb, W]``, minimum-image deltas
+    ``[cb, cap, W, 3]``, safe distances and the pair mask ``[cb, cap, W]``."""
+    rows, live = window_partners(cwin)
+    nb, w = rows.shape
+    cap = cwin.cap
+    per_block = max(cap * w * (8 + width) + w * width, 1) * 4
+    chunk = max(1, _PAIR_BUDGET_BYTES // per_block)
+    bd = cwin.box_diag.to(pos_s.dtype)
+    for s in range(0, nb, chunk):
+        e = min(nb, s + chunk)
+        rows_i = torch.arange(s * cap, e * cap, device=pos_s.device)
+        rj = rows[s:e]
+        delta = (pos_s[rows_i].view(e - s, cap, 1, 3)
+                 - pos_s[rj].view(e - s, 1, w, 3))
+        delta = delta - bd * torch.round(delta * (1.0 / bd))
+        d2 = (delta * delta).sum(-1)
+        valid = (live[s:e, None, :] & cwin.row_valid[rows_i].view(e - s, cap, 1)
+                 & (d2 > 1e-12) & (d2 < rc * rc))
+        yield rows_i, rj, delta, torch.sqrt(torch.where(valid, d2, 1.0)), valid
+
+
+def wc_fwd_ref(pos_s, b_s, cwin: CoulombWindows, rc: float, eps: float,
+               factor: float):
+    """Plain kernel C: ``Φ [n_pad, C]`` (0 on ghost rows)."""
+    c = b_s.shape[1]
+    phi = b_s.new_zeros(b_s.shape)
+    for rows_i, rj, _, d, valid in _pair_blocks(pos_s, cwin, rc, c):
+        g = torch.where(valid, g_and_grad(d, rc, eps, factor)[0], 0.0)
+        phi[rows_i] = torch.einsum("biw,bwc->bic", g, b_s[rj]).reshape(-1, c)
+    return phi
+
+
+def wc_bwd_ref(pos_s, b_s, ct, qw, cwin: CoulombWindows, rc: float,
+               eps: float, factor: float):
+    """Plain kernel D: ``(∂pos [n_pad, 3], S2 [n_pad, C])``."""
+    c = b_s.shape[1]
+    dpos = pos_s.new_zeros(pos_s.shape)
+    s2 = b_s.new_zeros(b_s.shape)
+    wb = qw[None, :] * b_s
+    for rows_i, rj, delta, d, valid in _pair_blocks(pos_s, cwin, rc, c):
+        nb = rj.shape[0]
+        g, gp = g_and_grad(d, rc, eps, factor)
+        g = torch.where(valid, g, 0.0)
+        gp = torch.where(valid, gp, 0.0)
+        bj, ctj = b_s[rj], ct[rj]
+        s2[rows_i] = torch.einsum("biw,bwc->bic", g * ctj[:, None, :],
+                                  bj).reshape(-1, c)
+        pd = torch.einsum("bic,bwc->biw", wb[rows_i].view(nb, -1, c), bj)
+        sc = gp * pd * (ct[rows_i].view(nb, -1, 1) + ctj[:, None, :]) / d
+        dpos[rows_i] = (sc[..., None] * delta).sum(2).reshape(-1, 3)
+    return dpos, s2
+
+
+def _launch_args(name, pos_s, b_s, cwin: CoulombWindows, extra: dict):
+    """Check the operands of a kernel C/D launch; returns the pointer list
+    of the piece bounds and row mask and the scalar tail."""
+    dev = pos_s.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: expects CUDA tensors, got {dev}")
+    n_pad, c = b_s.shape
+    nb, nsc = cwin.a1.shape
+    tensors = dict(pos_s=pos_s, b_s=b_s, a1=cwin.a1, e1=cwin.e1, a2=cwin.a2,
+                   e2=cwin.e2, row_valid=cwin.row_valid, **extra)
+    shapes = dict(pos_s=(n_pad, 3), b_s=(n_pad, c), a1=(nb, nsc),
+                  e1=(nb, nsc), a2=(nb, nsc), e2=(nb, nsc),
+                  row_valid=(n_pad,), ct=(n_pad,), qw=(c,))
+    for key, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        want = (torch.bool if key == "row_valid" else torch.int64
+                if key in ("a1", "e1", "a2", "e2") else torch.float32)
+        if t.dtype != want:
+            raise TypeError(f"{name}: {key} must be {want}, got {t.dtype}")
+        if tuple(t.shape) != shapes[key]:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {shapes[key]}")
+    if nb * cwin.cap != n_pad or 2 * nsc > _MAX_PIECES or c > _MAX_CHANNELS:
+        raise ValueError(f"{name}: {nb} blocks of {n_pad} rows, {nsc} stencil "
+                         f"columns (≤ {_MAX_PIECES // 2}) and {c} channels "
+                         f"(≤ {_MAX_CHANNELS}) are not supported")
+    bd = [float(v) for v in cwin.box_diag.tolist()]
+    ptrs = [ptr(t) for t in (cwin.a1, cwin.e1, cwin.a2, cwin.e2,
+                             cwin.row_valid)]
+    return ptrs, [nb, cwin.cap, nsc, c, *bd]
+
+
+def wc_fwd_cuda(pos_s, b_s, cwin: CoulombWindows, rc: float, eps: float,
+                factor: float):
+    """Kernel C on CUDA tensors: ``Φ [n_pad, C]``."""
+    ptrs, tail = _launch_args("windowed_coulomb_fwd", pos_s, b_s, cwin, {})
+    k_rf, c_rf = _rf_constants(rc, eps)
+    with torch.cuda.device(pos_s.device):
+        src = torch.cat([pos_s, torch.zeros_like(pos_s[:, :1]), b_s], dim=1)
+        phi = torch.empty_like(b_s)
+        FORWARD(ptr(src), *ptrs, ptr(phi), *tail, rc * rc, k_rf, c_rf, factor)
+    return phi
+
+
+def wc_bwd_cuda(pos_s, b_s, ct, qw, cwin: CoulombWindows, rc: float,
+                eps: float, factor: float):
+    """Kernel D on CUDA tensors: ``(∂pos [n_pad, 3], S2 [n_pad, C])``."""
+    ptrs, tail = _launch_args("windowed_coulomb_bwd", pos_s, b_s, cwin,
+                              dict(ct=ct, qw=qw))
+    k_rf, c_rf = _rf_constants(rc, eps)
+    with torch.cuda.device(pos_s.device):
+        src = torch.cat([pos_s, ct[:, None], b_s], dim=1)
+        dpos = torch.empty_like(pos_s)
+        s2 = torch.empty_like(b_s)
+        BACKWARD(ptr(src), *ptrs, ptr(qw), ptr(s2), ptr(dpos), *tail,
+                 rc * rc, k_rf, c_rf, factor)
+    return dpos, s2
+
+
+def wc_fwd(*args):
+    """Kernel C on CUDA tensors, its plain version on CPU tensors."""
+    return (wc_fwd_cuda if args[0].is_cuda else wc_fwd_ref)(*args)
+
+
+def wc_bwd(*args):
+    """Kernel D on CUDA tensors, its plain version on CPU tensors."""
+    return (wc_bwd_cuda if args[0].is_cuda else wc_bwd_ref)(*args)
+
+
+class _WindowedCoulomb(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pos_s, qw, b_s, cwin, rc, eps, factor):
+        phi = wc_fwd(pos_s.contiguous(), b_s.contiguous(), cwin, rc, eps,
+                     factor)
+        ctx.save_for_backward(pos_s, qw, b_s, phi)
+        ctx.cwin, ctx.consts = cwin, (rc, eps, factor)
+        rv = cwin.row_valid.to(phi.dtype)
+        return (qw[None, :] * b_s * phi).sum(-1) * rv
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        pos_s, qw, b_s, phi = ctx.saved_tensors
+        rv = ctx.cwin.row_valid.to(phi.dtype)
+        ct = (ct * rv).contiguous()
+        dpos, s2 = wc_bwd(pos_s.contiguous(), b_s.contiguous(), ct,
+                          qw.contiguous(), ctx.cwin, *ctx.consts)
+        dpos = dpos * rv[:, None]
+        db = (ct[:, None] * (qw[None, :] * phi) + qw[None, :] * s2) * rv[:, None]
+        dqw = (ct[:, None] * b_s * phi).sum(0)
+        return dpos, dqw, db, None, None, None, None
+
+
+def windowed_coulomb_energy(pos_s, qw, b_s, cwin: CoulombWindows, rc: float,
+                            eps: float, factor: float):
+    """Per-row reaction-field Coulomb energy ``e [n_pad]`` over the stencil
+    windows (see the module docstring); ghost rows get 0.  ``pos_s [n_pad,
+    3]`` and ``b_s [n_pad, C]`` are in the sorted row space ``cwin`` was
+    planned over.  Equals ``coulomb_cutoff_energy_w`` on a complete
+    neighbor list."""
+    return _WindowedCoulomb.apply(pos_s, qw, b_s, cwin, float(rc),
+                                  float(eps), float(factor))
