@@ -7,14 +7,17 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels from ``torchmdnet_tpu_torch/csrc`` with
 ``nvcc`` (one process per source, all at once) and holds each kernel
-against its plain PyTorch version on the card at the main path's shapes:
+against its plain PyTorch version on the card at the main paths' shapes:
 the embedding and edge-MLP kernels at N=25,088 atoms, K=96 slots, F=128
 channels, R=32 rbf; the q-tier kernels A/B at the 27,024 cell-blocked
 rows of the same lattice with T=64 series terms; the windowed-Coulomb
 kernels C/D at 48 charge channels over the lattice's real stencil
-windows.  Then it drives both paths of the port on the north star,
-TensorNet2 (2 layers x 128) + the 10 Å ScalarPlusWeightedCoulomb head on
-the 25,088-atom periodic lattice, weights random from a seed:
+windows; TensorNet's fused edge MLP (kernel 4) and Chebyshev filters
+(kernels 5 and 7) on the real brute K=64 list of the dhfr system (2,489
+atoms in 2,560 rows, T=128).  Then it drives both paths of the port on
+the north star, TensorNet2 (2 layers x 128) + the 10 Å
+ScalarPlusWeightedCoulomb head on the 25,088-atom periodic lattice,
+weights random from a seed:
 
 - the gather path (no cell_block_spec, Coulomb list): energy+forces with
   the kernels and through the plain versions, a profile, and a short MD
@@ -22,7 +25,17 @@ the 25,088-atom periodic lattice, weights random from a seed:
 - the blocked path (the JAX north-star default: cell-blocked q-tier and
   windowed Coulomb): energy+forces with the kernels and through the plain
   versions, against the gather path, a profile, and a Langevin MD chunk
-  (rebuild every 25 steps, 1 Å skin) timed after a warm-up chunk.
+  (rebuild every 25 steps, 1 Å skin) timed after a warm-up chunk;
+
+and the dhfr path of ``bench.py::main``, TensorNet (2 layers x 128, 32
+expnorm rbf, 4.5 Å, K=64 brute neighbors rebuilt every evaluation, the
+Scalar head) on its 2,489-atom periodic system, in the default variant
+(tabulated filters, T=128) and the exact one (fused edge MLP and
+embedding): energy+forces with the kernels and through the plain
+versions, tabulated against exact, ms per evaluation of the bench chain
+(positions fed back as pos + 1e-24·F, 30 evaluations after a warm-up),
+a profile of each, and a Langevin MD chunk (brute lists rebuilt every 25
+steps, 1 Å skin, K=128) timed after a warm-up chunk.
 
 Each phase prints one JSON line; the card's name and power limit (as
 ``nvidia-smi`` gives them) and a ``{"kernels": [...]}`` line follow, and
@@ -57,6 +70,14 @@ BLOCKED_VS_GATHER_TOL = 1e-4
 
 N_ATOMS, K, F, R, Q_DIM = 25088, 96, 128, 32, 16
 COULOMB_RC, SKIN, CAP, Q_TAB, C_CH = 10.0, 1.0, 16, 64, 48
+# the dhfr path (bench.py::main): atoms, rows, slots, series terms, timed
+# evaluations of the bench chain, and the MD list's slots at 4.5 + 1 Å
+DHFR_ATOMS, DHFR_PAD, DHFR_K, DHFR_T, DHFR_ITERS = 2489, 2560, 64, 128, 30
+DHFR_MD_K = 128
+# tabulated against exact TensorNet forces, relative to max |F|: T = 128
+# fits the exact edge MLP to ~3e-6 relative (the JAX package's reading,
+# torchmdnet_tpu/models/tensornet.py:475-478); the limit leaves 30x room
+TAB_VS_EXACT_TOL = 1e-4
 
 # Published peaks, NVIDIA data sheets (dense, no sparsity): float32 outside
 # the tensor cores in FLOP/s and device memory in B/s, by board.
@@ -89,13 +110,19 @@ KERNELS = {
     "windowed_coulomb_bwd": (SRC + "windowed_coulomb.cu",
                              "torchmdnet_tpu/ops/pallas_coulomb.py:297",
                              "blocked"),
+    "edge_mlp": (SRC + "edge_mlp.cu",
+                 "torchmdnet_tpu/ops/pallas_kernels.py:59", "dhfr_exact"),
+    "cheb_filter": (SRC + "cheb_filter.cu",
+                    "torchmdnet_tpu/ops/pallas_cheb.py:86", "dhfr"),
+    "cheb_filter_dot": (SRC + "cheb_filter.cu",
+                        "torchmdnet_tpu/ops/pallas_cheb.py:95", "dhfr"),
 }
 
 
 def counters():
     """Kernel name → its launch counter (``Kernel`` objects)."""
     from torchmdnet_tpu_torch.ops import (
-        blocked_q, edge_mlp, radial_embedding, windowed_coulomb)
+        blocked_q, cheb_filter, edge_mlp, radial_embedding, windowed_coulomb)
     return {"radial_embedding_fwd": radial_embedding.FORWARD,
             "radial_embedding_bwd": radial_embedding.BACKWARD,
             "edge_mlp_pre": edge_mlp.FORWARD,
@@ -103,7 +130,10 @@ def counters():
             "blocked_q_fwd_du": blocked_q.FORWARD_DU,
             "blocked_q_dq": blocked_q.DQ,
             "windowed_coulomb_fwd": windowed_coulomb.FORWARD,
-            "windowed_coulomb_bwd": windowed_coulomb.BACKWARD}
+            "windowed_coulomb_bwd": windowed_coulomb.BACKWARD,
+            "edge_mlp": edge_mlp.FUSED,
+            "cheb_filter": cheb_filter.FILTER,
+            "cheb_filter_dot": cheb_filter.FILTER_DOT}
 
 
 def emit(obj):
@@ -156,25 +186,30 @@ def nbytes(*tensors):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the q-tier and windowed-Coulomb ops through their plain
-    versions for CUDA tensors too, so a whole-model run can be held
-    against the kernels (the embedding and edge-MLP kernels are switched
-    off by the model's own flags)."""
+    """Route the q-tier, windowed-Coulomb and Chebyshev-filter ops through
+    their plain versions for CUDA tensors too, so a whole-model run can be
+    held against the kernels (the embedding and edge-MLP kernels are
+    switched off by the model's own flags)."""
     from torchmdnet_tpu_torch.ops import blocked_q as bq
+    from torchmdnet_tpu_torch.ops import cheb_filter as cf
     from torchmdnet_tpu_torch.ops import windowed_coulomb as wc
-    saved = (bq.q_fwd, bq.q_dq, wc.wc_fwd, wc.wc_bwd)
+    saved = (bq.q_fwd, bq.q_dq, wc.wc_fwd, wc.wc_bwd, cf.filter_fwd,
+             cf.cheb_filter_dot)
     bq.q_fwd, bq.q_dq = bq.q_fwd_ref, bq.q_dq_ref
     wc.wc_fwd, wc.wc_bwd = wc.wc_fwd_ref, wc.wc_bwd_ref
+    cf.filter_fwd = cf.cheb_filter_ref
+    cf.cheb_filter_dot = cf.cheb_filter_dot_ref
     try:
         yield
     finally:
-        bq.q_fwd, bq.q_dq, wc.wc_fwd, wc.wc_bwd = saved
+        (bq.q_fwd, bq.q_dq, wc.wc_fwd, wc.wc_bwd, cf.filter_fwd,
+         cf.cheb_filter_dot) = saved
 
 
 # ---------------------------------------------------------------- device
 def phase_device():
     from torchmdnet_tpu_torch.ops import (
-        blocked_q, edge_mlp, radial_embedding, windowed_coulomb)
+        blocked_q, cheb_filter, edge_mlp, radial_embedding, windowed_coulomb)
     from torchmdnet_tpu_torch.ops.kernels import build
 
     smi = subprocess.run(
@@ -185,7 +220,8 @@ def phase_device():
     board, peak = peaks(name)
     t0 = time.perf_counter()
     logs = build([radial_embedding.SOURCE, edge_mlp.SOURCE, blocked_q.SOURCE,
-                  windowed_coulomb.SOURCE], extra_flags=("-Xptxas", "-v"))
+                  windowed_coulomb.SOURCE, cheb_filter.SOURCE],
+                 extra_flags=("-Xptxas", "-v"))
     secs = time.perf_counter() - t0
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "nvcc.log").write_text(
@@ -368,7 +404,118 @@ def wc_work(w, rc, c):
             "pairs": (cand, inside)}
 
 
-def phase_kernels(peak, system):
+def fitted_coeffs(mlp, t, hi):
+    """The [T, 3F] series the tabulated interaction fits
+    (``models/tensornet.py::Interaction``): the edge MLP with weights
+    ``mlp`` on the expnorm rbf at the ``t`` Chebyshev nodes, times the
+    cosine cutoff, through the fit matrix.  A series of random terms
+    instead would be a function of high frequency whose value moves by
+    ~1e-4 with a last-bit change of the distance."""
+    from torchmdnet_tpu_torch.models.common import make_rbf
+    from torchmdnet_tpu_torch.ops import rbf
+    from torchmdnet_tpu_torch.ops.cheb import cheb_fit_matrix, cheb_nodes
+    from torchmdnet_tpu_torch.ops.edge_mlp import edge_mlp_ref
+
+    dev = mlp[0].device
+    dk = cheb_nodes(t, 0.0, hi, device=dev)
+    x = make_rbf("expnorm", 0.0, hi, mlp[0].shape[0], False).to(dev)(dk)
+    h = edge_mlp_ref(x[None], rbf.cosine_cutoff(dk, hi, 0.0)[None], *mlp)[0]
+    return (cheb_fit_matrix(t, device=dev) @ h).contiguous()
+
+
+def dhfr_inputs(system, seg, seed):
+    """Real dhfr geometry on the card and random operands for kernels 4,
+    5 and 7: the brute K=64 list of ``system`` (loop, ghosts masked), its
+    distances, ``fm = (d < 4.5) & mask``, ``cw = C(d)·mask`` and the rbf
+    ``x``, random edge-MLP weights and the [T, 3F] series fitted from
+    them, and a cotangent ``ct``."""
+    from torchmdnet_tpu_torch.models.common import make_rbf
+    from torchmdnet_tpu_torch.ops import rbf
+    from torchmdnet_tpu_torch.ops.neighbors import (
+        build_neighbor_matrix, neighbor_geometry)
+
+    _, pos, _, box, _ = system
+    dev = torch.device("cuda")
+    pt = torch.as_tensor(pos, device=dev)
+    bt = torch.as_tensor(box, device=dev)
+    st = torch.as_tensor(seg, device=dev)
+    nbr = build_neighbor_matrix(pt, st, strategy="brute", k_max=DHFR_K,
+                                cutoff_upper=4.5, loop=True, box=bt,
+                                atom_mask=st < 1)
+    check(not bool(nbr.overflow), "dhfr kernel inputs: neighbor overflow")
+    _, d = neighbor_geometry(pt, nbr, box=bt)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, k = d.shape
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    mlp = [randn(R, F, scale=R ** -0.5), randn(F, scale=0.1),
+           randn(F, 2 * F, scale=F ** -0.5), randn(2 * F, scale=0.1),
+           randn(2 * F, 3 * F, scale=(2 * F) ** -0.5), randn(3 * F, scale=0.1)]
+    return dict(
+        d=d.contiguous(), fm=((d < 4.5) & nbr.mask).float(),
+        cw=(rbf.cosine_cutoff(d, 4.5, 0.0) * nbr.mask).contiguous(),
+        x=make_rbf("expnorm", 0.0, 4.5, R, False).to(dev)(d).contiguous(),
+        coeffs=fitted_coeffs(mlp, DHFR_T, 4.5), ct=randn(n, k, 3 * F),
+        mlp=mlp)
+
+
+def dhfr_calls(v, hi=4.5):
+    """Kernels 4, 5 and 7 on ``v``, each as a pair of (kernel, plain)
+    callables."""
+    from torchmdnet_tpu_torch.ops import cheb_filter as cf
+    from torchmdnet_tpu_torch.ops import edge_mlp as em
+    from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs
+
+    mlp = [v["x"], v["cw"], *v["mlp"]]
+    f_args = (v["coeffs"], v["d"], v["fm"], 0.0, hi)
+    dser = cheb_deriv_coeffs(v["coeffs"]).contiguous()
+    d_args = (dser, v["d"], v["fm"], v["ct"], 0.0, hi)
+    return {"edge_mlp": (lambda: em.edge_mlp_cuda(*mlp),
+                         lambda: em.edge_mlp_ref(*mlp)),
+            "cheb_filter": (lambda: cf.cheb_filter_cuda(*f_args),
+                            lambda: cf.cheb_filter_ref(*f_args)),
+            "cheb_filter_dot": (lambda: cf.cheb_filter_dot_cuda(*d_args),
+                                lambda: cf.cheb_filter_dot_ref(*d_args))}
+
+
+def dhfr_work(v):
+    """(FLOP, bytes) kernels 4, 5 and 7 need on ``v``: the series product
+    on the slots with fm ≠ 0 (and, in 7, the dot with ct), the edge MLP's
+    three products on the slots with cw ≠ 0; each input read once and
+    each output written once, the zero slots included."""
+    live_fm = float(v["fm"].sum())
+    live_cw = float((v["cw"] != 0).sum())
+    e, t, c = v["d"].numel(), DHFR_T, 3 * F
+    return {
+        "cheb_filter": (2 * live_fm * t * c,
+                        nbytes(v["d"], v["fm"], v["coeffs"]) + e * c * 4),
+        "cheb_filter_dot": (2 * live_fm * t * c + 2 * live_fm * c,
+                            nbytes(v["d"], v["fm"], v["coeffs"], v["ct"])
+                            + e * 4),
+        "edge_mlp": (2 * live_cw * (R * F + F * 2 * F + 2 * F * 3 * F),
+                     nbytes(v["x"], v["cw"], *v["mlp"]) + e * c * 4)}
+
+
+def dhfr_library(v):
+    """The cuBLAS product that carries each kernel's operations, its other
+    inputs precomputed: basis·coeffs (5), basis·dser (7) with the cos
+    basis given, and the plain cuBLAS chain on x (4), as row 3."""
+    from torchmdnet_tpu_torch.ops import edge_mlp as em
+    from torchmdnet_tpu_torch.ops.cheb import (
+        cheb_deriv_coeffs, cheb_theta, cos_basis)
+
+    basis = cos_basis(cheb_theta(v["d"], 0.0, 4.5), DHFR_T).reshape(
+        -1, DHFR_T)
+    dser = cheb_deriv_coeffs(v["coeffs"]).contiguous()
+    mlp = [v["x"], v["cw"], *v["mlp"]]
+    return {"cheb_filter": lambda: torch.matmul(basis, v["coeffs"]),
+            "cheb_filter_dot": lambda: torch.matmul(basis, dser),
+            "edge_mlp": lambda: em.edge_mlp_ref(*mlp)}
+
+
+def phase_kernels(peak, system, dhfr, seg):
     from torchmdnet_tpu_torch.ops import edge_mlp as em_ops
     from torchmdnet_tpu_torch.ops import radial_embedding as re_ops
 
@@ -488,6 +635,26 @@ def phase_kernels(peak, system):
     del q, wv
     torch.cuda.empty_cache()
 
+    # kernels 4, 5 and 7 on the dhfr system's real brute K=64 list
+    v = dhfr_inputs(dhfr, seg, 55)
+    work, library = dhfr_work(v), dhfr_library(v)
+    for name, (kern, plain) in dhfr_calls(v).items():
+        err, rel, got = compare(kern, plain)
+        flops, nb = work[name]
+        b_ms, b_by = bound(flops, nb, peak)
+        rows[name] = dict(
+            max_abs_err=err, max_rel_err=rel, ms=time_ms(kern),
+            plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(library[name]), gflop=flops / 1e9,
+            gbytes=nb / 1e9)
+        del got
+    geometry["dhfr"] = {"rows": v["d"].shape[0], "k": DHFR_K,
+                        "t": DHFR_T, "slots": v["d"].numel(),
+                        "fm_slots": int(v["fm"].sum()),
+                        "cw_slots": int((v["cw"] != 0).sum())}
+    del v, library
+    torch.cuda.empty_cache()
+
     emit({"phase": "kernels", "tolerance": TOL, "geometry": geometry,
           "rows": rows})
     for name, row in rows.items():
@@ -496,11 +663,46 @@ def phase_kernels(peak, system):
     return rows
 
 
+def dhfr_shape_errors(gen):
+    """Kernels 4, 5 and 7 against their plain versions: rows not a multiple
+    of a block's 256-slot span, K 8-96, T 16-128 (and 100, not a multiple
+    of the 32-row tile), 3F 24-384, R 8-32, a row with fm = cw = 0
+    throughout, and d at 0, at hi and above hi."""
+    dev = torch.device("cuda")
+    worst = {}
+    for n, k, t, f, r in ((37, 8, 16, 8, 8), (50, 33, 64, 32, 16),
+                          (29, 96, 128, 128, 32), (41, 64, 100, 64, 8)):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        hi = 4.5
+        d = torch.rand((n, k), generator=gen, device=dev) * 1.2 * hi
+        d[0, :3] = torch.tensor([0.0, hi, 1.1 * hi], device=dev)
+        mask = torch.rand((n, k), generator=gen, device=dev) < 0.8
+        mask[1] = False
+        mlp = [randn(r, f) * 0.3, randn(f) * 0.1, randn(f, 2 * f) * 0.2,
+               randn(2 * f) * 0.1, randn(2 * f, 3 * f) * 0.2,
+               randn(3 * f) * 0.1]
+        v = dict(d=d, fm=((d < hi) & mask).float(),
+                 cw=torch.where(mask & (d < hi),
+                                torch.cos(d * math.pi / hi) * 0.5 + 0.5, 0.0),
+                 x=torch.rand((n, k, r), generator=gen, device=dev),
+                 coeffs=fitted_coeffs(mlp, t, hi), ct=randn(n, k, 3 * f),
+                 mlp=mlp)
+        calls = dhfr_calls(v, hi)
+        errs = [compare(*pair)[1] for pair in calls.values()]
+        zero = [float(kern()[1].abs().max()) for kern, _ in calls.values()]
+        check(max(zero) == 0.0, "kernels 4/5/7: a masked row is not zero")
+        worst[f"dhfr_n{n}_k{k}_t{t}_c{3 * f}_r{r}"] = max(errs)
+    return worst
+
+
 def phase_shapes():
     """Every kernel against its plain version at small ragged shapes:
     every compiled rbf width and a range of channel counts for kernels
     1-3; for A-D a partial last row block, ghost rows, several channel
-    counts and block sizes, and z-wrapped window pieces."""
+    counts and block sizes, and z-wrapped window pieces; for 4, 5 and 7
+    partial slot spans, masked rows and distances at and beyond hi."""
     from torchmdnet_tpu_torch.ops import edge_mlp as em_ops
     from torchmdnet_tpu_torch.ops import radial_embedding as re_ops
 
@@ -554,6 +756,8 @@ def phase_shapes():
         qc["mask"] = qc["mask"] & (q["idx"][:cut] < cut)
         errs += [compare(*pair)[1] for pair in q_calls(qc).values()]
         worst[f"blocked_n{n}_cap{cap}_f{f}_c{c}_s{wspec.s}"] = max(errs)
+
+    worst.update(dhfr_shape_errors(gen))
     torch.cuda.synchronize()
     emit({"phase": "shapes", "max_rel_err": worst, "tolerance": TOL})
     check(max(worst.values()) <= TOL, "a kernel disagrees at a small shape")
@@ -593,6 +797,46 @@ def northstar_system(n=N_ATOMS, seed=0):
     return z, pos, masses, box, L
 
 
+def dhfr_system(n_atoms=DHFR_ATOMS, n_pad=DHFR_PAD, density=0.1, seed=0):
+    """``bench.py::build_system`` (a copy): ``n_atoms`` uniform at liquid
+    density in a periodic cube, padded to ``n_pad`` rows with ghost atoms
+    (type 0, segment 1) spread through the box.  Returns ``(z, pos,
+    masses, box, L)`` like :func:`northstar_system`, and the segments."""
+    rng = np.random.RandomState(seed)
+    L = (n_atoms / density) ** (1.0 / 3.0)
+    pos = rng.uniform(0, L, (n_pad, 3)).astype(np.float32)
+    pos[:n_atoms] = rng.uniform(0, L, (n_atoms, 3))
+    z = np.zeros(n_pad, np.int64)
+    z[:n_atoms] = rng.choice([1, 1, 6, 7, 8], n_atoms)
+    seg = np.ones(n_pad, np.int64)
+    seg[:n_atoms] = 0
+    masses = np.where(z == 1, 1.008, 12.011).astype(np.float64)
+    box = np.diag([L, L, L]).astype(np.float32)
+    return (z, pos, masses, box, L), seg
+
+
+def dhfr_args(**extra):
+    """``bench.py::main``'s args (``:65-87``): TensorNet 2 x 128, 32 expnorm
+    rbf, 4.5 Å, K=64 brute neighbors, the Scalar head, the tabulated
+    filters at T=128."""
+    args = dict(
+        model="tensornet", embedding_dimension=F, num_layers=2, num_rbf=R,
+        rbf_type="expnorm", trainable_rbf=False, activation="silu",
+        cutoff_lower=0.0, cutoff_upper=4.5, max_z=128,
+        max_num_neighbors=DHFR_K, derivative=True, prior_model=None,
+        output_model="Scalar", reduce_op="sum", precision=32,
+        equivariance_invariance_group="O(3)", atom_filter=-1,
+        tabulated_edge_mlp=DHFR_T)
+    args.update(extra)
+    return args
+
+
+# the exact variant: the edge MLP per slot on kernel 4, the embedding on
+# kernels 1 and 2; with both flags off it is the plain path
+DHFR_EXACT = dict(tabulated_edge_mlp=0, pallas_edge_mlp=True,
+                  pallas_embedding=True)
+
+
 def northstar_args(L):
     """``bench.py::bench_northstar`` args (``:270-286``) on the gather
     path: no cell_block_spec, remat off.  Add a ``cell_block_spec`` for
@@ -625,28 +869,41 @@ def northstar_spec(system):
 
 def phase_small():
     """Kernels on the card against the plain versions on the CPU, at a
-    small size whose edge counts are not tile multiples."""
+    small size whose edge counts are not tile multiples: TensorNet2 +
+    Coulomb on the gather path, and TensorNet tabulated (kernels 5, 7)
+    and exact (kernels 1, 2, 4)."""
     from torchmdnet_tpu_torch.models.model import create_model
 
-    args = dict(northstar_args(40.0), embedding_dimension=32, num_rbf=16,
-                max_num_neighbors=48, q_dim=4, q_weights=[[1.0] * 4] * 3,
-                coulomb_cutoff=5.0, coulomb_neighbor_strategy="brute")
+    small = dict(embedding_dimension=32, num_rbf=16, max_num_neighbors=48)
+    cases = {
+        "tensornet2": dict(
+            northstar_args(40.0), q_dim=4, q_weights=[[1.0] * 4] * 3,
+            coulomb_cutoff=5.0, coulomb_neighbor_strategy="brute", **small),
+        "tensornet_tabulated": dict(dhfr_args(), tabulated_edge_mlp=32,
+                                    **small),
+        "tensornet_exact": dict(dhfr_args(**DHFR_EXACT), **small)}
     rng = np.random.RandomState(3)
     g = np.stack(np.meshgrid(*[np.arange(5)] * 3, indexing="ij"),
                  -1).reshape(-1, 3) + 0.5  # 125 atoms x 48 slots: ragged
     pos = (g * 2.6 + rng.uniform(-0.4, 0.4, g.shape)).astype(np.float32)
     z = rng.choice([1, 1, 6, 7, 8], len(pos))
     box = np.diag([13.0] * 3).astype(np.float32)
-    gpu = create_model(args, device="cuda", seed=5)
-    cpu = create_model(args, device="cpu", seed=5)
-    y_g, f_g = gpu.apply(z, pos, None, num_mols=1, box=box)
-    y_c, f_c = cpu.apply(z, pos, None, num_mols=1, box=box)
-    e_err = abs(float(y_g.cpu()) - float(y_c)) / max(abs(float(y_c)), 1e-30)
-    _, f_rel = rel_err(f_g.cpu(), f_c)
-    emit({"phase": "small_vs_cpu", "atoms": len(z), "energy": float(y_c),
-          "energy_rel_err": e_err, "force_rel_err": f_rel,
-          "tolerance": TOL})
-    check(e_err <= TOL and f_rel <= TOL, "small system: GPU vs CPU mismatch")
+    row = {"phase": "small_vs_cpu", "atoms": len(z), "tolerance": TOL}
+    for name, args in cases.items():
+        gpu = create_model(args, device="cuda", seed=5)
+        cpu = create_model(args, device="cpu", seed=5)
+        y_g, f_g = gpu.apply(z, pos, None, num_mols=1, box=box)
+        y_c, f_c = cpu.apply(z, pos, None, num_mols=1, box=box)
+        e_err = (abs(float(y_g.cpu()) - float(y_c))
+                 / max(abs(float(y_c)), 1e-30))
+        _, f_rel = rel_err(f_g.cpu(), f_c)
+        row[name] = {"energy": float(y_c), "energy_rel_err": e_err,
+                     "force_rel_err": f_rel}
+    emit(row)
+    for name in cases:
+        check(row[name]["energy_rel_err"] <= TOL
+              and row[name]["force_rel_err"] <= TOL,
+              f"small system {name}: GPU vs CPU mismatch")
 
 
 # ---------------------------------------------------------------- gather
@@ -768,6 +1025,8 @@ def phase_profile(name, run):
 
 
 PROFILE_GROUPS = (
+    ("kernels 5/7 Chebyshev filter", ("cheb_kernel",)),
+    ("kernel 4 edge_mlp", ("edge_mlp_kernel",)),
     ("kernel A/B q-tier", ("q_kernel",)),
     ("kernel C/D windowed Coulomb", ("wc_kernel",)),
     ("kernel 3 edge_mlp_pre", ("edge_mlp_pre_kernel",)),
@@ -782,7 +1041,8 @@ PROFILE_GROUPS = (
 )
 
 
-def md_run(pot, system, steps, chunks, **kw):
+def md_run(pot, system, steps, chunks, batch=None, neighbor_strategy="cell",
+           **kw):
     """``init_state`` plus ``chunks`` chunks of ``steps`` Langevin steps;
     the last chunk is timed.  Returns its JSON fields and the state."""
     from torchmdnet_tpu_torch.md.integrators import (
@@ -790,9 +1050,10 @@ def md_run(pot, system, steps, chunks, **kw):
 
     z, pos, masses, box, _ = system
     init_state, chunk, _ = make_md_step(
-        pot, z, np.zeros(len(z)), masses, dt=0.05, num_mols=1, box=box,
-        q=torch.zeros(1, device="cuda"), rebuild_every=steps, skin=SKIN,
-        temperature=300.0, neighbor_strategy="cell", **kw)
+        pot, z, np.zeros(len(z)) if batch is None else batch, masses,
+        dt=0.05, num_mols=1, box=box, q=torch.zeros(1, device="cuda"),
+        rebuild_every=steps, skin=SKIN, temperature=300.0,
+        neighbor_strategy=neighbor_strategy, **kw)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     st = init_state(pos, seed=1)
@@ -933,6 +1194,124 @@ def phase_md_blocked(pot, system, spec):
     return row["steps"], launches
 
 
+# ---------------------------------------------------------------- dhfr
+def dhfr_potentials(dhfr, seg):
+    """The default (tabulated) and exact dhfr models and the plain exact
+    one, all with the same random weights, and an evaluation closure."""
+    from torchmdnet_tpu_torch.models.model import create_model
+
+    z, pos, _, box, _ = dhfr
+    dev = torch.device("cuda")
+    pots = {"tabulated": create_model(dhfr_args(), device=dev, seed=0)}
+    sd = pots["tabulated"].module.state_dict()
+    for name, extra in (("exact", DHFR_EXACT),
+                        ("exact_plain", dict(tabulated_edge_mlp=0))):
+        pots[name] = create_model(dhfr_args(**extra), device=dev, seed=0)
+        pots[name].module.load_state_dict(sd)
+    zt, st = torch.as_tensor(z, device=dev), torch.as_tensor(seg, device=dev)
+    bt = torch.as_tensor(box, device=dev)
+
+    def evaluate(pot, p):
+        """``bench.py::main``'s evaluation: the brute list is rebuilt."""
+        return pot.apply(zt, p, st, num_mols=1, box=bt)
+
+    return pots, evaluate, torch.as_tensor(pos, device=dev)
+
+
+def bench_chain_ms(evaluate, pot, pos, iters=DHFR_ITERS):
+    """ms per evaluation of ``bench.py::main``'s chain: positions fed back
+    as ``pos + 1e-24·F`` (no physical motion), ``iters`` evaluations timed
+    after two."""
+    def chain(n):
+        p = pos
+        for _ in range(n):
+            p = p + 1e-24 * evaluate(pot, p)[1]
+        return p
+
+    chain(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chain(iters)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def phase_dhfr(dhfr, seg):
+    """Energy+forces of the dhfr models: each variant with the kernels
+    against its plain versions, tabulated against exact, the bench chain's
+    ms per evaluation, peak memory, the list's overflow and largest
+    neighbor count."""
+    pots, evaluate, pos = dhfr_potentials(dhfr, seg)
+    rep = pots["tabulated"].module.representation_model
+    nbr = rep.build_neighbors(pos, torch.as_tensor(seg, device=pos.device),
+                              box=torch.as_tensor(dhfr[3], device=pos.device),
+                              atom_mask=torch.as_tensor(seg < 1,
+                                                        device=pos.device))
+    row = {"phase": "energy_forces", "path": "dhfr", "atoms": DHFR_ATOMS,
+           "rows": len(seg), "k": DHFR_K, "t": DHFR_T,
+           "overflow": bool(nbr.overflow),
+           "max_neighbors": int(nbr.num_neighbors.max()),
+           "valid_slots": int(nbr.mask.sum()), "tolerance": TOL,
+           "tab_vs_exact_tolerance": TAB_VS_EXACT_TOL}
+    check(not row["overflow"], "dhfr: K=64 neighbor overflow")
+    out = {}
+    for name in ("tabulated", "exact"):
+        torch.cuda.reset_peak_memory_stats()
+        y, f = evaluate(pots[name], pos)
+        torch.cuda.synchronize()
+        ms = bench_chain_ms(evaluate, pots[name], pos)
+        peak = torch.cuda.max_memory_allocated()
+        if name == "tabulated":
+            with plain_versions():
+                y_p, f_p = evaluate(pots[name], pos)
+                plain_ms = bench_chain_ms(evaluate, pots[name], pos, 5)
+        else:
+            y_p, f_p = evaluate(pots["exact_plain"], pos)
+            plain_ms = bench_chain_ms(evaluate, pots["exact_plain"], pos, 5)
+        check(y.shape == (1, 1) and f.shape == (len(seg), 3),
+              "dhfr: bad shapes")
+        check(bool(torch.isfinite(y).all() and torch.isfinite(f).all()),
+              f"dhfr {name}: non-finite energy or forces")
+        check(not f[DHFR_ATOMS:].any(), f"dhfr {name}: ghost rows feel force")
+        e_err = abs(float(y) - float(y_p)) / max(abs(float(y_p)), 1e-30)
+        f_abs, f_rel = rel_err(f, f_p)
+        out[name] = (y, f)
+        row[name] = {"energy": float(y), "energy_plain": float(y_p),
+                     "energy_rel_err": e_err, "force_max_abs_err": f_abs,
+                     "force_rel_err": f_rel,
+                     "max_abs_force": float(f_p.abs().max()),
+                     "ms_per_eval": ms, "plain_ms_per_eval": plain_ms,
+                     "peak_mem_gb": peak / 1e9}
+    (y_t, f_t), (y_e, f_e) = out["tabulated"], out["exact"]
+    g_abs, g_rel = rel_err(f_t, f_e)
+    row["tab_vs_exact"] = {
+        "energy_rel_diff": abs(float(y_t) - float(y_e))
+        / max(abs(float(y_e)), 1e-30),
+        "force_max_abs_diff": g_abs, "force_rel_diff": g_rel}
+    emit(row)
+    for name in ("tabulated", "exact"):
+        r = row[name]
+        check(r["energy_rel_err"] <= TOL and r["force_rel_err"] <= TOL,
+              f"dhfr {name}: kernels vs plain {r['energy_rel_err']:.3g} / "
+              f"{r['force_rel_err']:.3g}")
+    check(g_rel <= TAB_VS_EXACT_TOL,
+          f"dhfr: tabulated vs exact forces {g_rel:.3g} of max |F|")
+    del pots["exact_plain"]
+    torch.cuda.empty_cache()
+    return pots, evaluate, pos
+
+
+def phase_md_dhfr(pot, dhfr, seg, path):
+    """Langevin MD of a dhfr model: brute lists at 4.5 + 1 Å with K=128
+    slots rebuilt every 25 steps, a warm-up chunk, then a timed one."""
+    (row, ok), launches = counted_run(lambda: md_run(
+        pot, dhfr, 25, 2, batch=seg, neighbor_strategy="brute",
+        k_max=DHFR_MD_K))
+    emit(dict({"phase": "md", "path": path}, **row, launches=launches))
+    check(ok, f"{path} MD: overflow or non-finite state")
+    return row["steps"], launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -940,11 +1319,12 @@ def main():
     from torchmdnet_tpu_torch.ops.config import set_matmul_precision
 
     set_matmul_precision("highest")
-    smi, name, peak = phase_device()
+    smi, kind, peak = phase_device()
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 must be off")
     system = northstar_system()
-    rows = phase_kernels(peak, system)
+    dhfr, seg = dhfr_system()
+    rows = phase_kernels(peak, system, dhfr, seg)
     phase_shapes()
     phase_small()
 
@@ -959,8 +1339,15 @@ def main():
     torch.cuda.empty_cache()
     phase_profile("blocked", blocked_run)
     b_steps, b_launch = phase_md_blocked(pot, system, spec)
+    del pot, blocked_run
+    torch.cuda.empty_cache()
 
+    pots, evaluate, dpos = phase_dhfr(dhfr, seg)
+    phase_profile("dhfr", lambda: evaluate(pots["tabulated"], dpos))
+    phase_profile("dhfr_exact", lambda: evaluate(pots["exact"], dpos))
     by_path = {"gather": (g_steps, g_launch), "blocked": (b_steps, b_launch)}
+    for variant, path in (("tabulated", "dhfr"), ("exact", "dhfr_exact")):
+        by_path[path] = phase_md_dhfr(pots[variant], dhfr, seg, path)
     launches = {k: by_path[path][1][k] for k, (_, _, path) in KERNELS.items()}
     emit({"phase": "launches", "md_steps": {p: s for p, (s, _) in
                                             by_path.items()},
@@ -983,7 +1370,7 @@ def main():
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     print(smi, flush=True)
     emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
 

@@ -1,5 +1,6 @@
-"""Kernel 3 of the port: the TensorNet2 charge-fold edge MLP tail's plain
-PyTorch version against the JAX Pallas kernel (interpret mode)."""
+"""Kernels 3 and 4 of the port: the TensorNet2 charge-fold edge MLP tail's
+and TensorNet's fused edge MLP's plain PyTorch versions against the JAX
+Pallas kernels (interpret mode), forward and backward."""
 
 import jax
 import jax.numpy as jnp
@@ -7,9 +8,11 @@ import numpy as np
 import pytest
 import torch
 
+from torchmdnet_tpu.ops import pallas_kernels
 from torchmdnet_tpu.ops.pallas_kernels import fused_edge_mlp_pre
 from torchmdnet_tpu_torch.ops.edge_mlp import (
-    edge_mlp_pre, edge_mlp_pre_cuda, edge_mlp_pre_ref)
+    edge_mlp_cuda, edge_mlp_pre, edge_mlp_pre_cuda, edge_mlp_pre_ref,
+    edge_mlp_ref, fused_edge_mlp)
 
 RTOL = ATOL = 1e-4
 
@@ -65,3 +68,52 @@ def test_backward_only_for_requested_inputs():
 def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         edge_mlp_pre_cuda(*map(torch.from_numpy, _inputs()))
+
+
+def _inputs4(n=16, k=8, r=12, f=16, seed=0):
+    """Kernel 4's operands: rbf-like x, cw with zeros (padding, beyond the
+    cutoff), W1 [R, F], W2 [F, 2F], W3 [2F, 3F]."""
+    rng = np.random.RandomState(seed)
+    cw = rng.rand(n, k) * (rng.rand(n, k) > 0.3)
+    return [
+        rng.rand(n, k, r).astype(np.float32),
+        cw.astype(np.float32),
+        (rng.randn(r, f) * 0.3).astype(np.float32),
+        (rng.randn(f) * 0.1).astype(np.float32),
+        (rng.randn(f, 2 * f) * 0.3).astype(np.float32),
+        (rng.randn(2 * f) * 0.1).astype(np.float32),
+        (rng.randn(2 * f, 3 * f) * 0.3).astype(np.float32),
+        (rng.randn(3 * f) * 0.1).astype(np.float32),
+    ]
+
+
+def _jax_fused4(*a):
+    return pallas_kernels.fused_edge_mlp(*a, True)
+
+
+def test_fused_edge_mlp_forward_matches_pallas_kernel():
+    x = _inputs4()
+    want = np.asarray(_jax_fused4(*map(jnp.asarray, x)))
+    got = edge_mlp_ref(*map(torch.from_numpy, x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert not got[x[1] == 0].any()
+    got_op = fused_edge_mlp(*map(torch.from_numpy, x)).numpy()
+    np.testing.assert_array_equal(got_op, got)
+
+
+def test_fused_edge_mlp_backward_matches_pallas_kernel():
+    x = _inputs4(seed=1)
+    g = np.random.RandomState(3).randn(16, 8, 48).astype(np.float32)
+    _, vjp = jax.vjp(_jax_fused4, *map(jnp.asarray, x))
+    want = vjp(jnp.asarray(g))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in x]
+    fused_edge_mlp(*leaves).backward(torch.from_numpy(g))
+    for name, leaf, w in zip(("x", "cw", "w1", "b1", "w2", "b2", "w3", "b3"),
+                             leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
+                                   rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def test_fused_cuda_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        edge_mlp_cuda(*map(torch.from_numpy, _inputs4()))

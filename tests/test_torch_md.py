@@ -18,11 +18,18 @@ from torchmdnet_tpu_torch.utils.jax_params import params_from_jax
 ARGS = dict(SMALL_ARGS, pallas_embedding=False, pallas_edge_mlp=False)
 
 
-@pytest.mark.parametrize("strategy", ["brute", "cell"])
-def test_nve_steps_match_jax(strategy):
+@pytest.fixture(scope="module")
+def nve_system():
+    """The NVE system and the JAX model with its weights, built once for
+    both neighbor strategies."""
     z, pos, box = lattice_system(n_side=4, spacing=3.2, seed=1)
+    return (z, pos, box), jax_and_port(ARGS, z, pos, box)
+
+
+@pytest.mark.parametrize("strategy", ["brute", "cell"])
+def test_nve_steps_match_jax(strategy, nve_system):
+    (z, pos, box), (jpot, variables, _, flat) = nve_system
     masses = np.where(z == 1, 1.008, 12.011)
-    jpot, variables, _, flat = jax_and_port(ARGS, z, pos, box)
     # the port runs its kernel ops (plain versions on the CPU)
     tpot = create_model(SMALL_ARGS, device="cpu")
     tpot.module.load_state_dict(params_from_jax(flat), strict=True)

@@ -74,7 +74,8 @@ GROUPED_SPEC = make_cell_block_spec([20.0] * 3, 5.5, 64)._replace(
 
 @pytest.mark.parametrize("key,value", [
     ("cell_block_spec", GROUPED_SPEC), ("remat", True),
-    ("model", "tensornet"), ("prior_model", "ZBL"), ("precision", 16)])
+    ("model", "equivariant-transformer"), ("prior_model", "ZBL"),
+    ("precision", 16)])
 def test_uncovered_options_raise(key, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model(dict(SMALL_ARGS, **{key: value}), device="cpu")

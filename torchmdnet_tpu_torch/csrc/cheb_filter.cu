@@ -1,0 +1,258 @@
+// Chebyshev-tabulated edge filters for Hopper (sm_90a), fp32 FMA throughout
+// (no TF32, parity with "highest").
+//
+// Replaces two Pallas TPU kernels of torchmdnet_tpu/ops/pallas_cheb.py:
+//   kernel 5  _filter_kernel     (:86, pallas_call :146, cheb_filter :197)
+//     out[e, c] = fm[e] · Σ_j coeffs[j, c]·cos(j·θ_e)                → [E, C]
+//   kernel 7  _filter_dot_kernel (:95, pallas_call :239, cheb_filter_dot :265)
+//     out[e]    = fm[e] · Σ_c (Σ_j dser[j, c]·cos(j·θ_e))·ct[e, c]     → [E]
+// with θ_e = acos(clip(2(d[e] − lo)/(hi − lo) − 1, −1, 1)) over E = N·K edge
+// slots, T series terms and C channels.  The TPU computes θ outside its
+// kernels (Mosaic has no acos); here each slot's θ is computed in-kernel.
+//
+// Bound (dhfr: N = 2,560 rows, K = 64, T = 128, C = 384, ~97.6 k slots with
+// fm ≠ 0): 2·97.6k·T·C ≈ 9.6 GFLOP per call, ~0.14 ms at the H100 SXM
+// data-sheet 67 TFLOP/s fp32 (700 W); kernel 5 writes and kernel 7 reads
+// one [E, C] array (252 MB, ~0.075 ms at 3.35 TB/s).  fp32 operations
+// bound both.
+//
+// Design against it: a block owns a span of 256 slots, compacts those with
+// fm ≠ 0 in slot order (a block ballot scan), writes 0 for the others and
+// skips their arithmetic.  Each tile of 64 live slots puts its basis
+// cos(j·θ) [64 × T] in shared memory — cosf with full range reduction,
+// since j·θ reaches 127π; never __cosf or fast math — and forms the
+// [64 × C] product 128 columns at a time, streaming the series table in
+// 32-row tiles, each of the 256 threads accumulating a 4 × 8 register tile
+// in a fixed order (the tile product of csrc/edge_mlp.cu).  The dot form
+// multiplies each thread's tile by ct as it goes and reduces a slot's sum
+// over its 16 column threads with shuffles, in a fixed order and without
+// atomics: the [E, C] filter derivative is never stored.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTileM = 64;     // live slots per tile
+constexpr int kTileN = 128;    // output columns per pass
+constexpr int kTileK = 32;     // series rows per shared-memory tile
+constexpr int kThreads = 256;  // 16 x 16 threads, each 4 rows x 8 columns
+constexpr int kSpan = kThreads;  // slots a block owns
+constexpr int kWarps = kThreads / 32;
+constexpr int kPad = 4;        // row padding of the basis in smem
+
+// acc[i][j] = Σ_k A[row_i][k]·W[k][col_j] over k < kdim for the 128-column
+// block starting at c0 (columns >= ncols read as zero).  A is a [64 x kdim]
+// shared-memory array with row stride lda; W is [kdim x ncols] row-major in
+// device memory.  The same product as csrc/edge_mlp.cu.
+__device__ __forceinline__ void tile_product(
+    const float* __restrict__ sAct, int lda, const float* __restrict__ W,
+    int kdim, int ncols, int c0, float* __restrict__ sW, float (&acc)[4][8]) {
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < kdim; k0 += kTileK) {
+    __syncthreads();  // previous tile fully consumed
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int v = tid + kThreads * q;
+      const int row = v / (kTileN / 4), col = (v % (kTileN / 4)) * 4;
+      float4 w = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (k0 + row < kdim && c0 + col < ncols)
+        w = *reinterpret_cast<const float4*>(W + (long long)(k0 + row) * ncols + c0 + col);
+      *reinterpret_cast<float4*>(sW + row * kTileN + col) = w;
+    }
+    __syncthreads();
+    const int kt = min(kTileK, kdim - k0);
+    for (int kk = 0; kk < kt; ++kk) {
+      float a[4], b[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = sAct[(ty * 4 + i) * lda + k0 + kk];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = sW[kk * kTileN + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+}
+
+// Splits the slots [s0, s0 + kSpan) ∩ [0, E) into those with flag ≠ 0
+// (sLive) and the rest (sDead), each in slot order, as offsets from s0.
+// Returns the live count; *ndead gets the other.  Every thread calls it.
+__device__ __forceinline__ int compact_span(const float* __restrict__ flag,
+                                            long long s0, long long E,
+                                            int* sLive, int* sDead,
+                                            int* sCount, int* ndead) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool in = s0 + tid < E;
+  const bool live = in && flag[s0 + tid] != 0.0f;
+  const unsigned lb = __ballot_sync(0xffffffffu, live);
+  const unsigned ib = __ballot_sync(0xffffffffu, in);
+  if (lane == 0) {
+    sCount[warp] = __popc(lb);
+    sCount[kWarps + warp] = __popc(ib);
+  }
+  __syncthreads();
+  int live_before = 0, in_before = 0, nlive = 0, nin = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) {
+      live_before += sCount[w];
+      in_before += sCount[kWarps + w];
+    }
+    nlive += sCount[w];
+    nin += sCount[kWarps + w];
+  }
+  const unsigned below = (1u << lane) - 1u;
+  const int lrank = live_before + __popc(lb & below);
+  const int irank = in_before + __popc(ib & below);
+  if (live)
+    sLive[lrank] = tid;
+  else if (in)
+    sDead[irank - lrank] = tid;
+  __syncthreads();
+  *ndead = nin - nlive;
+  return nlive;
+}
+
+// DOT = false: kernel 5 (ser = coeffs, out [E, C]);
+// DOT = true:  kernel 7 (ser = dser, ct [E, C], out [E]).
+template <bool DOT>
+__global__ void __launch_bounds__(kThreads)
+cheb_kernel(const float* __restrict__ d, const float* __restrict__ fm,
+            const float* __restrict__ ser, const float* __restrict__ ct,
+            float* __restrict__ out, long long E, int T, int C, float lo,
+            float hi) {
+  extern __shared__ __align__(16) float smem[];
+  const int ldb = T + kPad;
+  float* sB = smem;                        // [64][T + pad] cos(j·θ)
+  float* sW = sB + kTileM * ldb;           // [32][128]     series tile
+  float* sTheta = sW + kTileK * kTileN;    // [64]
+  float* sFm = sTheta + kTileM;            // [64]
+  int* sLive = reinterpret_cast<int*>(sFm + kTileM);  // [kSpan]
+  int* sDead = sLive + kSpan;                          // [kSpan]
+  int* sCount = sDead + kSpan;                         // [2 * kWarps]
+
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  const long long s0 = (long long)blockIdx.x * kSpan;
+  int ndead;
+  const int nlive = compact_span(fm, s0, E, sLive, sDead, sCount, &ndead);
+
+  // slots with fm = 0: exact zeros, no arithmetic
+  if (DOT) {
+    if (tid < ndead) out[s0 + sDead[tid]] = 0.0f;
+  } else {
+    const int c4 = C / 4;
+    for (int v = tid; v < ndead * c4; v += kThreads) {
+      const long long e = s0 + sDead[v / c4];
+      reinterpret_cast<float4*>(out + e * C)[v % c4] =
+          make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+
+  for (int t0 = 0; t0 < nlive; t0 += kTileM) {
+    __syncthreads();  // the previous tile's θ, fm and basis are consumed
+    if (tid < kTileM) {
+      float th = 0.0f, f = 0.0f;
+      if (t0 + tid < nlive) {
+        const long long e = s0 + sLive[t0 + tid];
+        float x = 2.0f * (d[e] - lo) / (hi - lo) - 1.0f;
+        x = fminf(fmaxf(x, -1.0f), 1.0f);
+        th = acosf(x);
+        f = fm[e];
+      }
+      sTheta[tid] = th;
+      sFm[tid] = f;
+    }
+    __syncthreads();
+    for (int v = tid; v < kTileM * T; v += kThreads) {
+      const int r = v / T, j = v % T;
+      sB[r * ldb + j] = cosf((float)j * sTheta[r]);
+    }
+
+    float acc[4][8];
+    float dot[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int c0 = 0; c0 < C; c0 += kTileN) {
+      tile_product(sB, ldb, ser, T, C, c0, sW, acc);  // syncs first
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty * 4 + i;
+        if (t0 + r >= nlive) continue;
+        const long long e = s0 + sLive[t0 + r];
+        if (DOT) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = c0 + tx + 16 * j;
+            if (col < C) dot[i] = fmaf(acc[i][j], ct[e * C + col], dot[i]);
+          }
+        } else {
+          const float f = sFm[r];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = c0 + tx + 16 * j;
+            if (col < C) out[e * C + col] = acc[i][j] * f;
+          }
+        }
+      }
+    }
+    if (DOT) {
+      // a slot's 16 column threads share a half warp: butterfly sum
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float v = dot[i];
+#pragma unroll
+        for (int m = 8; m >= 1; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+        const int r = ty * 4 + i;
+        if (tx == 0 && t0 + r < nlive) out[s0 + sLive[t0 + r]] = v * sFm[r];
+      }
+    }
+  }
+}
+
+template <bool DOT>
+int launch(const float* d, const float* fm, const float* ser, const float* ct,
+           float* out, long long e, int t, int c, float lo, float hi,
+           void* stream) {
+  const size_t smem = sizeof(float) * ((size_t)kTileM * (t + kPad) +
+                                       (size_t)kTileK * kTileN + 2 * kTileM) +
+                      sizeof(int) * (2 * kSpan + 2 * kWarps);
+  cudaError_t err = cudaFuncSetAttribute(
+      cheb_kernel<DOT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (e + kSpan - 1) / kSpan;
+  if (blocks == 0) return cudaSuccess;
+  cheb_kernel<DOT><<<(unsigned)blocks, kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(d, fm, ser, ct, out,
+                                                          e, t, c, lo, hi);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* tmd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Kernel 5.  d, fm [e]; coeffs [t, c]; out [e, c].  c a multiple of 4.
+int tmd_cheb_filter(const float* d, const float* fm, const float* coeffs,
+                    float* out, long long e, int t, int c, float lo, float hi,
+                    void* stream) {
+  return launch<false>(d, fm, coeffs, nullptr, out, e, t, c, lo, hi, stream);
+}
+
+// Kernel 7.  d, fm [e]; dser [t, c]; ct [e, c]; out [e].  c a multiple of 4.
+int tmd_cheb_filter_dot(const float* d, const float* fm, const float* dser,
+                        const float* ct, float* out, long long e, int t, int c,
+                        float lo, float hi, void* stream) {
+  return launch<true>(d, fm, dser, ct, out, e, t, c, lo, hi, stream);
+}
+
+}  // extern "C"

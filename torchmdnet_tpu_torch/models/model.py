@@ -2,7 +2,8 @@
 
 Counterpart of ``torchmdnet_tpu/models/model.py`` (``TorchMDNet``
 ``:26-111``, ``Potential``, ``create_model``) for ``model="tensornet2"``
-with the ``Scalar`` or ``ScalarPlusWeightedCoulomb`` head.  Forces are
+with the ``Scalar`` or ``ScalarPlusWeightedCoulomb`` head and for
+``model="tensornet"`` with the ``Scalar`` head.  Forces are
 ``−∂Σy/∂pos`` from ``torch.autograd.grad``.  ``create_model`` takes the
 JAX package's args dict as it is and raises ``NotImplementedError`` on
 what this port does not cover yet, naming the ROADMAP item.
@@ -14,6 +15,7 @@ from torch import nn
 from torchmdnet_tpu_torch.models.common import reset_parameters
 from torchmdnet_tpu_torch.models.output_modules import (
     Scalar, ScalarPlusWeightedCoulomb)
+from torchmdnet_tpu_torch.models.tensornet import TensorNet
 from torchmdnet_tpu_torch.models.tensornet2 import TensorNet2
 from torchmdnet_tpu_torch.ops.cell_blocks import CellBlockSpec
 from torchmdnet_tpu_torch.ops.config import resolve_device, set_matmul_precision
@@ -105,10 +107,17 @@ def _not_ported(what: str, item: str):
 
 
 def _check_supported(args: dict) -> None:
-    if args["model"] != "tensornet2":
-        _not_ported(f"model={args['model']!r}",
-                    "Queue 1, 'TensorNet model' / 'torchmd_et, _t, _gn'")
+    model = args["model"]
+    if model not in ("tensornet", "tensornet2"):
+        _not_ported(f"model={model!r}", "Queue 1, 'torchmd_et, _t, _gn'")
     spec = args.get("cell_block_spec")
+    if model == "tensornet":
+        if spec is not None:
+            _not_ported("cell_block_spec on tensornet (the blocked TensorNet "
+                        "tiers, Pallas rows 8-11)", "Queue 2, 'rows 8-11'")
+        if args.get("output_model", "Scalar") != "Scalar":
+            _not_ported(f"output_model={args['output_model']!r} on "
+                        "tensornet", "Queue 1, 'Remaining heads and wrappers'")
     if spec is not None and spec.col_slots is not None:
         _not_ported("cell_block_spec with col_slots (the grouped q-tier)",
                     "Queue 2, 'grouped rows 12-13'")
@@ -146,9 +155,8 @@ def create_model(args: dict, device=None, seed: int = 0) -> Potential:
     output_model = args.get("output_model", "Scalar")
     F = args["embedding_dimension"]
     cpd = args.get("cells_per_dim")
-    rep = TensorNet2(
+    shared = dict(
         hidden_channels=F,
-        q_dim=args.get("q_dim", 0),
         num_layers=args["num_layers"],
         num_rbf=args["num_rbf"],
         rbf_type=args["rbf_type"],
@@ -159,16 +167,23 @@ def create_model(args: dict, device=None, seed: int = 0) -> Potential:
         max_num_neighbors=args["max_num_neighbors"],
         max_z=args["max_z"],
         equivariance_invariance_group=args["equivariance_invariance_group"],
-        output_charges="Coul" in output_model,
         neighbor_strategy=args.get("neighbor_strategy", "brute"),
         cells_per_dim=tuple(int(c) for c in cpd) if cpd else None,
         cell_capacity=int(args.get("cell_capacity", 64)),
         pallas_edge_mlp=bool(args.get("pallas_edge_mlp", False)),
-        pallas_embedding=bool(args.get("pallas_embedding", False)),
-        cell_block_spec=(None if spec is None
-                         else CellBlockSpec(**spec._asdict())),
-        q_tab=int(args.get("q_tab", 64)),
-    )
+        pallas_embedding=bool(args.get("pallas_embedding", False)))
+    if args["model"] == "tensornet":
+        rep = TensorNet(
+            tabulated_edge_mlp=int(args.get("tabulated_edge_mlp", 0)),
+            **shared)
+    else:
+        rep = TensorNet2(
+            q_dim=args.get("q_dim", 0),
+            output_charges="Coul" in output_model,
+            cell_block_spec=(None if spec is None
+                             else CellBlockSpec(**spec._asdict())),
+            q_tab=int(args.get("q_tab", 64)),
+            **shared)
     head_kwargs = dict(hidden_channels=F, activation=args["activation"],
                        reduce_op=args.get("reduce_op", "sum"))
     if output_model == "ScalarPlusWeightedCoulomb":

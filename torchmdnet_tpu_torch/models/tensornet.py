@@ -1,24 +1,40 @@
-"""TensorNet trunk pieces used by TensorNet2.
+"""TensorNet — Cartesian rank-2 tensor NNP (Simeon & de Fabritiis,
+NeurIPS'23), and the trunk pieces TensorNet2 shares with it.
 
 Counterpart of ``torchmdnet_tpu/models/tensornet.py``: ``PairLinear``,
-``TensorEmbedding`` (``:201-325``), ``linear_irreps`` and the gather
-branch of ``edge_message_passing`` (``:143-153``).  The embedding's fused
-branch runs kernels 1 and 2 (``ops/radial_embedding.py``).
+``TensorEmbedding`` (``:201-325``), ``linear_irreps``, the gather and
+symmetric branches of ``edge_message_passing`` (``:142-153``),
+``Interaction`` (``:328-444``) and ``TensorNet`` (``:447-605``).  The
+embedding's fused branch runs kernels 1 and 2
+(``ops/radial_embedding.py``).  The interaction's edge weights come from
+one of three branches: the Chebyshev-tabulated filter
+(``tabulated_edge_mlp = T``, kernels 5 and 7, ``ops/cheb_filter.py``), the
+fused edge MLP (``pallas_edge_mlp``, kernel 4, ``ops/edge_mlp.py``) or the
+plain chain.  The cell-blocked tiers (``blocked``) are not ported.
 """
 
 import torch
 from torch import nn
 
 from torchmdnet_tpu_torch.models.common import (
-    Embedding, LayerNorm, Linear, get_activation)
+    Embedding, LayerNorm, Linear, get_activation, make_rbf)
 from torchmdnet_tpu_torch.ops import rbf as rbf_ops
+from torchmdnet_tpu_torch.ops.cheb import cheb_fit_matrix, cheb_nodes
+from torchmdnet_tpu_torch.ops.cheb_filter import cheb_filter
+from torchmdnet_tpu_torch.ops.edge_mlp import fused_edge_mlp
 from torchmdnet_tpu_torch.ops.message_passing import (
-    gather_nodes, packed_neighbor_sum_asym)
-from torchmdnet_tpu_torch.ops.neighbors import NeighborMatrix
+    gather_nodes, packed_neighbor_sum_asym, packed_neighbor_sum_sym,
+    reverse_slots)
+from torchmdnet_tpu_torch.ops.neighbors import (
+    NeighborMatrix, build_neighbor_matrix, neighbor_geometry)
 from torchmdnet_tpu_torch.ops.radial_embedding import (
     radial_embedding, radial_embedding_ref)
 from torchmdnet_tpu_torch.ops.tensor_algebra import (
-    Irreps, tensor_frobenius_norm2)
+    Irreps, compose_tensor, decompose_tensor, irreps_norm3,
+    tensor_frobenius_norm2, tensor_matmul_o3, tensor_matmul_so3)
+
+_BLOCKED = ("the cell-blocked TensorNet tiers (Pallas rows 8-11) are not "
+            "ported yet (ROADMAP Queue 2, 'rows 8-11')")
 
 
 def linear_irreps(irr: Irreps, linears) -> Irreps:
@@ -38,16 +54,80 @@ def split9(msg, n, f) -> Irreps:
                   msg[:, 4 * f:].reshape(n, 5, f))
 
 
+def divide_irreps(irr: Irreps, s) -> Irreps:
+    """Divide every irrep part by the per-(node, channel) ``s [N, F]``."""
+    return Irreps(irr.I / s, irr.A / s[:, None, :], irr.S / s[:, None, :])
+
+
 def edge_message_passing(attr3f, irr: Irreps, nbr: NeighborMatrix,
-                         attr_rev) -> Irreps:
-    """TensorNet message pass over the neighbor matrix with
-    direction-dependent edge weights ``attr3f [N, K, 3F]`` (cutoff- and
-    pad-masked; block 0 weights I, 1 weights A, 2 weights S) and their
-    recomputed reverse ``attr_rev``."""
+                         attr_rev=None) -> Irreps:
+    """TensorNet message pass over the neighbor matrix with edge weights
+    ``attr3f [N, K, 3F]`` (cutoff- and pad-masked; block 0 weights I, 1
+    weights A, 2 weights S).  Direction-dependent weights come with their
+    recomputed reverse ``attr_rev``; without it the weights must be
+    edge-symmetric (functions of the distance alone) and the sum's
+    backward is the sum itself."""
     n, f = irr.I.shape
-    msg = packed_neighbor_sum_asym(attr3f, attr_rev, pack9(irr), nbr.idx,
-                                   nbr.mask)
+    if attr_rev is None:
+        msg = packed_neighbor_sum_sym(attr3f, pack9(irr), nbr.idx, nbr.mask)
+    else:
+        msg = packed_neighbor_sum_asym(attr3f, attr_rev, pack9(irr), nbr.idx,
+                                       nbr.mask)
     return split9(msg, n, f)
+
+
+def interaction_update(X: Irreps, Y: Irreps, M: Irreps, linears, group,
+                       qfac=None) -> Irreps:
+    """The tail of an interaction layer: the ``O(3)`` (``Y·M + M·Y``) or
+    ``SO(3)`` (``2·Y·M``) product, normalised, mixed by ``linears`` (the
+    layer's ``linears_tensor[3:]``), and ``X + dX + dX²``.  ``qfac [N]``
+    (TensorNet's ``1 + 0.1·q``) scales the O(3) product and ``dX²``."""
+    Yf, Mf = compose_tensor(Y), compose_tensor(M)
+    q4 = None if qfac is None else qfac[:, None, None, None]
+    if group == "O(3)":
+        Cf = tensor_matmul_o3(Yf, Mf)
+        if q4 is not None:
+            Cf = q4 * Cf
+    else:
+        Cf = 2.0 * tensor_matmul_so3(Yf, Mf)
+    B = decompose_tensor(Cf)
+    B = divide_irreps(B, tensor_frobenius_norm2(B) + 1.0)
+    dX = linear_irreps(B, linears)
+    dXf = compose_tensor(dX)
+    sq = tensor_matmul_so3(dXf, dXf)
+    dX2 = decompose_tensor(sq if q4 is None else q4 * sq)
+    return Irreps(X.I + dX.I + dX2.I, X.A + dX.A + dX2.A,
+                  X.S + dX.S + dX2.S)
+
+
+def atom_charges(q, batch, like):
+    """Per-atom total charge from the per-molecule ``q``; ghost atoms
+    (``batch == len(q)``) and ``q=None`` give 0 (reference
+    ``tensornet.py:531-537``)."""
+    if q is None:
+        return torch.zeros(batch.shape, dtype=like.dtype, device=like.device)
+    q = torch.as_tensor(q, dtype=like.dtype, device=like.device)
+    return torch.cat([q, q.new_zeros(1)])[torch.clamp(batch, max=q.shape[0])]
+
+
+def unit_vectors(delta, dist):
+    """``delta / dist``; self pairs and padded slots (``dist == 0``) keep a
+    zero vector (reference ``tensornet.py:558-561``)."""
+    return delta / torch.where(dist > 0, dist, 1.0)[..., None]
+
+
+def build_neighbors(model, pos, batch, box=None, atom_mask=None):
+    """The representation model's own neighbor list (``loop=True``, its
+    strategy, cutoffs and ``max_num_neighbors``)."""
+    kwargs = {}
+    if model.neighbor_strategy == "cell":
+        kwargs = dict(cells_per_dim=model.cells_per_dim,
+                      cell_capacity=model.cell_capacity)
+    return build_neighbor_matrix(
+        pos, batch, strategy=model.neighbor_strategy,
+        k_max=model.max_num_neighbors, cutoff_upper=model.cutoff_upper,
+        cutoff_lower=model.cutoff_lower, loop=True, box=box,
+        atom_mask=atom_mask, **kwargs)
 
 
 class PairLinear(nn.Linear):
@@ -123,3 +203,140 @@ class TensorEmbedding(nn.Module):
         X = linear_irreps(X, self.linears_tensor)
         return Irreps(X.I * norm[:, 0, :], X.A * norm[:, 1, None, :],
                       X.S * norm[:, 2, None, :])
+
+
+class Interaction(nn.Module):
+    """TensorNet interaction layer (reference ``tensornet.py:682-814``).
+
+    Edge weights ``attr [N, K, 3F]``, functions of the edge distance alone:
+    with ``tabulated_edge_mlp = T`` and the node table ``tab = (dk,
+    rbf(dk))`` the MLP runs at the ``T`` Chebyshev nodes and ``cheb_filter``
+    evaluates the fitted series per slot (JAX ``:356-390``); with
+    ``pallas_edge_mlp`` the fused edge MLP runs per slot (``:391-402``);
+    otherwise the plain chain (``:403-408``).  The same parameters serve
+    all three."""
+
+    def __init__(self, hidden_channels, num_rbf, activation="silu",
+                 cutoff_lower=0.0, cutoff_upper=4.5,
+                 equivariance_invariance_group="O(3)", pallas_edge_mlp=False,
+                 tabulated_edge_mlp=0):
+        super().__init__()
+        F = hidden_channels
+        self.cutoff_lower = cutoff_lower
+        self.cutoff_upper = cutoff_upper
+        self.group = equivariance_invariance_group
+        self.tabulated = int(tabulated_edge_mlp)
+        self.fused = pallas_edge_mlp and activation == "silu"
+        self.act = get_activation(activation)
+        self.linears_scalar = nn.ModuleList([
+            Linear(num_rbf, F), Linear(F, 2 * F), Linear(2 * F, 3 * F)])
+        self.linears_tensor = nn.ModuleList(
+            [Linear(F, F, bias=False) for _ in range(6)])
+
+    def _mlp(self, x):
+        for lin in self.linears_scalar:
+            x = self.act(lin(x))
+        return x
+
+    def edge_weights(self, nbr: NeighborMatrix, edge_weight, edge_attr,
+                     tab=None):
+        if self.tabulated and tab is not None:
+            dk, node_attr = tab
+            Ck = rbf_ops.cosine_cutoff(dk, self.cutoff_upper,
+                                       self.cutoff_lower)
+            coeffs = cheb_fit_matrix(dk.shape[0], device=dk.device) @ (
+                self._mlp(node_attr) * Ck[:, None])
+            fm = ((edge_weight < self.cutoff_upper) & nbr.mask).to(
+                edge_weight.dtype)
+            return cheb_filter(coeffs, edge_weight, fm, 0.0,
+                               self.cutoff_upper)
+        cw = rbf_ops.cosine_cutoff(edge_weight, self.cutoff_upper,
+                                   self.cutoff_lower) * nbr.mask
+        if self.fused and edge_attr.dtype == torch.float32:
+            l1, l2, l3 = self.linears_scalar
+            return fused_edge_mlp(
+                edge_attr.contiguous(), cw.contiguous(),
+                l1.weight.t().contiguous(), l1.bias,
+                l2.weight.t().contiguous(), l2.bias,
+                l3.weight.t().contiguous(), l3.bias)
+        return self._mlp(edge_attr) * cw[..., None]
+
+    def forward(self, X: Irreps, nbr: NeighborMatrix, edge_weight, edge_attr,
+                q_atom, tab=None, blocked=False):
+        if blocked:
+            raise NotImplementedError(_BLOCKED)
+        attr = self.edge_weights(nbr, edge_weight, edge_attr, tab)
+        X = divide_irreps(X, tensor_frobenius_norm2(X) + 1.0)
+        Y = linear_irreps(X, self.linears_tensor[:3])
+        # the weights depend on the edge distance only: symmetric under
+        # edge reversal, so the sum's backward is the sum itself
+        M = edge_message_passing(attr, Y, nbr)
+        return interaction_update(X, Y, M, self.linears_tensor[3:],
+                                  self.group, qfac=1.0 + 0.1 * q_atom)
+
+
+class TensorNet(nn.Module):
+    """Representation model (reference ``tensornet.py:149-402``); returns
+    ``(x [N, F], None)``."""
+
+    def __init__(self, hidden_channels=128, num_layers=2, num_rbf=32,
+                 rbf_type="expnorm", trainable_rbf=False, activation="silu",
+                 cutoff_lower=0.0, cutoff_upper=4.5, max_num_neighbors=64,
+                 max_z=128, equivariance_invariance_group="O(3)",
+                 neighbor_strategy="brute", cells_per_dim=None,
+                 cell_capacity=64, pallas_edge_mlp=False,
+                 tabulated_edge_mlp=0, pallas_embedding=False):
+        super().__init__()
+        if equivariance_invariance_group not in ("O(3)", "SO(3)"):
+            raise ValueError(f'Unknown group "{equivariance_invariance_group}". '
+                             "Choose O(3) or SO(3).")
+        F = hidden_channels
+        self.cutoff_lower = cutoff_lower
+        self.cutoff_upper = cutoff_upper
+        self.max_num_neighbors = max_num_neighbors
+        self.neighbor_strategy = neighbor_strategy
+        self.cells_per_dim = cells_per_dim
+        self.cell_capacity = cell_capacity
+        self.tabulated_edge_mlp = int(tabulated_edge_mlp)
+        self.act = get_activation(activation)
+        self.distance_expansion = make_rbf(rbf_type, cutoff_lower,
+                                           cutoff_upper, num_rbf,
+                                           trainable_rbf)
+        self.tensor_embedding = TensorEmbedding(
+            F, num_rbf, activation, cutoff_lower, cutoff_upper, max_z,
+            pallas_embedding=pallas_embedding)
+        self.layers = nn.ModuleList([
+            Interaction(F, num_rbf, activation, cutoff_lower, cutoff_upper,
+                        equivariance_invariance_group,
+                        pallas_edge_mlp=pallas_edge_mlp,
+                        tabulated_edge_mlp=tabulated_edge_mlp)
+            for _ in range(num_layers)])
+        self.out_norm = LayerNorm(3 * F)
+        self.linear = Linear(3 * F, F)
+
+    build_neighbors = build_neighbors
+
+    def forward(self, z, pos, batch, box=None, q=None, atom_mask=None,
+                nbr=None, num_mols=None, blocked=False):
+        if blocked:
+            raise NotImplementedError(_BLOCKED)
+        if nbr is None:
+            nbr = self.build_neighbors(pos, batch, box=box, atom_mask=atom_mask)
+        rev_slot = (nbr.rev_slot if nbr.rev_slot is not None
+                    else reverse_slots(nbr.idx, nbr.mask))
+        delta, dist = neighbor_geometry(pos, nbr, box=box, batch=batch)
+        q_atom = atom_charges(q, batch, pos)
+        edge_attr = self.distance_expansion(dist)
+        tab = None
+        if self.tabulated_edge_mlp:
+            # the rbf once at the Chebyshev nodes; each layer fits its own
+            # filter table from it
+            dk = cheb_nodes(self.tabulated_edge_mlp, 0.0, self.cutoff_upper,
+                            dtype=dist.dtype, device=dist.device)
+            tab = (dk, self.distance_expansion(dk))
+        X = self.tensor_embedding(z, nbr, dist, unit_vectors(delta, dist),
+                                  edge_attr, rev_slot)
+        for layer in self.layers:
+            X = layer(X, nbr, dist, edge_attr, q_atom, tab=tab)
+        x = self.act(self.linear(self.out_norm(irreps_norm3(X))))
+        return x, None

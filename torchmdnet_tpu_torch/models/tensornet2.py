@@ -24,23 +24,18 @@ from torch import nn
 from torchmdnet_tpu_torch.models.common import (
     MLP, LayerNorm, Linear, get_activation, make_rbf)
 from torchmdnet_tpu_torch.models.tensornet import (
-    TensorEmbedding, edge_message_passing, linear_irreps, pack9, split9)
+    TensorEmbedding, atom_charges, build_neighbors, divide_irreps,
+    edge_message_passing, interaction_update, linear_irreps, pack9, split9,
+    unit_vectors)
 from torchmdnet_tpu_torch.ops import rbf as rbf_ops
 from torchmdnet_tpu_torch.ops.blocked_q import blocked_neighbor_sum_asym_q_tab
 from torchmdnet_tpu_torch.ops.cheb import cheb_fit_matrix, cheb_nodes
 from torchmdnet_tpu_torch.ops.edge_mlp import edge_mlp_pre
 from torchmdnet_tpu_torch.ops.message_passing import gather_nodes, reverse_slots
-from torchmdnet_tpu_torch.ops.neighbors import (
-    NeighborMatrix, build_neighbor_matrix, neighbor_geometry)
+from torchmdnet_tpu_torch.ops.neighbors import NeighborMatrix, neighbor_geometry
 from torchmdnet_tpu_torch.ops.segment import segment_sum
 from torchmdnet_tpu_torch.ops.tensor_algebra import (
-    Irreps, compose_tensor, decompose_tensor, irreps_norm2, irreps_norm3,
-    tensor_frobenius_norm2, tensor_matmul_o3, tensor_matmul_so3)
-
-
-def _scale(irr: Irreps, s) -> Irreps:
-    """Divide every irrep part by the per-(node, channel) ``s [N, F]``."""
-    return Irreps(irr.I / s, irr.A / s[:, None, :], irr.S / s[:, None, :])
+    Irreps, irreps_norm2, irreps_norm3, tensor_frobenius_norm2)
 
 
 class ChargePredict(nn.Module):
@@ -113,7 +108,7 @@ class Interaction2(nn.Module):
         u_i = charges @ w1[R:R + Q] + self.linears_scalar[0].bias
         u_j = charges @ w1[R + Q:]
         cw = C * nbr.mask.to(C.dtype)
-        X = _scale(X, tensor_frobenius_norm2(X) + 1.0)
+        X = divide_irreps(X, tensor_frobenius_norm2(X) + 1.0)
         Y = linear_irreps(X, self.linears_tensor[:3])
         if (blocked and self.q_tier and rbf_nodes is not None
                 and edge_weight.dtype == torch.float32):
@@ -144,19 +139,8 @@ class Interaction2(nn.Module):
                     u_i, nbr.idx, rev_slot, nbr.mask)
                 attr_rev = self._mlp_tail(pre1_rev, cw)
             M = edge_message_passing(attr, Y, nbr, attr_rev)
-
-        Yf, Mf = compose_tensor(Y), compose_tensor(M)
-        if self.group == "O(3)":
-            Cf = tensor_matmul_o3(Yf, Mf)
-        else:
-            Cf = 2.0 * tensor_matmul_so3(Yf, Mf)
-        B = decompose_tensor(Cf)
-        B = _scale(B, tensor_frobenius_norm2(B) + 1.0)
-        dX = linear_irreps(B, self.linears_tensor[3:])
-        dXf = compose_tensor(dX)
-        dX2 = decompose_tensor(tensor_matmul_so3(dXf, dXf))
-        return Irreps(X.I + dX.I + dX2.I, X.A + dX.A + dX2.A,
-                      X.S + dX.S + dX2.S)
+        return interaction_update(X, Y, M, self.linears_tensor[3:],
+                                  self.group)
 
 
 class TensorNet2(nn.Module):
@@ -205,16 +189,7 @@ class TensorNet2(nn.Module):
         self.out_norm = LayerNorm(3 * F)
         self.linear = Linear(3 * F, F)
 
-    def build_neighbors(self, pos, batch, box=None, atom_mask=None):
-        kwargs = {}
-        if self.neighbor_strategy == "cell":
-            kwargs = dict(cells_per_dim=self.cells_per_dim,
-                          cell_capacity=self.cell_capacity)
-        return build_neighbor_matrix(
-            pos, batch, strategy=self.neighbor_strategy,
-            k_max=self.max_num_neighbors, cutoff_upper=self.cutoff_upper,
-            cutoff_lower=self.cutoff_lower, loop=True, box=box,
-            atom_mask=atom_mask, **kwargs)
+    build_neighbors = build_neighbors
 
     def forward(self, z, pos, batch, box=None, q=None, atom_mask=None,
                 nbr=None, num_mols=None, blocked=False):
@@ -227,12 +202,7 @@ class TensorNet2(nn.Module):
         delta, dist = neighbor_geometry(pos, nbr, box=box, batch=batch)
 
         # per-atom total charge Q (reference :376-380); ghosts get 0
-        if q is None:
-            Q_atom = torch.zeros(z.shape, dtype=pos.dtype, device=pos.device)
-        else:
-            q = torch.as_tensor(q, dtype=pos.dtype, device=pos.device)
-            Q_atom = torch.cat([q, q.new_zeros(1)])[
-                torch.clamp(batch, max=q.shape[0])]
+        Q_atom = atom_charges(q, batch, pos)
 
         edge_attr = self.distance_expansion(dist)
         # the rbf at the Chebyshev nodes of the q-tier's series fit
@@ -241,11 +211,8 @@ class TensorNet2(nn.Module):
             rbf_nodes = self.distance_expansion(cheb_nodes(
                 self.q_tab, self.cutoff_lower, self.cutoff_upper,
                 dtype=dist.dtype, device=dist.device))
-        safe_w = torch.where(dist > 0, dist, 1.0)
-        edge_vec_norm = delta / safe_w[..., None]
-
-        X = self.tensor_embedding(z, nbr, dist, edge_vec_norm, edge_attr,
-                                  rev_slot)
+        X = self.tensor_embedding(z, nbr, dist, unit_vectors(delta, dist),
+                                  edge_attr, rev_slot)
         charges = self.charge_predict_0(X, batch, Q_atom, num_mols)
         charge_list = [charges]
         for layer, predict in zip(self.layers, self.charge_predicts):

@@ -2,7 +2,8 @@
 
 Counterpart of ``cheb_nodes`` and ``cheb_fit_matrix``
 (``torchmdnet_tpu/ops/cheb.py:25-37``) and of ``cheb_deriv_coeffs``
-(``torchmdnet_tpu/ops/pallas_cheb.py:49-64``, not a kernel).  A smooth
+(``torchmdnet_tpu/ops/pallas_cheb.py:49-64``, not a kernel; here one
+matrix product instead of an op per series term).  A smooth
 function ``f`` on ``[lo, hi]`` sampled at the ``T`` first-kind nodes is
 fitted as ``coeffs = P @ f(nodes)`` and evaluated at ``d`` as
 ``Σ_j coeffs_j · T_j(x)``, ``x = clip(2(d − lo)/(hi − lo) − 1, −1, 1)``,
@@ -30,17 +31,23 @@ def cheb_fit_matrix(T: int, dtype=torch.float32, device=None):
     return P
 
 
+def cheb_deriv_matrix(T: int, dtype=torch.float32, device=None):
+    """``D [T, T]`` with ``cheb_deriv_coeffs(c) = D @ c``: the recurrence
+    ``c'_j = c'_{j+2} + 2(j+1)·c_{j+1}`` unrolled, ``D[j, m] = 2m`` for
+    ``m > j`` with ``m − j`` odd, row 0 halved."""
+    j = torch.arange(T, device=device)[:, None]
+    m = torch.arange(T, device=device)[None, :]
+    D = torch.where((m > j) & ((m - j) % 2 == 1), 2.0 * m, 0.0).to(dtype)
+    D[0] *= 0.5
+    return D
+
+
 def cheb_deriv_coeffs(coeffs):
     """``[T, C]`` series → ``[T, C]`` series of ``d/dx`` (degree drops by
-    one): ``c'_j = c'_{j+2} + 2(j+1)·c_{j+1}``, ``c'_0`` halved."""
+    one), as one product with :func:`cheb_deriv_matrix` (the JAX package
+    unrolls the recurrence, one small op per term)."""
     T = coeffs.shape[0]
-    dc = [torch.zeros_like(coeffs[0]) for _ in range(T)]
-    if T >= 2:
-        dc[T - 2] = 2.0 * (T - 1) * coeffs[T - 1]
-    for j in range(T - 3, -1, -1):
-        dc[j] = dc[j + 2] + 2.0 * (j + 1) * coeffs[j + 1]
-    dc[0] = dc[0] * 0.5
-    return torch.stack(dc, dim=0)
+    return cheb_deriv_matrix(T, coeffs.dtype, coeffs.device) @ coeffs
 
 
 def cheb_theta(d, lo: float, hi: float):

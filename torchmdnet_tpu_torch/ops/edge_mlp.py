@@ -1,17 +1,24 @@
-"""TensorNet2 charge-fold edge MLP tail (kernel 3 of the port).
+"""The interaction edge MLPs of TensorNet and TensorNet2 (kernels 4 and 3
+of the port).
 
-Counterpart of the ``fused_edge_mlp_pre`` half of
-``torchmdnet_tpu/ops/pallas_kernels.py`` (``:182-279``): given the
-precomputed first-layer preactivation ``pre1 [N, K, F]``,
+Counterparts of ``torchmdnet_tpu/ops/pallas_kernels.py``:
 
-    attr = silu(silu(silu(pre1)·W2 + b2)·W3 + b3) · cw      → [N, K, 3F]
+- ``fused_edge_mlp`` (``:59-166``), TensorNet's whole three-layer chain on
+  the rbf ``x [N, K, R]``:
 
-with weights in the JAX kernel layout (``W2 [F, 2F]``, ``W3 [2F, 3F]``).
-On a CUDA tensor the forward is the hand-written kernel of
-``csrc/edge_mlp.cu``; on a CPU tensor it is :func:`edge_mlp_pre_ref`.  The
-backward recomputes through the plain chain over row chunks, as the JAX
-``_bwd_pre`` (``:237``) does (the JAX package has no backward kernel for
-this op); it is first-order only.
+      attr = silu(silu(silu(x·W1 + b1)·W2 + b2)·W3 + b3) · cw   → [N, K, 3F]
+
+- ``edge_mlp_pre`` (``fused_edge_mlp_pre``, ``:182-279``), TensorNet2's
+  tail given the precomputed first-layer preactivation ``pre1 [N, K, F]``:
+
+      attr = silu(silu(silu(pre1)·W2 + b2)·W3 + b3) · cw        → [N, K, 3F]
+
+with weights in the JAX kernel layout (``W1 [R, F]``, ``W2 [F, 2F]``,
+``W3 [2F, 3F]``).  On a CUDA tensor each forward is a hand-written kernel
+of ``csrc/edge_mlp.cu``; on a CPU tensor it is the plain chain beside it.
+The backward recomputes through the plain chain over row chunks, as the
+JAX ``_bwd``/``_bwd_pre`` (``:118``, ``:237``) do (the JAX package has no
+backward kernel for these ops); it is first-order only.
 """
 
 import torch
@@ -24,42 +31,129 @@ from torchmdnet_tpu_torch.ops.message_passing import row_chunk
 
 SOURCE = CudaSource("edge_mlp.cu")
 FORWARD = Kernel(SOURCE, "tmd_edge_mlp_pre", [P] * 7 + [I64, I32])
+FUSED = Kernel(SOURCE, "tmd_edge_mlp", [P] * 9 + [I64, I32, I32])
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 
 
+def edge_mlp_ref(x, cw, w1, b1, w2, b2, w3, b3):
+    """Plain PyTorch chain of kernel 4 (port of ``edge_mlp_jnp``, ``:70``)."""
+    h = F_.silu(torch.matmul(x, w1) + b1)
+    h = F_.silu(torch.matmul(h, w2) + b2)
+    h = F_.silu(torch.matmul(h, w3) + b3)
+    return h * cw[..., None]
+
+
 def edge_mlp_pre_ref(pre1, cw, w2, b2, w3, b3):
-    """Plain PyTorch chain (port of ``edge_mlp_pre_jnp``, ``:191``)."""
+    """Plain PyTorch chain of kernel 3 (port of ``edge_mlp_pre_jnp``,
+    ``:191``)."""
     h = F_.silu(pre1)
     h = F_.silu(torch.matmul(h, w2) + b2)
     h = F_.silu(torch.matmul(h, w3) + b3)
     return h * cw[..., None]
 
 
+def _check(name, tensors: dict, shapes: dict, widths, smem: int):
+    """Raise unless the tensors are aligned float32 CUDA tensors of the
+    given shapes, every width is a multiple of 4 and ``smem`` bytes fit a
+    block."""
+    dev = next(iter(tensors.values())).device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: expects CUDA tensors, got {dev}")
+    check_cuda_args(name, tensors, dev)
+    for key, t in tensors.items():
+        if tuple(t.shape) != shapes[key]:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {shapes[key]}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} is not 16-byte aligned")
+    if any(w % 4 for w in widths) or smem > _SMEM_LIMIT:
+        raise ValueError(f"{name}: widths {widths} must be multiples of 4 "
+                         "and fit shared memory")
+    return dev
+
+
+def edge_mlp_cuda(x, cw, w1, b1, w2, b2, w3, b3):
+    """Kernel 4 on CUDA tensors: returns [N, K, 3F]."""
+    n, k, r = x.shape
+    f = w1.shape[-1]
+    tensors = dict(x=x, cw=cw, w1=w1, b1=b1, w2=w2, b2=b2, w3=w3, b3=b3)
+    shapes = dict(x=(n, k, r), cw=(n, k), w1=(r, f), b1=(f,), w2=(f, 2 * f),
+                  b2=(2 * f,), w3=(2 * f, 3 * f), b3=(3 * f,))
+    smem = 4 * (64 * (r + f + 2 * f + 12) + 32 * 128 + 64) + 4 * (512 + 16)
+    dev = _check("edge_mlp", tensors, shapes, (r, f), smem)
+    out = torch.empty((n, k, 3 * f), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        FUSED(*(ptr(t) for t in tensors.values()), ptr(out), n * k, r, f)
+    return out
+
+
 def edge_mlp_pre_cuda(pre1, cw, w2, b2, w3, b3):
     """Kernel 3 on CUDA tensors: returns [N, K, 3F]."""
     n, k, f = pre1.shape
     tensors = dict(pre1=pre1, cw=cw, w2=w2, b2=b2, w3=w3, b3=b3)
-    dev = pre1.device
-    if dev.type != "cuda":
-        raise ValueError(f"edge_mlp_pre: expects CUDA tensors, got {dev}")
-    check_cuda_args("edge_mlp_pre", tensors, dev)
     shapes = dict(pre1=(n, k, f), cw=(n, k), w2=(f, 2 * f), b2=(2 * f,),
                   w3=(2 * f, 3 * f), b3=(3 * f,))
-    for key, t in tensors.items():
-        if tuple(t.shape) != shapes[key]:
-            raise ValueError(f"edge_mlp_pre: {key} has shape {tuple(t.shape)}, "
-                             f"expected {shapes[key]}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"edge_mlp_pre: {key} is not 16-byte aligned")
     smem = 4 * (64 * (f + 4) + 64 * (2 * f + 4) + 32 * 128)
-    if f % 4 or smem > _SMEM_LIMIT:
-        raise ValueError(f"edge_mlp_pre: channels {f} must be a multiple of 4 "
-                         f"and fit shared memory")
+    dev = _check("edge_mlp_pre", tensors, shapes, (f,), smem)
     out = torch.empty((n, k, 3 * f), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         FORWARD(ptr(pre1), ptr(cw), ptr(w2), ptr(b2), ptr(w3), ptr(b3),
                 ptr(out), n * k, f)
     return out
+
+
+def _recompute_vjp(ref, inputs, needs, g, width):
+    """Cotangents of ``ref(*inputs)`` (two row inputs ``[N, K, …]``, ``[N,
+    K]``, then weights) by autograd over row chunks; ``width`` bounds the
+    live ``[rows, K, ·]`` floats of the recompute per slot."""
+    n, k = inputs[1].shape
+    rows, weights = inputs[:2], inputs[2:]
+    grads = [torch.empty_like(x) if w else None for x, w in zip(rows, needs)]
+    grads += [torch.zeros_like(w) if wt else None
+              for w, wt in zip(weights, needs[2:])]
+    chunk = row_chunk(n, k, width, budget_bytes=2 * 1024 ** 3)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        with torch.enable_grad():
+            args = [x[s:e].detach().requires_grad_(w)
+                    for x, w in zip(rows, needs)]
+            args += [w.detach().requires_grad_(wt)
+                     for w, wt in zip(weights, needs[2:])]
+            leaves = [a for a, w in zip(args, needs) if w]
+            got = iter(torch.autograd.grad(ref(*args), leaves, g[s:e]))
+        for i, w in enumerate(needs):
+            if not w:
+                continue
+            if i < 2:
+                grads[i][s:e] = next(got)
+            else:
+                grads[i] += next(got)
+    return tuple(grads)
+
+
+class _EdgeMlp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *inputs):
+        ctx.save_for_backward(*inputs)
+        if inputs[0].is_cuda:
+            return edge_mlp_cuda(*inputs)
+        return edge_mlp_ref(*inputs)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        inputs = ctx.saved_tensors
+        f = inputs[2].shape[-1]
+        # live [rows, K, ·] tensors of the recompute: ~ R + F·3 + 2F·3 + 3F·4
+        width = inputs[0].shape[-1] + 21 * f
+        return _recompute_vjp(edge_mlp_ref, inputs,
+                              list(ctx.needs_input_grad), g, width)
+
+
+def fused_edge_mlp(x, cw, w1, b1, w2, b2, w3, b3):
+    """``silu(silu(silu(x·W1+b1)·W2+b2)·W3+b3)·cw`` → [N, K, 3F] (see the
+    module docstring)."""
+    return _EdgeMlp.apply(x, cw, w1, b1, w2, b2, w3, b3)
 
 
 class _EdgeMlpPre(torch.autograd.Function):
@@ -73,33 +167,11 @@ class _EdgeMlpPre(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        pre1, cw, *weights = ctx.saved_tensors
-        want = list(ctx.needs_input_grad)
-        n, k, f = pre1.shape
-        dpre = torch.empty_like(pre1) if want[0] else None
-        dcw = torch.empty_like(cw) if want[1] else None
-        dws = [torch.zeros_like(w) if wt else None
-               for w, wt in zip(weights, want[2:])]
+        inputs = ctx.saved_tensors
         # live [rows, K, ·] tensors of the recompute: ~ F + 2F·3 + 3F·4 wide
-        chunk = row_chunk(n, k, 19 * f, budget_bytes=2 * 1024 ** 3)
-        for s in range(0, n, chunk):
-            e = min(n, s + chunk)
-            with torch.enable_grad():
-                args = [pre1[s:e].detach().requires_grad_(want[0]),
-                        cw[s:e].detach().requires_grad_(want[1])]
-                args += [w.detach().requires_grad_(wt)
-                         for w, wt in zip(weights, want[2:])]
-                out = edge_mlp_pre_ref(*args)
-                leaves = [a for a, wt in zip(args, want) if wt]
-                got = iter(torch.autograd.grad(out, leaves, g[s:e]))
-            if want[0]:
-                dpre[s:e] = next(got)
-            if want[1]:
-                dcw[s:e] = next(got)
-            for i, wt in enumerate(want[2:]):
-                if wt:
-                    dws[i] += next(got)
-        return (dpre, dcw, *dws)
+        width = 19 * inputs[0].shape[-1]
+        return _recompute_vjp(edge_mlp_pre_ref, inputs,
+                              list(ctx.needs_input_grad), g, width)
 
 
 def edge_mlp_pre(pre1, cw, w2, b2, w3, b3):

@@ -1,4 +1,4 @@
-"""Neighbor gathers and the asymmetric packed neighbor sum.
+"""Neighbor gathers and the packed neighbor sums.
 
 Counterpart of ``torchmdnet_tpu/ops/message_passing.py`` (the gather
 path).  The neighbor matrix holds both directions of every pair, so the
@@ -127,3 +127,30 @@ def packed_neighbor_sum_asym(attr3f, attr_rev, feats9, idx, mask):
     first-order cotangent.  Saves ``attr_rev`` and ``feats9`` only; the
     gathered blocks are rebuilt per chunk in the backward."""
     return _PackedNeighborSumAsym.apply(attr3f, attr_rev, feats9, idx, mask)
+
+
+class _PackedNeighborSumSym(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, attr3f, feats9, idx, mask):
+        ctx.save_for_backward(attr3f, feats9, idx, mask)
+        return _pns_impl(attr3f, feats9, idx)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        attr3f, feats9, idx, mask = ctx.saved_tensors
+        g = g.contiguous()
+        dattr = _pns_dattr(g, feats9, idx, mask) if ctx.needs_input_grad[0] else None
+        dfeats = _pns_impl(attr3f, g, idx) if ctx.needs_input_grad[1] else None
+        return dattr, dfeats, None, None
+
+
+def packed_neighbor_sum_sym(attr3f, feats9, idx, mask):
+    """Packed neighbor sum for edge-symmetric weights (``attr3f[i, s_ij] ==
+    attr3f[j, s_ji]``, functions of the edge distance alone, as in
+    TensorNet's interaction; JAX ``message_passing.py:545-573``).  The
+    per-channel operator is then a symmetric matrix, so the feature
+    backward is the forward itself: ``∂feats9 = packed_sum(attr3f, g)``;
+    ``∂attr = fold9(g ⊙ feats9[idx])``.  Exact transposition assumes a
+    symmetric edge set, i.e. no K overflow."""
+    return _PackedNeighborSumSym.apply(attr3f, feats9, idx, mask)
