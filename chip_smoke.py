@@ -14,9 +14,11 @@ rows of the same lattice with T=64 series terms; the windowed-Coulomb
 kernels C/D at 48 charge channels over the lattice's real stencil
 windows; TensorNet's fused edge MLP (kernel 4) and Chebyshev filters
 (kernels 5 and 7) on the real brute K=64 list of the dhfr system (2,489
-atoms in 2,560 rows, T=128).  Then it drives both paths of the port on
-the north star, TensorNet2 (2 layers x 128) + the 10 Å
-ScalarPlusWeightedCoulomb head on the 25,088-atom periodic lattice,
+atoms in 2,560 rows, T=128); TensorNet's blocked message passing (rows
+8-11) on the dhfr system's cell-blocked sort (3,136 rows of 16-row blocks)
+with the grouped K′=224 list and the brute K=64 list.  Then it drives both
+paths of the port on the north star, TensorNet2 (2 layers x 128) + the
+10 Å ScalarPlusWeightedCoulomb head on the 25,088-atom periodic lattice,
 weights random from a seed:
 
 - the gather path (no cell_block_spec, Coulomb list): energy+forces with
@@ -35,7 +37,15 @@ embedding): energy+forces with the kernels and through the plain
 versions, tabulated against exact, ms per evaluation of the bench chain
 (positions fed back as pos + 1e-24·F, 30 evaluations after a warm-up),
 a profile of each, and a Langevin MD chunk (brute lists rebuilt every 25
-steps, 1 Å skin, K=128) timed after a warm-up chunk.
+steps, 1 Å skin, K=128) timed after a warm-up chunk; and its cell-blocked
+tiers (``BENCH_BLOCKED=1``): each evaluation sorts the atoms into cell
+blocks, builds the sorted-space list (grouped: column-partitioned with the
+tuned per-column budgets; ungrouped: brute K=64) and evaluates with
+``blocked=True``, in three variants (tabulated grouped, the bench default;
+tabulated ungrouped; exact grouped) against their plain versions and the
+gather path, ms per evaluation of the bench chain alternated with the
+gather chain, a profile, and a Langevin MD chunk on a grouped spec tuned
+at 4.5 + 1 Å for the tabulated and the exact variant.
 
 Each phase prints one JSON line; the card's name and power limit (as
 ``nvidia-smi`` gives them) and a ``{"kernels": [...]}`` line follow, and
@@ -74,6 +84,8 @@ COULOMB_RC, SKIN, CAP, Q_TAB, C_CH = 10.0, 1.0, 16, 64, 48
 # evaluations of the bench chain, and the MD list's slots at 4.5 + 1 Å
 DHFR_ATOMS, DHFR_PAD, DHFR_K, DHFR_T, DHFR_ITERS = 2489, 2560, 64, 128, 30
 DHFR_MD_K = 128
+# the dhfr blocked tiers (bench.py:104-117): 16-row blocks, grouped spec
+DHFR_CAP = 16
 # tabulated against exact TensorNet forces, relative to max |F|: T = 128
 # fits the exact edge MLP to ~3e-6 relative (the JAX package's reading,
 # torchmdnet_tpu/models/tensornet.py:475-478); the limit leaves 30x room
@@ -116,13 +128,28 @@ KERNELS = {
                     "torchmdnet_tpu/ops/pallas_cheb.py:86", "dhfr"),
     "cheb_filter_dot": (SRC + "cheb_filter.cu",
                         "torchmdnet_tpu/ops/pallas_cheb.py:95", "dhfr"),
+    # rows 8-11: one kernel for the ungrouped body and the grouped one
+    # (:224, :435, :723, :843)
+    "blocked_mp_sum": (SRC + "blocked_mp.cu",
+                       "torchmdnet_tpu/ops/pallas_blocked_mp.py:187",
+                       "dhfr_blocked_exact"),
+    "blocked_mp_dattr": (SRC + "blocked_mp.cu",
+                         "torchmdnet_tpu/ops/pallas_blocked_mp.py:381",
+                         "dhfr_blocked_exact"),
+    "blocked_mp_sum_cheb": (SRC + "blocked_mp.cu",
+                            "torchmdnet_tpu/ops/pallas_blocked_mp.py:687",
+                            "dhfr_blocked"),
+    "blocked_mp_dd_cheb": (SRC + "blocked_mp.cu",
+                           "torchmdnet_tpu/ops/pallas_blocked_mp.py:783",
+                           "dhfr_blocked"),
 }
 
 
 def counters():
     """Kernel name → its launch counter (``Kernel`` objects)."""
     from torchmdnet_tpu_torch.ops import (
-        blocked_q, cheb_filter, edge_mlp, radial_embedding, windowed_coulomb)
+        blocked_mp, blocked_q, cheb_filter, edge_mlp, radial_embedding,
+        windowed_coulomb)
     return {"radial_embedding_fwd": radial_embedding.FORWARD,
             "radial_embedding_bwd": radial_embedding.BACKWARD,
             "edge_mlp_pre": edge_mlp.FORWARD,
@@ -133,11 +160,21 @@ def counters():
             "windowed_coulomb_bwd": windowed_coulomb.BACKWARD,
             "edge_mlp": edge_mlp.FUSED,
             "cheb_filter": cheb_filter.FILTER,
-            "cheb_filter_dot": cheb_filter.FILTER_DOT}
+            "cheb_filter_dot": cheb_filter.FILTER_DOT,
+            "blocked_mp_sum": blocked_mp.SUM,
+            "blocked_mp_dattr": blocked_mp.DATTR,
+            "blocked_mp_sum_cheb": blocked_mp.SUM_CHEB,
+            "blocked_mp_dd_cheb": blocked_mp.DD_CHEB}
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line, and keep a copy in ``OUT_DIR/smoke.jsonl`` (the
+    end of a long standard output may be all a caller gets back)."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if OUT_DIR.is_dir():
+        with open(OUT_DIR / "smoke.jsonl", "a") as log:
+            log.write(line + "\n")
 
 
 def peaks(name):
@@ -186,30 +223,37 @@ def nbytes(*tensors):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the q-tier, windowed-Coulomb and Chebyshev-filter ops through
-    their plain versions for CUDA tensors too, so a whole-model run can be
-    held against the kernels (the embedding and edge-MLP kernels are
-    switched off by the model's own flags)."""
+    """Route the q-tier, windowed-Coulomb, Chebyshev-filter and blocked
+    message-passing ops through their plain versions for CUDA tensors too,
+    so a whole-model run can be held against the kernels (the embedding
+    and edge-MLP kernels are switched off by the model's own flags)."""
+    from torchmdnet_tpu_torch.ops import blocked_mp as bm
     from torchmdnet_tpu_torch.ops import blocked_q as bq
     from torchmdnet_tpu_torch.ops import cheb_filter as cf
     from torchmdnet_tpu_torch.ops import windowed_coulomb as wc
-    saved = (bq.q_fwd, bq.q_dq, wc.wc_fwd, wc.wc_bwd, cf.filter_fwd,
-             cf.cheb_filter_dot)
-    bq.q_fwd, bq.q_dq = bq.q_fwd_ref, bq.q_dq_ref
-    wc.wc_fwd, wc.wc_bwd = wc.wc_fwd_ref, wc.wc_bwd_ref
-    cf.filter_fwd = cf.cheb_filter_ref
-    cf.cheb_filter_dot = cf.cheb_filter_dot_ref
+    swaps = [(bq, "q_fwd", bq.q_fwd_ref), (bq, "q_dq", bq.q_dq_ref),
+             (wc, "wc_fwd", wc.wc_fwd_ref), (wc, "wc_bwd", wc.wc_bwd_ref),
+             (cf, "filter_fwd", cf.cheb_filter_ref),
+             (cf, "cheb_filter_dot", cf.cheb_filter_dot_ref),
+             (bm, "neighbor_sum", bm.neighbor_sum_ref),
+             (bm, "dattr", bm.dattr_ref),
+             (bm, "neighbor_sum_cheb", bm.neighbor_sum_cheb_ref),
+             (bm, "dd_cheb", bm.dd_cheb_ref)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        (bq.q_fwd, bq.q_dq, wc.wc_fwd, wc.wc_bwd, cf.filter_fwd,
-         cf.cheb_filter_dot) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 # ---------------------------------------------------------------- device
 def phase_device():
     from torchmdnet_tpu_torch.ops import (
-        blocked_q, cheb_filter, edge_mlp, radial_embedding, windowed_coulomb)
+        blocked_mp, blocked_q, cheb_filter, edge_mlp, radial_embedding,
+        windowed_coulomb)
     from torchmdnet_tpu_torch.ops.kernels import build
 
     smi = subprocess.run(
@@ -220,10 +264,12 @@ def phase_device():
     board, peak = peaks(name)
     t0 = time.perf_counter()
     logs = build([radial_embedding.SOURCE, edge_mlp.SOURCE, blocked_q.SOURCE,
-                  windowed_coulomb.SOURCE, cheb_filter.SOURCE],
+                  windowed_coulomb.SOURCE, cheb_filter.SOURCE,
+                  blocked_mp.SOURCE],
                  extra_flags=("-Xptxas", "-v"))
     secs = time.perf_counter() - t0
     OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "smoke.jsonl").write_text("")
     (OUT_DIR / "nvcc.log").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
@@ -515,7 +561,164 @@ def dhfr_library(v):
             "edge_mlp": lambda: em.edge_mlp_ref(*mlp)}
 
 
-def phase_kernels(peak, system, dhfr, seg):
+def dhfr_blocked_spec(dhfr, grouped, cutoff=4.5):
+    """``bench.py::main``'s spec (``:104-117``): tuned on all 2,560 rows at
+    ``cutoff`` with 16-row blocks, grouped (``column_slots``) or not."""
+    from torchmdnet_tpu_torch.ops.cell_blocks import tune_cell_block_spec
+
+    _, pos, _, _, L = dhfr
+    return tune_cell_block_spec(pos, [L] * 3, cutoff, cap=DHFR_CAP,
+                                column_slots=grouped)
+
+
+class BlockedDhfr:
+    """``bench.py::main``'s blocked evaluation (``:131-167``) on the card:
+    per call the cell-block sort of all rows (ghosts ride it), the
+    sorted-space list (grouped: the column-partitioned cell list with
+    K′ = Σ col_slots; ungrouped: brute K=64), the model with
+    ``blocked=True``, and the forces back in the original order."""
+
+    def __init__(self, dhfr, seg, spec):
+        z, _, _, box, L = dhfr
+        dev = torch.device("cuda")
+        self.spec = spec
+        self.zt = torch.as_tensor(z, device=dev)
+        self.st = torch.as_tensor(seg, device=dev)
+        self.bt = torch.as_tensor(box, device=dev)
+        self.bd = torch.tensor([L] * 3, dtype=torch.float32, device=dev)
+        self.kw = dict(strategy="brute", k_max=DHFR_K)
+        if spec.col_slots is not None:
+            nz = max(int(L // 4.5), 3)
+            occ = DHFR_ATOMS / (spec.nx * spec.ny * nz)
+            self.kw = dict(strategy="cell", k_max=sum(spec.col_slots),
+                           cells_per_dim=(spec.nx, spec.ny, nz),
+                           cell_capacity=int(np.ceil(occ * 2.5)) + 8,
+                           column_partition=spec.col_slots)
+
+    def sorted_inputs(self, p):
+        from torchmdnet_tpu_torch.ops.cell_blocks import plan_cell_blocks
+        from torchmdnet_tpu_torch.ops.neighbors import build_neighbor_matrix
+
+        blocks = plan_cell_blocks(p, self.bd, self.spec)
+        perm = torch.clamp(blocks.perm, max=p.shape[0] - 1)
+        batch_perm = self.st[perm]
+        am = blocks.mask_rows & (batch_perm < 1)
+        pos_s = torch.where(am[:, None], p[perm], 0.0)
+        zs = torch.where(am, self.zt[perm], 0)
+        batchs = torch.where(am, batch_perm, 1)
+        nbr = build_neighbor_matrix(pos_s, batchs, atom_mask=am,
+                                    cutoff_upper=4.5, loop=True, box=self.bt,
+                                    **self.kw)
+        return blocks, zs, pos_s, batchs, nbr
+
+    def __call__(self, pot, p):
+        blocks, zs, pos_s, batchs, nbr = self.sorted_inputs(p)
+        y, f = pot.apply(zs, pos_s, batchs, num_mols=1, box=self.bt,
+                         nbr=nbr, blocked=True)
+        return y, f[blocks.inv_perm]
+
+
+def group_counts(spec, mask):
+    """The largest count of valid slots any row has in each slot group
+    (one group without ``col_slots``)."""
+    sizes = spec.col_slots or (mask.shape[1],)
+    bounds = np.cumsum((0,) + tuple(sizes))
+    return [int(mask[:, a:b].sum(1).max()) for a, b in
+            zip(bounds[:-1], bounds[1:])]
+
+
+def dhfr_blocked_inputs(ev, pos, seed):
+    """The sorted-space list ``ev`` builds at the dhfr positions and
+    operands for rows 8-11: its distances, ``fm = (d < 4.5) & mask``, the
+    exact edge weights (random edge MLP on the rbf, times the cosine
+    cutoff) as row 8's attr, the series fitted from the same MLP, random
+    feature rows and a row cotangent."""
+    from torchmdnet_tpu_torch.models.common import make_rbf
+    from torchmdnet_tpu_torch.ops import rbf
+    from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs
+    from torchmdnet_tpu_torch.ops.edge_mlp import edge_mlp_ref
+    from torchmdnet_tpu_torch.ops.neighbors import neighbor_geometry
+
+    _, _, pos_s, _, nbr = ev.sorted_inputs(pos)
+    check(not bool(nbr.overflow), "dhfr blocked kernel inputs: overflow")
+    _, d = neighbor_geometry(pos_s, nbr, box=ev.bt)
+    dev = d.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, _ = d.shape
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    mlp = [randn(R, F, scale=R ** -0.5), randn(F, scale=0.1),
+           randn(F, 2 * F, scale=F ** -0.5), randn(2 * F, scale=0.1),
+           randn(2 * F, 3 * F, scale=(2 * F) ** -0.5), randn(3 * F, scale=0.1)]
+    x = make_rbf("expnorm", 0.0, 4.5, R, False).to(dev)(d)
+    cw = rbf.cosine_cutoff(d, 4.5, 0.0) * nbr.mask
+    coeffs = fitted_coeffs(mlp, DHFR_T, 4.5)
+    v = dict(idx=nbr.idx, mask=nbr.mask, d=d.contiguous(),
+             fm=((d < 4.5) & nbr.mask).float(),
+             attr=edge_mlp_ref(x, cw, *mlp).contiguous(), coeffs=coeffs,
+             dser=cheb_deriv_coeffs(coeffs).contiguous(),
+             feats=randn(n, 9 * F), g9=randn(n, 9 * F))
+    return v, group_counts(ev.spec, nbr.mask)
+
+
+def blocked_calls(v, hi=4.5):
+    """Rows 8-11 on ``v``, each as a pair of (kernel, plain) callables."""
+    from torchmdnet_tpu_torch.ops import blocked_mp as bm
+
+    s_args = (v["attr"], v["feats"], v["idx"], v["mask"])
+    a_args = (v["g9"], v["feats"], v["idx"], v["mask"])
+    c_args = (v["coeffs"], v["d"], v["fm"], v["feats"], v["idx"], 0.0, hi)
+    d_args = (v["dser"], v["d"], v["fm"], v["g9"], v["feats"], v["idx"],
+              0.0, hi)
+    return {"blocked_mp_sum": (lambda: bm.neighbor_sum_cuda(*s_args),
+                               lambda: bm.neighbor_sum_ref(*s_args)),
+            "blocked_mp_dattr": (lambda: bm.dattr_cuda(*a_args),
+                                 lambda: bm.dattr_ref(*a_args)),
+            "blocked_mp_sum_cheb": (lambda: bm.neighbor_sum_cheb_cuda(*c_args),
+                                    lambda: bm.neighbor_sum_cheb_ref(*c_args)),
+            "blocked_mp_dd_cheb": (lambda: bm.dd_cheb_cuda(*d_args),
+                                   lambda: bm.dd_cheb_ref(*d_args))}
+
+
+def blocked_work(v):
+    """(FLOP, bytes) rows 8-11 need on ``v``: rows 8 and 9 work on the
+    valid slots (mask), rows 10 and 11 on the live ones (fm ≠ 0), whose
+    series product dominates; each input read once (the flag array
+    whole, the per-slot arrays on the slots the kernel reads), each
+    output written once — row 9's whole [N, K, 3F], zeros included."""
+    n, k = v["idx"].shape
+    c3, c9, t = 3 * F, 9 * F, v["coeffs"].shape[0]
+    valid = float(v["mask"].sum())
+    live = float((v["fm"] != 0).sum())
+    rows9 = n * c9 * 4
+    return {
+        "blocked_mp_sum": (2 * valid * c9,
+                           n * k + valid * (8 + c3 * 4) + 2 * rows9),
+        "blocked_mp_dattr": (2 * valid * c9,
+                             n * k + valid * 8 + 2 * rows9 + n * k * c3 * 4),
+        "blocked_mp_sum_cheb": (2 * live * (t * c3 + c9),
+                                n * k * 4 + live * 12 + t * c3 * 4
+                                + 2 * rows9),
+        "blocked_mp_dd_cheb": (2 * live * (t * c3 + c9 + c3),
+                               n * k * 4 + live * 12 + t * c3 * 4
+                               + 2 * rows9 + n * k * 4)}
+
+
+def blocked_library(v):
+    """The cuBLAS product carrying rows 10 and 11's operations: the cos
+    basis of the live slots [live, T] times the [T, 3F] series, the basis
+    given (as for rows 5 and 7)."""
+    from torchmdnet_tpu_torch.ops.cheb import cheb_theta, cos_basis
+
+    live = v["fm"] != 0
+    basis = cos_basis(cheb_theta(v["d"][live], 0.0, 4.5), DHFR_T)
+    return {"blocked_mp_sum_cheb": lambda: torch.matmul(basis, v["coeffs"]),
+            "blocked_mp_dd_cheb": lambda: torch.matmul(basis, v["dser"])}
+
+
+def phase_kernels(peak, system, dhfr, seg, specs):
     from torchmdnet_tpu_torch.ops import edge_mlp as em_ops
     from torchmdnet_tpu_torch.ops import radial_embedding as re_ops
 
@@ -655,6 +858,36 @@ def phase_kernels(peak, system, dhfr, seg):
     del v, library
     torch.cuda.empty_cache()
 
+    # rows 8-11 on the dhfr system's cell-blocked sort: the grouped K′ list
+    # (the bench default, the table's row) and the brute K=64 one
+    pos = torch.as_tensor(dhfr[1], device=dev)
+    geometry["dhfr_blocked"] = {}
+    for layout, spec in specs.items():
+        v, groups = dhfr_blocked_inputs(BlockedDhfr(dhfr, seg, spec), pos, 66)
+        work, library = blocked_work(v), blocked_library(v)
+        for name, (kern, plain) in blocked_calls(v).items():
+            err, rel, got = compare(kern, plain)
+            if name == "blocked_mp_dattr":
+                check(not got[0][~v["mask"]].any(),
+                      "blocked_mp_dattr: an invalid slot is not exactly 0")
+            flops, nb = work[name]
+            b_ms, b_by = bound(flops, nb, peak)
+            lib = library.get(name)
+            rows[name if layout == "grouped" else f"{name}@{layout}"] = dict(
+                max_abs_err=err, max_rel_err=rel, ms=time_ms(kern),
+                plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
+                library_ms=None if lib is None else time_ms(lib),
+                gflop=flops / 1e9, gbytes=nb / 1e9)
+            del got
+        geometry["dhfr_blocked"][layout] = {
+            "n_pad": spec.n_pad, "blocks": spec.n_blocks,
+            "k": v["idx"].shape[1], "col_slots": spec.col_slots,
+            "valid_slots": int(v["mask"].sum()),
+            "live_slots": int((v["fm"] != 0).sum()),
+            "max_per_group": groups}
+        del v, library
+        torch.cuda.empty_cache()
+
     emit({"phase": "kernels", "tolerance": TOL, "geometry": geometry,
           "rows": rows})
     for name, row in rows.items():
@@ -671,7 +904,8 @@ def dhfr_shape_errors(gen):
     dev = torch.device("cuda")
     worst = {}
     for n, k, t, f, r in ((37, 8, 16, 8, 8), (50, 33, 64, 32, 16),
-                          (29, 96, 128, 128, 32), (41, 64, 100, 64, 8)):
+                          (29, 96, 128, 128, 32), (41, 64, 100, 64, 8),
+                          (23, 360, 128, 128, 32)):
         def randn(*shape):
             return torch.randn(shape, generator=gen, device=dev)
 
@@ -697,6 +931,51 @@ def dhfr_shape_errors(gen):
     return worst
 
 
+def blocked_shape_errors(gen):
+    """Rows 8-11 against their plain versions on synthetic lists: row
+    counts not a multiple of a sum block's 4 rows, K 8-96, F 8-128, T
+    16-128 (and 100, not a multiple of the 32-row tile), a masked row, an
+    empty slot group, the self slot at d = 0 (θ = π), d at hi and beyond."""
+    dev = torch.device("cuda")
+    worst = {}
+    from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs
+
+    hi = 4.5
+    for n, k, f, t in ((37, 8, 8, 16), (50, 33, 32, 64), (29, 96, 128, 128),
+                       (41, 64, 64, 100)):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        rows = torch.arange(n, device=dev)[:, None]
+        mask = torch.rand((n, k), generator=gen, device=dev) < 0.8
+        mask[:, k // 4:k // 2] = False  # an empty group
+        mask[:, 0] = True               # the self slot
+        mask[1] = False                 # a masked row
+        idx = torch.randint(0, n, (n, k), generator=gen, device=dev)
+        idx[:, 0] = rows[:, 0]
+        idx = torch.where(mask, idx, rows)
+        d = torch.rand((n, k), generator=gen, device=dev) * 1.2 * hi
+        d[:, 0] = 0.0
+        d[0, 1:3] = torch.tensor([hi, 1.1 * hi], device=dev)
+        mlp = [randn(8, f) * 0.3, randn(f) * 0.1, randn(f, 2 * f) * 0.2,
+               randn(2 * f) * 0.1, randn(2 * f, 3 * f) * 0.2,
+               randn(3 * f) * 0.1]
+        coeffs = fitted_coeffs(mlp, t, hi)
+        v = dict(idx=idx, mask=mask, d=d, fm=((d < hi) & mask).float(),
+                 attr=randn(n, k, 3 * f) * mask[..., None], coeffs=coeffs,
+                 dser=cheb_deriv_coeffs(coeffs).contiguous(),
+                 feats=randn(n, 9 * f), g9=randn(n, 9 * f))
+        calls = blocked_calls(v, hi)
+        errs = [compare(*pair)[1] for pair in calls.values()]
+        outs = {name: kern() for name, (kern, _) in calls.items()}
+        check(all(float(o[1].abs().max()) == 0.0 for o in outs.values()),
+              "rows 8-11: a masked row is not zero")
+        check(not outs["blocked_mp_dattr"][~mask].any(),
+              "row 9: an invalid slot is not exactly 0")
+        worst[f"blocked_mp_n{n}_k{k}_f{f}_t{t}"] = max(errs)
+    return worst
+
+
 def phase_shapes():
     """Every kernel against its plain version at small ragged shapes:
     every compiled rbf width and a range of channel counts for kernels
@@ -709,7 +988,9 @@ def phase_shapes():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(99)
     worst = {}
-    for n, k, r, f in ((37, 13, 8, 64), (50, 20, 16, 256), (33, 7, 32, 32)):
+    # (the last: the K′=360 grouped MD list of the dhfr blocked exact path)
+    for n, k, r, f in ((37, 13, 8, 64), (50, 20, 16, 256), (33, 7, 32, 32),
+                       (21, 360, 32, 128)):
         def randn(*shape):
             return torch.randn(shape, generator=gen, device=dev)
 
@@ -758,6 +1039,7 @@ def phase_shapes():
         worst[f"blocked_n{n}_cap{cap}_f{f}_c{c}_s{wspec.s}"] = max(errs)
 
     worst.update(dhfr_shape_errors(gen))
+    worst.update(blocked_shape_errors(gen))
     torch.cuda.synchronize()
     emit({"phase": "shapes", "max_rel_err": worst, "tolerance": TOL})
     check(max(worst.values()) <= TOL, "a kernel disagrees at a small shape")
@@ -1025,6 +1307,9 @@ def phase_profile(name, run):
 
 
 PROFILE_GROUPS = (
+    ("rows 8-11 blocked message passing", ("blocked_sum_kernel",
+                                           "blocked_dattr_kernel",
+                                           "blocked_dd_kernel")),
     ("kernels 5/7 Chebyshev filter", ("cheb_kernel",)),
     ("kernel 4 edge_mlp", ("edge_mlp_kernel",)),
     ("kernel A/B q-tier", ("q_kernel",)),
@@ -1298,7 +1583,7 @@ def phase_dhfr(dhfr, seg):
           f"dhfr: tabulated vs exact forces {g_rel:.3g} of max |F|")
     del pots["exact_plain"]
     torch.cuda.empty_cache()
-    return pots, evaluate, pos
+    return pots, evaluate, pos, out
 
 
 def phase_md_dhfr(pot, dhfr, seg, path):
@@ -1312,10 +1597,118 @@ def phase_md_dhfr(pot, dhfr, seg, path):
     return row["steps"], launches
 
 
+# ---------------------------------------------------------------- dhfr blocked
+# variant → (extra args, spec layout, the gather-path variant it equals)
+DHFR_BLOCKED = {"tabulated_grouped": ({}, "grouped", "tabulated"),
+                "tabulated_ungrouped": ({}, "ungrouped", "tabulated"),
+                "exact_grouped": (DHFR_EXACT, "grouped", "exact")}
+
+
+def phase_dhfr_blocked(dhfr, seg, specs, gather):
+    """``bench.py::main`` with ``BENCH_BLOCKED=1`` on the card, in three
+    variants with the gather path's weights: each with the kernels against
+    its plain versions and against the gather path's forces at the same
+    positions, ghost rows, overflow and the fullest slot group, ms per
+    evaluation of the bench chain, blocked and gather chains in turns
+    (gather, blocked, blocked, gather for the default variant; blocked,
+    gather for the others), of the plain chain (5 evaluations after two),
+    and peak memory."""
+    from torchmdnet_tpu_torch.models.model import create_model
+
+    pots_g, evaluate, pos, out_g = gather
+    dev = pos.device
+    sd = pots_g["tabulated"].module.state_dict()
+    row = {"phase": "energy_forces", "path": "dhfr_blocked",
+           "atoms": DHFR_ATOMS, "cap": DHFR_CAP, "tolerance": TOL,
+           "iters": DHFR_ITERS}
+    blocked = {}
+    for name, (extra, layout, ref) in DHFR_BLOCKED.items():
+        spec = specs[layout]
+        pot = create_model(dhfr_args(cell_block_spec=spec, **extra),
+                           device=dev, seed=0)
+        pot.module.load_state_dict(sd)
+        plain = pot
+        if extra:  # the exact variant's plain path: the model flags off
+            plain = create_model(dhfr_args(cell_block_spec=spec,
+                                           tabulated_edge_mlp=0),
+                                 device=dev, seed=0)
+            plain.module.load_state_dict(sd)
+        ev = BlockedDhfr(dhfr, seg, spec)
+        *_, nbr = ev.sorted_inputs(pos)
+        torch.cuda.reset_peak_memory_stats()
+        y, f = ev(pot, pos)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        with plain_versions():
+            y_p, f_p = ev(plain, pos)
+        chains = {"gather": [], "blocked": []}
+        turns = (("gather", "blocked", "blocked", "gather")
+                 if name == "tabulated_grouped" else ("blocked", "gather"))
+        for side in turns:
+            chains[side].append(
+                bench_chain_ms(evaluate, pots_g[ref], pos) if side == "gather"
+                else bench_chain_ms(ev, pot, pos))
+        with plain_versions():
+            plain_ms = bench_chain_ms(ev, plain, pos, 5)
+        check(y.shape == (1, 1) and f.shape == (len(seg), 3),
+              f"dhfr blocked {name}: bad shapes")
+        check(bool(torch.isfinite(y).all() and torch.isfinite(f).all()),
+              f"dhfr blocked {name}: non-finite energy or forces")
+        check(not f[DHFR_ATOMS:].any(),
+              f"dhfr blocked {name}: ghost rows feel force")
+        check(not bool(nbr.overflow), f"dhfr blocked {name}: list overflow")
+        e_err = abs(float(y) - float(y_p)) / max(abs(float(y_p)), 1e-30)
+        f_abs, f_rel = rel_err(f, f_p)
+        y_g, f_g = out_g[ref]
+        g_abs, g_rel = rel_err(f, f_g)
+        row[name] = {
+            "spec": {"nx": spec.nx, "n_pad": spec.n_pad,
+                     "col_slots": spec.col_slots},
+            "k": nbr.idx.shape[1], "valid_slots": int(nbr.mask.sum()),
+            "max_per_group": group_counts(spec, nbr.mask),
+            "energy": float(y), "energy_plain": float(y_p),
+            "energy_rel_err": e_err, "force_max_abs_err": f_abs,
+            "force_rel_err": f_rel, "max_abs_force": float(f_p.abs().max()),
+            "vs_gather": {"energy_rel_diff": abs(float(y) - float(y_g))
+                          / max(abs(float(y_g)), 1e-30),
+                          "force_max_abs_diff": g_abs,
+                          "force_rel_diff": g_rel},
+            "ms_per_eval": statistics.mean(chains["blocked"]),
+            "ms_per_eval_all": chains["blocked"],
+            "gather_ms_per_eval_all": chains["gather"],
+            "plain_ms_per_eval": plain_ms, "peak_mem_gb": peak / 1e9}
+        blocked[name] = (pot, ev)
+        del plain, y_p, f_p
+        torch.cuda.empty_cache()
+    emit(row)
+    for name in DHFR_BLOCKED:
+        r = row[name]
+        check(r["energy_rel_err"] <= TOL and r["force_rel_err"] <= TOL,
+              f"dhfr blocked {name}: kernels vs plain "
+              f"{r['energy_rel_err']:.3g} / {r['force_rel_err']:.3g}")
+        check(r["vs_gather"]["force_rel_diff"] <= TOL,
+              f"dhfr blocked {name}: vs gather forces "
+              f"{r['vs_gather']['force_rel_diff']:.3g} of max |F|")
+    return blocked
+
+
+def phase_md_dhfr_blocked(pot, dhfr, seg, spec, path):
+    """Langevin MD of a blocked dhfr model on the grouped spec tuned at
+    4.5 + 1 Å: the column-partitioned list rebuilt every 25 steps, a
+    warm-up chunk, then a timed one."""
+    (row, ok), launches = counted_run(lambda: md_run(
+        pot, dhfr, 25, 2, batch=seg, cell_block_spec=spec))
+    emit(dict({"phase": "md", "path": path, "col_slots": spec.col_slots},
+              **row, launches=launches))
+    check(ok, f"{path} MD: overflow or non-finite state")
+    return row["steps"], launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from torchmdnet_tpu_torch.models.model import create_model
     from torchmdnet_tpu_torch.ops.config import set_matmul_precision
 
     set_matmul_precision("highest")
@@ -1324,7 +1717,9 @@ def main():
           and not torch.backends.cudnn.allow_tf32, "TF32 must be off")
     system = northstar_system()
     dhfr, seg = dhfr_system()
-    rows = phase_kernels(peak, system, dhfr, seg)
+    specs = {"grouped": dhfr_blocked_spec(dhfr, True),
+             "ungrouped": dhfr_blocked_spec(dhfr, False)}
+    rows = phase_kernels(peak, system, dhfr, seg, specs)
     phase_shapes()
     phase_small()
 
@@ -1342,12 +1737,28 @@ def main():
     del pot, blocked_run
     torch.cuda.empty_cache()
 
-    pots, evaluate, dpos = phase_dhfr(dhfr, seg)
+    gather = phase_dhfr(dhfr, seg)
+    pots, evaluate, dpos, _ = gather
     phase_profile("dhfr", lambda: evaluate(pots["tabulated"], dpos))
     phase_profile("dhfr_exact", lambda: evaluate(pots["exact"], dpos))
+    blocked = phase_dhfr_blocked(dhfr, seg, specs, gather)
+    pot_b, ev_b = blocked["tabulated_grouped"]
+    phase_profile("dhfr_blocked", lambda: ev_b(pot_b, dpos))
+    del blocked, pot_b, ev_b, gather
+    torch.cuda.empty_cache()
     by_path = {"gather": (g_steps, g_launch), "blocked": (b_steps, b_launch)}
     for variant, path in (("tabulated", "dhfr"), ("exact", "dhfr_exact")):
         by_path[path] = phase_md_dhfr(pots[variant], dhfr, seg, path)
+    spec_md = dhfr_blocked_spec(dhfr, True, 4.5 + SKIN)
+    for variant, path in (("tabulated", "dhfr_blocked"),
+                          ("exact", "dhfr_blocked_exact")):
+        extra = DHFR_EXACT if variant == "exact" else {}
+        pot = create_model(dhfr_args(cell_block_spec=spec_md, **extra),
+                           device="cuda", seed=0)
+        pot.module.load_state_dict(pots[variant].module.state_dict())
+        by_path[path] = phase_md_dhfr_blocked(pot, dhfr, seg, spec_md, path)
+        del pot
+        torch.cuda.empty_cache()
     launches = {k: by_path[path][1][k] for k, (_, _, path) in KERNELS.items()}
     emit({"phase": "launches", "md_steps": {p: s for p, (s, _) in
                                             by_path.items()},

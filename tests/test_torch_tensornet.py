@@ -114,15 +114,28 @@ def test_create_model_needs_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("cell_block_spec", make_cell_block_spec([20.0] * 3, 5.5, 64)),
-    ("output_model", "ScalarPlusWeightedCoulomb"), ("remat", True)])
+    ("precision", 16), ("output_model", "ScalarPlusWeightedCoulomb"),
+    ("remat", True)])
 def test_uncovered_options_raise(key, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model(dict(TENSORNET_ARGS, **{key: value}), device="cpu")
 
 
+@pytest.mark.parametrize("grouped", [False, True])
+def test_cell_block_spec_builds(grouped):
+    """TensorNet takes a cell_block_spec, grouped or not (the blocked tiers
+    of ``bench.py::main``); ``test_torch_blocked_tensornet.py`` runs it."""
+    spec = make_cell_block_spec([20.0] * 3, 5.5, 64)
+    if grouped:
+        spec = spec._replace(col_slots=(16,) * 9)
+    pot = create_model(dict(TENSORNET_ARGS, cell_block_spec=spec),
+                       device="cpu")
+    assert pot.module.representation_model.cell_block_spec == spec
+
+
 def test_blocked_forward_raises():
+    """``blocked=True`` needs a model built with a cell_block_spec."""
     z, pos, box = lattice_system(n_side=2)
     pot = create_model(TENSORNET_ARGS, device="cpu")
-    with pytest.raises(NotImplementedError, match="rows 8-11"):
+    with pytest.raises(ValueError, match="cell_block_spec"):
         pot.apply(z, pos, None, num_mols=1, box=box, blocked=True)

@@ -5,6 +5,7 @@ PyTorch port with the same weights."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from torchmdnet_tpu.models.model import create_model as jax_create_model
@@ -12,6 +13,17 @@ from torchmdnet_tpu_torch.models.model import create_model as port_create_model
 from torchmdnet_tpu_torch.utils.jax_params import params_from_jax
 
 RTOL = ATOL = 1e-4  # the upstream parity bar (f32, TF32 off)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module's small CPU ops, so that they
+    leave the cores to the suite's other workers; the count is restored
+    after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 SMALL_ARGS = dict(
     model="tensornet2", embedding_dimension=32, num_layers=2, num_rbf=16,
@@ -104,3 +116,278 @@ def jax_apply(jpot, variables, z, pos, box):
 
 def _maybe(box):
     return None if box is None else jnp.asarray(box)
+
+
+# ---- TensorNet's blocked message passing (rows 8-11): one small system
+# with the JAX blocked tests' geometry (200 atoms at 0.08 Å⁻³, a 3.2 Å
+# cutoff, 8-row blocks); the list at 3.2 + 0.5 Å, so that fm = (d < 3.2)
+# drops some valid slots
+BMP_N, BMP_CUTOFF, BMP_RC, BMP_F, BMP_T, BMP_K = 200, 3.2, 3.7, 8, 24, 40
+# the JAX specs' TPU run length: it sets only JAX's window plan, not the
+# sort; 64-row runs leave fewer window copies for interpret mode to
+# unroll, which halves the JAX compile time of these tests
+JAX_RLH = 64
+BLOCKED_QUANTITIES = ("row8", "row9", "row10", "row11", "sym_dfeats",
+                      "sym_dattr", "cheb_dfeats", "cheb_dd")
+
+
+def blocked_system(n=BMP_N, seed=3):
+    """``(pos, box_diag)``: ``n`` atoms uniform at 0.08 Å⁻³ in a cube."""
+    rng = np.random.RandomState(seed)
+    L = (n / 0.08) ** (1.0 / 3.0)
+    return (rng.uniform(0, L, (n, 3)).astype(np.float32),
+            np.array([L, L, L], np.float32))
+
+
+def grouped_list_kwargs(spec, bd, cutoff, n):
+    """The grouped tier's list options (JAX ``integrators.py:264-281``)."""
+    nz = max(int(bd[2] // cutoff), 3)
+    occ = n / (spec.nx * spec.ny * nz)
+    return dict(strategy="cell", k_max=sum(spec.col_slots),
+                cells_per_dim=(spec.nx, spec.ny, nz),
+                cell_capacity=int(np.ceil(occ * 2.5)) + 8,
+                column_partition=spec.col_slots)
+
+
+def blocked_mp_case(layout):
+    """Rows 8-11 and both differentiable wrappers of the port (plain
+    versions) and of the JAX package (precise spec, interpret mode) on the
+    same inputs over the sorted list of :func:`blocked_system`,
+    ``layout`` "ungrouped" (brute, K=40) or "grouped" (the tuned
+    column-partitioned list).  Returns ``(want, got, mask)``: numpy arrays
+    keyed by :data:`BLOCKED_QUANTITIES` and ``"cheb_dcoeffs"``."""
+    from torchmdnet_tpu.ops import cell_blocks as jcb
+    from torchmdnet_tpu.ops.neighbors import build_neighbor_matrix
+    from torchmdnet_tpu.ops.pallas_blocked_mp import (
+        blocked_neighbor_sum_sym, blocked_neighbor_sum_sym_cheb)
+    from torchmdnet_tpu_torch.ops import blocked_mp as bm
+    from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs
+
+    pos, bd = blocked_system()
+    n, hi = BMP_N, BMP_CUTOFF
+    spec = jcb.tune_cell_block_spec(jnp.asarray(pos), jnp.asarray(bd), BMP_RC,
+                                    cap=8, rlh=JAX_RLH, precise=True,
+                                    column_slots=layout == "grouped")
+    blocks = jcb.plan_cell_blocks(jnp.asarray(pos), jnp.asarray(bd), spec)
+    am = np.asarray(blocks.mask_rows)
+    pos_s = np.where(am[:, None], pos[np.minimum(np.asarray(blocks.perm),
+                                                 n - 1)], 0.0)
+    pos_s = jnp.asarray(pos_s.astype(np.float32))
+    kw = (grouped_list_kwargs(spec, bd, BMP_RC, n) if layout == "grouped"
+          else dict(strategy="brute", k_max=BMP_K))
+    nbr = build_neighbor_matrix(
+        pos_s, jnp.asarray((~am).astype(np.int32)), cutoff_upper=BMP_RC,
+        loop=True, box=jnp.diag(jnp.asarray(bd)), atom_mask=jnp.asarray(am),
+        **kw)
+    assert not bool(nbr.overflow)
+    rel, eov = jcb.edge_rel(blocks, nbr.idx, nbr.mask, pos_s, jnp.asarray(bd))
+    assert not bool(eov)
+    idx, mask = np.array(nbr.idx), np.array(nbr.mask)
+    delta = np.asarray(pos_s)[:, None, :] - np.asarray(pos_s)[idx]
+    delta -= bd * np.round(delta / bd)
+    d = np.where(mask, np.sqrt((delta ** 2).sum(-1)), 0.0).astype(np.float32)
+    fm = ((d < hi) & mask).astype(np.float32)
+    assert 0 < (mask & (fm == 0)).sum() and fm.sum() > 5 * n
+    rng = np.random.RandomState(7)
+    n_pad, k = idx.shape
+    f = BMP_F
+    x = dict(attr=rng.randn(n_pad, k, 3 * f) * mask[..., None],
+             feats=rng.randn(n_pad, 9 * f),
+             g=rng.randn(n_pad, 9 * f) * 0.1,
+             # a decaying series, as the fit of a smooth filter is; with
+             # O(1) outputs the precise tier's 2^-16 meets the 1e-4 bar
+             coeffs=rng.randn(BMP_T, 3 * f) * 0.5 ** np.arange(BMP_T)[:, None])
+    x = {key: v.astype(np.float32) for key, v in x.items()}
+
+    def sym_all(a, feats, g):
+        out, vjp = jax.vjp(lambda a_, f_: blocked_neighbor_sum_sym(
+            a_, f_, rel, blocks.run_starts, spec, True), a, feats)
+        return (out,) + vjp(g)
+
+    def cheb_all(c, d_, feats, g):
+        out, vjp = jax.vjp(lambda c_, d2, f_: blocked_neighbor_sum_sym_cheb(
+            c_, d2, jnp.asarray(fm), f_, rel, blocks.run_starts, spec, 0.0,
+            hi, True), c, d_, feats)
+        return (out,) + vjp(g)
+
+    j = {key: jnp.asarray(v) for key, v in x.items()}
+    s_out, s_da, s_df = jax.jit(sym_all)(j["attr"], j["feats"], j["g"])
+    c_out, c_dc, c_dd, c_df = jax.jit(cheb_all)(j["coeffs"], jnp.asarray(d),
+                                                j["feats"], j["g"])
+    want = dict(row8=s_out, row9=s_da, row10=c_out,
+                row11=np.asarray(c_dd) * (hi / 2.0), sym_dfeats=s_df,
+                sym_dattr=s_da, cheb_dfeats=c_df, cheb_dd=c_dd,
+                cheb_dcoeffs=c_dc)
+
+    t = {key: torch.from_numpy(v) for key, v in x.items()}
+    ti, tm = torch.from_numpy(idx.astype(np.int64)), torch.from_numpy(mask)
+    td, tf = torch.from_numpy(d), torch.from_numpy(fm)
+    got = dict(
+        row8=bm.neighbor_sum(t["attr"], t["feats"], ti, tm),
+        row9=bm.dattr(t["g"], t["feats"], ti, tm),
+        row10=bm.neighbor_sum_cheb(t["coeffs"], td, tf, t["feats"], ti, 0.0,
+                                   hi),
+        row11=bm.dd_cheb(cheb_deriv_coeffs(t["coeffs"]), td, tf, t["g"],
+                         t["feats"], ti, 0.0, hi))
+    a = t["attr"].clone().requires_grad_(True)
+    fe = t["feats"].clone().requires_grad_(True)
+    got["sym_dattr"], got["sym_dfeats"] = torch.autograd.grad(
+        bm.blocked_neighbor_sum_sym(a, fe, ti, tm), [a, fe], t["g"])
+    c = t["coeffs"].clone().requires_grad_(True)
+    dd = td.clone().requires_grad_(True)
+    got["cheb_dcoeffs"], got["cheb_dd"], got["cheb_dfeats"] = \
+        torch.autograd.grad(bm.blocked_neighbor_sum_sym_cheb(
+            c, dd, tf, fe, ti, 0.0, hi), [c, dd, fe], t["g"])
+    return ({key: np.asarray(v) for key, v in want.items()},
+            {key: v.detach().numpy() for key, v in got.items()}, mask)
+
+
+# ---- the blocked TensorNet model (bench.py::main with BENCH_BLOCKED=1) at
+# the JAX blocked tests' geometry (tests/test_blocked_model.py): 260 atoms
+# at 0.08 Å⁻³, a 3.2 Å cutoff, 8-row blocks, F=16, 8 rbf
+BT_N, BT_CUTOFF, BT_SKIN, BT_K, BT_T = 260, 3.2, 0.5, 48, 32
+BT_ARGS = dict(
+    model="tensornet", embedding_dimension=16, num_layers=2, num_rbf=8,
+    rbf_type="expnorm", trainable_rbf=False, activation="silu",
+    cutoff_lower=0.0, cutoff_upper=BT_CUTOFF, max_z=100,
+    max_num_neighbors=BT_K, derivative=True, prior_model=None,
+    output_model="Scalar", reduce_op="sum", precision=32,
+    equivariance_invariance_group="O(3)", atom_filter=-1, remat=False)
+# variant → (extra args, grouped spec?)
+BT_VARIANTS = {
+    "tabulated_grouped": (dict(tabulated_edge_mlp=BT_T), True),
+    "tabulated_ungrouped": (dict(tabulated_edge_mlp=BT_T), False),
+    "exact_grouped": (dict(pallas_edge_mlp=True, pallas_embedding=True),
+                      True),
+    "exact_ungrouped": (dict(pallas_edge_mlp=True), False)}
+
+
+def bt_system(n=BT_N, seed=0):
+    """``(z, pos, box)``: ``n`` atoms uniform at 0.08 Å⁻³ in a cube."""
+    rng = np.random.RandomState(seed)
+    L = (n / 0.08) ** (1.0 / 3.0)
+    pos = rng.uniform(0, L, (n, 3)).astype(np.float32)
+    z = rng.choice([1, 6, 8], n).astype(np.int32)
+    return z, pos, np.diag([L, L, L]).astype(np.float32)
+
+
+def bt_list_kwargs(spec, bd, cutoff=BT_CUTOFF):
+    """The sorted-space list of a spec: brute K=48, or the grouped one."""
+    if spec.col_slots is None:
+        return dict(strategy="brute", k_max=BT_K)
+    return grouped_list_kwargs(spec, bd, cutoff, BT_N)
+
+
+def bt_setup():
+    """The system, the JAX weights and the JAX specs (precise, tuned at the
+    model cutoff with 8-row blocks; ``specs[grouped]``)."""
+    from torchmdnet_tpu.ops import cell_blocks as jcb
+
+    z, pos, box = bt_system()
+    bd = np.diag(box).copy()
+    jpot = jax_create_model(BT_ARGS)
+    variables = jax.jit(lambda key, z_, p_, b_: jpot.init(
+        key, z_, p_, jnp.zeros((BT_N,), jnp.int32), num_mols=1, box=b_))(
+        jax.random.PRNGKey(0), jnp.asarray(z), jnp.asarray(pos),
+        jnp.asarray(box))
+    specs = {grouped: jcb.tune_cell_block_spec(
+        jnp.asarray(pos), jnp.asarray(bd), BT_CUTOFF, cap=8, rlh=JAX_RLH,
+        precise=True, column_slots=grouped) for grouped in (False, True)}
+    return dict(z=z, pos=pos, box=box, bd=bd, variables=variables,
+                flat=flatten_params(variables["params"]), specs=specs)
+
+
+def bt_jax_blocked(setup, variant):
+    """Jitted energy and forces (original order) of the JAX blocked model
+    on the JAX sort and list."""
+    from torchmdnet_tpu.ops import cell_blocks as jcb
+    from torchmdnet_tpu.ops.neighbors import build_neighbor_matrix
+
+    extra, grouped = BT_VARIANTS[variant]
+    spec = setup["specs"][grouped]
+    z, pos, box, bd = setup["z"], setup["pos"], setup["box"], setup["bd"]
+    pj, bj = jnp.asarray(pos), jnp.asarray(box)
+    jpot = jax_create_model(dict(BT_ARGS, cell_block_spec=spec, **extra))
+    blocks = jcb.plan_cell_blocks(pj, jnp.asarray(bd), spec)
+    perm_safe = jnp.minimum(blocks.perm, BT_N - 1)
+    am = blocks.mask_rows
+    pos_s = jnp.where(am[:, None], pj[perm_safe], 0.0)
+    zs = jnp.where(am, jnp.asarray(z)[perm_safe], 0)
+    batchs = jnp.where(am, 0, 1)
+    nbr = build_neighbor_matrix(pos_s, batchs, cutoff_upper=BT_CUTOFF,
+                                loop=True, box=bj, atom_mask=am,
+                                **bt_list_kwargs(spec, bd))
+    assert not bool(nbr.overflow)
+    rel, eov = jcb.edge_rel(blocks, nbr.idx, nbr.mask, pos_s,
+                            jnp.asarray(bd))
+    assert not bool(eov)
+
+    def energy(p):
+        p_s = jcb.permute_rows(p, perm_safe, am, blocks.inv_perm)
+        return jnp.sum(jpot.energy(
+            setup["variables"], zs, p_s, batchs, num_mols=1, box=bj,
+            nbr=nbr, blocked=jcb.BlockedMP(rel, blocks.run_starts)))
+
+    e, g = jax.jit(jax.value_and_grad(energy))(pj)
+    return float(e), -np.asarray(g)
+
+
+def bt_port(setup, variant=None, spec=None):
+    """The port's TensorNet on the CPU with the JAX weights; ``spec`` (a
+    JAX or port spec) builds the blocked model."""
+    from torchmdnet_tpu_torch.ops.cell_blocks import CellBlockSpec
+
+    args = dict(BT_ARGS, **(BT_VARIANTS[variant][0] if variant else {}))
+    if spec is not None:
+        args["cell_block_spec"] = CellBlockSpec(**spec._asdict())
+    pot = port_create_model(args, device="cpu")
+    pot.module.load_state_dict(params_from_jax(setup["flat"]), strict=True)
+    return pot
+
+
+def bt_port_blocked(setup, variant, monkeypatch):
+    """Energy and forces (original order) of the port's blocked model on
+    its own sort and sorted-space list, and the set of blocked ops
+    (``ops/blocked_mp.py`` dispatchers) it ran."""
+    from torchmdnet_tpu_torch.ops import blocked_mp
+    from torchmdnet_tpu_torch.ops import cell_blocks as tcb
+    from torchmdnet_tpu_torch.ops.neighbors import build_neighbor_matrix
+
+    spec = tcb.CellBlockSpec(
+        **setup["specs"][BT_VARIANTS[variant][1]]._asdict())
+    pot = bt_port(setup, variant, spec)
+    calls = []
+    for name in ("neighbor_sum", "neighbor_sum_cheb", "dattr", "dd_cheb"):
+        fn = getattr(blocked_mp, name)
+        monkeypatch.setattr(blocked_mp, name, lambda *a, _n=name, _f=fn:
+                            calls.append(_n) or _f(*a))
+    pt, box = torch.from_numpy(setup["pos"]), torch.from_numpy(setup["box"])
+    blocks = tcb.plan_cell_blocks(pt, setup["bd"], spec)
+    perm = torch.clamp(blocks.perm, max=BT_N - 1)
+    am = blocks.mask_rows
+    pos_s = torch.where(am[:, None], pt[perm], 0.0)
+    zs = torch.where(am, torch.from_numpy(setup["z"]).long()[perm], 0)
+    batchs = (~am).long()
+    nbr = build_neighbor_matrix(pos_s, batchs, cutoff_upper=BT_CUTOFF,
+                                loop=True, box=box, atom_mask=am,
+                                **bt_list_kwargs(spec, setup["bd"]))
+    assert not bool(nbr.overflow)
+    p = pt.clone().requires_grad_(True)
+    y = pot.module(zs, tcb.permute_rows(p, perm, am, blocks.inv_perm),
+                   batchs, num_mols=1, box=box, nbr=nbr, blocked=True)
+    (g,) = torch.autograd.grad(y.sum(), p)
+    return float(y.detach()), -g.numpy(), set(calls)
+
+
+def bt_check_against_jax(setup, variant, monkeypatch):
+    """The port's blocked energy and forces against JAX's at rtol = atol =
+    1e-4, through the blocked ops of the variant (rows 10 and 11 when
+    tabulated, rows 8 and 9 otherwise)."""
+    e_j, f_j = bt_jax_blocked(setup, variant)
+    e_t, f_t, calls = bt_port_blocked(setup, variant, monkeypatch)
+    assert calls == ({"neighbor_sum_cheb", "dd_cheb"}
+                     if variant.startswith("tabulated")
+                     else {"neighbor_sum", "dattr"})
+    assert np.abs(f_j).max() > 1e-2  # non-vacuous
+    np.testing.assert_allclose(e_t, e_j, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(f_t, f_j, rtol=RTOL, atol=ATOL)

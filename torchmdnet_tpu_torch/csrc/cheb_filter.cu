@@ -23,64 +23,19 @@
 // since j·θ reaches 127π; never __cosf or fast math — and forms the
 // [64 × C] product 128 columns at a time, streaming the series table in
 // 32-row tiles, each of the 256 threads accumulating a 4 × 8 register tile
-// in a fixed order (the tile product of csrc/edge_mlp.cu).  The dot form
-// multiplies each thread's tile by ct as it goes and reduces a slot's sum
-// over its 16 column threads with shuffles, in a fixed order and without
-// atomics: the [E, C] filter derivative is never stored.
+// in a fixed order (csrc/cheb_tile.cuh, the product of csrc/edge_mlp.cu).
+// The dot form multiplies each thread's tile by ct as it goes and reduces
+// a slot's sum over its 16 column threads with shuffles, in a fixed order
+// and without atomics: the [E, C] filter derivative is never stored.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cheb_tile.cuh"
+
 namespace {
 
-constexpr int kTileM = 64;     // live slots per tile
-constexpr int kTileN = 128;    // output columns per pass
-constexpr int kTileK = 32;     // series rows per shared-memory tile
-constexpr int kThreads = 256;  // 16 x 16 threads, each 4 rows x 8 columns
 constexpr int kSpan = kThreads;  // slots a block owns
-constexpr int kWarps = kThreads / 32;
-constexpr int kPad = 4;        // row padding of the basis in smem
-
-// acc[i][j] = Σ_k A[row_i][k]·W[k][col_j] over k < kdim for the 128-column
-// block starting at c0 (columns >= ncols read as zero).  A is a [64 x kdim]
-// shared-memory array with row stride lda; W is [kdim x ncols] row-major in
-// device memory.  The same product as csrc/edge_mlp.cu.
-__device__ __forceinline__ void tile_product(
-    const float* __restrict__ sAct, int lda, const float* __restrict__ W,
-    int kdim, int ncols, int c0, float* __restrict__ sW, float (&acc)[4][8]) {
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < kdim; k0 += kTileK) {
-    __syncthreads();  // previous tile fully consumed
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int v = tid + kThreads * q;
-      const int row = v / (kTileN / 4), col = (v % (kTileN / 4)) * 4;
-      float4 w = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (k0 + row < kdim && c0 + col < ncols)
-        w = *reinterpret_cast<const float4*>(W + (long long)(k0 + row) * ncols + c0 + col);
-      *reinterpret_cast<float4*>(sW + row * kTileN + col) = w;
-    }
-    __syncthreads();
-    const int kt = min(kTileK, kdim - k0);
-    for (int kk = 0; kk < kt; ++kk) {
-      float a[4], b[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sAct[(ty * 4 + i) * lda + k0 + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = sW[kk * kTileN + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-}
 
 // Splits the slots [s0, s0 + kSpan) ∩ [0, E) into those with flag ≠ 0
 // (sLive) and the rest (sDead), each in slot order, as offsets from s0.
@@ -162,19 +117,14 @@ cheb_kernel(const float* __restrict__ d, const float* __restrict__ fm,
       float th = 0.0f, f = 0.0f;
       if (t0 + tid < nlive) {
         const long long e = s0 + sLive[t0 + tid];
-        float x = 2.0f * (d[e] - lo) / (hi - lo) - 1.0f;
-        x = fminf(fmaxf(x, -1.0f), 1.0f);
-        th = acosf(x);
+        th = cheb_theta(d[e], lo, hi);
         f = fm[e];
       }
       sTheta[tid] = th;
       sFm[tid] = f;
     }
     __syncthreads();
-    for (int v = tid; v < kTileM * T; v += kThreads) {
-      const int r = v / T, j = v % T;
-      sB[r * ldb + j] = cosf((float)j * sTheta[r]);
-    }
+    fill_basis(sB, ldb, sTheta, T);
 
     float acc[4][8];
     float dot[4] = {0.0f, 0.0f, 0.0f, 0.0f};

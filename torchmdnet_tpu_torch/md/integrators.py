@@ -12,13 +12,17 @@ initial velocities come from a ``torch.Generator`` seeded by ``seed``.
 
 With a ``cell_block_spec`` (the blocked path, ``:245-290``) every rebuild
 sorts the atoms into cell-blocked order (``ops/cell_blocks.py``); the
-model runs in that sorted row space on the q-tier, the state stays in
-the original order, and forces come back through ``permute_rows``,
-whose backward is the inverse gather.  ``coulomb_window_spec`` (a
-``StencilWindowSpec``, or ``"auto"`` to tune it from the ``init_state``
-positions at the skin-padded Coulomb cutoff) replaces the Coulomb list
-with stencil windows over the same sort (kernels C and D); without it
-the Coulomb list is built in sorted space.  K overflow stays sticky.
+model runs in that sorted row space on its blocked tier (the q-tier on
+TensorNet2, rows 8-11 on TensorNet), the state stays in the original
+order, and forces come back through ``permute_rows``, whose backward is
+the inverse gather.  A grouped spec (``col_slots``, TensorNet only) makes
+the sorted-space list a column-partitioned cell list on the spec's xy
+grid with ``K′ = Σ col_slots`` slots (``:264-281``).
+``coulomb_window_spec`` (a ``StencilWindowSpec``, or ``"auto"`` to tune
+it from the ``init_state`` positions at the skin-padded Coulomb cutoff)
+replaces the Coulomb list with stencil windows over the same sort
+(kernels C and D); without it the Coulomb list is built in sorted space.
+K overflow stays sticky.
 
 Units: Å, eV, amu, fs.  ``ACC_FACTOR`` converts (eV/Å)/amu → Å/fs².
 """
@@ -102,17 +106,18 @@ def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
     ``coulomb_window_spec`` select the blocked path (module docstring);
     it needs an orthogonal ``box``.
     """
+    dev = potential.device
+    rep = potential.module.representation_model
     use_blocked = cell_block_spec is not None
     if use_blocked:
         spec = CellBlockSpec(**cell_block_spec._asdict())
-        if spec.col_slots is not None:
+        if spec.col_slots is not None and hasattr(rep, "q_tab"):
             raise NotImplementedError(
-                "cell_block_spec with col_slots (the grouped q-tier) is not "
-                "ported yet (ROADMAP Queue 2, 'grouped rows 12-13')")
+                "cell_block_spec with col_slots on TensorNet2 (the grouped "
+                "q-tier and the dual-list nbr_emb) is not ported yet "
+                "(ROADMAP Queue 2, 'grouped rows 12-13')")
         if box is None:
             raise ValueError("cell_block_spec requires an orthogonal box")
-    dev = potential.device
-    rep = potential.module.representation_model
     out_mod = potential.module.output_model
     cutoff = float(rep.cutoff_upper)
     z = torch.as_tensor(z, device=dev).long()
@@ -140,6 +145,15 @@ def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
             dims = np.maximum(np.floor(_box_diag(box) / (cutoff + skin)), 3)
             cells_per_dim = tuple(int(d) for d in dims)
         nbr_kwargs["cells_per_dim"] = cells_per_dim
+    if use_blocked and spec.col_slots is not None:
+        # the grouped tier's list: the spec's xy grid, one slot budget per
+        # stencil column, K' = Σ budgets in place of the model's K
+        nz = max(int(bd[2] // (cutoff + skin)), 3)
+        occ = int(atom_mask.sum()) / (spec.nx * spec.ny * nz)
+        nbr_kwargs.update(strategy="cell", k_max=sum(spec.col_slots),
+                          cells_per_dim=(spec.nx, spec.ny, nz),
+                          cell_capacity=int(np.ceil(occ * 2.5)) + 8,
+                          column_partition=spec.col_slots)
 
     coulomb_rc = getattr(out_mod, "coulomb_cutoff", None)
     use_cwin = (use_blocked and coulomb_rc is not None

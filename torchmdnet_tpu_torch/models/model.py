@@ -37,7 +37,8 @@ class TorchMDNet(nn.Module):
                 nbr_emb=None):
         """``blocked``: the rows are in a cell-blocked sort
         (``ops/cell_blocks.py``) and the model was built with a
-        ``cell_block_spec``, so the interactions run the q-tier;
+        ``cell_block_spec``, so the interactions run the blocked tier (the
+        q-tier on TensorNet2, rows 8-11 on TensorNet);
         ``coulomb_win``: the windows of the windowed Coulomb head."""
         if nbr_emb is not None:
             _not_ported("nbr_emb (the dual-list embedding of the grouped "
@@ -112,17 +113,16 @@ def _check_supported(args: dict) -> None:
         _not_ported(f"model={model!r}", "Queue 1, 'torchmd_et, _t, _gn'")
     spec = args.get("cell_block_spec")
     if model == "tensornet":
-        if spec is not None:
-            _not_ported("cell_block_spec on tensornet (the blocked TensorNet "
-                        "tiers, Pallas rows 8-11)", "Queue 2, 'rows 8-11'")
         if args.get("output_model", "Scalar") != "Scalar":
             _not_ported(f"output_model={args['output_model']!r} on "
                         "tensornet", "Queue 1, 'Remaining heads and wrappers'")
-    if spec is not None and spec.col_slots is not None:
-        _not_ported("cell_block_spec with col_slots (the grouped q-tier)",
-                    "Queue 2, 'grouped rows 12-13'")
-    if spec is not None and not int(args.get("q_tab", 64)):
-        _not_ported("q_tab=0 (the exact-rbf q operand)", "Queue 2, 'q_tab=0'")
+    elif spec is not None:
+        if spec.col_slots is not None:
+            _not_ported("cell_block_spec with col_slots on tensornet2 (the "
+                        "grouped q-tier)", "Queue 2, 'grouped rows 12-13'")
+        if not int(args.get("q_tab", 64)):
+            _not_ported("q_tab=0 (the exact-rbf q operand)",
+                        "Queue 2, 'q_tab=0'")
     if args.get("remat"):
         _not_ported("remat=True", "Queue 1, 'Training'")
     if args.get("prior_model"):
@@ -172,18 +172,16 @@ def create_model(args: dict, device=None, seed: int = 0) -> Potential:
         cell_capacity=int(args.get("cell_capacity", 64)),
         pallas_edge_mlp=bool(args.get("pallas_edge_mlp", False)),
         pallas_embedding=bool(args.get("pallas_embedding", False)))
+    spec = None if spec is None else CellBlockSpec(**spec._asdict())
     if args["model"] == "tensornet":
         rep = TensorNet(
             tabulated_edge_mlp=int(args.get("tabulated_edge_mlp", 0)),
-            **shared)
+            cell_block_spec=spec, **shared)
     else:
         rep = TensorNet2(
             q_dim=args.get("q_dim", 0),
-            output_charges="Coul" in output_model,
-            cell_block_spec=(None if spec is None
-                             else CellBlockSpec(**spec._asdict())),
-            q_tab=int(args.get("q_tab", 64)),
-            **shared)
+            output_charges="Coul" in output_model, cell_block_spec=spec,
+            q_tab=int(args.get("q_tab", 64)), **shared)
     head_kwargs = dict(hidden_channels=F, activation=args["activation"],
                        reduce_op=args.get("reduce_op", "sum"))
     if output_model == "ScalarPlusWeightedCoulomb":

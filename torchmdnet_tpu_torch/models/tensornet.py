@@ -10,7 +10,12 @@ embedding's fused branch runs kernels 1 and 2
 one of three branches: the Chebyshev-tabulated filter
 (``tabulated_edge_mlp = T``, kernels 5 and 7, ``ops/cheb_filter.py``), the
 fused edge MLP (``pallas_edge_mlp``, kernel 4, ``ops/edge_mlp.py``) or the
-plain chain.  The cell-blocked tiers (``blocked``) are not ported.
+plain chain.  With a ``cell_block_spec`` and ``blocked=True`` (rows in a
+cell-blocked sort, the list grouped or not) the neighbor sum runs the
+blocked tier (``ops/blocked_mp.py``, rows 8-11): with tabulated filters
+the series is evaluated inside the sum (rows 10, 11) and the ``[N, K,
+3F]`` edge weights never reach memory; otherwise the weights go to rows 8
+and 9.
 """
 
 import torch
@@ -19,6 +24,9 @@ from torch import nn
 from torchmdnet_tpu_torch.models.common import (
     Embedding, LayerNorm, Linear, get_activation, make_rbf)
 from torchmdnet_tpu_torch.ops import rbf as rbf_ops
+from torchmdnet_tpu_torch.ops.blocked_mp import (
+    blocked_neighbor_sum_asym, blocked_neighbor_sum_sym,
+    blocked_neighbor_sum_sym_cheb)
 from torchmdnet_tpu_torch.ops.cheb import cheb_fit_matrix, cheb_nodes
 from torchmdnet_tpu_torch.ops.cheb_filter import cheb_filter
 from torchmdnet_tpu_torch.ops.edge_mlp import fused_edge_mlp
@@ -32,10 +40,6 @@ from torchmdnet_tpu_torch.ops.radial_embedding import (
 from torchmdnet_tpu_torch.ops.tensor_algebra import (
     Irreps, compose_tensor, decompose_tensor, irreps_norm3,
     tensor_frobenius_norm2, tensor_matmul_o3, tensor_matmul_so3)
-
-_BLOCKED = ("the cell-blocked TensorNet tiers (Pallas rows 8-11) are not "
-            "ported yet (ROADMAP Queue 2, 'rows 8-11')")
-
 
 def linear_irreps(irr: Irreps, linears) -> Irreps:
     """Three bias-free channel-mixing linears, one per irrep part."""
@@ -60,15 +64,29 @@ def divide_irreps(irr: Irreps, s) -> Irreps:
 
 
 def edge_message_passing(attr3f, irr: Irreps, nbr: NeighborMatrix,
-                         attr_rev=None) -> Irreps:
+                         attr_rev=None, blocked=False) -> Irreps:
     """TensorNet message pass over the neighbor matrix with edge weights
     ``attr3f [N, K, 3F]`` (cutoff- and pad-masked; block 0 weights I, 1
     weights A, 2 weights S).  Direction-dependent weights come with their
     recomputed reverse ``attr_rev``; without it the weights must be
     edge-symmetric (functions of the distance alone) and the sum's
-    backward is the sum itself."""
+    backward is the sum itself.
+
+    ``blocked`` (sorted rows, JAX ``:110-141``) runs the blocked tier:
+    ``attr3f`` is either the weights (rows 8, 9) or the tuple ``("cheb",
+    coeffs, d, fm, lo, hi)`` of a tabulated filter, evaluated inside the
+    sum (rows 10, 11)."""
     n, f = irr.I.shape
-    if attr_rev is None:
+    if blocked and isinstance(attr3f, tuple):
+        _, coeffs, d, fm, lo, hi = attr3f
+        msg = blocked_neighbor_sum_sym_cheb(coeffs, d, fm, pack9(irr),
+                                            nbr.idx, lo, hi)
+    elif blocked and attr_rev is None:
+        msg = blocked_neighbor_sum_sym(attr3f, pack9(irr), nbr.idx, nbr.mask)
+    elif blocked:
+        msg = blocked_neighbor_sum_asym(attr3f, attr_rev, pack9(irr),
+                                        nbr.idx, nbr.mask)
+    elif attr_rev is None:
         msg = packed_neighbor_sum_sym(attr3f, pack9(irr), nbr.idx, nbr.mask)
     else:
         msg = packed_neighbor_sum_asym(attr3f, attr_rev, pack9(irr), nbr.idx,
@@ -214,7 +232,9 @@ class Interaction(nn.Module):
     evaluates the fitted series per slot (JAX ``:356-390``); with
     ``pallas_edge_mlp`` the fused edge MLP runs per slot (``:391-402``);
     otherwise the plain chain (``:403-408``).  The same parameters serve
-    all three."""
+    all three.  Under ``blocked`` the tabulated branch hands the series
+    to the blocked sum as ``("cheb", coeffs, d, fm, lo, hi)`` (JAX
+    ``:380-385``)."""
 
     def __init__(self, hidden_channels, num_rbf, activation="silu",
                  cutoff_lower=0.0, cutoff_upper=4.5,
@@ -239,7 +259,7 @@ class Interaction(nn.Module):
         return x
 
     def edge_weights(self, nbr: NeighborMatrix, edge_weight, edge_attr,
-                     tab=None):
+                     tab=None, blocked=False):
         if self.tabulated and tab is not None:
             dk, node_attr = tab
             Ck = rbf_ops.cosine_cutoff(dk, self.cutoff_upper,
@@ -248,6 +268,9 @@ class Interaction(nn.Module):
                 self._mlp(node_attr) * Ck[:, None])
             fm = ((edge_weight < self.cutoff_upper) & nbr.mask).to(
                 edge_weight.dtype)
+            if blocked:
+                return ("cheb", coeffs, edge_weight, fm, 0.0,
+                        self.cutoff_upper)
             return cheb_filter(coeffs, edge_weight, fm, 0.0,
                                self.cutoff_upper)
         cw = rbf_ops.cosine_cutoff(edge_weight, self.cutoff_upper,
@@ -263,21 +286,20 @@ class Interaction(nn.Module):
 
     def forward(self, X: Irreps, nbr: NeighborMatrix, edge_weight, edge_attr,
                 q_atom, tab=None, blocked=False):
-        if blocked:
-            raise NotImplementedError(_BLOCKED)
-        attr = self.edge_weights(nbr, edge_weight, edge_attr, tab)
+        attr = self.edge_weights(nbr, edge_weight, edge_attr, tab, blocked)
         X = divide_irreps(X, tensor_frobenius_norm2(X) + 1.0)
         Y = linear_irreps(X, self.linears_tensor[:3])
         # the weights depend on the edge distance only: symmetric under
         # edge reversal, so the sum's backward is the sum itself
-        M = edge_message_passing(attr, Y, nbr)
+        M = edge_message_passing(attr, Y, nbr, blocked=blocked)
         return interaction_update(X, Y, M, self.linears_tensor[3:],
                                   self.group, qfac=1.0 + 0.1 * q_atom)
 
 
 class TensorNet(nn.Module):
     """Representation model (reference ``tensornet.py:149-402``); returns
-    ``(x [N, F], None)``."""
+    ``(x [N, F], None)``.  ``forward(..., blocked=True)`` needs the model
+    built with a ``cell_block_spec`` and the rows in its sort."""
 
     def __init__(self, hidden_channels=128, num_layers=2, num_rbf=32,
                  rbf_type="expnorm", trainable_rbf=False, activation="silu",
@@ -285,7 +307,8 @@ class TensorNet(nn.Module):
                  max_z=128, equivariance_invariance_group="O(3)",
                  neighbor_strategy="brute", cells_per_dim=None,
                  cell_capacity=64, pallas_edge_mlp=False,
-                 tabulated_edge_mlp=0, pallas_embedding=False):
+                 tabulated_edge_mlp=0, pallas_embedding=False,
+                 cell_block_spec=None):
         super().__init__()
         if equivariance_invariance_group not in ("O(3)", "SO(3)"):
             raise ValueError(f'Unknown group "{equivariance_invariance_group}". '
@@ -297,6 +320,7 @@ class TensorNet(nn.Module):
         self.neighbor_strategy = neighbor_strategy
         self.cells_per_dim = cells_per_dim
         self.cell_capacity = cell_capacity
+        self.cell_block_spec = cell_block_spec
         self.tabulated_edge_mlp = int(tabulated_edge_mlp)
         self.act = get_activation(activation)
         self.distance_expansion = make_rbf(rbf_type, cutoff_lower,
@@ -318,8 +342,9 @@ class TensorNet(nn.Module):
 
     def forward(self, z, pos, batch, box=None, q=None, atom_mask=None,
                 nbr=None, num_mols=None, blocked=False):
-        if blocked:
-            raise NotImplementedError(_BLOCKED)
+        if blocked and self.cell_block_spec is None:
+            raise ValueError("blocked=True needs a model built with a "
+                             "cell_block_spec")
         if nbr is None:
             nbr = self.build_neighbors(pos, batch, box=box, atom_mask=atom_mask)
         rev_slot = (nbr.rev_slot if nbr.rev_slot is not None
@@ -337,6 +362,7 @@ class TensorNet(nn.Module):
         X = self.tensor_embedding(z, nbr, dist, unit_vectors(delta, dist),
                                   edge_attr, rev_slot)
         for layer in self.layers:
-            X = layer(X, nbr, dist, edge_attr, q_atom, tab=tab)
+            X = layer(X, nbr, dist, edge_attr, q_atom, tab=tab,
+                      blocked=blocked)
         x = self.act(self.linear(self.out_norm(irreps_norm3(X))))
         return x, None

@@ -19,6 +19,7 @@ kept so that a JAX spec converts as ``CellBlockSpec(**spec._asdict())``,
 and nothing here reads them.
 """
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -37,7 +38,7 @@ class CellBlockSpec(NamedTuple):
     n_pad: int       # sorted row count: N plus per-column padding
     cut_bins: int    # cutoff in fine z-bins (ceil) + 1 slop bin
     precise: bool = False  # JAX tier flag; the port always computes f32
-    col_slots: Optional[tuple] = None  # grouped tier (not ported)
+    col_slots: Optional[tuple] = None  # grouped tier: 9 slot budgets
     nrp: Optional[int] = None          # TPU packed-run budget (unused here)
 
     @property
@@ -111,13 +112,71 @@ def tune_cell_block_spec(pos, box_diag, cutoff: float, *, cap: int = 8,
     """The spec for ``pos``.  The JAX tuner measures the TPU run budgets
     (``rpc``, ``nrp``) on a probe plan; its sort fields (nx, ny, nzf, cap,
     n_pad, cut_bins) are those of :func:`make_cell_block_spec`, which is
-    all the port reads."""
-    if column_slots:
-        raise NotImplementedError(
-            "column_slots (the grouped q-tier) is not ported yet (ROADMAP "
-            "Queue 2, 'grouped rows 12-13')")
-    return make_cell_block_spec(box_diag, cutoff, int(pos.shape[0]), cap=cap,
-                                rlh=rlh, zf_width=zf_width, precise=precise)
+    all the port reads.
+
+    ``column_slots`` adds the grouped tier's per-stencil-column slot
+    budgets ``col_slots``, measured as JAX ``cell_blocks.py:311-341``
+    does: a cell list on the sorted positions with ``k_probe = min(
+    ceil(occ·10) + 32, n_pad)`` slots, then :func:`tune_column_slots`.  It
+    raises for an xy grid under 3×3 and for a probe that overflows."""
+    pos = torch.as_tensor(pos, dtype=torch.float32)
+    n_atoms = int(pos.shape[0])
+    spec = make_cell_block_spec(box_diag, cutoff, n_atoms, cap=cap, rlh=rlh,
+                                zf_width=zf_width, precise=precise)
+    if not column_slots:
+        return spec
+    if spec.nx < 3 or spec.ny < 3:
+        raise ValueError(
+            f"column_slots needs a >=3x3 xy grid (got {spec.nx}x{spec.ny}): "
+            "box too small for the grouped tier at this cutoff")
+    from torchmdnet_tpu_torch.ops.neighbors import cell_neighbor_matrix
+
+    bd = np.asarray(box_diag, dtype=np.float64)
+    bd_t = torch.as_tensor(bd, dtype=torch.float32, device=pos.device)
+    blocks = plan_cell_blocks(pos, bd_t, spec)
+    am = blocks.mask_rows
+    perm = torch.clamp(blocks.perm, max=n_atoms - 1)
+    pos_s = torch.where(am[:, None], pos[perm], 0.0)
+    nz = max(int(bd[2] // cutoff), 3)
+    occ = n_atoms / (spec.nx * spec.ny * nz)
+    probe = cell_neighbor_matrix(
+        pos_s, k_max=min(int(np.ceil(occ * 10)) + 32, spec.n_pad),
+        cutoff_upper=cutoff, loop=True, box=torch.diag(bd_t), atom_mask=am,
+        cells_per_dim=(spec.nx, spec.ny, nz),
+        cell_capacity=int(np.ceil(occ * 2.5)) + 8)
+    if bool(probe.overflow):
+        raise ValueError("column_slots probe neighbor list overflowed")
+    return spec._replace(col_slots=tune_column_slots(
+        spec, probe.idx, probe.mask, pos_s, bd_t))
+
+
+def tune_column_slots(spec: CellBlockSpec, idx, mask, pos_s,
+                      box_diag) -> tuple:
+    """Per-stencil-column slot budgets of the grouped tier (JAX
+    ``cell_blocks.py:408-439``) from a sorted-space neighbor matrix
+    ``idx``/``mask [n_pad, K]`` on ``pos_s``: the most neighbors any row
+    has in stencil column ``g`` (``(dx, dy)`` in ``ij`` order, around the
+    column of the row's block), plus 2 slots of slack (JAX's default).
+
+    Each budget is rounded up so that ``cap·budget`` is a multiple of 128,
+    as JAX does: a Mosaic lane alignment of its grouped kernels that the
+    port's kernels do not need, kept because it fixes K′ = Σ budgets, so a
+    spec tuned here equals the JAX spec on the same positions and both
+    packages build the same lists."""
+    box_diag = torch.as_tensor(box_diag, dtype=pos_s.dtype,
+                               device=pos_s.device)
+    col_s, _ = _column_bins(pos_s, box_diag, spec)
+    blk = torch.arange(spec.n_pad, device=pos_s.device) // spec.cap
+    first = col_s.view(spec.n_blocks, spec.cap)[:, 0]
+    cx, cy = first // spec.ny, first % spec.ny
+    dx = torch.tensor([-1, -1, -1, 0, 0, 0, 1, 1, 1], device=pos_s.device)
+    dy = torch.tensor([-1, 0, 1, -1, 0, 1, -1, 0, 1], device=pos_s.device)
+    scol = (((cx[:, None] + dx) % spec.nx) * spec.ny
+            + (cy[:, None] + dy) % spec.ny)
+    eq = scol[blk][:, None, :] == col_s[idx][:, :, None]   # [n_pad, K, 9]
+    maxima = (eq & mask[:, :, None]).sum(dim=1).max(dim=0).values.tolist()
+    lane_q = max(128 // math.gcd(spec.cap, 128), 1)
+    return tuple(int(math.ceil((m + 2) / lane_q)) * lane_q for m in maxima)
 
 
 def tune_stencil_window_spec(pos, box_diag, spec: CellBlockSpec,

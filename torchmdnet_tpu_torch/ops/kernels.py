@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` source exposes plain C entry points; it is compiled with
 ``nvcc`` for ``sm_90a`` into its own shared library under ``_build/`` the
-first time a kernel of it is launched, keyed by a hash of the source and
-the flags, and loaded with ``ctypes``.  Nothing is compiled at import.
+first time a kernel of it is launched, keyed by a hash of the source, the
+shared ``csrc/*.cuh`` headers and the flags, and loaded with ``ctypes``.
+Nothing is compiled at import.
 
 Every entry point takes the CUDA stream as its last argument and returns
 ``cudaGetLastError()`` after its launches; :class:`Kernel` raises on a
@@ -49,8 +50,10 @@ class CudaSource:
         self._lib = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.path.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        # the shared headers are part of every source's key
+        text = self.path.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return BUILD_DIR / f"{self.path.stem}-{digest[:16]}.so"
 
     def start_build(self, extra_flags=()):

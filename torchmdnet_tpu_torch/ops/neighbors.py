@@ -138,11 +138,23 @@ def cell_neighbor_matrix(pos, batch=None, *, k_max: int, cutoff_upper: float,
                          cutoff_lower: float = 0.0, loop: bool = False,
                          box=None, atom_mask=None, cell_capacity: int = 64,
                          cells_per_dim: Optional[tuple] = None,
-                         stencil: int = 1) -> NeighborMatrix:
+                         stencil: int = 1,
+                         column_partition: Optional[tuple] = None
+                         ) -> NeighborMatrix:
     """O(N·(2S+1)³·capacity) neighbor matrix via sort-based binning into a
     dense ``[n_cells+1, capacity]`` table and a ±S cell stencil.  Requires
     an orthogonal ``box`` (its diagonal is used).  A cell holding more
-    than ``cell_capacity`` atoms sets ``overflow``."""
+    than ``cell_capacity`` atoms sets ``overflow``.
+
+    ``column_partition`` (9 slot budgets, the grouped blocked tier; JAX
+    ``neighbors.py:400-440``) splits the slot axis into one range per
+    stencil xy-column ``(dx, dy)`` in ``ij`` order: the candidates of
+    column ``g`` are the contiguous ``[g·3·capacity, (g+1)·3·capacity)``
+    (the stencil runs dx slowest, then dy, then dz), and each group keeps
+    its first ``column_partition[g]`` in candidate order, its empty slots
+    pointing at the row itself.  A group that overflows its budget sets
+    ``overflow``.  It needs ``stencil == 1`` and ``k_max ==
+    sum(column_partition)``."""
     n = pos.shape[0]
     dev = pos.device
     if box is None:
@@ -181,6 +193,14 @@ def cell_neighbor_matrix(pos, batch=None, *, k_max: int, cutoff_upper: float,
           rank.clamp(0, cell_capacity - 1)] = torch.where(in_cap, order, n)
 
     S = int(stencil)
+    if column_partition is not None:
+        column_partition = tuple(int(g) for g in column_partition)
+        if S != 1 or len(column_partition) != 9:
+            raise ValueError("column_partition needs the 3x3 stencil "
+                             "(stencil=1) and 9 budgets")
+        if k_max != sum(column_partition):
+            raise ValueError(f"k_max={k_max} must equal sum(column_partition)"
+                             f"={sum(column_partition)}")
     r = torch.arange(-S, S + 1, device=dev)
     offs = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3)
     width = offs.shape[0] * cell_capacity
@@ -207,7 +227,17 @@ def cell_neighbor_matrix(pos, batch=None, *, k_max: int, cutoff_upper: float,
         adj &= batch[rows, None] == batch[cand_safe]
         if atom_mask is not None:
             adj &= atom_mask[rows, None] & atom_mask[cand_safe]
-        idx1, count = _compact(adj, cand_safe, k_max)
+        if column_partition is None:
+            idx1, count = _compact(adj, cand_safe, k_max)
+        else:
+            gsz = 3 * cell_capacity
+            parts = [_compact(adj[:, g * gsz:(g + 1) * gsz],
+                              cand_safe[:, g * gsz:(g + 1) * gsz], kg)
+                     for g, kg in enumerate(column_partition)]
+            idx1 = torch.cat([p[0] for p in parts], dim=1)
+            count = adj.sum(dim=1)
+            for (_, cg), kg in zip(parts, column_partition):
+                cell_overflow = cell_overflow | (cg > kg).any()
         idx1s.append(idx1)
         counts.append(count)
     return _finish(torch.cat(idx1s), torch.cat(counts), k_max, cell_overflow)
@@ -215,9 +245,12 @@ def cell_neighbor_matrix(pos, batch=None, *, k_max: int, cutoff_upper: float,
 
 def build_neighbor_matrix(pos, batch=None, *, strategy: str = "brute",
                           **kwargs) -> NeighborMatrix:
-    """Strategy dispatch (``"brute"`` or ``"cell"``)."""
+    """Strategy dispatch (``"brute"`` or ``"cell"``); the brute strategy
+    drops the cell options, ``column_partition`` among them, as JAX
+    ``neighbors.py:510-511`` does."""
     if strategy == "brute":
-        for key in ("cell_capacity", "cells_per_dim", "stencil"):
+        for key in ("cell_capacity", "cells_per_dim", "stencil",
+                    "column_partition"):
             kwargs.pop(key, None)
         return brute_neighbor_matrix(pos, batch, **kwargs)
     if strategy == "cell":
