@@ -16,7 +16,10 @@ windows; TensorNet's fused edge MLP (kernel 4) and Chebyshev filters
 (kernels 5 and 7) on the real brute K=64 list of the dhfr system (2,489
 atoms in 2,560 rows, T=128); TensorNet's blocked message passing (rows
 8-11) on the dhfr system's cell-blocked sort (3,136 rows of 16-row blocks)
-with the grouped K′=224 list and the brute K=64 list.  Then it drives both
+with the grouped K′=224 list and the brute K=64 list; the coefficient
+gradient of the Chebyshev filters (row 6) on the brute K=40 list of
+``bench.py::bench_train``'s training batch (1,664 rows, T=128).  Then it
+drives both
 paths of the port on the north star, TensorNet2 (2 layers x 128) + the
 10 Å ScalarPlusWeightedCoulomb head on the 25,088-atom periodic lattice,
 weights random from a seed:
@@ -45,7 +48,17 @@ tuned per-column budgets; ungrouped: brute K=64) and evaluates with
 tabulated ungrouped; exact grouped) against their plain versions and the
 gather path, ms per evaluation of the bench chain alternated with the
 gather chain, a profile, and a Langevin MD chunk on a grouped spec tuned
-at 4.5 + 1 Å for the tabulated and the exact variant.
+at 4.5 + 1 Å for the tabulated and the exact variant; and training,
+``bench.py::bench_train``'s TensorNet (2 layers x 128, 5 Å, K=40, the
+Scalar head) on its batch of 64 molecules of 24 atoms, energy+force MSE
+and AdamW at lr 1e-4, tabulated (T=128: rows 5, 6 and 7 in the forward,
+the force pass and the parameter gradient) and exact: one step's loss and
+weight gradients with the kernels against the plain versions, 20 timed
+steps on the fixed batch after two (the loss must fall), launches per
+step, mol/s, peak memory and a profiled step; then ``Trainer.fit`` for 2
+epochs on 384 synthetic QM9-scale molecules in batches of 64 and
+``Trainer.test``, with its ``metrics.csv`` columns and its checkpoints
+checked and reloaded on the card.
 
 Each phase prints one JSON line; the card's name and power limit (as
 ``nvidia-smi`` gives them) and a ``{"kernels": [...]}`` line follow, and
@@ -86,6 +99,11 @@ DHFR_ATOMS, DHFR_PAD, DHFR_K, DHFR_T, DHFR_ITERS = 2489, 2560, 64, 128, 30
 DHFR_MD_K = 128
 # the dhfr blocked tiers (bench.py:104-117): 16-row blocks, grouped spec
 DHFR_CAP = 16
+# the training path (bench.py::bench_train): molecules of 24 atoms in a
+# batch, their rows, brute slots, series terms (BENCH_TRAIN_TAB=128) and
+# timed train steps after two warm-up steps
+TRAIN_MOLS, TRAIN_APM, TRAIN_ROWS, TRAIN_K, TRAIN_T = 64, 24, 1664, 40, 128
+TRAIN_STEPS, TRAIN_LR, TRAIN_CUTOFF = 20, 1e-4, 5.0
 # tabulated against exact TensorNet forces, relative to max |F|: T = 128
 # fits the exact edge MLP to ~3e-6 relative (the JAX package's reading,
 # torchmdnet_tpu/models/tensornet.py:475-478); the limit leaves 30x room
@@ -128,6 +146,8 @@ KERNELS = {
                     "torchmdnet_tpu/ops/pallas_cheb.py:86", "dhfr"),
     "cheb_filter_dot": (SRC + "cheb_filter.cu",
                         "torchmdnet_tpu/ops/pallas_cheb.py:95", "dhfr"),
+    "cheb_project": (SRC + "cheb_filter.cu",
+                     "torchmdnet_tpu/ops/pallas_cheb.py:105", "train"),
     # rows 8-11: one kernel for the ungrouped body and the grouped one
     # (:224, :435, :723, :843)
     "blocked_mp_sum": (SRC + "blocked_mp.cu",
@@ -161,6 +181,7 @@ def counters():
             "edge_mlp": edge_mlp.FUSED,
             "cheb_filter": cheb_filter.FILTER,
             "cheb_filter_dot": cheb_filter.FILTER_DOT,
+            "cheb_project": cheb_filter.PROJECT,
             "blocked_mp_sum": blocked_mp.SUM,
             "blocked_mp_dattr": blocked_mp.DATTR,
             "blocked_mp_sum_cheb": blocked_mp.SUM_CHEB,
@@ -223,8 +244,9 @@ def nbytes(*tensors):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the q-tier, windowed-Coulomb, Chebyshev-filter and blocked
-    message-passing ops through their plain versions for CUDA tensors too,
+    """Route the q-tier, windowed-Coulomb, Chebyshev-filter (rows 5-7) and
+    blocked message-passing ops through their plain versions for CUDA
+    tensors too,
     so a whole-model run can be held against the kernels (the embedding
     and edge-MLP kernels are switched off by the model's own flags)."""
     from torchmdnet_tpu_torch.ops import blocked_mp as bm
@@ -234,7 +256,8 @@ def plain_versions():
     swaps = [(bq, "q_fwd", bq.q_fwd_ref), (bq, "q_dq", bq.q_dq_ref),
              (wc, "wc_fwd", wc.wc_fwd_ref), (wc, "wc_bwd", wc.wc_bwd_ref),
              (cf, "filter_fwd", cf.cheb_filter_ref),
-             (cf, "cheb_filter_dot", cf.cheb_filter_dot_ref),
+             (cf, "filter_dot_fwd", cf.cheb_filter_dot_ref),
+             (cf, "project_fwd", cf.cheb_project_ref),
              (bm, "neighbor_sum", bm.neighbor_sum_ref),
              (bm, "dattr", bm.dattr_ref),
              (bm, "neighbor_sum_cheb", bm.neighbor_sum_cheb_ref),
@@ -561,6 +584,55 @@ def dhfr_library(v):
             "edge_mlp": lambda: em.edge_mlp_ref(*mlp)}
 
 
+def train_kernel_inputs(seed):
+    """Row 6's operands on the training batch: the brute K=40 list of
+    :func:`train_batch` (loop, ghosts masked), its distances, ``fm = (d <
+    5) & mask`` and a random ``[N, K, 3F]`` cotangent."""
+    from torchmdnet_tpu_torch.ops.neighbors import (
+        build_neighbor_matrix, neighbor_geometry)
+
+    b = train_batch()
+    nbr = build_neighbor_matrix(
+        b["pos"], b["batch"], strategy="brute", k_max=TRAIN_K,
+        cutoff_upper=TRAIN_CUTOFF, loop=True,
+        atom_mask=b["batch"] < TRAIN_MOLS)
+    check(not bool(nbr.overflow), "training batch: neighbor overflow")
+    _, d = neighbor_geometry(b["pos"], nbr)
+    gen = torch.Generator(device=d.device).manual_seed(seed)
+    return dict(d=d.contiguous(), fm=((d < TRAIN_CUTOFF) & nbr.mask).float(),
+                ct=torch.randn(d.shape + (3 * F,), generator=gen,
+                               device=d.device))
+
+
+def project_calls(v, t=TRAIN_T, hi=TRAIN_CUTOFF):
+    """Row 6 on ``v`` as a pair of (kernel, plain) callables."""
+    from torchmdnet_tpu_torch.ops import cheb_filter as cf
+
+    args = (v["d"], v["fm"], v["ct"], t, 0.0, hi)
+    return {"cheb_project": (lambda: cf.cheb_project_cuda(*args),
+                             lambda: cf.cheb_project_ref(*args))}
+
+
+def project_work(v, t=TRAIN_T):
+    """(FLOP, bytes) row 6 needs on ``v``: the product on the slots with
+    fm ≠ 0; d and fm read once, ct only on those slots, the [T, C] output
+    written once."""
+    live = float((v["fm"] != 0).sum())
+    c = v["ct"].shape[-1]
+    return 2 * live * t * c, nbytes(v["d"], v["fm"]) + (live + t) * c * 4
+
+
+def project_library(v, t=TRAIN_T, hi=TRAIN_CUTOFF):
+    """One cuBLAS GEMM with the same operations: the fm-weighted cos basis
+    of all slots, precomputed, transposed against ct."""
+    from torchmdnet_tpu_torch.ops.cheb import cheb_theta, cos_basis
+
+    basis = (cos_basis(cheb_theta(v["d"], 0.0, hi), t)
+             * v["fm"][..., None]).reshape(-1, t)
+    ct = v["ct"].reshape(-1, v["ct"].shape[-1])
+    return lambda: basis.t() @ ct
+
+
 def dhfr_blocked_spec(dhfr, grouped, cutoff=4.5):
     """``bench.py::main``'s spec (``:104-117``): tuned on all 2,560 rows at
     ``cutoff`` with 16-row blocks, grouped (``column_slots``) or not."""
@@ -858,6 +930,23 @@ def phase_kernels(peak, system, dhfr, seg, specs):
     del v, library
     torch.cuda.empty_cache()
 
+    # row 6 on the training batch's brute K=40 list
+    v = train_kernel_inputs(88)
+    (kern, plain), = project_calls(v).values()
+    err, rel, got = compare(kern, plain)
+    flops, nb = project_work(v)
+    b_ms, b_by = bound(flops, nb, peak)
+    rows["cheb_project"] = dict(
+        max_abs_err=err, max_rel_err=rel, ms=time_ms(kern),
+        plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(project_library(v)), gflop=flops / 1e9,
+        gbytes=nb / 1e9)
+    geometry["train"] = {"rows": v["d"].shape[0], "k": TRAIN_K,
+                         "t": TRAIN_T, "slots": v["d"].numel(),
+                         "fm_slots": int((v["fm"] != 0).sum())}
+    del v, got
+    torch.cuda.empty_cache()
+
     # rows 8-11 on the dhfr system's cell-blocked sort: the grouped K′ list
     # (the bench default, the table's row) and the brute K=64 one
     pos = torch.as_tensor(dhfr[1], device=dev)
@@ -898,14 +987,14 @@ def phase_kernels(peak, system, dhfr, seg, specs):
 
 def dhfr_shape_errors(gen):
     """Kernels 4, 5 and 7 against their plain versions: rows not a multiple
-    of a block's 256-slot span, K 8-96, T 16-128 (and 100, not a multiple
-    of the 32-row tile), 3F 24-384, R 8-32, a row with fm = cw = 0
-    throughout, and d at 0, at hi and above hi."""
+    of a block's 256-slot span, K 8-96 (and 40, the training list's), T
+    16-128 (and 100, not a multiple of the 32-row tile), 3F 24-384, R 8-32,
+    a row with fm = cw = 0 throughout, and d at 0, at hi and above hi."""
     dev = torch.device("cuda")
     worst = {}
     for n, k, t, f, r in ((37, 8, 16, 8, 8), (50, 33, 64, 32, 16),
                           (29, 96, 128, 128, 32), (41, 64, 100, 64, 8),
-                          (23, 360, 128, 128, 32)):
+                          (23, 360, 128, 128, 32), (45, 40, 128, 128, 32)):
         def randn(*shape):
             return torch.randn(shape, generator=gen, device=dev)
 
@@ -928,6 +1017,29 @@ def dhfr_shape_errors(gen):
         zero = [float(kern()[1].abs().max()) for kern, _ in calls.values()]
         check(max(zero) == 0.0, "kernels 4/5/7: a masked row is not zero")
         worst[f"dhfr_n{n}_k{k}_t{t}_c{3 * f}_r{r}"] = max(errs)
+    return worst
+
+
+def project_shape_errors(gen):
+    """Row 6 against its plain version: slot counts that are not a
+    multiple of a 64-slot tile or a 256-slot span, T 16-130 (130: two
+    series-row tiles), C 8-384, a row with fm = 0 throughout, fm weights
+    that are not 0/1, and d at 0, at hi and above hi."""
+    dev = torch.device("cuda")
+    worst = {}
+    hi = TRAIN_CUTOFF
+    for n, k, t, c in ((19, 7, 16, 8), (33, 13, 48, 20), (70, 40, 128, 384),
+                       (11, 3, 130, 12), (300, 40, 128, 384)):
+        d = torch.rand((n, k), generator=gen, device=dev) * 1.2 * hi
+        d[0, :3] = torch.tensor([0.0, hi, 1.1 * hi], device=dev)
+        fm = ((d < hi) & (torch.rand((n, k), generator=gen, device=dev)
+                          < 0.8)).float()
+        fm[1] = 0.0
+        fm[2] *= 0.37
+        v = dict(d=d, fm=fm, ct=torch.randn((n, k, c), generator=gen,
+                                            device=dev))
+        kern, plain = project_calls(v, t, hi)["cheb_project"]
+        worst[f"project_n{n}_k{k}_t{t}_c{c}"] = compare(kern, plain)[1]
     return worst
 
 
@@ -980,7 +1092,7 @@ def phase_shapes():
     """Every kernel against its plain version at small ragged shapes:
     every compiled rbf width and a range of channel counts for kernels
     1-3; for A-D a partial last row block, ghost rows, several channel
-    counts and block sizes, and z-wrapped window pieces; for 4, 5 and 7
+    counts and block sizes, and z-wrapped window pieces; for 4-7
     partial slot spans, masked rows and distances at and beyond hi."""
     from torchmdnet_tpu_torch.ops import edge_mlp as em_ops
     from torchmdnet_tpu_torch.ops import radial_embedding as re_ops
@@ -1039,6 +1151,7 @@ def phase_shapes():
         worst[f"blocked_n{n}_cap{cap}_f{f}_c{c}_s{wspec.s}"] = max(errs)
 
     worst.update(dhfr_shape_errors(gen))
+    worst.update(project_shape_errors(gen))
     worst.update(blocked_shape_errors(gen))
     torch.cuda.synchronize()
     emit({"phase": "shapes", "max_rel_err": worst, "tolerance": TOL})
@@ -1311,6 +1424,7 @@ PROFILE_GROUPS = (
                                            "blocked_dattr_kernel",
                                            "blocked_dd_kernel")),
     ("kernels 5/7 Chebyshev filter", ("cheb_kernel",)),
+    ("row 6 Chebyshev projection", ("project_kernel", "project_sum_kernel")),
     ("kernel 4 edge_mlp", ("edge_mlp_kernel",)),
     ("kernel A/B q-tier", ("q_kernel",)),
     ("kernel C/D windowed Coulomb", ("wc_kernel",)),
@@ -1704,6 +1818,250 @@ def phase_md_dhfr_blocked(pot, dhfr, seg, spec, path):
     return row["steps"], launches
 
 
+# ---------------------------------------------------------------- training
+def train_args(**extra):
+    """``bench.py::bench_train``'s model (``:392-402``): TensorNet 2 x 128,
+    32 expnorm rbf, 5 Å, K=40 brute neighbors, the Scalar head, with the
+    tabulated filters at T=128 (``BENCH_TRAIN_TAB=128``)."""
+    args = dict(
+        model="tensornet", embedding_dimension=F, num_layers=2, num_rbf=R,
+        rbf_type="expnorm", trainable_rbf=False, activation="silu",
+        cutoff_lower=0.0, cutoff_upper=TRAIN_CUTOFF, max_z=128,
+        max_num_neighbors=TRAIN_K, derivative=True, prior_model=None,
+        output_model="Scalar", reduce_op="sum", precision=32,
+        equivariance_invariance_group="O(3)", atom_filter=-1,
+        pallas_edge_mlp=False, tabulated_edge_mlp=TRAIN_T)
+    args.update(extra)
+    return args
+
+
+def train_batch():
+    """``bench.py:404-419``'s batch on the card: 64 molecules of 24 H/C/N/O
+    atoms at uniform positions in an 8 Å cube (each shifted by its index),
+    1,664 rows with the ghosts in segment 64, random y and neg_dy."""
+    dev = torch.device("cuda")
+    n = TRAIN_MOLS * TRAIN_APM
+    rng = np.random.RandomState(0)
+    z = np.zeros(TRAIN_ROWS, np.int64)
+    batch = np.full(TRAIN_ROWS, TRAIN_MOLS, np.int64)
+    pos = np.zeros((TRAIN_ROWS, 3), np.float32)
+    for m in range(TRAIN_MOLS):
+        s = slice(m * TRAIN_APM, (m + 1) * TRAIN_APM)
+        z[s] = rng.choice([1, 1, 6, 7, 8], TRAIN_APM)
+        batch[s] = m
+        pos[s] = rng.uniform(-4, 4, (TRAIN_APM, 3)) + m
+    check(n < TRAIN_ROWS, "training batch: no ghost rows")
+    y = rng.randn(TRAIN_MOLS, 1).astype(np.float32)
+    neg_dy = rng.randn(TRAIN_ROWS, 3).astype(np.float32)
+    out = dict(z=z, pos=pos, batch=batch, y=y, neg_dy=neg_dy,
+               mol_mask=np.ones(TRAIN_MOLS, bool))
+    return {k: torch.as_tensor(v, device=dev) for k, v in out.items()}
+
+
+def loss_and_grads(pot, batch):
+    """The train step's loss (y and neg_dy MSE, weights 1) and its
+    gradient in every weight, without an update."""
+    from torchmdnet_tpu_torch.train.step import compute_losses
+
+    params = list(pot.module.parameters())
+    ly, ln, _ = compute_losses(pot, batch, TRAIN_MOLS, create_graph=True)
+    grads = torch.autograd.grad(ly + ln, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    return float((ly + ln).detach()), grads
+
+
+def phase_train():
+    """``bench.py::bench_train``'s step on the card, tabulated (rows 5, 6
+    and 7 in the forward, the force pass and the parameter gradient) and
+    exact (no kernel), from the same random weights: one step's loss and
+    gradients with the kernels against the plain versions (tabulated),
+    then two warm-up steps and 20 timed AdamW steps on the fixed batch
+    (the loss must fall), with launches, ms per step, mol/s, peak memory
+    and a profiled step."""
+    from torchmdnet_tpu_torch.models.model import create_model
+    from torchmdnet_tpu_torch.train.step import (
+        create_train_state, make_train_step)
+
+    batch = train_batch()
+    dev = torch.device("cuda")
+    pots = {"tabulated": create_model(train_args(), device=dev, seed=0)}
+    pots["exact"] = create_model(train_args(tabulated_edge_mlp=0),
+                                 device=dev, seed=0)
+    pots["exact"].module.load_state_dict(pots["tabulated"].module.state_dict())
+    row = {"phase": "train", "mols": TRAIN_MOLS, "atoms_per_mol": TRAIN_APM,
+           "rows": TRAIN_ROWS, "k": TRAIN_K, "t": TRAIN_T, "lr": TRAIN_LR,
+           "steps_timed": TRAIN_STEPS, "tolerance": TOL}
+    launches = {}
+    for name, pot in pots.items():
+        state = create_train_state(pot, lr=TRAIN_LR)
+        r = {}
+        if name == "tabulated":
+            names = [n for n, _ in pot.module.named_parameters()]
+            loss_k, g_k = loss_and_grads(pot, batch)
+            with plain_versions():
+                loss_p, g_p = loss_and_grads(pot, batch)
+            errs = {n: rel_err(a, b)[1] for n, a, b in zip(names, g_k, g_p)}
+            worst = max(errs, key=errs.get)
+            r.update(loss=loss_k, loss_plain=loss_p,
+                     loss_rel_err=abs(loss_k - loss_p) / abs(loss_p),
+                     grad_rel_err=errs[worst], worst_param=worst)
+            del g_k, g_p
+        step = make_train_step(pot, num_mols=TRAIN_MOLS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        for _ in range(2):  # warm-up
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+
+        def timed():
+            nonlocal state
+            times = []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m["loss"]))
+            return times
+
+        times, counts = counted_run(timed)
+        ms = statistics.median(times)
+        r.update(ms_per_step=ms, ms_per_step_all=times,
+                 mol_per_s=TRAIN_MOLS / (ms / 1e3), loss_first=losses[0],
+                 loss_last=losses[-1],
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 launches_per_step={k: v / TRAIN_STEPS
+                                    for k, v in counts.items() if v})
+        row[name] = r
+        launches[name] = counts
+        phase_profile(f"train_{name}", lambda: step(state, batch))
+        pot.module.requires_grad_(False)
+    emit(row)
+    tab = row["tabulated"]
+    check(tab["loss_rel_err"] <= TOL and tab["grad_rel_err"] <= TOL,
+          f"train: kernels vs plain loss {tab['loss_rel_err']:.3g}, "
+          f"gradient {tab['grad_rel_err']:.3g} ({tab['worst_param']})")
+    for name in pots:
+        r = row[name]
+        check(all(math.isfinite(x) for x in (r["loss_first"],
+                                              r["loss_last"])),
+              f"train {name}: non-finite loss")
+        check(r["loss_last"] < r["loss_first"],
+              f"train {name}: the loss did not fall in "
+              f"{TRAIN_STEPS + 2} steps")
+    check(not any(launches["exact"].values()),
+          "train exact: a kernel ran on the plain path")
+    return TRAIN_STEPS, launches["tabulated"]
+
+
+class SyntheticMolecules:
+    """QM9-scale molecules made from a seed: 9-29 H/C/N/O/F atoms each at
+    random positions in a cube of 1.2 Å per atom^(1/3) per side, with a
+    random energy and random forces; a dataset of plain numpy dicts."""
+
+    def __init__(self, n, seed):
+        rng = np.random.RandomState(seed)
+        self.samples = []
+        for _ in range(n):
+            k = rng.randint(9, 30)
+            side = 1.2 * k ** (1.0 / 3.0)
+            self.samples.append(dict(
+                z=rng.choice([1, 1, 1, 6, 6, 7, 8, 9], k).astype(np.int64),
+                pos=rng.uniform(-side, side, (k, 3)).astype(np.float32),
+                y=rng.randn(1, 1), neg_dy=rng.randn(k, 3).astype(np.float32)))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx):
+        return dict(self.samples[int(idx)])
+
+
+TRAINER_COLUMNS = [
+    "epoch", "lr", "train_total_mse_loss", "train_y_mse_loss",
+    "train_neg_dy_mse_loss", "val_y_l1_loss", "val_neg_dy_l1_loss",
+    "val_total_l1_loss", "val_y_mse_loss", "val_neg_dy_mse_loss",
+    "val_total_mse_loss"]
+
+
+def phase_trainer():
+    """``Trainer(potential, hp, DataModule(hp, dataset=ds)).fit()`` then
+    ``.test()`` on the card: 2 epochs, batches of 64 synthetic molecules
+    (256 train, 64 val, 64 test), tabulated T=128; ``metrics.csv`` has
+    the JAX trainer's columns, the checkpoints are written under the log
+    directory, the last epoch's reloads with ``strict=True`` into a fresh
+    model on the card and gives the trained model's energies,
+    ``best.ckpt`` holds one epoch's weights, and the test pass launches
+    rows 5 and 7 but not row 6 (the weights' gradients are off there)."""
+    import csv
+
+    from torchmdnet_tpu_torch.data.datamodule import DataModule
+    from torchmdnet_tpu_torch.models.model import create_model
+    from torchmdnet_tpu_torch.train.trainer import Trainer, read_checkpoint
+
+    log_dir = OUT_DIR / "trainer"
+    hp = dict(train_args(), batch_size=TRAIN_MOLS,
+              inference_batch_size=TRAIN_MOLS, lr=TRAIN_LR,
+              lr_warmup_steps=2, num_epochs=2, save_interval=1, seed=0,
+              train_size=256, val_size=64, test_size=64, log_dir=str(log_dir),
+              train_loss="mse_loss", standardize=False, splits=None)
+    ds = SyntheticMolecules(384, seed=7)
+    pot = create_model(hp, device="cuda", seed=0)
+    trainer = Trainer(pot, hp, DataModule(hp, dataset=ds))
+    trainer.dm.setup("fit")
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    test, test_launches = counted_run(trainer.test)
+    with open(log_dir / "metrics.csv") as fh:
+        rows = list(csv.reader(fh))
+    names = sorted(os.listdir(log_dir))
+    epochs = sorted((n for n in names if n.startswith("epoch=")
+                     and n.endswith(".ckpt")),
+                    key=lambda n: int(n.split("-")[0][len("epoch="):]))
+    sd_last, hp_saved = read_checkpoint(log_dir / epochs[-1])
+    fresh = create_model(hp_saved, device="cuda", seed=9)
+    fresh.module.load_state_dict(sd_last, strict=True)
+    db = trainer._to_device_batch(next(iter(trainer.dm.val_dataloader())))
+    kw = dict(num_mols=TRAIN_MOLS)
+    y_f, f_f = fresh.apply(db["z"], db["pos"], db["batch"], **kw)
+    y_t, f_t = pot.apply(db["z"], db["pos"], db["batch"], **kw)
+    e_rel, f_rel = rel_err(y_f, y_t.detach())[1], rel_err(f_f, f_t)[1]
+    sd_best, _ = read_checkpoint(log_dir / "best.ckpt")
+    best_is_epoch = any(
+        all(torch.equal(sd_best[k], sd[k]) for k in sd)
+        for sd in (read_checkpoint(log_dir / n)[0] for n in epochs))
+    row = {"phase": "trainer", "epochs": hp["num_epochs"],
+           "batches_per_epoch": len(trainer.dm.train_dataloader()),
+           "max_atoms": trainer.dm.train_dataloader().max_atoms,
+           "fit_s": fit_s, "columns": rows[0], "rows": len(rows) - 1,
+           "checkpoints": names, "reload_energy_rel_err": e_rel,
+           "reload_force_rel_err": f_rel, "best_is_an_epoch": best_is_epoch,
+           "test": test, "test_launches": test_launches,
+           "metrics": dict(zip(rows[0], rows[-2]))}
+    emit(row)
+    check(rows[0] == TRAINER_COLUMNS, f"trainer: columns {rows[0]}")
+    check(len(rows) == 1 + hp["num_epochs"] + 1, "trainer: metrics rows")
+    check(len(epochs) == hp["num_epochs"] and "best.ckpt" in names
+          and all(n + ".native" in names for n in epochs + ["best.ckpt"]),
+          f"trainer: checkpoints {names}")
+    check(e_rel <= 1e-6 and f_rel <= 1e-6,
+          f"trainer: reloaded checkpoint gives other energies "
+          f"({e_rel:.3g}, {f_rel:.3g})")
+    check(best_is_epoch, "trainer: best.ckpt is no epoch's weights")
+    check(all(math.isfinite(v) for v in test.values()),
+          f"trainer: test metrics {test}")
+    # evaluation runs with the weights' gradients off: rows 5 and 7, no row 6
+    check(test_launches["cheb_filter"] > 0
+          and test_launches["cheb_filter_dot"] > 0
+          and test_launches["cheb_project"] == 0,
+          f"trainer: test-pass launches {test_launches}")
+    pot.module.requires_grad_(False)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1759,14 +2117,24 @@ def main():
         by_path[path] = phase_md_dhfr_blocked(pot, dhfr, seg, spec_md, path)
         del pot
         torch.cuda.empty_cache()
+    by_path["train"] = phase_train()
+    phase_trainer()
     launches = {k: by_path[path][1][k] for k, (_, _, path) in KERNELS.items()}
     emit({"phase": "launches", "md_steps": {p: s for p, (s, _) in
                                             by_path.items()},
           "launches": {p: ln for p, (_, ln) in by_path.items()},
           "per_step": {k: launches[k] / by_path[KERNELS[k][2]][0]
-                       for k in KERNELS}})
+                       for k in KERNELS},
+          # rows 5-7 per train step (the force pass and the parameter
+          # gradient run them through their backwards)
+          "train_per_step": {k: by_path["train"][1][k] / by_path["train"][0]
+                             for k in ("cheb_filter", "cheb_filter_dot",
+                                       "cheb_project")}})
     for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on its MD path")
+        check(v > 0, f"kernel {k} was not launched on its path's run")
+    for k in ("cheb_filter", "cheb_filter_dot", "cheb_project"):
+        check(by_path["train"][1][k] > 0,
+              f"kernel {k} was not launched in the train steps")
     check(g_launch["edge_mlp_pre"] > 0 and b_launch["edge_mlp_pre"] == 0,
           "kernel 3 runs on the gather path only")
 

@@ -1,4 +1,4 @@
-"""Kernels 5 and 7 of the port (and row 6's plain version): the
+"""Kernels 5 and 7 and row 6 of the port (their plain versions): the
 Chebyshev-tabulated filter ops against the JAX ``pallas_cheb`` ops, both
 in Pallas interpret mode and through their jnp fallback, forward and the
 analytic backward."""
@@ -56,15 +56,15 @@ def test_ops_match_jax(interpret):
     np.testing.assert_array_equal(
         got.numpy(), cheb_filter_dot_ref(tc, td, tf, tct, 0.0, HI).numpy())
 
+    # the port's projection takes fm and ct apart; JAX's their product
     ctw = ct * fm[..., None]
     want = pallas_cheb.cheb_project(jd, jnp.asarray(ctw), T, 0.0, HI,
                                     interpret)
-    got = cheb_project(td, torch.from_numpy(ctw), T, 0.0, HI)
+    got = cheb_project(td, tf, tct, T, 0.0, HI)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
     np.testing.assert_array_equal(
-        got.numpy(),
-        cheb_project_ref(td, torch.from_numpy(ctw), T, 0.0, HI).numpy())
+        got.numpy(), cheb_project_ref(td, tf, tct, T, 0.0, HI).numpy())
 
 
 @pytest.mark.parametrize("interpret", [True, False])

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``torchmdnet_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, flax or the JAX package, and the entry
-points never fall back to the CPU on their own."""
+``chip_smoke.py`` imports JAX, flax, optax, the JAX package, yaml or
+h5py, and the entry points never fall back to the CPU on their own."""
 
 import ast
 from pathlib import Path
@@ -16,7 +16,9 @@ from torchmdnet_tpu_torch.ops.cell_blocks import make_cell_block_spec
 from torchmdnet_tpu_torch.ops.config import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torchmdnet_tpu")
+# yaml and h5py too: the card's machine may have neither
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torchmdnet_tpu", "yaml",
+             "h5py")
 
 
 def _port_files():

@@ -35,7 +35,8 @@ def test_packed_neighbor_sum_sym_matches_jax():
     g = rng.randn(len(z), 9 * f).astype(np.float32)
     a_t = attr.detach().clone().requires_grad_(True)
     f_t = torch.from_numpy(feats).requires_grad_(True)
-    out = packed_neighbor_sum_sym(a_t, f_t, nbr.idx, nbr.mask)
+    out = packed_neighbor_sum_sym(a_t, f_t, nbr.idx, nbr.rev_slot,
+                                  nbr.mask)
     out.backward(torch.from_numpy(g))
     idx, rev, mask = (jnp.asarray(t.numpy()) for t in
                       (nbr.idx, nbr.rev_slot, nbr.mask))

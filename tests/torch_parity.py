@@ -391,3 +391,204 @@ def bt_check_against_jax(setup, variant, monkeypatch):
     assert np.abs(f_j).max() > 1e-2  # non-vacuous
     np.testing.assert_allclose(e_t, e_j, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(f_t, f_j, rtol=RTOL, atol=ATOL)
+
+
+# ---- training (bench.py::bench_train's step at a small width): TensorNet
+# F=16, 2 layers, 8 rbf, 5 Å, K=16 brute neighbors, the Scalar head; a
+# batch of three molecules with ghost rows
+TRAIN_ARGS = dict(
+    model="tensornet", embedding_dimension=16, num_layers=2, num_rbf=8,
+    rbf_type="expnorm", trainable_rbf=False, activation="silu",
+    cutoff_lower=0.0, cutoff_upper=5.0, max_z=128, max_num_neighbors=16,
+    derivative=True, prior_model=None, output_model="Scalar",
+    reduce_op="sum", precision=32, equivariance_invariance_group="O(3)",
+    atom_filter=-1, pallas_edge_mlp=False)
+TRAIN_MOLS, TRAIN_ROWS = 3, 32
+TRAIN_STEPS = 3
+# the step's hyperparameters: the defaults, and everything turned on
+TRAIN_HP = {
+    "default": dict(lr=1e-3),
+    "all_on": dict(lr=1e-3, weight_decay=0.05, lr_warmup_steps=2,
+                   ema_alpha_y=0.7, ema_alpha_neg_dy=0.4,
+                   gradient_clipping=0.5, y_weight=0.3, neg_dy_weight=0.9),
+}
+
+
+def train_batch(seed=0):
+    """``bench.py:404-419``'s batch, small: molecules of 6-9 H/C/N/O atoms
+    at uniform positions in a 5 Å cube, 12 Å apart, ghost rows (segment
+    ``TRAIN_MOLS``) after them; random y and neg_dy (0 on ghosts)."""
+    rng = np.random.RandomState(seed)
+    z = np.zeros(TRAIN_ROWS, np.int32)
+    seg = np.full(TRAIN_ROWS, TRAIN_MOLS, np.int32)
+    pos = np.zeros((TRAIN_ROWS, 3), np.float32)
+    o = 0
+    for m, n in enumerate((6, 9, 7)):
+        z[o:o + n] = rng.choice([1, 1, 6, 7, 8], n)
+        pos[o:o + n] = rng.uniform(-2.5, 2.5, (n, 3)) + 12.0 * m
+        seg[o:o + n] = m
+        o += n
+    pos[o:] = rng.uniform(-2.0, 2.0, (TRAIN_ROWS - o, 3)) + 50.0
+    return dict(z=z, pos=pos, batch=seg,
+                y=rng.randn(TRAIN_MOLS, 1).astype(np.float32),
+                neg_dy=(rng.randn(TRAIN_ROWS, 3)
+                        * (seg < TRAIN_MOLS)[:, None]).astype(np.float32),
+                mol_mask=np.ones(TRAIN_MOLS, bool))
+
+
+def train_steps_jax(args, hp, batch):
+    """``TRAIN_STEPS`` jitted JAX ``make_train_step`` updates from the
+    initial weights: ``(initial flat params, [metrics per step], final
+    flat params, flat first-step gradients)``.  The gradients are the
+    ones the first update handed AdamW (after the EMA scale and the clip),
+    read back from its first moment, which is ``(1 − b1)·g`` after one
+    update."""
+    from torchmdnet_tpu.train.step import create_train_state, make_train_step
+
+    jpot = jax_create_model(args)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    variables = jax.jit(lambda key: jpot.init(
+        key, jb["z"], jb["pos"], jb["batch"], num_mols=TRAIN_MOLS))(
+        jax.random.PRNGKey(0))
+    hp = dict(hp)
+    state = create_train_state(
+        variables["params"], lr=hp["lr"],
+        weight_decay=hp.get("weight_decay", 0.0),
+        gradient_clipping=hp.get("gradient_clipping", 0.0))
+    step = jax.jit(make_train_step(jpot, num_mols=TRAIN_MOLS, **hp))
+    metrics = []
+    grads = None
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, jb)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if grads is None:
+            grads = {k: v / (1.0 - ADAM_B1) for k, v in
+                     flatten_params(_adam_mu(state.opt_state)).items()}
+    return (flatten_params(variables["params"]), metrics,
+            flatten_params(state.params), grads)
+
+
+ADAM_B1 = 0.9  # optax.adamw's default, which the JAX step uses
+
+
+def _adam_mu(opt_state):
+    """The first-moment tree of the Adam state inside an optax state."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state.mu
+    if isinstance(opt_state, tuple):
+        for item in opt_state:
+            mu = _adam_mu(item)
+            if mu is not None:
+                return mu
+    return None
+
+
+def train_steps_port(args, hp, batch, flat):
+    """The same steps through the port on the CPU from the same weights:
+    ``([metrics per step], final state dict, first-step gradients)``, the
+    gradients read from the parameters when the first update calls
+    ``optimizer.step`` (after the step's clipping)."""
+    from torchmdnet_tpu_torch.train.step import (
+        create_train_state, make_train_step)
+
+    pot = port_create_model(args, device="cpu")
+    pot.module.load_state_dict(params_from_jax(flat), strict=True)
+    hp = dict(hp)
+    state = create_train_state(pot, lr=hp.pop("lr"),
+                               weight_decay=hp.pop("weight_decay", 0.0))
+    step = make_train_step(pot, num_mols=TRAIN_MOLS, **hp)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    grads = {}
+    update = state.optimizer.step
+
+    def recording_update(*a, **kw):
+        if not grads:
+            grads.update((name, p.grad.detach().numpy().copy())
+                         for name, p in pot.module.named_parameters())
+        return update(*a, **kw)
+
+    state.optimizer.step = recording_update
+    metrics = []
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, tb)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, {k: v.detach().numpy() for k, v in
+                     pot.module.state_dict().items()}, grads
+
+
+# the port's weights by the module that holds them, for the parity cases
+TRAIN_GROUPS = ("representation_model.tensor_embedding",
+                "representation_model.layers.0",
+                "representation_model.layers.1",
+                "representation_model.out_norm", "representation_model.linear",
+                "output_model")
+
+
+def check_train_losses(want, got):
+    """Every step's losses and LR at rtol = atol = 1e-4."""
+    for a, b in zip(got[0], want[1]):
+        for key in ("loss", "loss_y", "loss_neg_dy", "lr"):
+            np.testing.assert_allclose(a[key], b[key], rtol=RTOL, atol=ATOL,
+                                       err_msg=key)
+
+
+def check_train_weights(want, got, group):
+    """The updated weights under ``group`` at rtol = atol = 1e-4, and that
+    training moved them by more than the tolerance (non-vacuous)."""
+    flat0, _, flat_j, _ = want
+    sd_t = got[1]
+    sd_j, sd_0 = params_from_jax(flat_j), params_from_jax(flat0)
+    assert sd_t.keys() == sd_j.keys()
+    keys = [k for k in sd_j if k.startswith(group + ".")]
+    assert keys
+    moved = max(float((sd_j[k] - sd_0[k]).abs().max()) for k in keys)
+    assert moved > 10 * ATOL
+    for key in keys:
+        np.testing.assert_allclose(sd_t[key], sd_j[key].numpy(), rtol=RTOL,
+                                   atol=ATOL, err_msg=key)
+
+
+def check_train_grads(want, got, group):
+    """The first update's gradients under ``group``, each within 1e-4 of
+    that gradient's max |·| (a gradient off by a factor, a missing or
+    wrong clip or EMA scale fails here even where Adam's normalised
+    update hides it), and not all zero."""
+    g_j = params_from_jax(want[3])
+    g_t = got[2]
+    assert g_t.keys() == g_j.keys()
+    keys = [k for k in g_j if k.startswith(group + ".")]
+    assert keys
+    assert max(float(g_j[k].abs().max()) for k in keys) > 0
+    for key in keys:
+        ref = g_j[key].numpy()
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(g_t[key] - ref).max())
+        assert err <= 1e-4 * scale, (key, err, scale)
+
+
+def check_ghost_rows_inert(args, flat):
+    """Ghost rows (segment ``TRAIN_MOLS``) move neither the losses nor the
+    weight gradients: new ghost positions, species and neg_dy targets
+    give the same step."""
+    batch = train_batch()
+    other = dict(batch)
+    rng = np.random.RandomState(11)
+    ghost = batch["batch"] == TRAIN_MOLS
+    other["pos"] = np.where(ghost[:, None], rng.uniform(
+        40, 60, batch["pos"].shape), batch["pos"]).astype(np.float32)
+    other["z"] = np.where(ghost, 6, batch["z"]).astype(np.int32)
+    other["neg_dy"] = np.where(ghost[:, None], 5.0,
+                               batch["neg_dy"]).astype(np.float32)
+    (m_a, sd_a, g_a), (m_b, sd_b, g_b) = [
+        train_steps_port(args, TRAIN_HP["default"], b, flat)
+        for b in (batch, other)]
+    for key, value in g_a.items():
+        np.testing.assert_allclose(g_b[key], value, rtol=RTOL, atol=ATOL,
+                                   err_msg=key)
+    for a, b in zip(m_a, m_b):
+        for key in a:
+            np.testing.assert_allclose(b[key], a[key], rtol=RTOL, atol=ATOL,
+                                       err_msg=key)
+    for key, value in sd_a.items():
+        np.testing.assert_allclose(sd_b[key], value, rtol=RTOL, atol=ATOL,
+                                   err_msg=key)

@@ -1,11 +1,15 @@
 // Chebyshev-tabulated edge filters for Hopper (sm_90a), fp32 FMA throughout
 // (no TF32, parity with "highest").
 //
-// Replaces two Pallas TPU kernels of torchmdnet_tpu/ops/pallas_cheb.py:
+// Replaces three Pallas TPU kernels of torchmdnet_tpu/ops/pallas_cheb.py:
 //   kernel 5  _filter_kernel     (:86, pallas_call :146, cheb_filter :197)
 //     out[e, c] = fm[e] · Σ_j coeffs[j, c]·cos(j·θ_e)                → [E, C]
 //   kernel 7  _filter_dot_kernel (:95, pallas_call :239, cheb_filter_dot :265)
 //     out[e]    = fm[e] · Σ_c (Σ_j dser[j, c]·cos(j·θ_e))·ct[e, c]     → [E]
+//   row 6     _project_kernel    (:105, pallas_call :175, cheb_project :298)
+//     out[j, c] = Σ_e fm[e]·cos(j·θ_e)·ct[e, c]                        → [T, C]
+//     (the adjoint of kernel 5 in its coefficients; the TPU kernel takes
+//     the product ctw = fm·ct, the weight is folded in here)
 // with θ_e = acos(clip(2(d[e] − lo)/(hi − lo) − 1, −1, 1)) over E = N·K edge
 // slots, T series terms and C channels.  The TPU computes θ outside its
 // kernels (Mosaic has no acos); here each slot's θ is computed in-kernel.
@@ -27,6 +31,20 @@
 // The dot form multiplies each thread's tile by ct as it goes and reduces
 // a slot's sum over its 16 column threads with shuffles, in a fixed order
 // and without atomics: the [E, C] filter derivative is never stored.
+//
+// Row 6 (the coefficient gradient; training only).  Bound at the training
+// batch of bench.py::bench_train (1,664 rows × K = 40, T = 128, C = 384,
+// 16,750 of the 66,560 slots with fm ≠ 0): 2·live·T·C = 1.65 GFLOP,
+// 0.025 ms at 67 TFLOP/s fp32, against reading d, fm and the live rows of
+// ct (26 MB, 0.008 ms): operations bound it.  The TPU kernel
+// runs its grid in order, adding every tile into one resident [T, C]
+// output; here blocks run in parallel, so each block owns a 128 × 128
+// output tile and a fixed chunk of slot spans, compacts the chunk's live
+// slots in slot order, and for each tile of 64 of them puts the weighted
+// basis fm·cos(j·θ) [64 × 128] and the ct rows [64 × 128] in shared memory
+// and adds their transposed product into an 8 × 8 register tile per
+// thread.  The per-chunk partials go to scratch and a second kernel sums
+// them in chunk order: deterministic, no atomics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -183,6 +201,143 @@ int launch(const float* d, const float* fm, const float* ser, const float* ct,
   return cudaGetLastError();
 }
 
+// Row 6.  Block (x, y, z) owns output columns [128x, 128x + 128), series
+// rows [128y, 128y + 128) and the slot spans [z·per, (z + 1)·per); thread
+// (ty, tx) of 16 × 16 owns rows 128y + ty + 16i and columns 128x + tx + 16j
+// (i, j < 8).  partial[z] gets the chunk's sum.
+__global__ void __launch_bounds__(kThreads)
+project_kernel(const float* __restrict__ d, const float* __restrict__ fm,
+               const float* __restrict__ ct, float* __restrict__ partial,
+               long long E, int T, int C, int per, float lo, float hi) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int ldb = kTileN + kPad;
+  float* sB = smem;                        // [64][128 + pad] fm·cos(j·θ)
+  float* sC = sB + kTileM * ldb;           // [64][128]       ct rows
+  float* sTheta = sC + kTileM * kTileN;    // [64]
+  float* sFm = sTheta + kTileM;            // [64]
+  int* sList = reinterpret_cast<int*>(sFm + kTileM);  // [per·kSpan]
+  int* sLive = sList + per * kSpan;                    // [kSpan]
+  int* sDead = sLive + kSpan;                          // [kSpan]
+  int* sCount = sDead + kSpan;                         // [2 * kWarps]
+
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  const int c0 = blockIdx.x * kTileN, t0 = blockIdx.y * kTileN;
+  const long long base = (long long)blockIdx.z * per * kSpan;
+
+  // the chunk's live slots, in slot order, as offsets from base
+  int total = 0;
+  for (int s = 0; s < per && base + (long long)s * kSpan < E; ++s) {
+    int ndead;
+    const int nlive = compact_span(fm, base + (long long)s * kSpan, E, sLive,
+                                   sDead, sCount, &ndead);
+    for (int i = tid; i < nlive; i += kThreads)
+      sList[total + i] = s * kSpan + sLive[i];
+    total += nlive;
+    __syncthreads();  // sLive is rewritten by the next span
+  }
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  for (int q0 = 0; q0 < total; q0 += kTileM) {
+    const int rows = min(kTileM, total - q0);
+    __syncthreads();  // the previous tile's operands are consumed
+    if (tid < kTileM) {
+      float th = 0.0f, f = 0.0f;
+      if (tid < rows) {
+        const long long e = base + sList[q0 + tid];
+        th = cheb_theta(d[e], lo, hi);
+        f = fm[e];
+      }
+      sTheta[tid] = th;
+      sFm[tid] = f;
+    }
+    __syncthreads();
+    // cosf with full range reduction: j·θ reaches (T − 1)π
+    for (int v = tid; v < kTileM * kTileN; v += kThreads) {
+      const int r = v / kTileN, jj = v % kTileN;
+      const int j = t0 + jj;
+      sB[r * ldb + jj] = j < T ? sFm[r] * cosf((float)j * sTheta[r]) : 0.0f;
+    }
+    for (int v = tid; v < kTileM * (kTileN / 4); v += kThreads) {
+      const int r = v / (kTileN / 4), col = (v % (kTileN / 4)) * 4;
+      float4 w = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r < rows && c0 + col < C) {
+        const long long e = base + sList[q0 + r];
+        w = *reinterpret_cast<const float4*>(ct + e * C + c0 + col);
+      }
+      *reinterpret_cast<float4*>(sC + r * kTileN + col) = w;
+    }
+    __syncthreads();
+    for (int s = 0; s < rows; ++s) {
+      float a[8], b[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = sB[s * ldb + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = sC[s * kTileN + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+
+  float* out = partial + (long long)blockIdx.z * T * C;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int j = t0 + ty + 16 * i;
+    if (j >= T) continue;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = c0 + tx + 16 * jj;
+      if (col < C) out[(long long)j * C + col] = acc[i][jj];
+    }
+  }
+}
+
+// out[i] = Σ_z partial[z][i] in chunk order.
+__global__ void project_sum_kernel(const float* __restrict__ partial,
+                                   float* __restrict__ out, long long n,
+                                   int chunks) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float acc = 0.0f;
+  for (int z = 0; z < chunks; ++z) acc += partial[(long long)z * n + i];
+  out[i] = acc;
+}
+
+int launch_project(const float* d, const float* fm, const float* ct,
+                   float* partial, float* out, long long e, int t, int c,
+                   int per, float lo, float hi, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n = (long long)t * c;
+  const long long chunks = (e + (long long)per * kSpan - 1) / ((long long)per * kSpan);
+  if (chunks == 0) {
+    cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * n, s);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  }
+  const size_t smem =
+      sizeof(float) * ((size_t)kTileM * (kTileN + kPad) + (size_t)kTileM * kTileN +
+                       2 * kTileM) +
+      sizeof(int) * ((size_t)per * kSpan + 2 * kSpan + 2 * kWarps);
+  cudaError_t err = cudaFuncSetAttribute(
+      project_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((c + kTileN - 1) / kTileN, (t + kTileN - 1) / kTileN,
+                  (unsigned)chunks);
+  project_kernel<<<grid, kThreads, smem, s>>>(d, fm, ct, partial, e, t, c, per,
+                                              lo, hi);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  project_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      partial, out, n, (int)chunks);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -203,6 +358,15 @@ int tmd_cheb_filter_dot(const float* d, const float* fm, const float* dser,
                         const float* ct, float* out, long long e, int t, int c,
                         float lo, float hi, void* stream) {
   return launch<true>(d, fm, dser, ct, out, e, t, c, lo, hi, stream);
+}
+
+// Row 6.  d, fm [e]; ct [e, c]; partial [ceil(e / (256·per)), t, c]
+// scratch; out [t, c].  c a multiple of 4; per ≥ 1 spans of 256 slots per
+// chunk.
+int tmd_cheb_project(const float* d, const float* fm, const float* ct,
+                     float* partial, float* out, long long e, int t, int c,
+                     int per, float lo, float hi, void* stream) {
+  return launch_project(d, fm, ct, partial, out, e, t, c, per, lo, hi, stream);
 }
 
 }  // extern "C"

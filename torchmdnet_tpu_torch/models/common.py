@@ -115,8 +115,8 @@ class ExpNormalSmearing(nn.Module):
         super().__init__()
         if trainable:
             raise NotImplementedError(
-                "trainable_rbf: ROADMAP Queue 1 item 'models/common.py' "
-                "(trainable smearing) is not ported yet")
+                "trainable_rbf (trainable smearing) is not ported yet "
+                "(ROADMAP Queue 1 item 17, 'Training: trainable_rbf')")
         self.cutoff_lower = cutoff_lower
         self.cutoff_upper = cutoff_upper
         self.alpha = 5.0 / (cutoff_upper - cutoff_lower)

@@ -86,20 +86,28 @@ class Potential:
 
     def apply(self, z, pos, batch=None, *, num_mols: int = 1, box=None,
               q=None, nbr=None, coulomb_nbr=None, blocked=False,
-              coulomb_win=None, nbr_emb=None):
+              coulomb_win=None, nbr_emb=None, create_graph=False):
         """``(y, −∂Σy/∂pos)``; the second item is None unless the model was
-        built with ``derivative``."""
+        built with ``derivative``.
+
+        ``create_graph`` (training): both stay attached to the graph —
+        the forces through ``torch.autograd.grad(..., create_graph=True)``
+        — so that a loss on them reaches the parameters (the reference's
+        force training, JAX ``jax.grad`` inside the loss)."""
         z, pos, batch, box = self._inputs(z, pos, batch, box)
         kw = dict(num_mols=num_mols, box=box, q=q, nbr=nbr,
                   coulomb_nbr=coulomb_nbr, blocked=blocked,
                   coulomb_win=coulomb_win, nbr_emb=nbr_emb)
         if not self.derivative:
-            with torch.no_grad():
+            with torch.set_grad_enabled(create_graph):
                 return self.module(z, pos, batch, **kw), None
         pos = pos.detach().requires_grad_(True)
         with torch.enable_grad():
             y = self.module(z, pos, batch, **kw)
-            (dy,) = torch.autograd.grad(y.sum(), pos)
+            (dy,) = torch.autograd.grad(y.sum(), pos,
+                                        create_graph=create_graph)
+        if create_graph:
+            return y, -dy
         return y.detach(), -dy
 
 
@@ -124,11 +132,12 @@ def _check_supported(args: dict) -> None:
             _not_ported("q_tab=0 (the exact-rbf q operand)",
                         "Queue 2, 'q_tab=0'")
     if args.get("remat"):
-        _not_ported("remat=True", "Queue 1, 'Training'")
+        _not_ported("remat=True", "Queue 1 item 17, 'Training: remat'")
     if args.get("prior_model"):
         _not_ported("prior_model", "Queue 1, 'priors/'")
     if args.get("precision", 32) != 32:
-        _not_ported(f"precision={args['precision']}", "Queue 1, 'Training'")
+        _not_ported(f"precision={args['precision']}",
+                    "Queue 1 item 17, 'Training: precision=16'")
     if args.get("atom_filter", -1) > -1:
         _not_ported("atom_filter", "Queue 1, 'Remaining heads and wrappers'")
     if args.get("output_model", "Scalar") not in (
@@ -142,8 +151,10 @@ def create_model(args: dict, device=None, seed: int = 0) -> Potential:
     (reference ``model.py:21-164``).
 
     Weights are drawn from a ``torch.Generator`` seeded with ``seed`` and
-    frozen (``requires_grad=False``): this port runs inference and MD, not
-    training.  ``device`` defaults to CUDA and raises when CUDA is absent.
+    frozen (``requires_grad=False``), as inference and MD want them;
+    training turns their gradients on (``train/step.py::
+    create_train_state``).  ``device`` defaults to CUDA and raises when
+    CUDA is absent.
     Float32 matmuls run in full float32 (TF32 off) unless
     ``args["matmul_precision"]`` says otherwise.
     """

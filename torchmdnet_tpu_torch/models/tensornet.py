@@ -70,7 +70,8 @@ def edge_message_passing(attr3f, irr: Irreps, nbr: NeighborMatrix,
     weights A, 2 weights S).  Direction-dependent weights come with their
     recomputed reverse ``attr_rev``; without it the weights must be
     edge-symmetric (functions of the distance alone) and the sum's
-    backward is the sum itself.
+    backward is the sum itself (it needs ``nbr.rev_slot`` for its second
+    order).
 
     ``blocked`` (sorted rows, JAX ``:110-141``) runs the blocked tier:
     ``attr3f`` is either the weights (rows 8, 9) or the tuple ``("cheb",
@@ -87,7 +88,8 @@ def edge_message_passing(attr3f, irr: Irreps, nbr: NeighborMatrix,
         msg = blocked_neighbor_sum_asym(attr3f, attr_rev, pack9(irr),
                                         nbr.idx, nbr.mask)
     elif attr_rev is None:
-        msg = packed_neighbor_sum_sym(attr3f, pack9(irr), nbr.idx, nbr.mask)
+        msg = packed_neighbor_sum_sym(attr3f, pack9(irr), nbr.idx,
+                                      nbr.rev_slot, nbr.mask)
     else:
         msg = packed_neighbor_sum_asym(attr3f, attr_rev, pack9(irr), nbr.idx,
                                        nbr.mask)
@@ -347,8 +349,9 @@ class TensorNet(nn.Module):
                              "cell_block_spec")
         if nbr is None:
             nbr = self.build_neighbors(pos, batch, box=box, atom_mask=atom_mask)
-        rev_slot = (nbr.rev_slot if nbr.rev_slot is not None
-                    else reverse_slots(nbr.idx, nbr.mask))
+        if nbr.rev_slot is None:
+            nbr = nbr._replace(rev_slot=reverse_slots(nbr.idx, nbr.mask))
+        rev_slot = nbr.rev_slot
         delta, dist = neighbor_geometry(pos, nbr, box=box, batch=batch)
         q_atom = atom_charges(q, batch, pos)
         edge_attr = self.distance_expansion(dist)

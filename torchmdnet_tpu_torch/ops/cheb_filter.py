@@ -1,4 +1,4 @@
-"""Chebyshev-tabulated edge filters (kernels 5 and 7 of the port).
+"""Chebyshev-tabulated edge filters (kernels 5 and 7 and row 6 of the port).
 
 Counterpart of ``torchmdnet_tpu/ops/pallas_cheb.py``: TensorNet's
 three-layer edge MLP on the rbf is a smooth function family of the edge
@@ -8,26 +8,33 @@ distance alone, so the interaction fits it once at ``T`` Chebyshev nodes
     cheb_filter(coeffs, d, fm)[n, k, c] = fm[n, k] · Σ_j coeffs[j, c]·cos(j·θ)
 
 with ``θ = arccos(clip(2(d − lo)/(hi − lo) − 1, −1, 1))``.  The backward
-is analytic (``_cf_bwd``, ``:214-226``): the x-derivative of a series is
-another series (``cheb_deriv_coeffs``), so
+is analytic and composes the three ops as the JAX custom VJPs do
+(``_cf_bwd`` ``:214-229``, ``_cfd_bwd`` ``:279-295``, ``_cp_bwd``
+``:310-319``); each is a ``torch.autograd.Function`` whose backward calls
+the others' ``apply``, so every order of derivative exists:
 
-    ∂d      = cheb_filter_dot(cheb_deriv_coeffs(coeffs), d, fm, g)·2/(hi − lo)
-    ∂coeffs = cheb_project(d, g·fm, T)
+    cheb_filter:      ∂d      = cheb_filter_dot(D·coeffs, d, fm, g)·2/(hi − lo)
+                      ∂coeffs = cheb_project(d, fm, g)
+    cheb_filter_dot:  ∂ct     = cot ⊗ cheb_filter(coeffs, d, fm)
+                      ∂d      = cheb_filter_dot(D·coeffs, d, fm, cot·ct)·2/(hi − lo)
+                      ∂coeffs = cheb_project(d, fm, cot·ct)
+    cheb_project:     ∂ct     = cheb_filter(g, d, fm)
 
-where ``cheb_filter_dot`` contracts the series with a cotangent without
-storing the ``[N, K, C]`` filter, and ``cheb_project`` is the basis
-transposed against a cotangent.  ``fm`` gets no gradient.
+where ``D·coeffs`` is ``cheb_deriv_coeffs``, ``cheb_filter_dot``
+contracts the series with a cotangent without storing the ``[N, K, C]``
+filter, and ``cheb_project(d, fm, ct)[j, c] = Σ fm·cos(j·θ)·ct[..., c]``
+is the adjoint of the filter in its coefficients (the JAX op takes the
+product ``fm·ct``; the weight is an argument here so that the kernel
+skips the slots where it is 0).  ``fm`` gets no gradient anywhere, and
+``cheb_project`` gives ``d`` none, as in JAX: the projection appears only
+in parameter-gradient branches.
 
-On CUDA tensors the filter and the filter-dot launch the hand-written
-kernels of ``csrc/cheb_filter.cu`` (Pallas rows 5 and 7) or raise;
-``cheb_project`` (row 6) has no kernel yet, so a coefficient gradient on
-CUDA raises: force-only MD never asks for it (the weights are frozen).  On
-CPU tensors all three run the plain versions, the θ form of the JAX jnp
-fallback.  First order only.
+On CUDA tensors each op launches its hand-written kernel of
+``csrc/cheb_filter.cu`` (Pallas rows 5, 7 and 6) or raises; on CPU
+tensors it runs its plain version, the θ form of the JAX jnp fallback.
 """
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs, cheb_theta, cos_basis
 from torchmdnet_tpu_torch.ops.kernels import (
@@ -37,6 +44,11 @@ SOURCE = CudaSource("cheb_filter.cu")
 FILTER = Kernel(SOURCE, "tmd_cheb_filter", [P] * 4 + [I64, I32, I32, F32, F32])
 FILTER_DOT = Kernel(SOURCE, "tmd_cheb_filter_dot",
                     [P] * 5 + [I64, I32, I32, F32, F32])
+PROJECT = Kernel(SOURCE, "tmd_cheb_project",
+                 [P] * 5 + [I64, I32, I32, I32, F32, F32])
+# row 6's grid: blocks wanted in flight (two 72 KB blocks on each of the
+# 132 SMs) and the most 256-slot spans one block compacts at once
+_PROJECT_BLOCKS, _PROJECT_MAX_SPANS = 264, 16
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 
 
@@ -59,11 +71,11 @@ def cheb_filter_dot_ref(coeffs, d, fmask, ct, lo: float, hi: float):
     return (g * ct).sum(-1) * fmask
 
 
-def cheb_project_ref(d, ctw, T: int, lo: float, hi: float):
-    """Plain version of row 6 (``:190-193``):
-    ``out[j, c] = Σ_{n,k} cos(j·θ[n,k])·ctw[n,k,c]`` → ``[T, C]``."""
-    basis = _basis(d, T, lo, hi).reshape(-1, T)
-    return basis.t() @ ctw.reshape(-1, ctw.shape[-1])
+def cheb_project_ref(d, fmask, ct, T: int, lo: float, hi: float):
+    """Plain version of row 6 (``:190-193``, with ``ctw = fm·ct``):
+    ``out[j, c] = Σ_{n,k} fm[n,k]·cos(j·θ[n,k])·ct[n,k,c]`` → ``[T, C]``."""
+    basis = (_basis(d, T, lo, hi) * fmask[..., None]).reshape(-1, T)
+    return basis.t() @ ct.reshape(-1, ct.shape[-1])
 
 
 def _check(name, tensors, t, c):
@@ -109,27 +121,43 @@ def cheb_filter_dot_cuda(coeffs, d, fmask, ct, lo: float, hi: float):
     return out
 
 
-def filter_fwd(*args):
-    """Kernel 5 for CUDA tensors, its plain version for CPU tensors."""
-    return (cheb_filter_cuda if args[1].is_cuda else cheb_filter_ref)(*args)
+def project_chunks(e: int, t: int, c: int):
+    """Row 6's grid along the slots: ``(spans per chunk, chunks)`` so that
+    about ``_PROJECT_BLOCKS`` blocks fill the card."""
+    spans = -(-e // 256)
+    tiles = -(-c // 128) * -(-t // 128)
+    per = min(max(1, -(-spans * tiles // _PROJECT_BLOCKS)), _PROJECT_MAX_SPANS)
+    return per, -(-spans // per)
 
 
-def cheb_filter_dot(coeffs, d, fmask, ct, lo: float, hi: float):
-    """``fmask · Σ_c (Σ_j coeffs[j]·T_j(x(d)))[c]·ct[..., c]`` →
-    ``d.shape``, without a gradient of its own: kernel 7 for CUDA
-    tensors, its plain version for CPU tensors."""
+def cheb_project_cuda(d, fmask, ct, T: int, lo: float, hi: float):
+    """Row 6 on CUDA tensors: returns ``[T, C]``."""
+    c = ct.shape[-1]
+    dev = _check("cheb_project", dict(d=d, fmask=fmask, ct=ct), T, c)
+    per, chunks = project_chunks(d.numel(), T, c)
+    partial = torch.empty((max(chunks, 1), T, c), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((T, c), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        PROJECT(ptr(d), ptr(fmask), ptr(ct), ptr(partial), ptr(out),
+                d.numel(), T, c, per, lo, hi)
+    return out
+
+
+# The dispatch: the kernel for CUDA tensors, the plain version for CPU ones.
+def filter_fwd(coeffs, d, fmask, lo, hi):
+    return (cheb_filter_cuda if d.is_cuda else cheb_filter_ref)(
+        coeffs, d, fmask, lo, hi)
+
+
+def filter_dot_fwd(coeffs, d, fmask, ct, lo, hi):
     return (cheb_filter_dot_cuda if d.is_cuda else cheb_filter_dot_ref)(
         coeffs, d, fmask, ct, lo, hi)
 
 
-def cheb_project(d, ctw, T: int, lo: float, hi: float):
-    """``[T, C]`` projection of ``ctw`` on the basis (the coefficient
-    gradient); CPU tensors only until row 6 has its kernel."""
-    if d.is_cuda:
-        raise NotImplementedError(
-            "cheb_project (the coefficient gradient, Pallas row 6) has no "
-            "CUDA kernel yet (ROADMAP Queue 1, 'Training')")
-    return cheb_project_ref(d, ctw, T, lo, hi)
+def project_fwd(d, fmask, ct, T, lo, hi):
+    return (cheb_project_cuda if d.is_cuda else cheb_project_ref)(
+        d, fmask, ct, T, lo, hi)
 
 
 class _ChebFilter(torch.autograd.Function):
@@ -140,7 +168,6 @@ class _ChebFilter(torch.autograd.Function):
         return filter_fwd(coeffs, d, fmask, lo, hi)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         coeffs, d, fmask = ctx.saved_tensors
         lo, hi = ctx.lo, ctx.hi
@@ -148,11 +175,70 @@ class _ChebFilter(torch.autograd.Function):
         dcoeffs = dd = None
         if ctx.needs_input_grad[1]:
             dser = cheb_deriv_coeffs(coeffs).contiguous()
-            dd = cheb_filter_dot(dser, d, fmask, g, lo, hi) * (2.0 / (hi - lo))
+            dd = _ChebFilterDot.apply(dser, d, fmask, g, lo, hi) * (
+                2.0 / (hi - lo))
         if ctx.needs_input_grad[0]:
-            dcoeffs = cheb_project(d, g * fmask[..., None], coeffs.shape[0],
-                                   lo, hi)
+            dcoeffs = _ChebProject.apply(d, fmask, g, coeffs.shape[0], lo, hi)
         return dcoeffs, dd, None, None, None
+
+
+class _ChebFilterDot(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, coeffs, d, fmask, ct, lo, hi):
+        ctx.save_for_backward(coeffs, d, fmask, ct)
+        ctx.lo, ctx.hi = lo, hi
+        return filter_dot_fwd(coeffs, d, fmask, ct, lo, hi)
+
+    @staticmethod
+    def backward(ctx, cot):
+        coeffs, d, fmask, ct = ctx.saved_tensors
+        lo, hi = ctx.lo, ctx.hi
+        need_c, need_d, _, need_ct = ctx.needs_input_grad[:4]
+        dcoeffs = dd = dct = None
+        if need_ct:
+            dct = cot[..., None] * _ChebFilter.apply(coeffs, d, fmask, lo, hi)
+        if need_c or need_d:
+            cct = (cot[..., None] * ct).contiguous()
+        if need_d:
+            dser = cheb_deriv_coeffs(coeffs).contiguous()
+            dd = _ChebFilterDot.apply(dser, d, fmask, cct, lo, hi) * (
+                2.0 / (hi - lo))
+        if need_c:
+            dcoeffs = _ChebProject.apply(d, fmask, cct, coeffs.shape[0], lo,
+                                         hi)
+        return dcoeffs, dd, None, dct, None, None
+
+
+class _ChebProject(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, d, fmask, ct, T, lo, hi):
+        ctx.save_for_backward(d, fmask)
+        ctx.lo, ctx.hi = lo, hi
+        return project_fwd(d, fmask, ct, T, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        d, fmask = ctx.saved_tensors
+        dct = None
+        if ctx.needs_input_grad[2]:
+            dct = _ChebFilter.apply(g.contiguous(), d, fmask, ctx.lo, ctx.hi)
+        return None, None, dct, None, None, None
+
+
+def cheb_filter_dot(coeffs, d, fmask, ct, lo: float, hi: float):
+    """``fmask · Σ_c (Σ_j coeffs[j]·T_j(x(d)))[c]·ct[..., c]`` →
+    ``d.shape``, differentiable in ``coeffs``, ``d`` and ``ct``."""
+    return _ChebFilterDot.apply(coeffs.contiguous(), d.contiguous(),
+                                fmask.contiguous(), ct.contiguous(),
+                                float(lo), float(hi))
+
+
+def cheb_project(d, fmask, ct, T: int, lo: float, hi: float):
+    """``[T, C]``: ``Σ_{n,k} fmask·cos(j·θ(d))·ct[n, k, c]``, the
+    coefficient gradient of :func:`cheb_filter`; differentiable in
+    ``ct``."""
+    return _ChebProject.apply(d.contiguous(), fmask.contiguous(),
+                              ct.contiguous(), int(T), float(lo), float(hi))
 
 
 def cheb_filter(coeffs, d, fmask, lo: float, hi: float):

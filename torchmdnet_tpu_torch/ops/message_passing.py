@@ -9,6 +9,12 @@ slots: the transpose of a masked gather is the sum over ``k`` of a masked
 The packed neighbor sum works over row chunks: gathering ``feats9[idx]``
 whole is an ``[N, K, 9F]`` block (11.1 GB per layer at N=25,088, K=96,
 F=128), so neither direction ever holds more than one chunk of it.
+
+Force training differentiates through the backward of the symmetric sum
+(the force pass) once more, so its backward is built from the
+differentiable ops below, as in JAX (``:248-573``): the sum itself, the
+weight gradient ``_PnsDattr`` and, for the latter's own backward, the
+general sum with its scatter-free ``_PnsBwdPair``.
 """
 
 import torch
@@ -129,28 +135,103 @@ def packed_neighbor_sum_asym(attr3f, attr_rev, feats9, idx, mask):
     return _PackedNeighborSumAsym.apply(attr3f, attr_rev, feats9, idx, mask)
 
 
-class _PackedNeighborSumSym(torch.autograd.Function):
+class _PnsDattr(torch.autograd.Function):
+    """``fold9(g9[n] ⊙ feats9[idx[n,k]])`` (JAX ``_pns_dattr``,
+    ``:511-541``); its VJP is two general packed sums:
+    ``∂g9 = pns(ct, feats9)``, ``∂feats9 = pns(gather_rev(ct), g9)``."""
+
     @staticmethod
-    def forward(ctx, attr3f, feats9, idx, mask):
-        ctx.save_for_backward(attr3f, feats9, idx, mask)
+    def forward(ctx, g9, feats9, idx, rev_slot, mask):
+        ctx.save_for_backward(g9, feats9, idx, rev_slot, mask)
+        return _pns_dattr(g9, feats9, idx, mask)
+
+    @staticmethod
+    def backward(ctx, ct):
+        g9, feats9, idx, rev_slot, mask = ctx.saved_tensors
+        # the output is 0 on invalid slots: their cotangent has no effect
+        ct = torch.where(mask[..., None], ct, 0.0)
+        dg = dfeats = None
+        if ctx.needs_input_grad[0]:
+            dg = packed_neighbor_sum(ct, feats9, idx, rev_slot, mask)
+        if ctx.needs_input_grad[1]:
+            dfeats = packed_neighbor_sum(gather_rev(ct, idx, rev_slot, mask),
+                                         g9, idx, rev_slot, mask)
+        return dg, dfeats, None, None, None
+
+
+class _PackedNeighborSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, attr3f, feats9, idx, rev_slot, mask):
+        ctx.save_for_backward(attr3f, feats9, idx, rev_slot, mask)
         return _pns_impl(attr3f, feats9, idx)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
-        attr3f, feats9, idx, mask = ctx.saved_tensors
+        attr3f, feats9, idx, rev_slot, mask = ctx.saved_tensors
+        dattr, dfeats = _PnsBwdPair.apply(attr3f, feats9, g.contiguous(), idx,
+                                          rev_slot, mask)
+        return dattr, dfeats, None, None, None
+
+
+class _PnsBwdPair(torch.autograd.Function):
+    """``(∂attr, ∂feats)`` of the general packed sum (JAX ``_pns_bwd_pair``,
+    ``:312-413``): ``∂attr = fold9(g ⊙ feats9[idx])``, ``∂feats =
+    pns(attr_rev, g)`` with ``attr_rev = gather_rev(attr3f)``; its own
+    VJP decomposes onto the packed sum, ``_PnsDattr`` and ``gather_rev``."""
+
+    @staticmethod
+    def forward(ctx, attr3f, feats9, g, idx, rev_slot, mask):
+        ctx.save_for_backward(attr3f, feats9, g, idx, rev_slot, mask)
+        dattr = _pns_dattr(g, feats9, idx, mask)
+        dfeats = _pns_impl(gather_rev(attr3f, idx, rev_slot, mask), g, idx)
+        return dattr, dfeats
+
+    @staticmethod
+    def backward(ctx, ct_da, ct_df):
+        attr3f, feats9, g, idx, rev_slot, mask = ctx.saved_tensors
+        ct_da = torch.where(mask[..., None], ct_da, 0.0)
+        dattr = _PnsDattr.apply(g, ct_df.contiguous(), idx, rev_slot, mask)
+        dg = (packed_neighbor_sum(ct_da, feats9, idx, rev_slot, mask)
+              + packed_neighbor_sum(attr3f, ct_df, idx, rev_slot, mask))
+        dfeats = packed_neighbor_sum(gather_rev(ct_da, idx, rev_slot, mask),
+                                     g, idx, rev_slot, mask)
+        return dattr, dfeats, dg, None, None, None
+
+
+def packed_neighbor_sum(attr3f, feats9, idx, rev_slot, mask):
+    """``msg[n] = Σ_k expand9(attr3f[n,k]) ⊙ feats9[idx[n,k]]`` for any
+    edge weights (JAX ``:248-428``), differentiable to any order through
+    row gathers and the slot involution (no scatter)."""
+    return _PackedNeighborSum.apply(attr3f.contiguous(), feats9.contiguous(),
+                                    idx, rev_slot, mask)
+
+
+class _PackedNeighborSumSym(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, attr3f, feats9, idx, rev_slot, mask):
+        ctx.save_for_backward(attr3f, feats9, idx, rev_slot, mask)
+        return _pns_impl(attr3f, feats9, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        attr3f, feats9, idx, rev_slot, mask = ctx.saved_tensors
         g = g.contiguous()
-        dattr = _pns_dattr(g, feats9, idx, mask) if ctx.needs_input_grad[0] else None
-        dfeats = _pns_impl(attr3f, g, idx) if ctx.needs_input_grad[1] else None
-        return dattr, dfeats, None, None
+        dattr = dfeats = None
+        if ctx.needs_input_grad[0]:
+            dattr = _PnsDattr.apply(g, feats9, idx, rev_slot, mask)
+        if ctx.needs_input_grad[1]:
+            dfeats = _PackedNeighborSumSym.apply(attr3f, g, idx, rev_slot,
+                                                 mask)
+        return dattr, dfeats, None, None, None
 
 
-def packed_neighbor_sum_sym(attr3f, feats9, idx, mask):
+def packed_neighbor_sum_sym(attr3f, feats9, idx, rev_slot, mask):
     """Packed neighbor sum for edge-symmetric weights (``attr3f[i, s_ij] ==
     attr3f[j, s_ji]``, functions of the edge distance alone, as in
-    TensorNet's interaction; JAX ``message_passing.py:545-573``).  The
+    TensorNet's interaction; JAX ``message_passing.py:544-573``).  The
     per-channel operator is then a symmetric matrix, so the feature
     backward is the forward itself: ``∂feats9 = packed_sum(attr3f, g)``;
-    ``∂attr = fold9(g ⊙ feats9[idx])``.  Exact transposition assumes a
-    symmetric edge set, i.e. no K overflow."""
-    return _PackedNeighborSumSym.apply(attr3f, feats9, idx, mask)
+    ``∂attr = fold9(g ⊙ feats9[idx])``.  Both are differentiable again
+    (force training).  Exact transposition assumes a symmetric edge set,
+    i.e. no K overflow."""
+    return _PackedNeighborSumSym.apply(attr3f, feats9, idx, rev_slot, mask)
