@@ -10,7 +10,9 @@ It builds the port's CUDA kernels from ``torchmdnet_tpu_torch/csrc`` with
 against its plain PyTorch version on the card at the main paths' shapes:
 the embedding and edge-MLP kernels at N=25,088 atoms, K=96 slots, F=128
 channels, R=32 rbf; the q-tier kernels A/B at the 27,024 cell-blocked
-rows of the same lattice with T=64 series terms; the windowed-Coulomb
+rows of the same lattice with T=64 series terms, and again with the exact
+rbf base (R=32) and on the grouped tier's column-partitioned K′ list of
+that lattice (rows 12-13 in their four bodies); the windowed-Coulomb
 kernels C/D at 48 charge channels over the lattice's real stencil
 windows; TensorNet's fused edge MLP (kernel 4) and Chebyshev filters
 (kernels 5 and 7) on the real brute K=64 list of the dhfr system (2,489
@@ -29,8 +31,17 @@ weights random from a seed:
   run (a 5-step chunk timed after a 5-step warm-up chunk);
 - the blocked path (the JAX north-star default: cell-blocked q-tier and
   windowed Coulomb): energy+forces with the kernels and through the plain
-  versions, against the gather path, a profile, and a Langevin MD chunk
-  (rebuild every 25 steps, 1 Å skin) timed after a warm-up chunk;
+  versions, against the gather path, with TF32 allowed (a record), a
+  profile, and a Langevin MD chunk (rebuild every 25 steps, 1 Å skin)
+  timed after a warm-up chunk;
+- its other q-tiers on the same weights: the grouped tier
+  (``BENCH_MD_GROUPED=1``: the column-partitioned K′ list for the
+  interactions, the compact K list for the embedding) and ``q_tab=0``
+  (the exact rbf operand) on the ungrouped spec, each with the kernels
+  and through the plain versions, against the blocked path, with a
+  warm-up and a timed 25-step MD chunk (and a profile of the grouped
+  tier), and ``q_tab=0`` on the grouped spec (no dual list: the
+  embedding on K′), one evaluation;
 
 and the dhfr path of ``bench.py::main``, TensorNet (2 layers x 128, 32
 expnorm rbf, 4.5 Å, K=64 brute neighbors rebuilt every evaluation, the
@@ -39,7 +50,7 @@ Scalar head) on its 2,489-atom periodic system, in the default variant
 embedding): energy+forces with the kernels and through the plain
 versions, tabulated against exact, ms per evaluation of the bench chain
 (positions fed back as pos + 1e-24·F, 30 evaluations after a warm-up),
-a profile of each, and a Langevin MD chunk (brute lists rebuilt every 25
+the forces with TF32 allowed (a record), a profile of each, and a Langevin MD chunk (brute lists rebuilt every 25
 steps, 1 Å skin, K=128) timed after a warm-up chunk; and its cell-blocked
 tiers (``BENCH_BLOCKED=1``): each evaluation sorts the atoms into cell
 blocks, builds the sorted-space list (grouped: column-partitioned with the
@@ -64,7 +75,7 @@ Each phase prints one JSON line; the card's name and power limit (as
 ``nvidia-smi`` gives them) and a ``{"kernels": [...]}`` line follow, and
 the last line is ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before that line.  All float32 matmuls run in full float32
-(TF32 off).  Long logs (compiler output, the profiles) go to ``logs/`` in
+(TF32 off) but in the TF32 records.  Long logs (compiler output, the profiles) go to ``logs/`` in
 the checkout, or to the directory named by ``SMOKE_LOG_DIR``.
 """
 
@@ -134,6 +145,36 @@ KERNELS = {
     "blocked_q_dq": (SRC + "blocked_q.cu",
                      "torchmdnet_tpu/ops/pallas_blocked_mp.py:1504",
                      "blocked"),
+    # rows 12-13 on the grouped K′ list (one kernel for both layouts: the
+    # same launch counters, counted on the grouped path's run) and with the
+    # exact rbf base (tab=False), ungrouped and grouped
+    "blocked_q_fwd_grouped": (SRC + "blocked_q.cu",
+                              "torchmdnet_tpu/ops/pallas_blocked_mp.py:1324",
+                              "blocked_grouped"),
+    "blocked_q_fwd_du_grouped": (
+        SRC + "blocked_q.cu", "torchmdnet_tpu/ops/pallas_blocked_mp.py:1324",
+        "blocked_grouped"),
+    "blocked_q_dq_grouped": (SRC + "blocked_q.cu",
+                             "torchmdnet_tpu/ops/pallas_blocked_mp.py:1623",
+                             "blocked_grouped"),
+    "blocked_q_fwd_rbf": (SRC + "blocked_q.cu",
+                          "torchmdnet_tpu/ops/pallas_blocked_mp.py:1211",
+                          "blocked_exact"),
+    "blocked_q_fwd_du_rbf": (SRC + "blocked_q.cu",
+                             "torchmdnet_tpu/ops/pallas_blocked_mp.py:1211",
+                             "blocked_exact"),
+    "blocked_q_dq_rbf": (SRC + "blocked_q.cu",
+                         "torchmdnet_tpu/ops/pallas_blocked_mp.py:1504",
+                         "blocked_exact"),
+    "blocked_q_fwd_rbf_grouped": (
+        SRC + "blocked_q.cu", "torchmdnet_tpu/ops/pallas_blocked_mp.py:1324",
+        "blocked_exact_grouped"),
+    "blocked_q_fwd_du_rbf_grouped": (
+        SRC + "blocked_q.cu", "torchmdnet_tpu/ops/pallas_blocked_mp.py:1324",
+        "blocked_exact_grouped"),
+    "blocked_q_dq_rbf_grouped": (
+        SRC + "blocked_q.cu", "torchmdnet_tpu/ops/pallas_blocked_mp.py:1623",
+        "blocked_exact_grouped"),
     "windowed_coulomb_fwd": (SRC + "windowed_coulomb.cu",
                              "torchmdnet_tpu/ops/pallas_coulomb.py:280",
                              "blocked"),
@@ -176,6 +217,15 @@ def counters():
             "blocked_q_fwd": blocked_q.FORWARD,
             "blocked_q_fwd_du": blocked_q.FORWARD_DU,
             "blocked_q_dq": blocked_q.DQ,
+            "blocked_q_fwd_grouped": blocked_q.FORWARD,
+            "blocked_q_fwd_du_grouped": blocked_q.FORWARD_DU,
+            "blocked_q_dq_grouped": blocked_q.DQ,
+            "blocked_q_fwd_rbf": blocked_q.FORWARD_RBF,
+            "blocked_q_fwd_du_rbf": blocked_q.FORWARD_DU_RBF,
+            "blocked_q_dq_rbf": blocked_q.DQ_RBF,
+            "blocked_q_fwd_rbf_grouped": blocked_q.FORWARD_RBF,
+            "blocked_q_fwd_du_rbf_grouped": blocked_q.FORWARD_DU_RBF,
+            "blocked_q_dq_rbf_grouped": blocked_q.DQ_RBF,
             "windowed_coulomb_fwd": windowed_coulomb.FORWARD,
             "windowed_coulomb_bwd": windowed_coulomb.BACKWARD,
             "edge_mlp": edge_mlp.FUSED,
@@ -254,6 +304,8 @@ def plain_versions():
     from torchmdnet_tpu_torch.ops import cheb_filter as cf
     from torchmdnet_tpu_torch.ops import windowed_coulomb as wc
     swaps = [(bq, "q_fwd", bq.q_fwd_ref), (bq, "q_dq", bq.q_dq_ref),
+             (bq, "q_fwd_rbf", bq.q_fwd_rbf_ref),
+             (bq, "q_dq_rbf", bq.q_dq_rbf_ref),
              (wc, "wc_fwd", wc.wc_fwd_ref), (wc, "wc_bwd", wc.wc_bwd_ref),
              (cf, "filter_fwd", cf.cheb_filter_ref),
              (cf, "filter_dot_fwd", cf.cheb_filter_dot_ref),
@@ -328,11 +380,14 @@ def embedding_inputs(gen, dev):
 
 
 def blocked_inputs(pos, L, cap, k, f, t, c, model_rc, coulomb_rc, seed,
-                   cutoff=4.5):
+                   cutoff=4.5, grouped=False):
     """Real cell-blocked geometry of ``pos`` on the card and random
     operands for kernels A-D: the sorted-space neighbor matrix at
-    ``model_rc`` (cutoff + skin, ``k`` slots), its distances and cutoff
-    weights, and the stencil windows at ``coulomb_rc``."""
+    ``model_rc`` (cutoff + skin; ``k`` slots, or with ``grouped`` the
+    column-partitioned list of a spec tuned with ``column_slots``), its
+    distances, cutoff weights and expnorm rbf (R channels, for the exact
+    base), and the stencil windows at ``coulomb_rc``."""
+    from torchmdnet_tpu_torch.models.common import make_rbf
     from torchmdnet_tpu_torch.ops import cell_blocks as cb
     from torchmdnet_tpu_torch.ops import rbf
     from torchmdnet_tpu_torch.ops.neighbors import (
@@ -344,22 +399,30 @@ def blocked_inputs(pos, L, cap, k, f, t, c, model_rc, coulomb_rc, seed,
     bd = [L, L, L]
     pt = torch.as_tensor(pos, dtype=torch.float32, device=dev)
     box = torch.diag(torch.tensor(bd, dtype=torch.float32, device=dev))
-    spec = cb.tune_cell_block_spec(pt, bd, model_rc, cap=cap)
+    spec = cb.tune_cell_block_spec(pt, bd, model_rc, cap=cap,
+                                   column_slots=grouped)
     wspec = cb.tune_stencil_window_spec(pt, bd, spec, coulomb_rc)
     blocks, win = cb.plan_cell_blocks_and_windows(pt, bd, spec, wspec)
     perm = torch.clamp(blocks.perm, max=n_atoms - 1)
     am = blocks.mask_rows
     pos_s = torch.where(am[:, None], pt[perm], 0.0).contiguous()
-    nbr = build_neighbor_matrix(
-        pos_s, (~am).long(), strategy="cell", k_max=k,
-        cutoff_upper=model_rc, loop=True, box=box, atom_mask=am,
-        cells_per_dim=tuple(max(int(L // model_rc), 3) for _ in range(3)))
+    nz = max(int(L // model_rc), 3)
+    kw = dict(strategy="cell", k_max=k, cells_per_dim=(nz, nz, nz))
+    if grouped:  # the MD rebuild's grouped list (md/integrators.py)
+        occ = n_atoms / (spec.nx * spec.ny * nz)
+        kw = dict(strategy="cell", k_max=sum(spec.col_slots),
+                  cells_per_dim=(spec.nx, spec.ny, nz),
+                  cell_capacity=int(np.ceil(occ * 2.5)) + 8,
+                  column_partition=spec.col_slots)
+    nbr = build_neighbor_matrix(pos_s, (~am).long(), cutoff_upper=model_rc,
+                                loop=True, box=box, atom_mask=am, **kw)
     check(not bool(nbr.overflow), "kernel inputs: neighbor overflow")
     _, d = neighbor_geometry(pos_s, nbr, box=box)
     cw = rbf.cosine_cutoff(d, cutoff, 0.0) * nbr.mask
     cwin = make_coulomb_windows(win, am, bd)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n = spec.n_pad
+    expnorm = make_rbf("expnorm", 0.0, cutoff, R, False).to(dev)
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -370,7 +433,9 @@ def blocked_inputs(pos, L, cap, k, f, t, c, model_rc, coulomb_rc, seed,
              coeffs=randn(t, f) * (0.7 ** torch.arange(t, device=dev))[:, None],
              w2=randn(f, 2 * f, scale=f ** -0.5), b2=randn(2 * f, scale=0.1),
              w3=randn(2 * f, 3 * f, scale=(2 * f) ** -0.5),
-             b3=randn(3 * f, scale=0.1), grow=randn(n, 9 * f))
+             b3=randn(3 * f, scale=0.1), grow=randn(n, 9 * f),
+             rbf=(expnorm(d) * nbr.mask[..., None]).contiguous(),
+             w1a=randn(R, f, scale=R ** -0.5))
     w = dict(pos_s=pos_s, b_s=randn(n, c, scale=0.1),
              qw=torch.ones(c, device=dev), ct=am.float(), cwin=cwin)
     return spec, wspec, q, w
@@ -380,26 +445,39 @@ Q_ARGS = ("d", "cw", "mask", "idx", "urow", "ucol", "xwin")
 Q_WEIGHTS = ("coeffs", "w2", "b2", "w3", "b3")
 
 
-def q_calls(q):
+def q_calls(q, suffix=""):
     """(kernel A, A with du, B) of the q-tier on ``q``, each as a pair of
-    (kernel, plain) callables."""
+    (kernel, plain) callables, named with ``suffix``: the tabulated base,
+    and ``_rbf`` + ``suffix`` the exact one (``q["rbf"]``, ``q["w1a"]``)."""
     from torchmdnet_tpu_torch.ops import blocked_q as bq
     from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs
 
     a = [q[k] for k in Q_ARGS]
     wts = [q[k] for k in Q_WEIGHTS]
     dser = cheb_deriv_coeffs(q["coeffs"]).contiguous()
+    x = [q["rbf"], *a[1:]]
+    xw = [q["w1a"], *wts[1:]]
     return {
-        "blocked_q_fwd": (lambda: bq.q_fwd_cuda(*a, *wts, 0.0, 4.5),
-                          lambda: bq.q_fwd_ref(*a, *wts, 0.0, 4.5)),
-        "blocked_q_fwd_du": (
+        "blocked_q_fwd" + suffix: (
+            lambda: bq.q_fwd_cuda(*a, *wts, 0.0, 4.5),
+            lambda: bq.q_fwd_ref(*a, *wts, 0.0, 4.5)),
+        "blocked_q_fwd_du" + suffix: (
             lambda: bq.q_fwd_cuda(*a, *wts, 0.0, 4.5, grow=q["grow"]),
             lambda: bq.q_fwd_ref(*a, *wts, 0.0, 4.5, grow=q["grow"])),
-        "blocked_q_dq": (
+        "blocked_q_dq" + suffix: (
             lambda: bq.q_dq_cuda(*a, q["grow"], q["coeffs"], dser, *wts[1:],
                                  0.0, 4.5),
             lambda: bq.q_dq_ref(*a, q["grow"], q["coeffs"], dser, *wts[1:],
-                                0.0, 4.5))}
+                                0.0, 4.5)),
+        "blocked_q_fwd_rbf" + suffix: (
+            lambda: bq.q_fwd_rbf_cuda(*x, *xw),
+            lambda: bq.q_fwd_rbf_ref(*x, *xw)),
+        "blocked_q_fwd_du_rbf" + suffix: (
+            lambda: bq.q_fwd_rbf_cuda(*x, *xw, grow=q["grow"]),
+            lambda: bq.q_fwd_rbf_ref(*x, *xw, grow=q["grow"])),
+        "blocked_q_dq_rbf" + suffix: (
+            lambda: bq.q_dq_rbf_cuda(*x, q["grow"], *xw),
+            lambda: bq.q_dq_rbf_ref(*x, q["grow"], *xw))}
 
 
 def wc_calls(w, rc):
@@ -431,23 +509,59 @@ def compare(kern, plain):
 
 
 # ---------------------------------------------------------------- kernels
-def q_work(q, f, t):
+def kernel_rows(rows, peak, calls, work, mask):
+    """Each kernel of ``calls`` against its plain version: errors, ms,
+    plain ms and bound into ``rows``; the exact q-tier's rbf cotangent
+    must be exactly 0 on the slots ``mask`` leaves out."""
+    for name, (kern, plain) in calls.items():
+        err, rel, got = compare(kern, plain)
+        if name.startswith("blocked_q_dq_rbf"):
+            check(not got[1][~mask].any(),
+                  f"{name}: an invalid slot's rbf cotangent is not 0")
+        flops, nb = work[name]
+        b_ms, b_by = bound(flops, nb, peak)
+        rows[name] = dict(
+            max_abs_err=err, max_rel_err=rel, ms=time_ms(kern),
+            plain_ms=time_ms(plain, reps=3, warmup=1), bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, gflop=flops / 1e9,
+            gbytes=nb / 1e9)
+        del got
+        torch.cuda.empty_cache()
+
+
+def q_work(q, f, t, suffix=""):
     """(FLOP, bytes) each q-tier kernel needs on ``q``: kernel A runs the
-    chain on the slots with cw ≠ 0, kernel B on every valid slot."""
+    chain on the slots with cw ≠ 0, kernel B on every valid slot (the
+    backprop on the cw ≠ 0 ones).  Inputs: the mask of every slot, the
+    per-slot operands (d or the rbf row, cw, idx) of the valid slots, the
+    row arrays and weights once; outputs once (B's per-slot ones on every
+    slot: zeros elsewhere).  Names as :func:`q_calls` gives them."""
     live = float((q["cw"] != 0).sum())
     valid = float(q["mask"].sum())
-    base, l2, l3, g9 = t * f, 2 * f * f, 6 * f * f, 9 * f
-    ins = nbytes(*(q[k] for k in Q_ARGS + Q_WEIGHTS))
-    n = q["urow"].shape[0]
-    out9, outf, outk = n * 9 * f * 4, n * f * 4, q["d"].numel() * 4
-    return {
-        "blocked_q_fwd": (2 * live * (base + l2 + l3 + g9), ins + out9),
-        "blocked_q_fwd_du": (2 * live * (base + 2 * (l2 + l3) + 2 * g9),
-                             ins + nbytes(q["grow"]) + out9 + outf),
-        "blocked_q_dq": (2 * valid * (base + l2 + l3 + g9 + 3 * f)
-                         + 2 * live * (l3 + l2 + base),
-                         ins + nbytes(q["grow"]) + t * f * 4 + outf
-                         + 2 * outk)}
+    n, k = q["d"].shape
+    r = q["rbf"].shape[-1]
+    l2, l3, g9 = 2 * f * f, 6 * f * f, 9 * f
+    rows = nbytes(q["mask"], q["urow"], q["ucol"], q["xwin"], q["w2"],
+                  q["b2"], q["w3"], q["b3"])
+    out9, outf, grow = n * 9 * f * 4, n * f * 4, nbytes(q["grow"])
+    work = {}
+    for name, base, slot_in, w1, dbase in (
+            ("", t * f, 4 + 4 + 8, t * f * 4, n * k * 4),
+            ("_rbf", r * f, 4 * r + 4 + 8, r * f * 4, n * k * r * 4)):
+        ins = rows + w1 + valid * slot_in
+        work["blocked_q_fwd" + name + suffix] = (
+            2 * live * (base + l2 + l3 + g9), ins + out9)
+        work["blocked_q_fwd_du" + name + suffix] = (
+            2 * live * (base + 2 * (l2 + l3) + 2 * g9),
+            ins + grow + out9 + outf)
+        # B: the forward chain and the fold on every valid slot, the
+        # backprop and the base cotangent (dser's series or W1aᵀ) on the
+        # live ones
+        work["blocked_q_dq" + name + suffix] = (
+            2 * valid * (base + l2 + l3 + g9 + 3 * f)
+            + 2 * live * (l3 + l2 + base),
+            ins + grow + w1 + outf + n * k * 4 + dbase)
+    return work
 
 
 def wc_work(w, rc, c):
@@ -879,9 +993,10 @@ def phase_kernels(peak, system, dhfr, seg, specs):
     del out_k, out_p, w
     torch.cuda.empty_cache()
 
-    # kernels A, A with du, B and C, D on the lattice's real blocked
-    # geometry (the MD rebuild's: lists at cutoff + skin, windows at the
-    # Coulomb cutoff + skin)
+    # kernels A, A with du, B (tabulated and exact base) and C, D on the
+    # lattice's real blocked geometry (the MD rebuild's: lists at cutoff +
+    # skin, windows at the Coulomb cutoff + skin), then A and B on the
+    # grouped tier's column-partitioned K′ list of the same lattice
     _, pos, _, _, L = system
     spec, wspec, q, wv = blocked_inputs(
         pos, L, CAP, K, F, Q_TAB, C_CH, 4.5 + SKIN, COULOMB_RC + SKIN, 77)
@@ -889,25 +1004,26 @@ def phase_kernels(peak, system, dhfr, seg, specs):
     work.update(wc_work(wv, COULOMB_RC + SKIN, C_CH))
     calls = q_calls(q)
     calls.update(wc_calls(wv, COULOMB_RC + SKIN))
-    for name, (kern, plain) in calls.items():
-        err, rel, got = compare(kern, plain)
-        flops, nb = work[name]
-        b_ms, b_by = bound(flops, nb, peak)
-        rows[name] = dict(
-            max_abs_err=err, max_rel_err=rel, ms=time_ms(kern),
-            plain_ms=time_ms(plain, reps=3, warmup=1), bound_ms=b_ms,
-            bound_by=b_by, library_ms=None, gflop=flops / 1e9,
-            gbytes=nb / 1e9)
-        del got
-        torch.cuda.empty_cache()
+    kernel_rows(rows, peak, calls, work, q["mask"])
     cand, inside = work["pairs"]
     geometry = {"n_pad": spec.n_pad, "blocks": spec.n_blocks,
                 "nx": spec.nx, "nzf": spec.nzf, "stencil_s": wspec.s,
-                "cut_bins": wspec.cut_bins,
+                "cut_bins": wspec.cut_bins, "k": K,
                 "valid_slots": int(q["mask"].sum()),
                 "live_slots": int((q["cw"] != 0).sum()),
                 "window_pairs": cand, "pairs_inside_rc": inside}
     del q, wv
+    torch.cuda.empty_cache()
+    spec, _, q, _ = blocked_inputs(pos, L, CAP, K, F, Q_TAB, C_CH, 4.5 + SKIN,
+                                   COULOMB_RC + SKIN, 78, grouped=True)
+    kernel_rows(rows, peak, q_calls(q, "_grouped"),
+                q_work(q, F, Q_TAB, "_grouped"), q["mask"])
+    geometry["grouped"] = {
+        "n_pad": spec.n_pad, "k": q["idx"].shape[1],
+        "col_slots": spec.col_slots, "valid_slots": int(q["mask"].sum()),
+        "live_slots": int((q["cw"] != 0).sum()),
+        "max_per_group": group_counts(spec, q["mask"])}
+    del q
     torch.cuda.empty_cache()
 
     # kernels 4, 5 and 7 on the dhfr system's real brute K=64 list
@@ -1088,6 +1204,53 @@ def blocked_shape_errors(gen):
     return worst
 
 
+def q_shape_errors(gen):
+    """Kernels A and B, both bases, on synthetic lists of grouped-tier
+    widths: K′ not a multiple of 4 or 16, up to 512 slots a row (one
+    compaction pass) and 520 (two), rbf widths not a multiple of 4, a row
+    with no valid slot, a row whose slots are all valid with cw = 0, an
+    empty slot group, d at 0, at hi and beyond."""
+    dev = torch.device("cuda")
+    worst = {}
+    hi = 4.5
+    for n, k, f, t, r in ((37, 13, 12, 8, 5), (50, 330, 32, 16, 7),
+                          (21, 512, 128, 64, 32), (19, 520, 128, 64, 32)):
+        def randn(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * scale
+
+        rows = torch.arange(n, device=dev)[:, None]
+        mask = torch.rand((n, k), generator=gen, device=dev) < 0.3
+        mask[:, k // 4:k // 2] = False  # an empty group
+        mask[1] = False                 # no valid slot
+        idx = torch.where(mask, torch.randint(0, n, (n, k), generator=gen,
+                                              device=dev), rows)
+        d = torch.rand((n, k), generator=gen, device=dev) * 1.2 * hi
+        d[0, :3] = torch.tensor([0.0, hi, 1.1 * hi], device=dev)
+        d[2] = 1.1 * hi                 # valid slots, all with cw = 0
+        cw = torch.where(mask & (d < hi),
+                         torch.cos(d * math.pi / hi) * 0.5 + 0.5, 0.0)
+        q = dict(d=d, cw=cw, mask=mask, idx=idx, urow=randn(n, f, scale=0.5),
+                 ucol=randn(n, f, scale=0.5), xwin=randn(n, 9 * f),
+                 coeffs=randn(t, f) * (0.7 ** torch.arange(t, device=dev))[
+                     :, None],
+                 w2=randn(f, 2 * f, scale=f ** -0.5),
+                 b2=randn(2 * f, scale=0.1),
+                 w3=randn(2 * f, 3 * f, scale=(2 * f) ** -0.5),
+                 b3=randn(3 * f, scale=0.1), grow=randn(n, 9 * f),
+                 rbf=torch.rand((n, k, r), generator=gen, device=dev)
+                 * mask[..., None], w1a=randn(r, f, scale=r ** -0.5))
+        calls = q_calls(q)
+        errs = [compare(*pair)[1] for pair in calls.values()]
+        outs = {name: as_list(kern()) for name, (kern, _) in calls.items()}
+        check(all(float(o[0][1].abs().max()) == 0.0 for name, o in
+                  outs.items() if "_dq" not in name),
+              "kernel A: a row with no valid slot is not 0")
+        check(not outs["blocked_q_dq_rbf"][1][~mask].any(),
+              "kernel B (rbf): an invalid slot's cotangent is not 0")
+        worst[f"q_n{n}_k{k}_f{f}_t{t}_r{r}"] = max(errs)
+    return worst
+
+
 def phase_shapes():
     """Every kernel against its plain version at small ragged shapes:
     every compiled rbf width and a range of channel counts for kernels
@@ -1144,12 +1307,14 @@ def phase_shapes():
         # the same rows cut short of a whole row block of the kernels
         cut = spec.n_pad - 5
         qc = dict(q, **{key: q[key][:cut] for key in
-                        ("d", "cw", "mask", "urow", "ucol", "xwin", "grow")})
+                        ("d", "cw", "mask", "urow", "ucol", "xwin", "grow",
+                         "rbf")})
         qc["idx"] = torch.clamp(q["idx"][:cut], max=cut - 1)
         qc["mask"] = qc["mask"] & (q["idx"][:cut] < cut)
         errs += [compare(*pair)[1] for pair in q_calls(qc).values()]
         worst[f"blocked_n{n}_cap{cap}_f{f}_c{c}_s{wspec.s}"] = max(errs)
 
+    worst.update(q_shape_errors(gen))
     worst.update(dhfr_shape_errors(gen))
     worst.update(project_shape_errors(gen))
     worst.update(blocked_shape_errors(gen))
@@ -1253,13 +1418,30 @@ def northstar_args(L):
         coulomb_cell_stencil=cs, coulomb_cell_capacity=cc)
 
 
-def northstar_spec(system):
-    """The north star's ungrouped cell-block spec (``bench.py:292-301``:
-    cutoff + skin, 16-row blocks)."""
+def northstar_spec(system, grouped=False):
+    """The north star's cell-block spec (``bench.py:292-301``: cutoff +
+    skin, 16-row blocks), ungrouped or (``BENCH_MD_GROUPED=1``) with
+    per-column slot budgets."""
     from torchmdnet_tpu_torch.ops.cell_blocks import tune_cell_block_spec
 
     _, pos, _, _, L = system
-    return tune_cell_block_spec(pos, [L] * 3, 4.5 + SKIN, cap=CAP)
+    return tune_cell_block_spec(pos, [L] * 3, 4.5 + SKIN, cap=CAP,
+                                column_slots=grouped)
+
+
+def tf32_force_diff(run):
+    """max |ΔF| / max |F| of ``run()`` with TF32 allowed (matmul precision
+    "default") against full float32 ("highest"): a record, not a check."""
+    from torchmdnet_tpu_torch.ops.config import set_matmul_precision
+
+    _, f = run()
+    set_matmul_precision("default")
+    try:
+        _, f_tf32 = run()
+        torch.cuda.synchronize()
+    finally:
+        set_matmul_precision("highest")
+    return rel_err(f_tf32, f)[1]
 
 
 def phase_small():
@@ -1539,6 +1721,7 @@ def phase_blocked_energy(system, spec, gather_pot, gather_out):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     peak_k = torch.cuda.max_memory_allocated()
+    tf32 = tf32_force_diff(run)
 
     plain = create_model(dict(args, pallas_embedding=False,
                               pallas_edge_mlp=False), device=dev, seed=0)
@@ -1570,6 +1753,7 @@ def phase_blocked_energy(system, spec, gather_pot, gather_out):
           "rebuild_ms": rebuild_ms, "ms_per_eval": statistics.median(times),
           "ms_per_eval_all": times, "plain_ms_per_eval": plain_ms,
           "peak_mem_gb": peak_k / 1e9, "plain_peak_mem_gb": peak_p / 1e9,
+          "tf32_force_rel_diff": tf32,
           "vs_gather": {"energy_rel_diff": ge, "force_max_abs_diff": g_abs,
                         "force_rel_diff": g_rel,
                         "tolerance": BLOCKED_VS_GATHER_TOL}})
@@ -1579,7 +1763,7 @@ def phase_blocked_energy(system, spec, gather_pot, gather_out):
           f"blocked vs gather forces: {g_rel:.3g} of max |F|")
     del plain, chunk_p, y_p, f_p
     torch.cuda.empty_cache()
-    return pot, run
+    return pot, run, (y_k, f_k)
 
 
 def phase_md_blocked(pot, system, spec):
@@ -1591,6 +1775,157 @@ def phase_md_blocked(pot, system, spec):
     emit(dict({"phase": "md", "path": "blocked"}, **row, launches=launches))
     check(ok, "blocked MD: overflow or non-finite state")
     return row["steps"], launches
+
+
+# ---------------------------------------------------------------- q-tiers
+# the north star's other q-tiers: path → (grouped spec, q_tab).  The
+# grouped exact tier has no dual list (JAX md/integrators.py:287), so its
+# embedding runs on K′: its plain run keeps kernels 1 and 2 (the plain
+# embedding's autograd chain on [N, K′, 3F] is the memory the dual list
+# exists to avoid) and holds rows 12-13 alone against their plain
+# versions, and it runs one evaluation, no MD
+Q_TIERS = {"blocked_grouped": (True, Q_TAB),
+           "blocked_exact": (False, 0),
+           "blocked_exact_grouped": (True, 0)}
+
+
+def embedding_on_k_prime(path):
+    grouped, q_tab = Q_TIERS[path]
+    return grouped and not q_tab
+
+
+def phase_q_tier(system, path, spec, sd, refs):
+    """Energy+forces of one q-tier of the north star (``Q_TIERS``) through
+    ``make_md_step``'s rebuild and evaluation, with the kernels (launches
+    counted) and through the plain versions, against ``refs`` (path →
+    energy and forces at the same positions: the same pairs, the same or
+    a series-fitted base, so 1e-4 of max |F|), ms per evaluation, the
+    rebuild's ms, peak memory, the lists' widths."""
+    from torchmdnet_tpu_torch.md.integrators import make_md_step
+    from torchmdnet_tpu_torch.models.model import create_model
+    from torchmdnet_tpu_torch.ops.cell_blocks import tune_stencil_window_spec
+
+    grouped, q_tab = Q_TIERS[path]
+    plain_embedding = not embedding_on_k_prime(path)
+    z, pos, masses, box, L = system
+    dev = torch.device("cuda")
+    args = dict(northstar_args(L), cell_block_spec=spec, q_tab=q_tab)
+    pot = create_model(args, device=dev, seed=0)
+    pot.module.load_state_dict(sd)
+    wspec = tune_stencil_window_spec(pos, [L] * 3, spec, COULOMB_RC + SKIN)
+    kw = dict(dt=0.05, num_mols=1, box=box, q=torch.zeros(1, device=dev),
+              skin=SKIN, neighbor_strategy="cell", cell_block_spec=spec,
+              coulomb_window_spec=wspec)
+    init_state, chunk, _ = make_md_step(pot, z, np.zeros(len(z)), masses,
+                                        **kw)
+    st = init_state(pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = chunk.rebuild(st)
+    torch.cuda.synchronize()
+    rebuild_ms = (time.perf_counter() - t0) * 1e3
+    check(not bool(st.overflow), f"{path} rebuild: neighbor overflow")
+
+    def run():
+        return chunk.energy_forces(st.pos, st)
+
+    torch.cuda.reset_peak_memory_stats()
+    (y_k, f_k), launches = counted_run(run)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak_k = torch.cuda.max_memory_allocated()
+
+    plain_args = dict(args, pallas_edge_mlp=False)
+    if plain_embedding:
+        plain_args["pallas_embedding"] = False
+    plain = create_model(plain_args, device=dev, seed=0)
+    plain.module.load_state_dict(sd)
+    _, chunk_p, _ = make_md_step(plain, z, np.zeros(len(z)), masses, **kw)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_versions():
+        t0 = time.perf_counter()
+        y_p, f_p = chunk_p.energy_forces(st.pos, st)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    peak_p = torch.cuda.max_memory_allocated()
+
+    check(y_k.shape == (1, 1) and f_k.shape == (N_ATOMS, 3),
+          f"{path}: bad shapes")
+    check(torch.isfinite(y_k).all() and torch.isfinite(f_k).all(),
+          f"{path}: non-finite energy or forces")
+    e_err = abs(float(y_k) - float(y_p)) / max(abs(float(y_p)), 1e-30)
+    f_abs, f_rel = rel_err(f_k, f_p)
+    vs = {}
+    for ref, (y_r, f_r) in refs.items():
+        r_abs, r_rel = rel_err(f_k, f_r)
+        vs[ref] = {"energy_rel_diff": abs(float(y_k) - float(y_r))
+                   / max(abs(float(y_r)), 1e-30),
+                   "force_max_abs_diff": r_abs, "force_rel_diff": r_rel}
+    row = {"phase": "energy_forces", "path": path, "atoms": N_ATOMS,
+           "n_pad": spec.n_pad, "q_tab": q_tab, "col_slots": spec.col_slots,
+           "k": int(st.nbr_idx.shape[1]),
+           "k_embedding": (None if st.enbr_idx is None
+                           else int(st.enbr_idx.shape[1])),
+           "valid_slots": int(st.nbr_mask.sum()),
+           "max_per_group": group_counts(spec, st.nbr_mask),
+           "energy": float(y_k), "energy_plain": float(y_p),
+           "energy_rel_err": e_err, "force_max_abs_err": f_abs,
+           "force_rel_err": f_rel, "max_abs_force": float(f_p.abs().max()),
+           "tolerance": TOL, "plain_embedding": plain_embedding,
+           "rebuild_ms": rebuild_ms, "ms_per_eval": statistics.median(times),
+           "ms_per_eval_all": times, "plain_ms_per_eval": plain_ms,
+           "peak_mem_gb": peak_k / 1e9, "plain_peak_mem_gb": peak_p / 1e9,
+           "launches_per_eval": {k: v for k, v in launches.items() if v},
+           "vs": vs, "vs_tolerance": BLOCKED_VS_GATHER_TOL}
+    emit(row)
+    check(e_err <= TOL, f"{path} energy: kernels vs plain {e_err:.3g}")
+    check(f_rel <= TOL, f"{path} forces: kernels vs plain {f_rel:.3g}")
+    for ref, r in vs.items():
+        check(r["force_rel_diff"] <= BLOCKED_VS_GATHER_TOL,
+              f"{path} vs {ref} forces: {r['force_rel_diff']:.3g} of max |F|")
+    check((st.enbr_idx is not None) == (grouped and q_tab > 0),
+          f"{path}: the dual list is the grouped tabulated tier's alone")
+    del plain, chunk_p, y_p, f_p
+    torch.cuda.empty_cache()
+    return pot, run, (y_k, f_k), launches
+
+
+def phase_md_q_tier(pot, system, spec, path):
+    """The north-star MD on a q-tier: windowed Coulomb ("auto"), a warm-up
+    chunk, then a timed 25-step chunk."""
+    (row, ok), launches = counted_run(lambda: md_run(
+        pot, system, 25, 2, cell_block_spec=spec,
+        coulomb_window_spec="auto"))
+    emit(dict({"phase": "md", "path": path, "col_slots": spec.col_slots},
+              **row, launches=launches))
+    check(ok, f"{path} MD: overflow or non-finite state")
+    return row["steps"], launches
+
+
+def run_q_tiers(system, spec, sd, blocked_out):
+    """The three q-tiers after the default one: evaluations, the grouped
+    tier's profile, the MD chunks; ``{path: (steps, launches)}``."""
+    spec_g = northstar_spec(system, grouped=True)
+    refs = {"blocked": blocked_out}
+    by_path = {}
+    for path, (grouped, _) in Q_TIERS.items():
+        s = spec_g if grouped else spec
+        pot, run, out, launches = phase_q_tier(system, path, s, sd, refs)
+        if path == "blocked_grouped":
+            phase_profile(path, run)
+        by_path[path] = ((1, launches) if embedding_on_k_prime(path)
+                         else phase_md_q_tier(pot, system, s, path))
+        if path == "blocked_exact":  # the grouped exact tier's reference
+            refs = {path: out}
+        del pot, run
+        torch.cuda.empty_cache()
+    return by_path
 
 
 # ---------------------------------------------------------------- dhfr
@@ -1660,6 +1995,7 @@ def phase_dhfr(dhfr, seg):
         torch.cuda.synchronize()
         ms = bench_chain_ms(evaluate, pots[name], pos)
         peak = torch.cuda.max_memory_allocated()
+        tf32 = tf32_force_diff(lambda: evaluate(pots[name], pos))
         if name == "tabulated":
             with plain_versions():
                 y_p, f_p = evaluate(pots[name], pos)
@@ -1680,7 +2016,7 @@ def phase_dhfr(dhfr, seg):
                      "force_rel_err": f_rel,
                      "max_abs_force": float(f_p.abs().max()),
                      "ms_per_eval": ms, "plain_ms_per_eval": plain_ms,
-                     "peak_mem_gb": peak / 1e9}
+                     "peak_mem_gb": peak / 1e9, "tf32_force_rel_diff": tf32}
     (y_t, f_t), (y_e, f_e) = out["tabulated"], out["exact"]
     g_abs, g_rel = rel_err(f_t, f_e)
     row["tab_vs_exact"] = {
@@ -2086,13 +2422,17 @@ def main():
     g_steps, g_launch = phase_md_gather(gather_pot, system)
 
     spec = northstar_spec(system)
-    pot, blocked_run = phase_blocked_energy(system, spec, gather_pot,
-                                            gather_out)
+    pot, blocked_run, blocked_out = phase_blocked_energy(
+        system, spec, gather_pot, gather_out)
     del gather_pot, gather_out, gather_run
     torch.cuda.empty_cache()
     phase_profile("blocked", blocked_run)
     b_steps, b_launch = phase_md_blocked(pot, system, spec)
+    sd = pot.module.state_dict()
     del pot, blocked_run
+    torch.cuda.empty_cache()
+    q_paths = run_q_tiers(system, spec, sd, blocked_out)
+    del sd, blocked_out
     torch.cuda.empty_cache()
 
     gather = phase_dhfr(dhfr, seg)
@@ -2104,7 +2444,8 @@ def main():
     phase_profile("dhfr_blocked", lambda: ev_b(pot_b, dpos))
     del blocked, pot_b, ev_b, gather
     torch.cuda.empty_cache()
-    by_path = {"gather": (g_steps, g_launch), "blocked": (b_steps, b_launch)}
+    by_path = {"gather": (g_steps, g_launch), "blocked": (b_steps, b_launch),
+               **q_paths}
     for variant, path in (("tabulated", "dhfr"), ("exact", "dhfr_exact")):
         by_path[path] = phase_md_dhfr(pots[variant], dhfr, seg, path)
     spec_md = dhfr_blocked_spec(dhfr, True, 4.5 + SKIN)
@@ -2123,6 +2464,7 @@ def main():
     emit({"phase": "launches", "md_steps": {p: s for p, (s, _) in
                                             by_path.items()},
           "launches": {p: ln for p, (_, ln) in by_path.items()},
+          # per MD step; for blocked_exact_grouped per evaluation
           "per_step": {k: launches[k] / by_path[KERNELS[k][2]][0]
                        for k in KERNELS},
           # rows 5-7 per train step (the force pass and the parameter
@@ -2137,6 +2479,14 @@ def main():
               f"kernel {k} was not launched in the train steps")
     check(g_launch["edge_mlp_pre"] > 0 and b_launch["edge_mlp_pre"] == 0,
           "kernel 3 runs on the gather path only")
+    # each q-tier runs its own base's kernels and not the other's
+    for path, (_, ln) in by_path.items():
+        if path.startswith("blocked"):
+            tab = ln["blocked_q_fwd"] + ln["blocked_q_dq"]
+            exact = ln["blocked_q_fwd_rbf"] + ln["blocked_q_dq_rbf"]
+            check((tab > 0) != (exact > 0)
+                  and (exact > 0) == path.startswith("blocked_exact"),
+                  f"{path}: tabulated {tab} and exact {exact} q launches")
 
     kernels = []
     for k, (src, tpu, path) in KERNELS.items():

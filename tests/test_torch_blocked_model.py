@@ -151,22 +151,6 @@ def test_md_windowed_coulomb_matches_list_path(case):
     np.testing.assert_allclose(e.numpy(), sw.energy.numpy(), rtol=1e-6)
 
 
-def test_unported_blocked_options_name_their_roadmap_item():
-    z, pos, box = _system()
-    spec = tcb.make_cell_block_spec(np.diag(box), CUTOFF + SKIN, N, cap=8)
-    grouped = spec._replace(col_slots=(8,) * 9)
-    with pytest.raises(NotImplementedError, match="grouped rows 12-13"):
-        create_model(dict(ARGS, cell_block_spec=grouped), device="cpu")
-    with pytest.raises(NotImplementedError, match="q_tab=0"):
-        create_model(dict(ARGS, cell_block_spec=spec, q_tab=0), device="cpu")
-    pot = create_model(dict(ARGS, cell_block_spec=spec), device="cpu")
-    with pytest.raises(NotImplementedError, match="grouped rows 12-13"):
-        make_md_step(pot, z, np.zeros(N), np.ones(N), dt=0.1, box=box,
-                     cell_block_spec=grouped)
-    with pytest.raises(NotImplementedError, match="nbr_emb"):
-        pot.energy(z, pos, box=box, nbr_emb=object())
-
-
 def test_blocked_md_overflow_is_sticky():
     z, pos, box = _system(seed=3)
     spec = tcb.make_cell_block_spec(np.diag(box), CUTOFF + SKIN, N, cap=8)

@@ -3,19 +3,17 @@ end to end: energies and forces in the original atom order against the
 JAX package's blocked precise path (its Pallas kernels in interpret mode)
 for the tabulated model on a grouped spec (the bench default) and the
 exact one on an ungrouped spec; the port's blocked against its gather
-path in the three variants ``chip_smoke.py`` runs; a grouped-spec MD
-run; and the grouped options that still raise (helpers in
-``torch_parity.py``)."""
+path in the three variants ``chip_smoke.py`` runs; and a grouped-spec MD
+run (helpers in ``torch_parity.py``)."""
 
 import numpy as np
 import pytest
 import torch
 
-from torch_parity import (ATOL, BT_ARGS, BT_CUTOFF, BT_SKIN, RTOL,
+from torch_parity import (ATOL, BT_CUTOFF, BT_SKIN, RTOL,
                           bt_check_against_jax, bt_port, bt_port_blocked,
                           bt_setup, bt_system, one_torch_thread)
 from torchmdnet_tpu_torch.md.integrators import make_md_step
-from torchmdnet_tpu_torch.models.model import create_model
 from torchmdnet_tpu_torch.ops import cell_blocks as tcb
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -69,16 +67,3 @@ def test_grouped_md_matches_the_gather_integrator(setup):
     assert sb.step == 3 and not bool(sb.overflow)
     assert torch.isfinite(sb.pos).all() and torch.isfinite(sb.force).all()
 
-
-def test_grouped_spec_on_tensornet2_still_raises():
-    z, pos, box = bt_system(n=100)
-    spec = tcb.make_cell_block_spec(np.diag(box), BT_CUTOFF + BT_SKIN, 100,
-                                    cap=8)
-    grouped = spec._replace(col_slots=(16,) * 9)
-    args2 = dict(BT_ARGS, model="tensornet2", q_dim=4)
-    with pytest.raises(NotImplementedError, match="grouped rows 12-13"):
-        create_model(dict(args2, cell_block_spec=grouped), device="cpu")
-    pot = create_model(dict(args2, cell_block_spec=spec), device="cpu")
-    with pytest.raises(NotImplementedError, match="grouped rows 12-13"):
-        make_md_step(pot, z, np.zeros(100), np.ones(100), dt=0.1, box=box,
-                     cell_block_spec=grouped)

@@ -13,7 +13,7 @@ from torch_parity import SMALL_ARGS
 from torchmdnet_tpu_torch.md.integrators import make_md_step
 from torchmdnet_tpu_torch.models.model import create_model
 from torchmdnet_tpu_torch.ops.cell_blocks import make_cell_block_spec
-from torchmdnet_tpu_torch.ops.config import resolve_device
+from torchmdnet_tpu_torch.ops.config import resolve_device, set_matmul_precision
 
 ROOT = Path(__file__).resolve().parent.parent
 # yaml and h5py too: the card's machine may have neither
@@ -86,8 +86,13 @@ def test_blocked_md_needs_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_tf32_is_off_after_create_model():
-    torch.backends.cuda.matmul.allow_tf32 = True
-    torch.backends.cudnn.allow_tf32 = True
+    """From the start setting ("highest"), ``create_model`` without
+    ``matmul_precision`` and with ``"high"`` leaves TF32 off (the flags
+    for every name: ``test_torch_precision.py``)."""
+    set_matmul_precision("highest")
     create_model(SMALL_ARGS, device="cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    create_model(dict(SMALL_ARGS, matmul_precision="high"), device="cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32

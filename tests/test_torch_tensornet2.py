@@ -66,16 +66,27 @@ def test_key_mapping():
     ) == "representation_model.tensor_embedding.emb.weight"
 
 
-# the grouped (col_slots) q-tier is not ported; the ungrouped blocked path
-# and the Coulomb windows are (tests/test_torch_blocked_model.py)
+# a grouped (col_slots) spec: the grouped q-tier is ported (its parity
+# with JAX: tests/test_torch_grouped_tensornet2.py, _exact_q_tensornet2.py)
 GROUPED_SPEC = make_cell_block_spec([20.0] * 3, 5.5, 64)._replace(
     col_slots=(8,) * 9)
 
 
 @pytest.mark.parametrize("key,value", [
-    ("cell_block_spec", GROUPED_SPEC), ("remat", True),
+    ("atom_filter", 3), ("remat", True),
     ("model", "equivariant-transformer"), ("prior_model", "ZBL"),
     ("precision", 16)])
 def test_uncovered_options_raise(key, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model(dict(SMALL_ARGS, **{key: value}), device="cpu")
+
+
+@pytest.mark.parametrize("q_tab", [64, 0])
+def test_grouped_spec_builds_the_blocked_q_tier(q_tab):
+    """A grouped spec and ``q_tab=0`` build: every interaction runs the
+    q-tier on the spec, with the series (``q_tab`` terms) or the rbf."""
+    pot = create_model(dict(SMALL_ARGS, cell_block_spec=GROUPED_SPEC,
+                            q_tab=q_tab), device="cpu")
+    rep = pot.module.representation_model
+    assert rep.q_tab == q_tab and rep.cell_block_spec == GROUPED_SPEC
+    assert all(layer.q_tier for layer in rep.layers)

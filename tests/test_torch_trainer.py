@@ -255,3 +255,51 @@ def test_unported_options_raise(option, tmp_path):
     pot = create_model(hp, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(pot, hp, DataModule(hp, dataset=DummyDataset(20)))
+
+
+def _val_losses(tmp_path, ibs, package):
+    """The val loss of the JAX trainer (``package`` "jax") or of the port's
+    on DummyDataset with ``inference_batch_size=ibs`` (``batch_size`` 4):
+    its metrics, or the exception it raised."""
+    from torchmdnet_tpu.models.model import create_model as jax_create_model
+
+    log_dir = tmp_path / f"{package}{ibs}"
+    log_dir.mkdir()
+    hp = _hparams(log_dir, inference_batch_size=ibs)
+    ds = DummyDataset(num_samples=20)
+    if package == "port":
+        dm = DataModule(hp, dataset=ds)
+        dm.setup("fit")
+        tr = Trainer(create_model(hp, device="cpu", seed=0), hp, dm)
+        return tr.test(loader=dm.val_dataloader())
+    jdm = JaxDataModule(hp, dataset=ds)
+    jdm.setup("fit")
+    jtr = jtrainer.Trainer(jax_create_model(hp), hp, jdm)
+    try:
+        jtr._init_state(next(iter(jdm.train_dataloader())))
+        return jtr.test(loader=jdm.val_dataloader())
+    except Exception as exc:  # what JAX does is the record here
+        return exc
+
+
+@pytest.mark.parametrize("ibs", [2, 6])
+def test_eval_batches_of_another_size(tmp_path, ibs):
+    """``inference_batch_size != batch_size``.  The JAX trainer evaluates
+    every val/test batch with ``num_mols = batch_size``
+    (``trainer.py:233``, ``:288-294``), so the batch's ``ibs`` energy
+    targets do not reshape onto its ``batch_size`` predictions and it
+    raises.  The port evaluates each batch with its own molecule count
+    (its ``mol_mask``) and keeps that behaviour, recorded in ROADMAP
+    Queue 3: the val molecules' energy loss is the one of
+    ``ibs = batch_size`` (4 molecules in batches of equal size), and with
+    one batch (``ibs = 6``) the force loss too."""
+    want = _val_losses(tmp_path, ibs, "jax")
+    assert isinstance(want, TypeError) and "reshape" in str(want)
+    got = _val_losses(tmp_path, ibs, "port")
+    ref = _val_losses(tmp_path, 4, "port")
+    assert all(np.isfinite(v) for v in got.values())
+    np.testing.assert_allclose(got["test_y_l1_loss"], ref["test_y_l1_loss"],
+                               rtol=1e-6)
+    if ibs == 6:
+        np.testing.assert_allclose(got["test_neg_dy_l1_loss"],
+                                   ref["test_neg_dy_l1_loss"], rtol=1e-6)

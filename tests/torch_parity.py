@@ -242,6 +242,114 @@ def blocked_mp_case(layout):
             {key: v.detach().numpy() for key, v in got.items()}, mask)
 
 
+# ---- TensorNet2's fused q-tier (rows 12-13) in its four bodies: the
+# ungrouped or grouped list of :func:`blocked_system` at BMP_RC, F=16,
+# T=24 series terms or R=8 rbf channels
+Q_F, Q_T, Q_R = 16, 24, 8
+
+
+def q_names(exact):
+    """The differentiable inputs and the weights of a q op, by the op's
+    argument names: ``(diff, weights)``."""
+    base, w1 = ("edge_attr", "w1a") if exact else ("d", "coeffs")
+    return ((base, "cwfm", "u_i", "u_j", "feats9"),
+            (w1, "w2", "b2", "w3", "b3"))
+
+
+def q_op_case(layout, exact):
+    """The port's ``blocked_neighbor_sum_asym_q_tab`` (``exact`` False) or
+    ``blocked_neighbor_sum_asym_q`` (plain versions) against the JAX
+    package's with a precise spec (Pallas kernels in interpret mode), on
+    the sorted list of :func:`blocked_system` (``layout`` "ungrouped":
+    brute K=40; "grouped": the tuned column-partitioned K′ list):
+    ``(want, got, mask)``, numpy arrays keyed by ``"out"`` and the input
+    names of :func:`q_names` (their cotangents)."""
+    from torchmdnet_tpu.ops import cell_blocks as jcb
+    from torchmdnet_tpu.ops.neighbors import build_neighbor_matrix
+    from torchmdnet_tpu.ops.pallas_blocked_mp import (
+        blocked_neighbor_sum_asym_q, blocked_neighbor_sum_asym_q_tab)
+    from torchmdnet_tpu_torch.ops import blocked_q
+
+    pos, bd = blocked_system()
+    n, hi = BMP_N, BMP_CUTOFF
+    spec = jcb.tune_cell_block_spec(jnp.asarray(pos), jnp.asarray(bd), BMP_RC,
+                                    cap=8, rlh=JAX_RLH, precise=True,
+                                    column_slots=layout == "grouped")
+    blocks = jcb.plan_cell_blocks(jnp.asarray(pos), jnp.asarray(bd), spec)
+    am = np.asarray(blocks.mask_rows)
+    pos_s = np.where(am[:, None], pos[np.minimum(np.asarray(blocks.perm),
+                                                 n - 1)], 0.0)
+    pos_s = jnp.asarray(pos_s.astype(np.float32))
+    kw = (grouped_list_kwargs(spec, bd, BMP_RC, n) if layout == "grouped"
+          else dict(strategy="brute", k_max=BMP_K))
+    nbr = build_neighbor_matrix(
+        pos_s, jnp.asarray((~am).astype(np.int32)), cutoff_upper=BMP_RC,
+        loop=True, box=jnp.diag(jnp.asarray(bd)), atom_mask=jnp.asarray(am),
+        **kw)
+    assert not bool(nbr.overflow)
+    rel, eov = jcb.edge_rel(blocks, nbr.idx, nbr.mask, pos_s, jnp.asarray(bd))
+    assert not bool(eov)
+    idx, mask = np.array(nbr.idx), np.array(nbr.mask)
+    delta = np.asarray(pos_s)[:, None, :] - np.asarray(pos_s)[idx]
+    delta -= bd * np.round(delta / bd)
+    d = np.where(mask, np.sqrt((delta ** 2).sum(-1)), 0.0).astype(np.float32)
+    cw = np.where(d < hi, 0.5 * (np.cos(d * np.pi / hi) + 1.0), 0.0) * mask
+    assert 0 < (mask & (cw == 0)).sum() and (cw > 0).sum() > 5 * n
+    rng = np.random.RandomState(11)
+    n_pad, f = idx.shape[0], Q_F
+    if exact:
+        # a smooth function of d, so equal on both slots of a pair
+        freq = rng.uniform(0.3, 1.5, Q_R)
+        base = np.cos(d[..., None] * freq + rng.uniform(0, 3, Q_R)) * mask[
+            ..., None]
+        w1 = rng.randn(Q_R, f) / np.sqrt(Q_R)
+    else:
+        base = d
+        # a decaying series, as the fit of a smooth base(d) is
+        w1 = rng.randn(Q_T, f) * 0.7 ** np.arange(Q_T)[:, None]
+    x = dict(base=base, cwfm=cw, u_i=rng.randn(n_pad, f) * 0.5,
+             u_j=rng.randn(n_pad, f) * 0.5, feats9=rng.randn(n_pad, 9 * f),
+             w1=w1, w2=rng.randn(f, 2 * f) / np.sqrt(f),
+             b2=rng.randn(2 * f) * 0.1,
+             w3=rng.randn(2 * f, 3 * f) / np.sqrt(2 * f),
+             b3=rng.randn(3 * f) * 0.1)
+    diff, weights = q_names(exact)
+    x[diff[0]], x[weights[0]] = x.pop("base"), x.pop("w1")
+    x = {key: v.astype(np.float32) for key, v in x.items()}
+    g = rng.randn(n_pad, 9 * f).astype(np.float32)
+
+    def f_jax(*args):
+        if exact:
+            return blocked_neighbor_sum_asym_q(
+                *args[:5], nbr.mask, nbr.idx, nbr.rev_slot, rel,
+                blocks.run_starts, *args[5:], spec, True)
+        return blocked_neighbor_sum_asym_q_tab(
+            *args[:5], nbr.mask, nbr.idx, nbr.rev_slot, rel,
+            blocks.run_starts, *args[5:], spec, 0.0, hi, True)
+
+    def all_jax(*args):
+        out, vjp = jax.vjp(f_jax, *args[:-1])
+        return (out,) + vjp(args[-1])
+
+    keys = diff + weights
+    res = jax.jit(all_jax)(*[jnp.asarray(x[k]) for k in keys],
+                           jnp.asarray(g))
+    want = {"out": np.asarray(res[0])}
+    want.update({k: np.asarray(v) for k, v in zip(keys, res[1:])})
+
+    t = {k: torch.tensor(v, requires_grad=True) for k, v in x.items()}
+    ti, tm = torch.from_numpy(idx.astype(np.int64)), torch.from_numpy(mask)
+    rev = torch.from_numpy(np.array(nbr.rev_slot).astype(np.int64))
+    args = [*(t[k] for k in diff), tm, ti, rev, *(t[k] for k in weights)]
+    out_t = (blocked_q.blocked_neighbor_sum_asym_q(*args) if exact else
+             blocked_q.blocked_neighbor_sum_asym_q_tab(*args, 0.0, hi))
+    grads_t = torch.autograd.grad(out_t, [t[k] for k in keys],
+                                  torch.from_numpy(g))
+    got = {"out": out_t.detach().numpy()}
+    got.update({k: v.numpy() for k, v in zip(keys, grads_t)})
+    return want, got, mask
+
+
 # ---- the blocked TensorNet model (bench.py::main with BENCH_BLOCKED=1) at
 # the JAX blocked tests' geometry (tests/test_blocked_model.py): 260 atoms
 # at 0.08 Å⁻³, a 3.2 Å cutoff, 8-row blocks, F=16, 8 rbf
@@ -391,6 +499,158 @@ def bt_check_against_jax(setup, variant, monkeypatch):
     assert np.abs(f_j).max() > 1e-2  # non-vacuous
     np.testing.assert_allclose(e_t, e_j, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(f_t, f_j, rtol=RTOL, atol=ATOL)
+
+
+# ---- TensorNet2 on the blocked q-tier (bench.py::bench_northstar's
+# model, small): 216 atoms at 0.08 Å⁻³, a 3.0 Å cutoff, K=32, 8-row blocks,
+# F=16, 8 rbf, q_dim 4, the Coulomb head at 4 Å on its own list; the grouped
+# tier with the dual list (tabulated, T=24) and the exact q_tab=0 tier
+Q2_N, Q2_CUTOFF, Q2_SKIN, Q2_K, Q2_T = 216, 3.0, 0.5, 32, 24
+Q2_ARGS = dict(
+    model="tensornet2", embedding_dimension=16, num_layers=2, num_rbf=8,
+    rbf_type="expnorm", trainable_rbf=False, activation="silu",
+    cutoff_lower=0.0, cutoff_upper=Q2_CUTOFF, max_z=100,
+    max_num_neighbors=Q2_K, derivative=True, prior_model=None,
+    reduce_op="sum", precision=32, equivariance_invariance_group="O(3)",
+    atom_filter=-1, remat=False, pallas_embedding=True,
+    pallas_edge_mlp=True, q_dim=4, q_tab=Q2_T,
+    output_model="ScalarPlusWeightedCoulomb", q_weights=[[1.0] * 4] * 3,
+    coulomb_cutoff=4.0)
+# variant → (q_tab, grouped spec?, dual list?)
+Q2_VARIANTS = {"grouped_dual": (Q2_T, True, True),
+               "grouped": (Q2_T, True, False),
+               "ungrouped": (Q2_T, False, False),
+               "exact_ungrouped": (0, False, False),
+               "exact_grouped": (0, True, False)}
+
+
+def q2_setup(num_layers=2):
+    """The system at ``Q2_ARGS`` with ``num_layers`` interaction layers
+    (``args``), the weights (the port's, seeded, carried into a JAX
+    params tree: the JAX init's shapes come from ``jax.eval_shape``, which
+    compiles nothing; shared by every variant, as the q-tier and the spec
+    change no parameter) and the JAX specs (precise, tuned at the model
+    cutoff, ``specs[grouped]``)."""
+    from torchmdnet_tpu.ops import cell_blocks as jcb
+    from torchmdnet_tpu.utils.torch_ckpt import convert_state_dict
+
+    args = dict(Q2_ARGS, num_layers=num_layers,
+                q_weights=[[1.0] * 4] * (num_layers + 1))
+    z, pos, box = bt_system(n=Q2_N, seed=4)
+    bd = np.diag(box).copy()
+    jpot = jax_create_model(args)
+    shapes = jax.eval_shape(lambda: jpot.init(
+        jax.random.PRNGKey(0), jnp.asarray(z), jnp.asarray(pos),
+        jnp.zeros((Q2_N,), jnp.int32), num_mols=1, box=jnp.asarray(box),
+        q=jnp.zeros((1,), jnp.float32)))
+    sd = port_create_model(args, device="cpu", seed=3).module.state_dict()
+    params = convert_state_dict(
+        {k: v.numpy() for k, v in sd.items()},
+        jax.tree.map(lambda x: np.zeros(x.shape, x.dtype), shapes["params"]))
+    params = jax.tree.map(jnp.asarray, params)
+    specs = {grouped: jcb.tune_cell_block_spec(
+        jnp.asarray(pos), jnp.asarray(bd), Q2_CUTOFF, cap=8, rlh=JAX_RLH,
+        precise=True, column_slots=grouped) for grouped in (False, True)}
+    return dict(args=args, z=z, pos=pos, box=box, bd=bd,
+                variables={"params": params}, flat=flatten_params(params),
+                specs=specs)
+
+
+def q2_lists(build, spec, bd, box, pos_s, batchs, am):
+    """``(nbr, nbr_emb)`` in sorted space with ``build`` (either package's
+    ``build_neighbor_matrix``, ``box`` its array): brute K for an
+    ungrouped spec; the grouped K′ list and, for the dual list, the
+    compact brute K one."""
+    common = dict(cutoff_upper=Q2_CUTOFF, loop=True, box=box, atom_mask=am)
+    compact = build(pos_s, batchs, strategy="brute", k_max=Q2_K, **common)
+    if spec.col_slots is None:
+        return compact, None
+    return build(pos_s, batchs, **common,
+                 **grouped_list_kwargs(spec, bd, Q2_CUTOFF, Q2_N)), compact
+
+
+def q2_jax(setup, variant):
+    """Jitted energy and forces (original order) of the JAX blocked model
+    on its sort and lists."""
+    from torchmdnet_tpu.ops import cell_blocks as jcb
+    from torchmdnet_tpu.ops.neighbors import build_neighbor_matrix
+
+    q_tab, grouped, dual = Q2_VARIANTS[variant]
+    spec = setup["specs"][grouped]
+    pj, bj = jnp.asarray(setup["pos"]), jnp.asarray(setup["box"])
+    jpot = jax_create_model(dict(setup["args"], cell_block_spec=spec,
+                                 q_tab=q_tab))
+    blocks = jcb.plan_cell_blocks(pj, jnp.asarray(setup["bd"]), spec)
+    perm = jnp.minimum(blocks.perm, Q2_N - 1)
+    am = blocks.mask_rows
+    pos_s = jnp.where(am[:, None], pj[perm], 0.0)
+    zs = jnp.where(am, jnp.asarray(setup["z"])[perm], 0)
+    batchs = jnp.where(am, 0, 1)
+    nbr, nbr_emb = q2_lists(build_neighbor_matrix, spec, setup["bd"], bj,
+                            pos_s, batchs, am)
+    assert not bool(nbr.overflow)
+    rel, eov = jcb.edge_rel(blocks, nbr.idx, nbr.mask, pos_s,
+                            jnp.asarray(setup["bd"]))
+    assert not bool(eov)
+    q = jnp.zeros((1,), jnp.float32)
+
+    def energy(p):
+        p_s = jcb.permute_rows(p, perm, am, blocks.inv_perm)
+        return jnp.sum(jpot.energy(
+            setup["variables"], zs, p_s, batchs, num_mols=1, box=bj, q=q,
+            nbr=nbr, blocked=jcb.BlockedMP(rel, blocks.run_starts),
+            nbr_emb=nbr_emb if dual else None))
+
+    e, g = jax.jit(jax.value_and_grad(energy))(pj)
+    return float(e), -np.asarray(g)
+
+
+def q2_port(setup, variant):
+    """The port's blocked TensorNet2 of ``variant`` on the CPU with the JAX
+    weights, and its spec."""
+    from torchmdnet_tpu_torch.ops.cell_blocks import CellBlockSpec
+
+    q_tab, grouped, _ = Q2_VARIANTS[variant]
+    spec = CellBlockSpec(**setup["specs"][grouped]._asdict())
+    pot = port_create_model(dict(setup["args"], cell_block_spec=spec,
+                                 q_tab=q_tab), device="cpu")
+    pot.module.load_state_dict(params_from_jax(setup["flat"]), strict=True)
+    return pot, spec
+
+
+def q2_port_blocked(setup, variant):
+    """Energy and forces (original order) of the port's blocked model on its
+    own sort and lists, and the set of q-tier dispatchers
+    (``ops/blocked_q.py``) it ran."""
+    from torchmdnet_tpu_torch.ops import blocked_q
+    from torchmdnet_tpu_torch.ops import cell_blocks as tcb
+    from torchmdnet_tpu_torch.ops.neighbors import build_neighbor_matrix
+
+    pot, spec = q2_port(setup, variant)
+    pt = torch.from_numpy(setup["pos"])
+    blocks = tcb.plan_cell_blocks(pt, setup["bd"], spec)
+    perm = torch.clamp(blocks.perm, max=Q2_N - 1)
+    am = blocks.mask_rows
+    pos_s = torch.where(am[:, None], pt[perm], 0.0)
+    zs = torch.where(am, torch.from_numpy(setup["z"]).long()[perm], 0)
+    batchs = (~am).long()
+    box = torch.from_numpy(setup["box"])
+    nbr, nbr_emb = q2_lists(build_neighbor_matrix, spec, setup["bd"], box,
+                            pos_s, batchs, am)
+    assert not bool(nbr.overflow)
+    p = pt.clone().requires_grad_(True)
+    calls = set()
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("q_fwd", "q_dq", "q_fwd_rbf", "q_dq_rbf"):
+            fn = getattr(blocked_q, name)
+            mp.setattr(blocked_q, name, lambda *a, _n=name, _f=fn, **kw:
+                       calls.add(_n) or _f(*a, **kw))
+        y = pot.module(zs, tcb.permute_rows(p, perm, am, blocks.inv_perm),
+                       batchs, num_mols=1, box=box, q=torch.zeros(1), nbr=nbr,
+                       blocked=True,
+                       nbr_emb=nbr_emb if Q2_VARIANTS[variant][2] else None)
+        (g,) = torch.autograd.grad(y.sum(), p)
+    return float(y.detach()), -g.numpy(), calls
 
 
 # ---- training (bench.py::bench_train's step at a small width): TensorNet

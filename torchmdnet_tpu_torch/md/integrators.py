@@ -15,9 +15,12 @@ sorts the atoms into cell-blocked order (``ops/cell_blocks.py``); the
 model runs in that sorted row space on its blocked tier (the q-tier on
 TensorNet2, rows 8-11 on TensorNet), the state stays in the original
 order, and forces come back through ``permute_rows``, whose backward is
-the inverse gather.  A grouped spec (``col_slots``, TensorNet only) makes
-the sorted-space list a column-partitioned cell list on the spec's xy
-grid with ``K′ = Σ col_slots`` slots (``:264-281``).
+the inverse gather.  A grouped spec (``col_slots``) makes the
+sorted-space list a column-partitioned cell list on the spec's xy grid
+with ``K′ = Σ col_slots`` slots (``:264-281``); on a TensorNet2 with the
+θ-tabulated q-tier every rebuild also makes the compact ``K`` list of the
+dual-list embedding on the same grid (``enbr_*``, ``:282-289``,
+``:443-450``), whose overflow is ORed in.
 ``coulomb_window_spec`` (a ``StencilWindowSpec``, or ``"auto"`` to tune
 it from the ``init_state`` positions at the skin-padded Coulomb cutoff)
 replaces the Coulomb list with stencil windows over the same sort
@@ -70,6 +73,11 @@ class MDState(NamedTuple):
     zs: Optional[torch.Tensor] = None
     batchs: Optional[torch.Tensor] = None
     cwin: Optional[CoulombWindows] = None
+    # grouped blocked path on TensorNet2 (q_tab > 0): the compact list of
+    # the dual-list embedding, in sorted space
+    enbr_idx: Optional[torch.Tensor] = None
+    enbr_mask: Optional[torch.Tensor] = None
+    enbr_rev: Optional[torch.Tensor] = None
 
 
 def maxwell_boltzmann_velocities(generator, masses, temperature, like):
@@ -111,11 +119,6 @@ def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
     use_blocked = cell_block_spec is not None
     if use_blocked:
         spec = CellBlockSpec(**cell_block_spec._asdict())
-        if spec.col_slots is not None and hasattr(rep, "q_tab"):
-            raise NotImplementedError(
-                "cell_block_spec with col_slots on TensorNet2 (the grouped "
-                "q-tier and the dual-list nbr_emb) is not ported yet "
-                "(ROADMAP Queue 2, 'grouped rows 12-13')")
         if box is None:
             raise ValueError("cell_block_spec requires an orthogonal box")
     out_mod = potential.module.output_model
@@ -133,9 +136,8 @@ def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
         bd = _box_diag(box)
         bd_t = torch.as_tensor(bd, dtype=torch.float32, device=dev)
 
-    nbr_kwargs = dict(strategy=neighbor_strategy,
-                      k_max=int(k_max if k_max is not None
-                                else rep.max_num_neighbors),
+    k_cap = int(k_max if k_max is not None else rep.max_num_neighbors)
+    nbr_kwargs = dict(strategy=neighbor_strategy, k_max=k_cap,
                       cutoff_upper=cutoff + skin,
                       cutoff_lower=float(rep.cutoff_lower), loop=True, box=box)
     if neighbor_strategy == "cell":
@@ -154,6 +156,13 @@ def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
                           cells_per_dim=(spec.nx, spec.ny, nz),
                           cell_capacity=int(np.ceil(occ * 2.5)) + 8,
                           column_partition=spec.col_slots)
+    # the dual-list embedding's compact K list on the same grid, made only
+    # when the interactions need no rbf array (the θ-tabulated q-tier)
+    emb_kwargs = None
+    if use_blocked and spec.col_slots is not None and getattr(rep, "q_tab",
+                                                              0):
+        emb_kwargs = dict(nbr_kwargs, k_max=k_cap)
+        del emb_kwargs["column_partition"]
 
     coulomb_rc = getattr(out_mod, "coulomb_cutoff", None)
     use_cwin = (use_blocked and coulomb_rc is not None
@@ -184,6 +193,11 @@ def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
     def _nbr(st: MDState):
         return NeighborMatrix(st.nbr_idx, st.nbr_mask, rev_slot=st.nbr_rev)
 
+    def _enbr(st: MDState):
+        if st.enbr_idx is None:
+            return None
+        return NeighborMatrix(st.enbr_idx, st.enbr_mask, rev_slot=st.enbr_rev)
+
     def _cnbr(st: MDState):
         if st.cnbr_idx is None:
             return None
@@ -205,7 +219,7 @@ def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
         return potential.module(st.zs, pos_s, st.batchs, num_mols=num_mols,
                                 box=box, q=q, nbr=_nbr(st),
                                 coulomb_nbr=_cnbr(st), blocked=True,
-                                coulomb_win=st.cwin)
+                                coulomb_win=st.cwin, nbr_emb=_enbr(st))
 
     def energy(pos, st: MDState):
         with torch.no_grad():
@@ -244,6 +258,12 @@ def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
             overflow=st.overflow | nbr.overflow, perm=perm,
             inv_perm=blocks.inv_perm, mask_rows=am_s,
             zs=torch.where(am_s, z[perm], 0), batchs=batchs)
+        if emb_kwargs is not None:
+            enbr = build_neighbor_matrix(pos_s, batchs, atom_mask=am_s,
+                                         **emb_kwargs)
+            st = st._replace(enbr_idx=enbr.idx, enbr_mask=enbr.mask,
+                             enbr_rev=enbr.rev_slot,
+                             overflow=st.overflow | enbr.overflow)
         if use_cwin:
             st = st._replace(cwin=make_coulomb_windows(win, am_s, bd_t))
         elif ckwargs is not None:

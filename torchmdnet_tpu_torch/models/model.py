@@ -39,14 +39,15 @@ class TorchMDNet(nn.Module):
         (``ops/cell_blocks.py``) and the model was built with a
         ``cell_block_spec``, so the interactions run the blocked tier (the
         q-tier on TensorNet2, rows 8-11 on TensorNet);
-        ``coulomb_win``: the windows of the windowed Coulomb head."""
-        if nbr_emb is not None:
-            _not_ported("nbr_emb (the dual-list embedding of the grouped "
-                        "tier)", "Queue 2, 'dual-list nbr_emb'")
+        ``coulomb_win``: the windows of the windowed Coulomb head;
+        ``nbr_emb`` (TensorNet2 on a grouped spec): the compact list of the
+        dual-list embedding."""
         atom_mask = batch < num_mols
+        rep_kwargs = {} if nbr_emb is None else {"nbr_emb": nbr_emb}
         x, _ = self.representation_model(z, pos, batch, box=box, q=q,
                                           atom_mask=atom_mask, nbr=nbr,
-                                          num_mols=num_mols, blocked=blocked)
+                                          num_mols=num_mols, blocked=blocked,
+                                          **rep_kwargs)
         x = self.output_model.pre_reduce(x, z, pos, batch, box=box,
                                          num_mols=num_mols, nbr=coulomb_nbr,
                                          win=coulomb_win)
@@ -119,18 +120,10 @@ def _check_supported(args: dict) -> None:
     model = args["model"]
     if model not in ("tensornet", "tensornet2"):
         _not_ported(f"model={model!r}", "Queue 1, 'torchmd_et, _t, _gn'")
-    spec = args.get("cell_block_spec")
     if model == "tensornet":
         if args.get("output_model", "Scalar") != "Scalar":
             _not_ported(f"output_model={args['output_model']!r} on "
                         "tensornet", "Queue 1, 'Remaining heads and wrappers'")
-    elif spec is not None:
-        if spec.col_slots is not None:
-            _not_ported("cell_block_spec with col_slots on tensornet2 (the "
-                        "grouped q-tier)", "Queue 2, 'grouped rows 12-13'")
-        if not int(args.get("q_tab", 64)):
-            _not_ported("q_tab=0 (the exact-rbf q operand)",
-                        "Queue 2, 'q_tab=0'")
     if args.get("remat"):
         _not_ported("remat=True", "Queue 1 item 17, 'Training: remat'")
     if args.get("prior_model"):
@@ -155,14 +148,16 @@ def create_model(args: dict, device=None, seed: int = 0) -> Potential:
     training turns their gradients on (``train/step.py::
     create_train_state``).  ``device`` defaults to CUDA and raises when
     CUDA is absent.
-    Float32 matmuls run in full float32 (TF32 off) unless
-    ``args["matmul_precision"]`` says otherwise.
+    ``args["matmul_precision"]``, when given, sets the global float32
+    matmul precision (``ops/config.py``), as the JAX package does; without
+    it the setting stays as it was (full float32 unless changed).
     """
     device = resolve_device(device)
     args = dict(args)
     _check_supported(args)
     spec = args.get("cell_block_spec")
-    set_matmul_precision(args.get("matmul_precision") or "highest")
+    if args.get("matmul_precision"):
+        set_matmul_precision(args["matmul_precision"])
     output_model = args.get("output_model", "Scalar")
     F = args["embedding_dimension"]
     cpd = args.get("cells_per_dim")

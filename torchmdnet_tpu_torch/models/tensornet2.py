@@ -14,8 +14,12 @@ With ``pallas_edge_mlp`` the edge MLP tail runs kernel 3
 sorted rows) each interaction runs the fused charge-fold q-tier instead
 (``ops/blocked_q.py``, kernels A and B, the blocked branch of
 ``tensornet2.py:147-209``): its edge-MLP base ``rbf(d)·W1a`` is a
-``q_tab``-term Chebyshev series fitted at the rbf's nodes, and neither
-the edge weights nor their reverse reach memory.
+``q_tab``-term Chebyshev series fitted at the rbf's nodes, or with
+``q_tab=0`` the exact rbf operand, and neither the edge weights nor their
+reverse reach memory.  On a grouped spec (``col_slots``) the forward
+takes ``nbr_emb``, a compact K list for the embedding, while the
+interactions ride the column-partitioned K′ list through the tabulated
+q-tier (the dual-list mode, ``tensornet2.py:358-373``).
 """
 
 import torch
@@ -28,7 +32,8 @@ from torchmdnet_tpu_torch.models.tensornet import (
     edge_message_passing, interaction_update, linear_irreps, pack9, split9,
     unit_vectors)
 from torchmdnet_tpu_torch.ops import rbf as rbf_ops
-from torchmdnet_tpu_torch.ops.blocked_q import blocked_neighbor_sum_asym_q_tab
+from torchmdnet_tpu_torch.ops.blocked_q import (
+    blocked_neighbor_sum_asym_q, blocked_neighbor_sum_asym_q_tab)
 from torchmdnet_tpu_torch.ops.cheb import cheb_fit_matrix, cheb_nodes
 from torchmdnet_tpu_torch.ops.edge_mlp import edge_mlp_pre
 from torchmdnet_tpu_torch.ops.message_passing import gather_nodes, reverse_slots
@@ -110,21 +115,31 @@ class Interaction2(nn.Module):
         cw = C * nbr.mask.to(C.dtype)
         X = divide_irreps(X, tensor_frobenius_norm2(X) + 1.0)
         Y = linear_irreps(X, self.linears_tensor[:3])
-        if (blocked and self.q_tier and rbf_nodes is not None
-                and edge_weight.dtype == torch.float32):
-            # base(d) = rbf(d)·W1a as a T-term Chebyshev series (one
-            # [T, T]·[T, F] fit); d and cw are equal on both slots of a
-            # pair, as the op's mirrored backward requires
-            T = rbf_nodes.shape[0]
-            coeffs = cheb_fit_matrix(T, device=w1.device) @ (
-                rbf_nodes @ w1[:R])
+        q_path = (blocked and self.q_tier
+                  and edge_weight.dtype == torch.float32)
+        if edge_attr is None and not (q_path and rbf_nodes is not None):
+            raise ValueError("edge_attr=None (the dual-list mode) needs the "
+                             "θ-tabulated blocked q-tier")
+        if q_path:
+            # d (or the rbf) and cw are equal on both slots of a pair, as
+            # the op's mirrored backward requires
             l2, l3 = self.linears_scalar[1], self.linears_scalar[2]
+            w2, w3 = l2.weight.t().contiguous(), l3.weight.t().contiguous()
             n, f = Y.I.shape
-            msg9 = blocked_neighbor_sum_asym_q_tab(
-                edge_weight, cw, u_i, u_j, pack9(Y), nbr.mask, nbr.idx,
-                rev_slot, coeffs, l2.weight.t().contiguous(), l2.bias,
-                l3.weight.t().contiguous(), l3.bias, self.cutoff_lower,
-                self.cutoff_upper)
+            if rbf_nodes is not None:
+                # base(d) = rbf(d)·W1a as a T-term Chebyshev series (one
+                # [T, T]·[T, F] fit)
+                T = rbf_nodes.shape[0]
+                coeffs = cheb_fit_matrix(T, device=w1.device) @ (
+                    rbf_nodes @ w1[:R])
+                msg9 = blocked_neighbor_sum_asym_q_tab(
+                    edge_weight, cw, u_i, u_j, pack9(Y), nbr.mask, nbr.idx,
+                    rev_slot, coeffs, w2, l2.bias, w3, l3.bias,
+                    self.cutoff_lower, self.cutoff_upper)
+            else:
+                msg9 = blocked_neighbor_sum_asym_q(
+                    edge_attr, cw, u_i, u_j, pack9(Y), nbr.mask, nbr.idx,
+                    rev_slot, w1[:R], w2, l2.bias, w3, l3.bias)
             M = split9(msg9, n, f)
         else:
             base = edge_attr @ w1[:R]
@@ -192,7 +207,10 @@ class TensorNet2(nn.Module):
     build_neighbors = build_neighbors
 
     def forward(self, z, pos, batch, box=None, q=None, atom_mask=None,
-                nbr=None, num_mols=None, blocked=False):
+                nbr=None, num_mols=None, blocked=False, nbr_emb=None):
+        """``nbr_emb`` (dual-list mode, grouped blocked tier): the compact
+        list of the embedding; the interactions then see no rbf array
+        (reference ``tensornet2.py:358-373``, ``:391``)."""
         if num_mols is None:
             num_mols = int(batch.shape[0])
         if nbr is None:
@@ -200,19 +218,33 @@ class TensorNet2(nn.Module):
         rev_slot = (nbr.rev_slot if nbr.rev_slot is not None
                     else reverse_slots(nbr.idx, nbr.mask))
         delta, dist = neighbor_geometry(pos, nbr, box=box, batch=batch)
+        if nbr_emb is not None:
+            if not (self.q_tab and self.cell_block_spec is not None):
+                raise ValueError("nbr_emb (dual-list) needs the θ-tabulated "
+                                 "blocked q-tier (a cell_block_spec and "
+                                 "q_tab > 0)")
+            nbr_e = nbr_emb
+            rev_slot_e = (nbr_e.rev_slot if nbr_e.rev_slot is not None
+                          else reverse_slots(nbr_e.idx, nbr_e.mask))
+            delta_e, dist_e = neighbor_geometry(pos, nbr_e, box=box,
+                                                batch=batch)
+        else:
+            nbr_e, rev_slot_e, delta_e, dist_e = nbr, rev_slot, delta, dist
 
         # per-atom total charge Q (reference :376-380); ghosts get 0
         Q_atom = atom_charges(q, batch, pos)
 
-        edge_attr = self.distance_expansion(dist)
+        edge_attr_e = self.distance_expansion(dist_e)
+        edge_attr = edge_attr_e if nbr_emb is None else None
         # the rbf at the Chebyshev nodes of the q-tier's series fit
         rbf_nodes = None
         if self.q_tab and self.cell_block_spec is not None:
             rbf_nodes = self.distance_expansion(cheb_nodes(
                 self.q_tab, self.cutoff_lower, self.cutoff_upper,
                 dtype=dist.dtype, device=dist.device))
-        X = self.tensor_embedding(z, nbr, dist, unit_vectors(delta, dist),
-                                  edge_attr, rev_slot)
+        X = self.tensor_embedding(z, nbr_e, dist_e,
+                                  unit_vectors(delta_e, dist_e), edge_attr_e,
+                                  rev_slot_e)
         charges = self.charge_predict_0(X, batch, Q_atom, num_mols)
         charge_list = [charges]
         for layer, predict in zip(self.layers, self.charge_predicts):

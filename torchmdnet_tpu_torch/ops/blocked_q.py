@@ -1,22 +1,30 @@
-"""TensorNet2 fused charge-fold message passing, θ-tabulated (the blocked
-q-tier; kernels A and B of the port).
+"""TensorNet2 fused charge-fold message passing (the blocked q-tier;
+kernels A and B of the port), with the θ-tabulated base and the exact rbf
+one.
 
-Counterpart of ``blocked_neighbor_sum_asym_q_tab`` and its two Pallas
-kernels (``torchmdnet_tpu/ops/pallas_blocked_mp.py:1120-2211``): per slot
-``(n, k)`` of the sorted-space neighbor matrix, ``j = idx[n, k]``,
+Counterpart of ``blocked_neighbor_sum_asym_q_tab``,
+``blocked_neighbor_sum_asym_q`` and their Pallas kernels
+(``torchmdnet_tpu/ops/pallas_blocked_mp.py:1120-2211``, ungrouped and
+grouped bodies, ``tab`` True and False): per slot ``(n, k)`` of the
+sorted-space neighbor matrix, ``j = idx[n, k]``,
 
-    pre1 = Σ_t cos(t·θ)·coeffs[t] + u_i[n] + u_j[j]
+    pre1 = base[n, k] + u_i[n] + u_j[j]
     attr = silu(silu(silu(pre1)·W2 + b2)·W3 + b3) · cwfm[n, k]
     out[n] = Σ_k expand9(attr) ⊙ feats9[j]
 
-with ``θ = arccos(clip(2(d − lo)/(hi − lo) − 1, −1, 1))``: the edge MLP and
-the neighbor sum in one pass, so neither ``attr`` nor its reverse ever
-reaches memory.  The backward follows ``_make_blocked_q_op_tab.bwd``
-(``:2170-2190``): kernel A in its ``with_du`` form on the mirrored
-operands (``u_i``↔``u_j``, window ``g``, fold rows ``feats9``) gives
-``dfeats`` and ``du_j``; kernel B gives ``du_i``, ``dd`` and ``dcw``.
-``coeffs``, W2, b2, W3 and b3 get zero gradients (the MD-only contract of
-``:1146-1149``).  It requires ``d`` and ``cwfm`` to be equal on the two
+with ``base = Σ_t cos(t·θ)·coeffs[t]``, ``θ = arccos(clip(2(d − lo)/(hi −
+lo) − 1, −1, 1))`` (tabulated), or ``base = edge_attr[n, k]·W1a`` (exact,
+``edge_attr [N, K, R]``): the edge MLP and the neighbor sum in one pass,
+so neither ``attr`` nor its reverse ever reaches memory.  The grouped
+tier's column-partitioned ``K′`` list goes through the same kernels: they
+gather ``feats9[idx]`` directly, so a layout is only a set of valid slots.
+The backward follows ``_make_blocked_q_op(_tab).bwd`` (``:2079-2104``,
+``:2170-2190``): kernel A in its ``with_du`` form on the mirrored operands
+(``u_i``↔``u_j``, window ``g``, fold rows ``feats9``) gives ``dfeats`` and
+``du_j``; kernel B gives ``du_i``, ``dcw`` and the base's cotangent (``dd``
+tabulated, the rbf cotangent ``[N, K, R]`` exact).  The series or W1a, W2,
+b2, W3 and b3 get zero gradients (the MD-only contract of ``:2053-2055``).
+It requires ``d`` (or ``edge_attr``) and ``cwfm`` to be equal on the two
 slots of a pair, as the JAX op does.
 
 Numerics: f32 throughout, what the JAX package computes with
@@ -39,27 +47,35 @@ from torchmdnet_tpu_torch.ops.kernels import (
 from torchmdnet_tpu_torch.ops.message_passing import row_chunk
 
 SOURCE = CudaSource("blocked_q.cu")
-_COMMON = [P] * 7  # d, cw, mask, idx, urow, ucol, xwin
-FORWARD = Kernel(SOURCE, "tmd_blocked_q_fwd",
-                 _COMMON + [P] * 6 + [I64, I32, I32, I32, F32, F32])
+_COMMON = [P] * 7  # d or rbf, cw, mask, idx, urow, ucol, xwin
+_TAIL = [I64, I32, I32, I32, F32, F32]  # n, k, f, t, lo, span
+FORWARD = Kernel(SOURCE, "tmd_blocked_q_fwd", _COMMON + [P] * 6 + _TAIL)
 FORWARD_DU = Kernel(SOURCE, "tmd_blocked_q_fwd_du",
-                    _COMMON + [P] * 10 + [I64, I32, I32, I32, F32, F32])
-DQ = Kernel(SOURCE, "tmd_blocked_q_dq",
-            _COMMON + [P] * 12 + [I64, I32, I32, I32, F32, F32])
+                    _COMMON + [P] * 10 + _TAIL)
+DQ = Kernel(SOURCE, "tmd_blocked_q_dq", _COMMON + [P] * 12 + _TAIL)
+# the exact-rbf forms (tab=False): rbf [N, K, R] for d, W1a for coeffs
+FORWARD_RBF = Kernel(SOURCE, "tmd_blocked_q_fwd_rbf",
+                     _COMMON + [P] * 6 + [I64, I32, I32, I32])
+FORWARD_DU_RBF = Kernel(SOURCE, "tmd_blocked_q_fwd_du_rbf",
+                        _COMMON + [P] * 10 + [I64, I32, I32, I32])
+DQ_RBF = Kernel(SOURCE, "tmd_blocked_q_dq_rbf",
+                _COMMON + [P] * 12 + [I64, I32, I32, I32, I32])
 # bytes of dynamic shared memory one Hopper block may use, less the
 # kernel's static arrays
 _SMEM_LIMIT = 232448 - 4096
+_LIST_CAP = 16 * 512  # slots a block compacts at a time (16-bit ids)
 
 
 def smem_bytes(mode: int, f: int, t: int, k: int) -> int:
     """Dynamic shared memory of a launch (mode 0 = A, 1 = A with du,
-    2 = B), as ``q_kernel`` lays it out."""
+    2 = B; ``t`` series terms or rbf width), as ``q_kernel`` lays it
+    out."""
     tm = 64 if mode == 0 else 32
     lda, ldh, ldb, ldz, ldt = f + 4, 2 * f + 4, t + 4, 3 * f + 4, 132
     floats = 32 * 128 + tm * (ldb + lda + ldh + ldt)
     if mode:
         floats += tm * (lda + ldh + ldt + ldz)
-    return 4 * floats + 4 * 16 * k
+    return 4 * floats + 2 * min(16 * k, _LIST_CAP)
 
 
 def _dsilu(x):
@@ -67,8 +83,8 @@ def _dsilu(x):
     return s * (1.0 + x * (1.0 - s))
 
 
-def _chain(theta, urow_c, ucol_j, coeffs, w2, b2, w3, b3):
-    pre1 = cos_basis(theta, coeffs.shape[0]) @ coeffs + urow_c[:, None] + ucol_j
+def _chain(basis, urow_c, ucol_j, w1, w2, b2, w3, b3):
+    pre1 = basis @ w1 + urow_c[:, None] + ucol_j
     z2 = F_.silu(pre1) @ w2 + b2
     z3 = F_.silu(z2) @ w3 + b3
     return pre1, z2, z3
@@ -87,21 +103,19 @@ def _backprop(da, pre1, z2, z3, w2, w3):
     return (dz2 @ w2.t()) * _dsilu(pre1)
 
 
-def q_fwd_ref(d, cw, mask, idx, urow, ucol, xwin, coeffs, w2, b2, w3, b3,
-              lo: float, hi: float, grow=None):
-    """Plain kernel A: ``out [N, 9F]``; with ``grow [N, 9F]`` also ``du
-    [N, F]``, the ∂/∂pre1 row sums of ``Σ ⟨grow[n], expand9(attr) ⊙ x_j⟩``
-    (row-chunked gather chain)."""
+def _fwd_plain(basis, cw, mask, idx, urow, ucol, xwin, w1, w2, b2, w3, b3,
+               grow):
+    """Kernel A's function; ``basis(s, e)`` is the ``[e − s, K, T]``
+    operand of the base of rows ``s:e`` (row-chunked gather chain)."""
     n, k = idx.shape
-    f = coeffs.shape[1]
+    f = w1.shape[1]
     out = xwin.new_empty((n, 9 * f))
     du = xwin.new_empty((n, f)) if grow is not None else None
-    theta = cheb_theta(d, lo, hi)
-    chunk = row_chunk(n, k, 40 * f + coeffs.shape[0])
+    chunk = row_chunk(n, k, 40 * f + w1.shape[0])
     for s in range(0, n, chunk):
         e = min(n, s + chunk)
         m = mask[s:e]
-        pre1, z2, z3 = _chain(theta[s:e], urow[s:e], ucol[idx[s:e]], coeffs,
+        pre1, z2, z3 = _chain(basis(s, e), urow[s:e], ucol[idx[s:e]], w1,
                               w2, b2, w3, b3)
         xj = (xwin[idx[s:e]] * m[..., None]).view(e - s, k, 9, f)
         a = (F_.silu(z3) * cw[s:e, :, None]).view(e - s, k, 3, f)
@@ -115,42 +129,88 @@ def q_fwd_ref(d, cw, mask, idx, urow, ucol, xwin, coeffs, w2, b2, w3, b3,
     return out if grow is None else (out, du)
 
 
-def q_dq_ref(d, cw, mask, idx, urow, ucol, xwin, g9, coeffs, dser, w2, b2,
-             w3, b3, lo: float, hi: float):
-    """Plain kernel B: ``(du [N, F], dd [N, K], dcw [N, K])``; ``dd`` is the
-    derivative in ``x`` (the caller applies ``2/(hi − lo)``)."""
+def _dq_plain(basis, base_grad, cw, mask, idx, urow, ucol, xwin, g9, w1, w2,
+              b2, w3, b3, grad_shape):
+    """Kernel B's function: ``(du, base cotangent, dcw)``; ``base_grad(dpre,
+    s, e)`` maps ∂/∂pre1 of rows ``s:e`` to the base operand's cotangent
+    (an array of ``grad_shape``)."""
     n, k = idx.shape
-    T, f = coeffs.shape
+    f = w1.shape[1]
     du = xwin.new_empty((n, f))
-    dd = xwin.new_empty((n, k))
+    dbase = xwin.new_empty(grad_shape)
     dcw = xwin.new_empty((n, k))
-    theta = cheb_theta(d, lo, hi)
-    chunk = row_chunk(n, k, 40 * f + T)
+    chunk = row_chunk(n, k, 40 * f + w1.shape[0])
     for s in range(0, n, chunk):
         e = min(n, s + chunk)
         m = mask[s:e]
-        pre1, z2, z3 = _chain(theta[s:e], urow[s:e], ucol[idx[s:e]], coeffs,
+        pre1, z2, z3 = _chain(basis(s, e), urow[s:e], ucol[idx[s:e]], w1,
                               w2, b2, w3, b3)
         xj = (xwin[idx[s:e]] * m[..., None]).view(e - s, k, 9, f)
         fold = _fold9(g9[s:e], xj, f)
         dcw[s:e] = (fold * F_.silu(z3)).sum(-1)
         dpre = _backprop(fold * cw[s:e, :, None], pre1, z2, z3, w2, w3)
         du[s:e] = dpre.sum(1)
-        dd[s:e] = (dpre * (cos_basis(theta[s:e], T) @ dser)).sum(-1)
-    return du, dd, dcw
+        dbase[s:e] = base_grad(dpre, s, e)
+    return du, dbase, dcw
+
+
+def q_fwd_ref(d, cw, mask, idx, urow, ucol, xwin, coeffs, w2, b2, w3, b3,
+              lo: float, hi: float, grow=None):
+    """Plain kernel A, tabulated base: ``out [N, 9F]``; with ``grow [N, 9F]``
+    also ``du [N, F]``, the ∂/∂pre1 row sums of ``Σ ⟨grow[n],
+    expand9(attr) ⊙ x_j⟩``."""
+    theta = cheb_theta(d, lo, hi)
+    T = coeffs.shape[0]
+    return _fwd_plain(lambda s, e: cos_basis(theta[s:e], T), cw, mask, idx,
+                      urow, ucol, xwin, coeffs, w2, b2, w3, b3, grow)
+
+
+def q_dq_ref(d, cw, mask, idx, urow, ucol, xwin, g9, coeffs, dser, w2, b2,
+             w3, b3, lo: float, hi: float):
+    """Plain kernel B, tabulated base: ``(du [N, F], dd [N, K], dcw [N,
+    K])``; ``dd`` is the derivative in ``x`` (the caller applies ``2/(hi −
+    lo)``)."""
+    theta = cheb_theta(d, lo, hi)
+    T = coeffs.shape[0]
+
+    def dd(dpre, s, e):
+        return (dpre * (cos_basis(theta[s:e], T) @ dser)).sum(-1)
+
+    return _dq_plain(lambda s, e: cos_basis(theta[s:e], T), dd, cw, mask,
+                     idx, urow, ucol, xwin, g9, coeffs, w2, b2, w3, b3,
+                     tuple(d.shape))
+
+
+def q_fwd_rbf_ref(rbf, cw, mask, idx, urow, ucol, xwin, w1a, w2, b2, w3, b3,
+                  grow=None):
+    """Plain kernel A, exact base ``rbf [N, K, R]·W1a [R, F]``."""
+    return _fwd_plain(lambda s, e: rbf[s:e], cw, mask, idx, urow, ucol, xwin,
+                      w1a, w2, b2, w3, b3, grow)
+
+
+def q_dq_rbf_ref(rbf, cw, mask, idx, urow, ucol, xwin, g9, w1a, w2, b2, w3,
+                 b3):
+    """Plain kernel B, exact base: ``(du [N, F], drbf [N, K, R], dcw [N,
+    K])``, ``drbf = ∂/∂pre1·W1aᵀ`` (zero on invalid slots)."""
+    return _dq_plain(lambda s, e: rbf[s:e], lambda dpre, s, e: dpre @ w1a.t(),
+                     cw, mask, idx, urow, ucol, xwin, g9, w1a, w2, b2, w3, b3,
+                     tuple(rbf.shape))
 
 
 def _check(name, tensors, mode):
     """Raise unless every tensor is on one CUDA device, contiguous, of its
-    type and shape, and the launch fits shared memory."""
+    type and shape, and the launch fits shared memory.  ``coeffs`` is the
+    [T, F] base weight: the series, or W1a with ``rbf`` given."""
     n, k = tensors["idx"].shape
     T, f = tensors["coeffs"].shape
-    shapes = dict(d=(n, k), cw=(n, k), mask=(n, k), idx=(n, k), urow=(n, f),
-                  ucol=(n, f), xwin=(n, 9 * f), grow=(n, 9 * f),
-                  coeffs=(T, f), dser=(T, f), w2=(f, 2 * f), b2=(2 * f,),
-                  w3=(2 * f, 3 * f), b3=(3 * f,), w2t=(2 * f, f),
-                  w3t=(3 * f, 2 * f))
-    dev = tensors["d"].device
+    t4 = -(-T // 4) * 4
+    shapes = dict(d=(n, k), rbf=(n, k, T), cw=(n, k), mask=(n, k),
+                  idx=(n, k), urow=(n, f), ucol=(n, f), xwin=(n, 9 * f),
+                  grow=(n, 9 * f), coeffs=(T, f), dser=(T, f), w1at=(f, t4),
+                  w2=(f, 2 * f), b2=(2 * f,), w3=(2 * f, 3 * f), b3=(3 * f,),
+                  w2t=(2 * f, f), w3t=(3 * f, 2 * f))
+    first = tensors["rbf" if "rbf" in tensors else "d"]
+    dev = first.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: expects CUDA tensors, got {dev}")
     for key, x in tensors.items():
@@ -175,39 +235,59 @@ def _check(name, tensors, mode):
     return dev, n, k, f, T
 
 
-def q_fwd_cuda(d, cw, mask, idx, urow, ucol, xwin, coeffs, w2, b2, w3, b3,
-               lo: float, hi: float, grow=None):
-    """Kernel A (``grow`` given: its with-du form) on CUDA tensors."""
-    tensors = dict(d=d, cw=cw, mask=mask, idx=idx, urow=urow, ucol=ucol,
-                   xwin=xwin, coeffs=coeffs, w2=w2, b2=b2, w3=w3, b3=b3)
+def _transposed(w2, w3):
+    return dict(w2t=w2.t().contiguous(), w3t=w3.t().contiguous())
+
+
+def _fwd_cuda(kernels, base_key, base, cw, mask, idx, urow, ucol, xwin, w1,
+              w2, b2, w3, b3, tail, grow):
+    """Kernel A (``grow`` given: its with-du form) on CUDA tensors;
+    ``kernels`` = (plain form, with-du form), ``tail(n, k, f, T)`` the
+    trailing scalars."""
+    tensors = {base_key: base, "cw": cw, "mask": mask, "idx": idx,
+               "urow": urow, "ucol": ucol, "xwin": xwin, "coeffs": w1,
+               "w2": w2, "b2": b2, "w3": w3, "b3": b3}
     if grow is not None:
-        tensors.update(grow=grow, w2t=w2.t().contiguous(),
-                       w3t=w3.t().contiguous())
-    dev, n, k, f, T = _check("blocked_q_fwd", tensors,
+        tensors.update(grow=grow, **_transposed(w2, w3))
+    dev, n, k, f, T = _check(kernels[0].symbol, tensors,
                              0 if grow is None else 1)
     common = [ptr(tensors[key]) for key in
-              ("d", "cw", "mask", "idx", "urow", "ucol", "xwin")]
-    tail = [n, k, f, T, float(lo), float(hi - lo)]
+              (base_key, "cw", "mask", "idx", "urow", "ucol", "xwin")]
+    weights = [ptr(t) for t in (w1, w2, b2, w3, b3)]
     with torch.cuda.device(dev):
         out = torch.empty((n, 9 * f), dtype=torch.float32, device=dev)
         if grow is None:
-            FORWARD(*common, ptr(coeffs), ptr(w2), ptr(b2), ptr(w3), ptr(b3),
-                    ptr(out), *tail)
+            kernels[0](*common, *weights, ptr(out), *tail(n, k, f, T))
             return out
         du = torch.empty((n, f), dtype=torch.float32, device=dev)
-        FORWARD_DU(*common, ptr(grow), ptr(coeffs), ptr(w2), ptr(b2), ptr(w3),
-                   ptr(b3), ptr(tensors["w2t"]), ptr(tensors["w3t"]),
-                   ptr(out), ptr(du), *tail)
+        kernels[1](*common, ptr(grow), *weights, ptr(tensors["w2t"]),
+                   ptr(tensors["w3t"]), ptr(out), ptr(du), *tail(n, k, f, T))
         return out, du
+
+
+def q_fwd_cuda(d, cw, mask, idx, urow, ucol, xwin, coeffs, w2, b2, w3, b3,
+               lo: float, hi: float, grow=None):
+    """Kernel A, tabulated base (``grow`` given: its with-du form)."""
+    return _fwd_cuda((FORWARD, FORWARD_DU), "d", d, cw, mask, idx, urow,
+                     ucol, xwin, coeffs, w2, b2, w3, b3,
+                     lambda n, k, f, T: (n, k, f, T, float(lo),
+                                         float(hi - lo)), grow)
+
+
+def q_fwd_rbf_cuda(rbf, cw, mask, idx, urow, ucol, xwin, w1a, w2, b2, w3, b3,
+                   grow=None):
+    """Kernel A, exact base (``grow`` given: its with-du form)."""
+    return _fwd_cuda((FORWARD_RBF, FORWARD_DU_RBF), "rbf", rbf, cw, mask, idx,
+                     urow, ucol, xwin, w1a, w2, b2, w3, b3,
+                     lambda n, k, f, T: (n, k, f, T), grow)
 
 
 def q_dq_cuda(d, cw, mask, idx, urow, ucol, xwin, g9, coeffs, dser, w2, b2,
               w3, b3, lo: float, hi: float):
-    """Kernel B on CUDA tensors: ``(du, dd, dcw)``."""
+    """Kernel B, tabulated base, on CUDA tensors: ``(du, dd, dcw)``."""
     tensors = dict(d=d, cw=cw, mask=mask, idx=idx, urow=urow, ucol=ucol,
                    xwin=xwin, grow=g9, coeffs=coeffs, dser=dser, w2=w2, b2=b2,
-                   w3=w3, b3=b3, w2t=w2.t().contiguous(),
-                   w3t=w3.t().contiguous())
+                   w3=w3, b3=b3, **_transposed(w2, w3))
     dev, n, k, f, T = _check("blocked_q_dq", tensors, 2)
     with torch.cuda.device(dev):
         du = torch.empty((n, f), dtype=torch.float32, device=dev)
@@ -218,6 +298,25 @@ def q_dq_cuda(d, cw, mask, idx, urow, ucol, xwin, g9, coeffs, dser, w2, b2,
     return du, dd, dcw
 
 
+def q_dq_rbf_cuda(rbf, cw, mask, idx, urow, ucol, xwin, g9, w1a, w2, b2, w3,
+                  b3):
+    """Kernel B, exact base, on CUDA tensors: ``(du, drbf, dcw)``."""
+    r, f = w1a.shape
+    w1at = w1a.new_zeros((f, -(-r // 4) * 4))
+    w1at[:, :r] = w1a.t()
+    tensors = dict(rbf=rbf, cw=cw, mask=mask, idx=idx, urow=urow, ucol=ucol,
+                   xwin=xwin, grow=g9, coeffs=w1a, w1at=w1at, w2=w2, b2=b2,
+                   w3=w3, b3=b3, **_transposed(w2, w3))
+    dev, n, k, f, T = _check("blocked_q_dq_rbf", tensors, 2)
+    with torch.cuda.device(dev):
+        du = torch.empty((n, f), dtype=torch.float32, device=dev)
+        drbf = torch.empty((n, k, r), dtype=torch.float32, device=dev)
+        dcw = torch.empty((n, k), dtype=torch.float32, device=dev)
+        DQ_RBF(*[ptr(t) for t in tensors.values()], ptr(du), ptr(drbf),
+               ptr(dcw), n, k, f, r, w1at.shape[1])
+    return du, drbf, dcw
+
+
 def q_fwd(*args, **kwargs):
     """Kernel A on CUDA tensors, its plain version on CPU tensors."""
     return (q_fwd_cuda if args[0].is_cuda else q_fwd_ref)(*args, **kwargs)
@@ -226,6 +325,28 @@ def q_fwd(*args, **kwargs):
 def q_dq(*args, **kwargs):
     """Kernel B on CUDA tensors, its plain version on CPU tensors."""
     return (q_dq_cuda if args[0].is_cuda else q_dq_ref)(*args, **kwargs)
+
+
+def q_fwd_rbf(*args, **kwargs):
+    """Kernel A, exact base, on CUDA tensors; its plain version on CPU
+    tensors."""
+    return (q_fwd_rbf_cuda if args[0].is_cuda else q_fwd_rbf_ref)(
+        *args, **kwargs)
+
+
+def q_dq_rbf(*args, **kwargs):
+    """Kernel B, exact base, on CUDA tensors; its plain version on CPU
+    tensors."""
+    return (q_dq_rbf_cuda if args[0].is_cuda else q_dq_rbf_ref)(
+        *args, **kwargs)
+
+
+def _zero_grads(ctx, weights, first):
+    """Zero cotangents for the weights that asked for one (the MD-only
+    contract)."""
+    return [torch.zeros_like(t) if need else None
+            for t, need in zip(weights,
+                               ctx.needs_input_grad[first:first + 5])]
 
 
 class _BlockedQTab(torch.autograd.Function):
@@ -253,20 +374,55 @@ class _BlockedQTab(torch.autograd.Function):
                              cheb_deriv_coeffs(coeffs).contiguous(), w2, b2,
                              w3, b3, lo, hi)
         dd = dd * (2.0 / (hi - lo))
-        zeros = [torch.zeros_like(t) if need else None
-                 for t, need in zip((coeffs, w2, b2, w3, b3),
-                                    ctx.needs_input_grad[7:12])]
+        zeros = _zero_grads(ctx, (coeffs, w2, b2, w3, b3), 7)
         return (dd, dcw, du_i, du_j, dfeats, None, None, *zeros, None, None)
+
+
+class _BlockedQ(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, edge_attr, cwfm, u_i, u_j, feats9, mask, idx, w1a, w2,
+                b2, w3, b3):
+        ctx.save_for_backward(edge_attr, cwfm, u_i, u_j, feats9, mask, idx,
+                              w1a, w2, b2, w3, b3)
+        return q_fwd_rbf(edge_attr, cwfm, mask, idx, u_i, u_j, feats9, w1a,
+                         w2, b2, w3, b3)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (edge_attr, cwfm, u_i, u_j, feats9, mask, idx, w1a, w2, b2, w3,
+         b3) = ctx.saved_tensors
+        g = g.contiguous()
+        # as _BlockedQTab.backward, with the rbf cotangent from kernel B
+        dfeats, du_j = q_fwd_rbf(edge_attr, cwfm, mask, idx, u_j, u_i, g, w1a,
+                                 w2, b2, w3, b3, grow=feats9)
+        du_i, dattr, dcw = q_dq_rbf(edge_attr, cwfm, mask, idx, u_i, u_j,
+                                    feats9, g, w1a, w2, b2, w3, b3)
+        zeros = _zero_grads(ctx, (w1a, w2, b2, w3, b3), 7)
+        return (dattr, dcw, du_i, du_j, dfeats, None, None, *zeros)
 
 
 def blocked_neighbor_sum_asym_q_tab(d, cwfm, u_i, u_j, feats9, mask, idx,
                                     rev_slot, coeffs, w2, b2, w3, b3,
                                     lo: float, hi: float):
-    """Fused charge-fold asymmetric neighbor sum → ``[N, 9F]`` (see the
-    module docstring).  ``d``/``cwfm`` ``[N, K]`` must be equal on both
-    slots of every pair; ``rev_slot`` is accepted for the JAX signature
-    (the kernels gather by ``idx`` in both directions).  Weights in the
-    JAX layout: ``coeffs [T, F]``, ``w2 [F, 2F]``, ``w3 [2F, 3F]``."""
+    """Fused charge-fold asymmetric neighbor sum with the θ-tabulated base
+    → ``[N, 9F]`` (see the module docstring).  ``d``/``cwfm`` ``[N, K]``
+    must be equal on both slots of every pair; ``rev_slot`` is accepted for
+    the JAX signature (the kernels gather by ``idx`` in both directions).
+    Weights in the JAX layout: ``coeffs [T, F]``, ``w2 [F, 2F]``, ``w3 [2F,
+    3F]``."""
     del rev_slot
     return _BlockedQTab.apply(d, cwfm, u_i, u_j, feats9, mask, idx, coeffs,
                               w2, b2, w3, b3, float(lo), float(hi))
+
+
+def blocked_neighbor_sum_asym_q(edge_attr, cwfm, u_i, u_j, feats9, mask, idx,
+                                rev_slot, w1a, w2, b2, w3, b3):
+    """Fused charge-fold asymmetric neighbor sum with the exact base
+    ``edge_attr [N, K, R]·w1a [R, F]`` → ``[N, 9F]``; gradients to
+    ``edge_attr``, ``cwfm``, ``u_i``, ``u_j`` and ``feats9``, zeros to the
+    five weights.  ``edge_attr``/``cwfm`` must be equal on both slots of
+    every pair; ``rev_slot`` as in :func:`blocked_neighbor_sum_asym_q_tab`."""
+    del rev_slot
+    return _BlockedQ.apply(edge_attr.contiguous(), cwfm, u_i, u_j, feats9,
+                           mask, idx, w1a.contiguous(), w2, b2, w3, b3)
