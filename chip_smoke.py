@@ -71,9 +71,11 @@ epochs on 384 synthetic QM9-scale molecules in batches of 64 and
 ``Trainer.test``, with its ``metrics.csv`` columns and its checkpoints
 checked and reloaded on the card.
 
-Each phase prints one JSON line; the card's name and power limit (as
-``nvidia-smi`` gives them) and a ``{"kernels": [...]}`` line follow, and
-the last line is ``{"ok": true, "device": {...}}``.  Any failed check
+Before the kernels phase, ``tc_attributes`` gives rows 10 and 11 (the
+tensor-core kernels) as compiled: registers, spill bytes, shared memory
+and blocks an SM.  Each phase prints one JSON line; the card's name and
+power limit (as ``nvidia-smi`` gives them) and a ``{"kernels": [...]}``
+line follow, and the last line is ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before that line.  All float32 matmuls run in full float32
 (TF32 off) but in the TF32 records.  Long logs (compiler output, the profiles) go to ``logs/`` in
 the checkout, or to the directory named by ``SMOKE_LOG_DIR``.
@@ -121,9 +123,12 @@ TRAIN_STEPS, TRAIN_LR, TRAIN_CUTOFF = 20, 1e-4, 5.0
 TAB_VS_EXACT_TOL = 1e-4
 
 # Published peaks, NVIDIA data sheets (dense, no sparsity): float32 outside
-# the tensor cores in FLOP/s and device memory in B/s, by board.
-PEAKS = {"H100 PCIe": (51.2e12, 2.0e12), "H100 NVL": (60.0e12, 3.9e12),
-         "H100": (67.0e12, 3.35e12), "H200": (67.0e12, 4.8e12)}
+# the tensor cores in FLOP/s, device memory in B/s and TF32 on the tensor
+# cores in FLOP/s, by board.
+PEAKS = {"H100 PCIe": (51.2e12, 2.0e12, 378e12),
+         "H100 NVL": (60.0e12, 3.9e12, 417.5e12),
+         "H100": (67.0e12, 3.35e12, 495e12),
+         "H200": (67.0e12, 4.8e12, 495e12)}
 
 SRC = "torchmdnet_tpu_torch/csrc/"
 # kernel name → (source, TPU kernel it replaces, path whose MD run counts it)
@@ -255,8 +260,14 @@ def peaks(name):
     raise RuntimeError(f"no data-sheet peaks for {name!r}")
 
 
-def bound(flops, nbytes, peak):
-    t_ops, t_bytes = flops / peak[0] * 1e3, nbytes / peak[1] * 1e3
+def bound(flops, nbytes, peak, tc_flops=0.0):
+    """Least ms for ``flops`` and ``nbytes``: the larger of the bytes over
+    the memory rate and the operations over their peak.  ``tc_flops`` of
+    the ``flops`` are a product the kernel runs on the tensor cores in
+    3xTF32 (three TF32 products for each fp32 one, at the TF32 peak); the
+    rest run at the fp32 peak, the two units side by side."""
+    t_ops = max((flops - tc_flops) / peak[0], 3 * tc_flops / peak[2]) * 1e3
+    t_bytes = nbytes / peak[1] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -340,8 +351,7 @@ def phase_device():
     t0 = time.perf_counter()
     logs = build([radial_embedding.SOURCE, edge_mlp.SOURCE, blocked_q.SOURCE,
                   windowed_coulomb.SOURCE, cheb_filter.SOURCE,
-                  blocked_mp.SOURCE],
-                 extra_flags=("-Xptxas", "-v"))
+                  blocked_mp.SOURCE])
     secs = time.perf_counter() - t0
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "smoke.jsonl").write_text("")
@@ -353,10 +363,37 @@ def phase_device():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "peaks_from": board,
           "peak_fp32_tflops": peak[0] / 1e12, "peak_tb_s": peak[1] / 1e12,
+          "peak_tf32_tflops": peak[2] / 1e12,
           "tf32": bool(torch.backends.cuda.matmul.allow_tf32
                        or torch.backends.cudnn.allow_tf32),
           "build_s": round(secs, 3), "ptxas": ptxas})
     return smi, name, peak
+
+
+def phase_tc_attributes(specs):
+    """Rows 10 and 11, the tensor-core kernels, as compiled and launched at
+    the dhfr cell-blocked shapes (the sorts of ``specs``: the grouped K′
+    and the brute K=64 list; F=128, T=128): registers and
+    local (spill) bytes a thread, static and dynamic shared memory and
+    resident blocks an SM (``cudaFuncGetAttributes``, occupancy API); the
+    dynamic shared memory and the split-series scratch must equal
+    ``ops/blocked_mp.py``'s plan."""
+    from torchmdnet_tpu_torch.ops import blocked_mp as bm
+
+    attrs = {}
+    for spec in specs.values():
+        k = sum(spec.col_slots) if spec.col_slots else DHFR_K
+        plan = bm.launch_plan(spec.n_pad, k, F, DHFR_T)
+        for name, a in bm.kernel_attributes(k, F, DHFR_T).items():
+            check(a["dynamic_smem"] == plan[name][1],
+                  f"{name}: the kernel's shared memory {a['dynamic_smem']} "
+                  f"differs from the plan's {plan[name][1]}")
+            check(a["blocks_per_sm"] >= 1, f"{name}: does not fit an SM")
+            check(a["image_floats"] == bm.tc_image_floats(DHFR_T, 3 * F),
+                  f"{name}: the kernel's image scratch differs from the "
+                  "wrapper's")
+            attrs[f"{name}@k{k}"] = a
+    emit({"phase": "tc_attributes", "attributes": attrs})
 
 
 # ---------------------------------------------------------------- inputs
@@ -869,27 +906,30 @@ def blocked_calls(v, hi=4.5):
 
 
 def blocked_work(v):
-    """(FLOP, bytes) rows 8-11 need on ``v``: rows 8 and 9 work on the
-    valid slots (mask), rows 10 and 11 on the live ones (fm ≠ 0), whose
-    series product dominates; each input read once (the flag array
-    whole, the per-slot arrays on the slots the kernel reads), each
-    output written once — row 9's whole [N, K, 3F], zeros included."""
+    """(FLOP, bytes, tensor-core FLOP) rows 8-11 need on ``v``: rows 8 and
+    9 work on the valid slots (mask), rows 10 and 11 on the live ones (fm
+    ≠ 0), whose series product dominates and runs on the tensor cores in
+    3xTF32; each input read once (the flag array whole, the per-slot
+    arrays on the slots the kernel reads), each output written once — row
+    9's whole [N, K, 3F], zeros included."""
     n, k = v["idx"].shape
     c3, c9, t = 3 * F, 9 * F, v["coeffs"].shape[0]
     valid = float(v["mask"].sum())
     live = float((v["fm"] != 0).sum())
     rows9 = n * c9 * 4
+    product = 2 * live * t * c3
     return {
         "blocked_mp_sum": (2 * valid * c9,
-                           n * k + valid * (8 + c3 * 4) + 2 * rows9),
+                           n * k + valid * (8 + c3 * 4) + 2 * rows9, 0.0),
         "blocked_mp_dattr": (2 * valid * c9,
-                             n * k + valid * 8 + 2 * rows9 + n * k * c3 * 4),
-        "blocked_mp_sum_cheb": (2 * live * (t * c3 + c9),
+                             n * k + valid * 8 + 2 * rows9 + n * k * c3 * 4,
+                             0.0),
+        "blocked_mp_sum_cheb": (product + 2 * live * c9,
                                 n * k * 4 + live * 12 + t * c3 * 4
-                                + 2 * rows9),
-        "blocked_mp_dd_cheb": (2 * live * (t * c3 + c9 + c3),
+                                + 2 * rows9, product),
+        "blocked_mp_dd_cheb": (product + 2 * live * (c9 + c3),
                                n * k * 4 + live * 12 + t * c3 * 4
-                               + 2 * rows9 + n * k * 4)}
+                               + 2 * rows9 + n * k * 4, product)}
 
 
 def blocked_library(v):
@@ -1075,8 +1115,11 @@ def phase_kernels(peak, system, dhfr, seg, specs):
             if name == "blocked_mp_dattr":
                 check(not got[0][~v["mask"]].any(),
                       "blocked_mp_dattr: an invalid slot is not exactly 0")
-            flops, nb = work[name]
-            b_ms, b_by = bound(flops, nb, peak)
+            if name == "blocked_mp_dd_cheb":
+                check(not got[0][v["fm"] == 0].any(),
+                      "blocked_mp_dd_cheb: an fm = 0 slot is not exactly 0")
+            flops, nb, tc = work[name]
+            b_ms, b_by = bound(flops, nb, peak, tc)
             lib = library.get(name)
             rows[name if layout == "grouped" else f"{name}@{layout}"] = dict(
                 max_abs_err=err, max_rel_err=rel, ms=time_ms(kern),
@@ -1200,6 +1243,8 @@ def blocked_shape_errors(gen):
               "rows 8-11: a masked row is not zero")
         check(not outs["blocked_mp_dattr"][~mask].any(),
               "row 9: an invalid slot is not exactly 0")
+        check(not outs["blocked_mp_dd_cheb"][v["fm"] == 0].any(),
+              "row 11: an fm = 0 slot is not exactly 0")
         worst[f"blocked_mp_n{n}_k{k}_f{f}_t{t}"] = max(errs)
     return worst
 
@@ -1604,7 +1649,9 @@ def phase_profile(name, run):
 PROFILE_GROUPS = (
     ("rows 8-11 blocked message passing", ("blocked_sum_kernel",
                                            "blocked_dattr_kernel",
-                                           "blocked_dd_kernel")),
+                                           "blocked_sum_cheb_kernel",
+                                           "blocked_dd_cheb_kernel",
+                                           "tc_split_kernel")),
     ("kernels 5/7 Chebyshev filter", ("cheb_kernel",)),
     ("row 6 Chebyshev projection", ("project_kernel", "project_sum_kernel")),
     ("kernel 4 edge_mlp", ("edge_mlp_kernel",)),
@@ -2413,6 +2460,7 @@ def main():
     dhfr, seg = dhfr_system()
     specs = {"grouped": dhfr_blocked_spec(dhfr, True),
              "ungrouped": dhfr_blocked_spec(dhfr, False)}
+    phase_tc_attributes(specs)
     rows = phase_kernels(peak, system, dhfr, seg, specs)
     phase_shapes()
     phase_small()

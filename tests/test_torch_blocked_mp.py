@@ -4,7 +4,9 @@ Pallas kernels in interpret mode: the four ops and both differentiable
 wrappers (feature, attr and distance cotangents) on the ungrouped list of
 one small system (``test_torch_blocked_mp_grouped.py`` holds the grouped
 one); the grouped tier's column-partitioned neighbor list against JAX's
-on the same positions; and the CUDA wrappers' refusal of CPU tensors."""
+on the same positions; the CUDA wrappers' refusal of CPU tensors; and the
+kernels' launch plan (blocks of sorted rows, shared memory) at the shapes
+the card runs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -153,3 +155,42 @@ def test_cuda_wrappers_refuse_cpu_tensors(op):
                              BMP_CUTOFF)}[op]
     with pytest.raises(ValueError, match="expects CUDA tensors"):
         getattr(bm, op)(*args)
+
+
+# (n, K, F, T) of chip_smoke.py: the dhfr cell-blocked sort with the grouped
+# K′ = 224, the MD spec's K′ = 360 and the brute K = 64 lists, and the
+# ragged shapes of blocked_shape_errors
+PLAN_SHAPES = [(3136, 224, 128, 128), (3136, 360, 128, 128),
+               (3136, 64, 128, 128), (37, 8, 8, 16), (50, 33, 32, 64),
+               (29, 96, 128, 128), (41, 64, 64, 100)]
+
+
+@pytest.mark.parametrize("n,k,f,t", PLAN_SHAPES)
+def test_launch_plan_fits_shared_memory(n, k, f, t):
+    """Every launch of rows 8, 10 and 11 fits a Hopper block's 232,448 B;
+    rows 10 and 11 leave room for two blocks on an SM (228 KB, 1 KB of it
+    reserved per block) everywhere and for three at F = 128 with K up to
+    the grouped K′ = 224 (their launch bounds ask for three)."""
+    plan = bm.launch_plan(n, k, f, t)
+    assert set(plan) == {"blocked_mp_sum", "blocked_mp_sum_cheb",
+                         "blocked_mp_dd_cheb"}
+    for name, (blocks, smem) in plan.items():
+        assert blocks == -(-n // 4)
+        assert 0 < smem <= 232448, name
+    for name in ("blocked_mp_sum_cheb", "blocked_mp_dd_cheb"):
+        per_sm = 233472 // (plan[name][1] + 1024)
+        assert per_sm >= (3 if f <= 128 and k <= 224 else 2), name
+    # the split series: a hi and a lo copy of every entry, whole stages
+    assert bm.tc_image_floats(t, 3 * f) >= 2 * t * 3 * f
+    assert bm.tc_image_floats(t, 3 * f) % (2 * 128 * 16) == 0
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 37, 41, 3136])
+def test_row_blocks_cover_every_row_once(n):
+    """Block ``b`` of rows 8, 10 and 11 owns the sorted rows ``[4b, 4b +
+    4)`` below ``n``: the plan's blocks give each row one block and leave
+    no block empty."""
+    for blocks, _ in bm.launch_plan(n, 64, 128, 128).values():
+        owned = [range(4 * b, min(n, 4 * b + 4)) for b in range(blocks)]
+        assert [r for rows in owned for r in rows] == list(range(n))
+        assert all(len(rows) > 0 for rows in owned)

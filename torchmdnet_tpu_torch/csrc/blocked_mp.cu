@@ -1,5 +1,6 @@
-// Cell-blocked TensorNet message passing for Hopper (sm_90a), fp32 FMA
-// throughout (no TF32, parity with "highest").
+// Cell-blocked TensorNet message passing for Hopper (sm_90a), in fp32:
+// FMA for rows 8 and 9, 3xTF32 tensor-core products for rows 10 and 11
+// (csrc/tc_tile.cuh; never single-pass TF32).
 //
 // Replaces four Pallas TPU kernels of torchmdnet_tpu/ops/pallas_blocked_mp.py,
 // each with its ungrouped and its grouped (column-partitioned) body:
@@ -25,61 +26,83 @@
 //
 // Bounds on this card (the dhfr blocked path: N = 3,136 sorted rows, F = 128,
 // T = 128, ~97 k live slots of K′ = 224 grouped or K = 64 brute slots a row;
-// H100 SXM data sheet at 700 W: 67 TFLOP/s fp32, 3.35 TB/s):
+// H100 SXM data sheet at 700 W: 67 TFLOP/s fp32, 495 TFLOP/s TF32 on the
+// tensor cores, 3.35 TB/s):
 // - row 8 moves the live slots' attr rows (~150 MB), the [N, 9F] features and
 //   output (14.5 MB each) and the list: bytes, ~0.06 ms;
 // - row 9 writes the whole [N, K, 3F] dattr, exact zeros on invalid slots
 //   (1.08 GB at K′ = 224, 308 MB at K = 64): bytes, ~0.32 / 0.09 ms;
 // - rows 10 and 11 are the [live, T]·[T, 3F] series product, 9.6 GFLOP:
-//   operations, ~0.14 ms.  The features (14.5 MB) sit in the 50 MB L2, and
-//   the sort keeps a row's neighbors inside 9 stencil columns, so the
-//   gathers are L2 hits.
+//   operations, ~0.06 ms in 3xTF32 on the tensor cores (three TF32
+//   products, 29 GFLOP at 495 TFLOP/s; ~0.14 ms at the fp32 rate).  The
+//   features (14.5 MB) sit in the 50 MB L2, and the sort keeps a row's
+//   neighbors inside 9 stencil columns, so the gathers are L2 hits.
 //
 // Design against them:
-// - blocked_sum_kernel (rows 8 and 10): a block owns kRows = 4 sorted rows
-//   (784 blocks at N = 3,136, several per SM), compacts their live slots in slot
-//   order and walks them in tiles of 64.  Per tile and per 128-column pass
-//   of attr it stages the attr columns in shared memory — loaded (row 8) or
-//   formed by the tile product of csrc/cheb_tile.cuh, the kernel-5 basis
-//   and product (row 10) — and each thread then owns fixed (row, irrep,
-//   channel) outputs of the block and adds Σ over the tile's slots of that
-//   row of attr·feats9[j], in slot order, into a shared-memory row
-//   accumulator: no atomics, and the [N, K, 3F] attr of row 10 never
-//   reaches memory.  A column block w of attr feeds its 1, 3 or 5 irreps
-//   from the staged tile, so the series is formed once per slot (kept in
-//   shared memory, not recomputed per irrep).
+// - blocked_sum_kernel (row 8): a block owns kRows = 4 sorted rows (784
+//   blocks at N = 3,136, several per SM), compacts their valid slots in slot
+//   order and walks them in tiles of 64.  Per tile and 128-column pass it
+//   stages the attr columns in shared memory; each thread then owns fixed
+//   (row, irrep, channel) outputs of the block and adds Σ over the tile's
+//   slots of that row of attr·feats9[j], in slot order, into a
+//   shared-memory row accumulator: no atomics.  A column block w of attr
+//   feeds its 1, 3 or 5 irreps from the staged tile.
 // - blocked_dattr_kernel (row 9): elementwise over (slot, 4 channels) with
 //   float4 loads and stores, the row's g9 and the neighbor's features gathered
 //   per slot, so the store stream is the whole cost.
-// - blocked_dd_kernel (row 11): kernel 7's design (csrc/cheb_filter.cu) on a
-//   span of slots (256·s, s chosen so that enough blocks are in flight): live-slot
-//   compaction, the basis and the tile product with the derivative series,
-//   the cotangent of each (slot, column) folded from g9 and feats9 as it is
-//   used, and a fixed-order shuffle reduction per slot: the [N, K, 3F]
-//   dattr is never stored.
+// - blocked_sum_cheb_kernel (row 10) and blocked_dd_cheb_kernel (row 11):
+//   the series product is the work, so it runs on the tensor cores in
+//   3xTF32 (tc_tile.cuh): per tile of 64 live slots each thread computes
+//   its fragment of the cos basis [64, T] from the slots' θ and hands it
+//   to wgmma from registers as A; the series [T, 3F], split once per
+//   launch into hi/lo planes laid out as wgmma reads them, streams
+//   through a three-stage cp.async ring as B, 128 columns a pass.  The
+//   SIMT product they replace (cheb_tile.cuh) issued 1.5 shared loads per
+//   FMA and ran at 12-15% of the fp32 bound.  Both own kTcRows = 4 sorted
+//   rows a block, as row 8 does, and compact the rows' fm ≠ 0 slots, so
+//   the empty group slots of K′ cost their fm read; ~73 KB of shared
+//   memory and ~80 registers keep three blocks (24 warps) on an SM, whose
+//   products, gathers and serial phases overlap.  After each pass the ring
+//   is free and holds the epilogue's tile: row 10 stores fm·acc there and
+//   sums each row's slots against feats9[j] in slot order (float4, eight
+//   neighbour rows in flight) into the block's row accumulator, written
+//   once: the [N, K, 3F] attr never reaches memory.  Row 11 stages its
+//   rows' g9 once, forms the cotangent tile ct[slot, col] = Σ_{d∈w}
+//   g9[row, d]·feats9[j, d] there, and folds ct ⊙ (B·dser) out of the
+//   accumulators: per thread, by shuffles within the quad that shares a
+//   slot, then over the two warpgroups in order; fm = 0 slots are written
+//   as exact zeros first.  No atomics.  What is left (PERF.md): the
+//   neighbour gathers of the epilogue, which read 4.6 KB of features a
+//   slot from L2, and the wgmma waits of each stage.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "cheb_tile.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
-constexpr int kRows = 4;  // sorted rows a sum-kernel block owns
+constexpr int kRows = 4;  // sorted rows a row 8 block owns
+static_assert(kThreads == kTcThreads, "one launch width for every kernel");
 constexpr int kLdA = kTileN + kPad;  // row stride of the staged attr tile
 
 // First irrep of attr column block w: I = 0, A = 1..3, S = 4..8.
 __device__ __forceinline__ int first_irrep(int w) { return w == 0 ? 0 : (w == 1 ? 1 : 4); }
 
 // Writes to sLive the offsets o in [0, len) with flag[s0 + o] ≠ 0, in slot
-// order; returns their count.  Every thread calls it.
+// order; returns their count.  Every thread calls it.  Each chunk's flag is
+// loaded before the previous chunk's barriers, so a block waits for about
+// one load, not one per chunk.
 template <typename FlagT>
 __device__ int compact(const FlagT* __restrict__ flag, long long s0, int len,
                        int* sLive, int* sCount) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int total = 0;
+  FlagT next = tid < len ? flag[s0 + tid] : FlagT(0);
   for (int b = 0; b < len; b += kThreads) {
-    const bool live = b + tid < len && flag[s0 + b + tid] != 0;
+    const bool live = b + tid < len && next != 0;
+    next = b + kThreads + tid < len ? flag[s0 + b + kThreads + tid] : FlagT(0);
     const unsigned lb = __ballot_sync(0xffffffffu, live);
     if (lane == 0) sCount[warp] = __popc(lb);
     __syncthreads();
@@ -95,41 +118,12 @@ __device__ int compact(const FlagT* __restrict__ flag, long long s0, int len,
   return total;
 }
 
-// CHEB = false: row 8 (attr [N, K, 3F] read; live = mask).
-// CHEB = true:  row 10 (attr from the series coeffs [T, 3F]; live = fm ≠ 0).
-template <bool CHEB>
-__global__ void __launch_bounds__(kThreads)
-blocked_sum_kernel(const long long* __restrict__ idx,
-                   const unsigned char* __restrict__ mask,
-                   const float* __restrict__ attr, const float* __restrict__ d,
-                   const float* __restrict__ fm,
-                   const float* __restrict__ coeffs,
-                   const float* __restrict__ feats, float* __restrict__ out,
-                   int N, int K, int F, int T, float lo, float hi) {
-  extern __shared__ __align__(16) float smem[];
-  const int C3 = 3 * F, C9 = 9 * F;
-  const int ldb = T + kPad;
-  float* sB = smem;                                 // [64][T + pad] cos(t·θ)
-  float* sW = sB + (CHEB ? kTileM * ldb : 0);       // [32][128] series tile
-  float* sA = sW + (CHEB ? kTileK * kTileN : 0);    // [64][128 + pad] attr
-  float* sAcc = sA + kTileM * kLdA;                 // [kRows][9F] outputs
-  float* sTheta = sAcc + kRows * C9;                // [64]
-  float* sFm = sTheta + kTileM;                     // [64]
-  int* sJ = reinterpret_cast<int*>(sFm + kTileM);   // [64] neighbor rows
-  int* sCount = sJ + kTileM;                        // [kWarps]
-  int* sStart = sCount + kWarps;                    // [kRows + 1]
-  int* sLive = sStart + kRows + 1;                  // [kRows·K]
-
+// sStart[r], r ≤ rows: the first compacted slot of the block's row r (slot
+// order).  Threads 0..rows write it; the caller syncs before reading.
+__device__ __forceinline__ void row_starts(const int* sLive, int nlive, int K,
+                                           int rows, int* sStart) {
   const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int r0 = blockIdx.x * kRows;
-  const int nr = min(kRows, N - r0);
-  const long long s0 = (long long)r0 * K;
-  for (int v = tid; v < kRows * C9; v += kThreads) sAcc[v] = 0.0f;
-  const int nlive = CHEB ? compact(fm, s0, nr * K, sLive, sCount)
-                         : compact(mask, s0, nr * K, sLive, sCount);
-  // sStart[r]: first compacted slot of the block's row r (slot order)
-  if (tid <= kRows) {
+  if (tid <= rows) {
     int a = 0, b = nlive;
     while (a < b) {
       const int m = (a + b) / 2;
@@ -137,49 +131,46 @@ blocked_sum_kernel(const long long* __restrict__ idx,
     }
     sStart[tid] = a;
   }
+}
+
+// Row 8: attr [N, K, 3F] read; live = mask.
+__global__ void __launch_bounds__(kThreads)
+blocked_sum_kernel(const long long* __restrict__ idx,
+                   const unsigned char* __restrict__ mask,
+                   const float* __restrict__ attr,
+                   const float* __restrict__ feats, float* __restrict__ out,
+                   int N, int K, int F) {
+  extern __shared__ __align__(16) float smem[];
+  const int C3 = 3 * F, C9 = 9 * F;
+  float* sA = smem;                                 // [64][128 + pad] attr
+  float* sAcc = sA + kTileM * kLdA;                 // [kRows][9F] outputs
+  int* sJ = reinterpret_cast<int*>(sAcc + kRows * C9);  // [64] neighbor rows
+  int* sCount = sJ + kTileM;                        // [kWarps]
+  int* sStart = sCount + kWarps;                    // [kRows + 1]
+  int* sLive = sStart + kRows + 1;                  // [kRows·K]
+
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * kRows;
+  const int nr = min(kRows, N - r0);
+  const long long s0 = (long long)r0 * K;
+  for (int v = tid; v < kRows * C9; v += kThreads) sAcc[v] = 0.0f;
+  const int nlive = compact(mask, s0, nr * K, sLive, sCount);
+  row_starts(sLive, nlive, K, kRows, sStart);
 
   for (int t0 = 0; t0 < nlive; t0 += kTileM) {
     const int nt = min(kTileM, nlive - t0);
     __syncthreads();  // the previous tile is consumed, sStart is written
-    if (tid < kTileM) {
-      float th = 0.0f, f = 0.0f;
-      int j = 0;
-      if (tid < nt) {
-        const long long e = s0 + sLive[t0 + tid];
-        j = (int)idx[e];
-        if (CHEB) {
-          th = cheb_theta(d[e], lo, hi);
-          f = fm[e];
-        }
-      }
-      sJ[tid] = j;
-      sTheta[tid] = th;
-      sFm[tid] = f;
-    }
+    if (tid < kTileM) sJ[tid] = tid < nt ? (int)idx[s0 + sLive[t0 + tid]] : 0;
     __syncthreads();
-    if (CHEB) fill_basis(sB, ldb, sTheta, T);
-
     for (int c0 = 0; c0 < C3; c0 += kTileN) {
-      if (CHEB) {
-        float acc[4][8];
-        tile_product(sB, ldb, coeffs, T, C3, c0, sW, acc);  // syncs first
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = ty * 4 + i;
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            sA[r * kLdA + tx + 16 * j] = acc[i][j] * sFm[r];
-        }
-      } else {
-        __syncthreads();  // the previous pass's sA is consumed
-        for (int v = tid; v < kTileM * (kTileN / 4); v += kThreads) {
-          const int s = v / (kTileN / 4), col = (v % (kTileN / 4)) * 4;
-          float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          if (s < nt && c0 + col < C3)
-            a = *reinterpret_cast<const float4*>(
-                attr + (s0 + sLive[t0 + s]) * C3 + c0 + col);
-          *reinterpret_cast<float4*>(sA + s * kLdA + col) = a;
-        }
+      __syncthreads();  // the previous pass's sA is consumed
+      for (int v = tid; v < kTileM * (kTileN / 4); v += kThreads) {
+        const int s = v / (kTileN / 4), col = (v % (kTileN / 4)) * 4;
+        float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (s < nt && c0 + col < C3)
+          a = *reinterpret_cast<const float4*>(
+              attr + (s0 + sLive[t0 + s]) * C3 + c0 + col);
+        *reinterpret_cast<float4*>(sA + s * kLdA + col) = a;
       }
       __syncthreads();
       // outputs (irrep i of the column's block, row r, column cl): a warp
@@ -238,113 +229,284 @@ blocked_dattr_kernel(const long long* __restrict__ idx,
   }
 }
 
-// Row 11: a block owns `span` slots of the flat [E] slot axis.
-__global__ void __launch_bounds__(kThreads)
-blocked_dd_kernel(const long long* __restrict__ idx,
-                  const float* __restrict__ d, const float* __restrict__ fm,
-                  const float* __restrict__ dser, const float* __restrict__ g9,
-                  const float* __restrict__ feats, float* __restrict__ out,
-                  long long E, int K, int F, int T, float lo, float hi,
-                  int span) {
+// Rows 10 and 11 share this block plan: kTcRows sorted rows, their live
+// slots (fm ≠ 0) compacted in slot order and walked in tiles of kTcM.
+constexpr int kTcRows = 4;  // sorted rows a row 10 / row 11 block owns
+
+// Row 10: attr = fm · basis · coeffs formed per tile and 128-column pass
+// on the tensor cores, then summed per row against the neighbour rows.
+__global__ void __launch_bounds__(kTcThreads, 3)
+blocked_sum_cheb_kernel(const long long* __restrict__ idx,
+                        const float* __restrict__ d, const float* __restrict__ fm,
+                        const float* __restrict__ image,
+                        const float* __restrict__ feats, float* __restrict__ out,
+                        int N, int K, int F, int T, float lo, float hi) {
   extern __shared__ __align__(16) float smem[];
   const int C3 = 3 * F, C9 = 9 * F;
-  const int ldb = T + kPad;
-  float* sB = smem;                                  // [64][T + pad]
-  float* sW = sB + kTileM * ldb;                     // [32][128]
-  float* sTheta = sW + kTileK * kTileN;              // [64]
-  float* sFm = sTheta + kTileM;                      // [64]
-  long long* sJ = reinterpret_cast<long long*>(sFm + kTileM);  // [64]
-  long long* sRow = sJ + kTileM;                     // [64]
-  int* sCount = reinterpret_cast<int*>(sRow + kTileM);  // [kWarps]
-  int* sLive = sCount + kWarps;                      // [span]
+  float* sW = smem + tc_region_offset(smem);  // the planes, then attr
+  float* sAcc = sW + kTcRegion;               // [kTcRows][9F] outputs
+  float* sTheta = sAcc + kTcRows * C9;        // [64]
+  float* sFm = sTheta + kTcM;                 // [64]
+  int* sJ = reinterpret_cast<int*>(sFm + kTcM);  // [64] neighbor rows
+  int* sCount = sJ + kTcM;                    // [8]
+  int* sStart = sCount + 8;                   // [kTcRows + 1], padded to 8
+  int* sLive = sStart + 8;                    // [kTcRows·K]
 
   const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const long long s0 = (long long)blockIdx.x * span;
-  const int len = (int)min((long long)span, E - s0);
-  for (int o = tid; o < len; o += kThreads)  // slots with fm = 0: exact zeros
-    if (fm[s0 + o] == 0.0f) out[s0 + o] = 0.0f;
-  const int nlive = compact(fm, s0, len, sLive, sCount);
+  const int r0 = blockIdx.x * kTcRows;
+  const int nr = min(kTcRows, N - r0);
+  const long long s0 = (long long)r0 * K;
+  for (int v = tid; v < kTcRows * C9; v += kTcThreads) sAcc[v] = 0.0f;
+  const int nlive = compact(fm, s0, nr * K, sLive, sCount);
+  row_starts(sLive, nlive, K, kTcRows, sStart);
 
-  for (int t0 = 0; t0 < nlive; t0 += kTileM) {
-    __syncthreads();  // the previous tile's θ, rows and basis are consumed
-    if (tid < kTileM) {
-      float th = 0.0f, f = 0.0f;
-      long long j = 0, row = 0;
-      if (t0 + tid < nlive) {
-        const long long e = s0 + sLive[t0 + tid];
-        th = cheb_theta(d[e], lo, hi);
-        f = fm[e];
-        j = idx[e];
-        row = e / K;
+  __syncthreads();  // sLive and sStart are written
+  // thread t < 64 reads slot t of a tile one tile ahead of its use
+  float pd = 0.0f, pf = 0.0f;
+  int pj = 0;
+  if (tid < min(kTcM, nlive)) {
+    const long long e = s0 + sLive[tid];
+    pj = (int)idx[e];
+    pd = d[e];
+    pf = fm[e];
+  }
+  for (int t0 = 0; t0 < nlive; t0 += kTcM) {
+    const int nt = min(kTcM, nlive - t0);
+    __syncthreads();  // the previous tile is consumed
+    if (tid < kTcM) {
+      sJ[tid] = tid < nt ? pj : 0;
+      sTheta[tid] = tid < nt ? cheb_theta(pd, lo, hi) : 0.0f;
+      sFm[tid] = tid < nt ? pf : 0.0f;
+      if (t0 + kTcM + tid < nlive) {
+        const long long e = s0 + sLive[t0 + kTcM + tid];
+        pj = (int)idx[e];
+        pd = d[e];
+        pf = fm[e];
       }
-      sTheta[tid] = th;
-      sFm[tid] = f;
-      sJ[tid] = j * C9;
-      sRow[tid] = row * C9;
     }
     __syncthreads();
-    fill_basis(sB, ldb, sTheta, T);
+    for (int c0 = 0; c0 < C3; c0 += kTcN) {
+      float acc[8][4];
+      tc_product(sTheta, image, T, c0 / kTcN, sW, acc);  // syncs first, last
+      // attr tile [64][kTcLdW] over the free planes: fm · acc
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = tc_row(h);
+        if (r >= nt) continue;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          *reinterpret_cast<float2*>(sW + r * kTcLdW + tc_col(i)) =
+              make_float2(acc[i][2 * h] * sFm[r], acc[i][2 * h + 1] * sFm[r]);
+      }
+      __syncthreads();
+      // outputs (irrep i of the column's block, row r, 4 columns q): a warp
+      // shares (i, r) and walks 128 neighbouring channels; each thread adds
+      // its row's slots in slot order, eight neighbour loads in flight
+      for (int v = tid; v < 5 * kTcRows * (kTcN / 4); v += kTcThreads) {
+        const int q = v % (kTcN / 4), r = (v / (kTcN / 4)) % kTcRows,
+                  i = v / (kTcN / 4 * kTcRows);
+        const int col = c0 + 4 * q;
+        if (col >= C3 || r >= nr) continue;
+        const int w = col / F, c = col - w * F;
+        if (i > 2 * w) continue;
+        const int a = max(sStart[r], t0) - t0;
+        const int b = min(sStart[r + 1], t0 + nt) - t0;
+        if (a >= b) continue;
+        const int dcol = (first_irrep(w) + i) * F + c;
+        const float* x = feats + dcol;
+        const float* at = sW + 4 * q;
+        float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        int s = a;
+        for (; s + 8 <= b; s += 8) {
+          float4 xs[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            xs[u] = __ldg(reinterpret_cast<const float4*>(x + (long long)sJ[s + u] * C9));
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const float4 y = *reinterpret_cast<const float4*>(at + (s + u) * kTcLdW);
+            o.x = fmaf(y.x, xs[u].x, o.x);
+            o.y = fmaf(y.y, xs[u].y, o.y);
+            o.z = fmaf(y.z, xs[u].z, o.z);
+            o.w = fmaf(y.w, xs[u].w, o.w);
+          }
+        }
+        for (; s < b; ++s) {
+          const float4 xs = __ldg(reinterpret_cast<const float4*>(x + (long long)sJ[s] * C9));
+          const float4 y = *reinterpret_cast<const float4*>(at + s * kTcLdW);
+          o.x = fmaf(y.x, xs.x, o.x);
+          o.y = fmaf(y.y, xs.y, o.y);
+          o.z = fmaf(y.z, xs.z, o.z);
+          o.w = fmaf(y.w, xs.w, o.w);
+        }
+        float4* acc4 = reinterpret_cast<float4*>(sAcc + r * C9 + dcol);
+        float4 p = *acc4;
+        p.x += o.x; p.y += o.y; p.z += o.z; p.w += o.w;
+        *acc4 = p;
+      }
+    }
+  }
+  __syncthreads();
+  for (int v = tid; v < nr * C9 / 4; v += kTcThreads)
+    reinterpret_cast<float4*>(out + (long long)r0 * C9)[v] =
+        reinterpret_cast<const float4*>(sAcc)[v];
+}
 
-    float acc[4][8];
-    float dot[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int c0 = 0; c0 < C3; c0 += kTileN) {
-      tile_product(sB, ldb, dser, T, C3, c0, sW, acc);  // syncs first
+// Row 11: per tile and pass, B·dser on the tensor cores, the cotangent
+// tile ct[slot, col] = Σ_{d∈w(col)} g9[row, d]·feats9[j, d] formed in the
+// free stages from the block's staged g9 rows, and Σ_col ct ⊙ (B·dser)
+// folded from the accumulators: per thread, then over its quad by
+// shuffles, then over the 4 column warps in order.
+__global__ void __launch_bounds__(kTcThreads, 3)
+blocked_dd_cheb_kernel(const long long* __restrict__ idx,
+                       const float* __restrict__ d, const float* __restrict__ fm,
+                       const float* __restrict__ image, const float* __restrict__ g9,
+                       const float* __restrict__ feats, float* __restrict__ out,
+                       int N, int K, int F, int T, float lo, float hi) {
+  extern __shared__ __align__(16) float smem[];
+  const int C3 = 3 * F, C9 = 9 * F;
+  float* sW = smem + tc_region_offset(smem);  // the planes, then ct
+  float* sG = sW + kTcRegion;                 // [kTcRows][9F] the rows' g9
+  float* sRed = sG + kTcRows * C9;            // [2][64] per warpgroup
+  float* sTheta = sRed + 2 * kTcM;            // [64]
+  float* sFm = sTheta + kTcM;                 // [64]
+  int* sJ = reinterpret_cast<int*>(sFm + kTcM);  // [64] neighbor rows
+  int* sR = sJ + kTcM;                        // [64] the block's row of a slot
+  int* sCount = sR + kTcM;                    // [8]
+  int* sLive = sCount + 8;                    // [kTcRows·K]
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int r0 = blockIdx.x * kTcRows;
+  const int nr = min(kTcRows, N - r0);
+  const long long s0 = (long long)r0 * K;
+  for (int o = tid; o < nr * K; o += kTcThreads)  // fm = 0: exact zeros
+    if (fm[s0 + o] == 0.0f) out[s0 + o] = 0.0f;
+  for (int v = tid; v < nr * C9 / 4; v += kTcThreads)
+    reinterpret_cast<float4*>(sG)[v] =
+        reinterpret_cast<const float4*>(g9 + (long long)r0 * C9)[v];
+  const int nlive = compact(fm, s0, nr * K, sLive, sCount);
+
+  __syncthreads();  // sLive is written
+  // thread t < 64 reads slot t of a tile one tile ahead of its use
+  float pd = 0.0f, pf = 0.0f;
+  int pj = 0, po = 0;
+  if (tid < min(kTcM, nlive)) {
+    po = sLive[tid];
+    pj = (int)idx[s0 + po];
+    pd = d[s0 + po];
+    pf = fm[s0 + po];
+  }
+  for (int t0 = 0; t0 < nlive; t0 += kTcM) {
+    const int nt = min(kTcM, nlive - t0);
+    __syncthreads();  // the previous tile's θ, rows and sRed are consumed
+    if (tid < kTcM) {
+      sJ[tid] = tid < nt ? pj : 0;
+      sR[tid] = tid < nt ? po / K : 0;
+      sTheta[tid] = tid < nt ? cheb_theta(pd, lo, hi) : 0.0f;
+      sFm[tid] = tid < nt ? pf : 0.0f;
+      if (t0 + kTcM + tid < nlive) {
+        po = sLive[t0 + kTcM + tid];
+        pj = (int)idx[s0 + po];
+        pd = d[s0 + po];
+        pf = fm[s0 + po];
+      }
+    }
+    __syncthreads();
+    float part[2] = {0.0f, 0.0f};
+    for (int c0 = 0; c0 < C3; c0 += kTcN) {
+      float acc[8][4];
+      tc_product(sTheta, image, T, c0 / kTcN, sW, acc);  // syncs first, last
+      // ct tile [64][kTcLdW] over the free planes, 4 columns a thread
+      for (int v = tid; v < kTcM * (kTcN / 4); v += kTcThreads) {
+        const int s = v / (kTcN / 4), q = v % (kTcN / 4);
+        const int col = c0 + 4 * q;
+        if (s >= nt || col >= C3) continue;
+        const int w = col / F, c = col - w * F;
+        const int d0 = first_irrep(w);
+        const float* x = feats + (long long)sJ[s] * C9 + d0 * F + c;
+        const float* gg = sG + sR[s] * C9 + d0 * F + c;
+        // the 1, 3 or 5 neighbour loads of the column's irreps issued together
+        float4 xs[5];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        if (t0 + r >= nlive) continue;
-        const float* g = g9 + sRow[r];
-        const float* x = feats + sJ[r];
+        for (int u = 0; u < 5; ++u)
+          if (u <= 2 * w) xs[u] = __ldg(reinterpret_cast<const float4*>(x + u * F));
+        float4 ct = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = c0 + tx + 16 * j;
-          if (col >= C3) continue;
-          const int w = col / F, c = col - w * F;
-          float ct = 0.0f;  // dattr[slot, col], the row 9 fold
-          for (int dd = first_irrep(w); dd <= first_irrep(w) + 2 * w; ++dd)
-            ct = fmaf(g[dd * F + c], x[dd * F + c], ct);
-          dot[i] = fmaf(acc[i][j], ct, dot[i]);
+        for (int u = 0; u < 5; ++u) {
+          if (u > 2 * w) break;
+          const float4 a = *reinterpret_cast<const float4*>(gg + u * F);
+          ct.x = fmaf(a.x, xs[u].x, ct.x);
+          ct.y = fmaf(a.y, xs[u].y, ct.y);
+          ct.z = fmaf(a.z, xs[u].z, ct.z);
+          ct.w = fmaf(a.w, xs[u].w, ct.w);
+        }
+        *reinterpret_cast<float4*>(sW + s * kTcLdW + 4 * q) = ct;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = tc_row(h);
+        if (r >= nt) continue;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (c0 + tc_col(i) >= C3) continue;  // C3 is a multiple of 4
+          const float2 ct = *reinterpret_cast<const float2*>(sW + r * kTcLdW + tc_col(i));
+          part[h] = fmaf(acc[i][2 * h], ct.x, part[h]);
+          part[h] = fmaf(acc[i][2 * h + 1], ct.y, part[h]);
         }
       }
     }
-    // a slot's 16 column threads share a half warp: butterfly sum
+    // the quad (lanes 4g..4g+3) shares a slot: butterfly, then one lane a
+    // slot writes its warpgroup's sum
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float v = dot[i];
-#pragma unroll
-      for (int m = 8; m >= 1; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-      const int r = ty * 4 + i;
-      if (tx == 0 && t0 + r < nlive) out[s0 + sLive[t0 + r]] = v * sFm[r];
+    for (int h = 0; h < 2; ++h) {
+      float v = part[h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if ((lane & 3) == 0) sRed[(tid >> 7) * kTcM + tc_row(h)] = v;
     }
+    __syncthreads();
+    if (tid < nt) out[s0 + sLive[t0 + tid]] = (sRed[tid] + sRed[kTcM + tid]) * sFm[tid];
   }
 }
 
-// Dynamic shared memory of a launch (ops/blocked_mp.py checks the same sums).
-size_t sum_smem(bool cheb, int k, int f, int t) {
-  return sizeof(float) * ((cheb ? (size_t)kTileM * (t + kPad) + kTileK * kTileN : 0) +
-                          (size_t)kTileM * kLdA + (size_t)kRows * 9 * f + 2 * kTileM) +
+// Dynamic shared memory of a launch (ops/blocked_mp.py keeps the same sums).
+size_t sum_smem(int k, int f) {
+  return sizeof(float) * ((size_t)kTileM * kLdA + (size_t)kRows * 9 * f) +
          sizeof(int) * ((size_t)kTileM + kWarps + kRows + 1 + (size_t)kRows * k);
 }
 
-size_t dd_smem(int t, int span) {
-  return sizeof(float) * ((size_t)kTileM * (t + kPad) + kTileK * kTileN + 2 * kTileM) +
-         sizeof(long long) * 2 * kTileM + sizeof(int) * ((size_t)kWarps + span);
+// (rows 10 and 11: 1 KB for aligning the region to 1024 bytes; their basis
+// lives in registers)
+size_t sum_cheb_smem(int k, int f) {
+  return 1024 + sizeof(float) * (kTcRegion +
+                                 (size_t)kTcRows * 9 * f + 2 * kTcM) +
+         sizeof(int) * ((size_t)kTcM + 16 + (size_t)kTcRows * k);
 }
 
-template <bool CHEB>
-int launch_sum(const long long* idx, const unsigned char* mask, const float* attr,
-               const float* d, const float* fm, const float* coeffs,
-               const float* feats, float* out, int n, int k, int f, int t,
-               float lo, float hi, void* stream) {
-  const size_t smem = sum_smem(CHEB, k, f, t);
+size_t dd_cheb_smem(int k, int f) {
+  return 1024 + sizeof(float) * (kTcRegion +
+                                 (size_t)kTcRows * 9 * f + 4 * kTcM) +
+         sizeof(int) * (2 * (size_t)kTcM + 8 + (size_t)kTcRows * k);
+}
+
+template <typename Kern, typename... Args>
+int launch_rows(Kern kernel, int rows, int n, size_t smem, void* stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
-      blocked_sum_kernel<CHEB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (n + kRows - 1) / kRows;
+  const int blocks = (n + rows - 1) / rows;
   if (blocks == 0) return cudaSuccess;
-  blocked_sum_kernel<CHEB><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      idx, mask, attr, d, fm, coeffs, feats, out, n, k, f, t, lo, hi);
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return cudaGetLastError();
+}
+
+// Rows 10 and 11 split their series into image first (tc_split_kernel).
+int split_series(const float* series, int t, int c3, float* image, void* stream) {
+  const int total = tc_image_floats(t, c3) / 2;
+  if (total == 0) return cudaSuccess;
+  tc_split_kernel<<<(total + kTcThreads - 1) / kTcThreads, kTcThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(series, t, c3, image);
   return cudaGetLastError();
 }
 
@@ -361,17 +523,20 @@ const char* tmd_error_string(int code) {
 int tmd_blocked_sum(const long long* idx, const unsigned char* mask,
                     const float* attr, const float* feats, float* out, int n,
                     int k, int f, void* stream) {
-  return launch_sum<false>(idx, mask, attr, nullptr, nullptr, nullptr, feats,
-                           out, n, k, f, 0, 0.0f, 1.0f, stream);
+  return launch_rows(blocked_sum_kernel, kRows, n, sum_smem(k, f), stream, idx,
+                     mask, attr, feats, out, n, k, f);
 }
 
-// Row 10.  idx [n, k] int64; d, fm [n, k]; coeffs [t, 3f]; feats, out [n, 9f].
+// Row 10.  idx [n, k] int64; d, fm [n, k]; coeffs [t, 3f]; feats, out [n, 9f];
+// image [tc_image_floats(t, 3f)] scratch.
 int tmd_blocked_sum_cheb(const long long* idx, const float* d, const float* fm,
                          const float* coeffs, const float* feats, float* out,
-                         int n, int k, int f, int t, float lo, float hi,
-                         void* stream) {
-  return launch_sum<true>(idx, nullptr, nullptr, d, fm, coeffs, feats, out, n,
-                          k, f, t, lo, hi, stream);
+                         float* image, int n, int k, int f, int t, float lo,
+                         float hi, void* stream) {
+  const int err = split_series(coeffs, t, 3 * f, image, stream);
+  if (err != cudaSuccess) return err;
+  return launch_rows(blocked_sum_cheb_kernel, kTcRows, n, sum_cheb_smem(k, f),
+                     stream, idx, d, fm, image, feats, out, n, k, f, t, lo, hi);
 }
 
 // Row 9.  idx, mask [n, k]; g9, feats [n, 9f]; out [n, k, 3f].
@@ -388,21 +553,42 @@ int tmd_blocked_dattr(const long long* idx, const unsigned char* mask,
 }
 
 // Row 11.  idx [n, k] int64; d, fm [n, k]; dser [t, 3f]; g9, feats [n, 9f];
-// out [n, k].  span a multiple of 256.
+// out [n, k]; image [tc_image_floats(t, 3f)] scratch.
 int tmd_blocked_dd_cheb(const long long* idx, const float* d, const float* fm,
                         const float* dser, const float* g9, const float* feats,
-                        float* out, int n, int k, int f, int t, float lo,
-                        float hi, int span, void* stream) {
-  const size_t smem = dd_smem(t, span);
-  cudaError_t err = cudaFuncSetAttribute(
-      blocked_dd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                        float* out, float* image, int n, int k, int f, int t,
+                        float lo, float hi, void* stream) {
+  const int err = split_series(dser, t, 3 * f, image, stream);
   if (err != cudaSuccess) return err;
-  const long long e = (long long)n * k;
-  const long long blocks = (e + span - 1) / span;
-  if (blocks == 0) return cudaSuccess;
-  blocked_dd_kernel<<<(unsigned)blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      idx, d, fm, dser, g9, feats, out, e, k, f, t, lo, hi, span);
-  return cudaGetLastError();
+  return launch_rows(blocked_dd_cheb_kernel, kTcRows, n, dd_cheb_smem(k, f),
+                     stream, idx, d, fm, image, g9, feats, out, n, k, f, t, lo, hi);
+}
+
+// Floats of the image scratch rows 10 and 11 take at (t, c3 = 3f).
+int tmd_tc_image_floats(int t, int c3) { return tc_image_floats(t, c3); }
+
+// What the compiler and the launch give rows 10 (which = 10) and 11 (11)
+// at (k, f, t): out = registers a thread, local (spill) bytes a thread,
+// static and dynamic shared memory bytes a block, resident blocks an SM.
+int tmd_blocked_mp_attributes(int which, int k, int f, int t, int* out) {
+  const void* kern = which == 10 ? (const void*)blocked_sum_cheb_kernel
+                                 : (const void*)blocked_dd_cheb_kernel;
+  const size_t smem = which == 10 ? sum_cheb_smem(k, f) : dd_cheb_smem(k, f);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kTcThreads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)attr.sharedSizeBytes;
+  out[3] = (int)smem;
+  out[4] = blocks;
+  return cudaSuccess;
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
-// The Chebyshev basis and the SIMT tile product shared by the kernels of
-// csrc/cheb_filter.cu (Pallas rows 5 and 7) and csrc/blocked_mp.cu (rows 10
-// and 11): fp32 FMA throughout, no TF32.
+// The Chebyshev basis and the SIMT tile product of csrc/cheb_filter.cu
+// (Pallas rows 5 and 7): fp32 FMA throughout, no TF32.  csrc/blocked_mp.cu
+// takes its tile constants (row 8) and cheb_theta (rows 10 and 11, whose
+// product is csrc/tc_tile.cuh's).
 
 #pragma once
 

@@ -1,0 +1,262 @@
+// The tensor-core tile product of csrc/blocked_mp.cu (Pallas rows 10 and
+// 11): the cos basis B(θ)[64 x kdim], B[r][k] = cos(k·θ_r), times a
+// [kdim x ncols] row-major series, one 128-column block (pass) at a time,
+// on Hopper's warpgroup MMA (wgmma) in TF32 with the 3xTF32 split.  Each
+// factor x is cut into hi = tf32(x) and lo = tf32(x − hi), and acc +=
+// a_lo·b_hi + a_hi·b_lo + a_hi·b_hi in fp32 (the lo·lo term is below
+// fp32's last bit), so the product keeps the port's float32 contract
+// (~1e-6 relative); single-pass TF32 (~1e-3) would not.
+//
+// The series is split once per launch (tc_split_kernel) into an image of
+// shared-memory stages: per pass and per kTcK = 16 series rows, a hi and a
+// lo plane, K-major with the 64-byte swizzle that wgmma reads (one 64-byte
+// row a column).  A block streams a pass's stages through a ring of three
+// with cp.async, two ahead of the one being multiplied, so the product
+// needs no registers, conversions or shared stores for the series.  The
+// basis goes to wgmma from registers: each thread computes and splits the
+// cosines of its fragment (two rows, four k a stage) from the rows' θ, so
+// the basis takes no shared memory and no pass over it.  Block:
+// kTcThreads = 256 threads, two warpgroups; warpgroup q owns the columns
+// [64q, 64q + 64) for all 64 rows (wgmma m64n64k8, 32 fp32 accumulators a
+// thread) and issues 6 wgmma a stage (2 k-steps x 3 terms), then waits
+// for them: one fragment set, ~80 registers, so three blocks share an SM
+// and hide each other's waits.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTcM = 64;          // operand rows (live slots) per tile
+constexpr int kTcN = 128;         // output columns per pass
+constexpr int kTcK = 16;          // series rows per stage: one 64-byte row
+constexpr int kTcThreads = 256;   // two warpgroups
+constexpr int kTcPlane = kTcN * kTcK;     // floats of one K-major plane
+constexpr int kTcStage = 2 * kTcPlane;    // floats of a stage: hi, lo
+constexpr int kTcStages = 3;              // the ring
+constexpr int kTcLdW = kTcN + 8;  // row stride of the caller's epilogue tile
+// floats of the shared region that holds the ring during the product and
+// the caller's [64][kTcLdW] tile after it
+constexpr int kTcRegion = kTcStages * kTcStage;
+static_assert(kTcRegion >= kTcM * kTcLdW, "the epilogue tile fits the region");
+
+// Floats of the split image of a [kdim x ncols] series.
+__host__ __device__ __forceinline__ int tc_image_floats(int kdim, int ncols) {
+  return (ncols + kTcN - 1) / kTcN * ((kdim + kTcK - 1) / kTcK) * kTcStage;
+}
+
+// The region's offset in floats from the dynamic shared memory's start:
+// the planes' swizzle needs an aligned base (the launch adds 1 KB for it).
+__device__ __forceinline__ int tc_region_offset(const float* smem) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(smem);
+  return (int)(((1024u - (a & 1023u)) & 1023u) / 4u);
+}
+
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, each a TF32 value in an fp32 register.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_bits(x);
+  lo = tf32_bits(x - __uint_as_float(hi));
+}
+
+// Shared-memory matrix descriptor of a K-major plane with the 64-byte
+// swizzle: start address >> 4, leading offset 1 (unused for this layout),
+// stride 512 bytes between 8-column groups, layout type 2 (64B swizzle).
+__device__ __forceinline__ uint64_t tc_desc(const float* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  return (uint64_t)((a >> 4) & 0x3FFFu) | (1ull << 16) | (32ull << 32) | (2ull << 62);
+}
+
+// d[64 x 64] += a[64 x 8] (registers, this warp's 16 rows) · b[8 x 64].
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8][4], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from moving, reusing or reading a register that an
+// issued wgmma still reads or writes: each call site follows a wait.
+__device__ __forceinline__ void tc_hold(float (&d)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+__device__ __forceinline__ void tc_hold(uint32_t (&a)[2][2][4]) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[s][h][e])::"memory");
+}
+
+// Fragment coordinates of this thread's accumulators: acc[i][2h + e] is
+// output (tc_row(h), tc_col(i) + e).
+__device__ __forceinline__ int tc_row(int h) {
+  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) + 8 * h;
+}
+__device__ __forceinline__ int tc_col(int i) {
+  return (threadIdx.x >> 7) * 64 + i * 8 + 2 * (threadIdx.x & 3);
+}
+
+// The split image: stage (pass p, rows [16s, 16s + 16)) at floats
+// (p·nstages + s)·kTcStage, its hi plane then its lo plane; element (n, k)
+// of a plane at byte n·64 + 4k with the 16-byte chunk index (bits 4-5)
+// XORed with bits 7-8 of that offset (the 64-byte swizzle).  Rows past
+// kdim and columns past ncols are zeros.
+__global__ void __launch_bounds__(kTcThreads)
+tc_split_kernel(const float* __restrict__ W, int kdim, int ncols,
+                float* __restrict__ image) {
+  const int nstages = (kdim + kTcK - 1) / kTcK;
+  const int total = (ncols + kTcN - 1) / kTcN * nstages * kTcPlane;
+  for (int v = blockIdx.x * kTcThreads + threadIdx.x; v < total;
+       v += gridDim.x * kTcThreads) {
+    const int stage = v / kTcPlane, e = v - stage * kTcPlane;
+    const int p = stage / nstages, s = stage - p * nstages;
+    const int n = e / kTcK, k = e - n * kTcK;
+    const int row = s * kTcK + k, col = p * kTcN + n;
+    const float x = row < kdim && col < ncols ? W[(long long)row * ncols + col] : 0.0f;
+    uint32_t hi, lo;
+    tf32_split(x, hi, lo);
+    int o = n * 64 + 4 * k;
+    o ^= ((o >> 7) & 3) << 4;
+    float* dst = image + (long long)stage * kTcStage + o / 4;
+    dst[0] = __uint_as_float(hi);
+    dst[kTcPlane] = __uint_as_float(lo);
+  }
+}
+
+// Copies one stage (kTcStage floats, contiguous) of the image into sR.
+__device__ __forceinline__ void tc_copy(const float* __restrict__ src, float* dst) {
+#pragma unroll
+  for (int q = 0; q < kTcStage / 4 / kTcThreads; ++q) {
+    const int v = 4 * (threadIdx.x + kTcThreads * q);
+    cp_async16(dst + v, src + v);
+  }
+}
+
+// cos(x) for x = j·θ ∈ [0, (T − 1)π], the fp32 product the plain version
+// takes the cosine of: x less k·2π in two fp32 parts (Cody-Waite; the fma
+// keeps each step to one rounding, |y| ≤ π + 1e-6), then __cosf, whose
+// error on [−π, π] is at most 2^-21.41 absolute.  Without the reduction
+// __cosf would be wrong for large x.
+__device__ __forceinline__ float tc_cos(float x) {
+  const float k = rintf(x * 0.159154943f);
+  float y = fmaf(-k, 6.28318548f, x);
+  y = fmaf(-k, -1.74845553e-7f, y);
+  return __cosf(y);
+}
+
+// One stage kt of tc_product: the copy of stage kt + 2 into the buffer
+// stage kt − 1 read, the fragments cos(k·θ) of this thread's rows into a,
+// the stage's 6 wgmma and their wait.
+__device__ __forceinline__ void tc_step(float th0, float th1, int kdim,
+                                        const float* __restrict__ src, int nk,
+                                        int kt, float* sR, float (&acc)[8][4],
+                                        uint32_t (&a)[2][2][4]) {
+  const int t = threadIdx.x & 3;
+  cp_async_wait<1>();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  // Stage kt has landed for every thread's copies, and every thread has
+  // waited for its stage kt − 1 products: that stage's buffer takes kt + 2.
+  __syncthreads();
+  if (kt + 2 < nk)
+    tc_copy(src + (kt + 2) * kTcStage, sR + ((kt + 2) % kTcStages) * kTcStage);
+  cp_async_commit();
+  const float* buf = sR + (kt % kTcStages) * kTcStage + (threadIdx.x >> 7) * 64 * kTcK;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int k = kt * kTcK + 8 * s + t;
+    tf32_split(k < kdim ? tc_cos((float)k * th0) : 0.0f, a[s][0][0], a[s][1][0]);
+    tf32_split(k < kdim ? tc_cos((float)k * th1) : 0.0f, a[s][0][1], a[s][1][1]);
+    tf32_split(k + 4 < kdim ? tc_cos((float)(k + 4) * th0) : 0.0f, a[s][0][2], a[s][1][2]);
+    tf32_split(k + 4 < kdim ? tc_cos((float)(k + 4) * th1) : 0.0f, a[s][0][3], a[s][1][3]);
+  }
+  const uint64_t dHi = tc_desc(buf), dLo = tc_desc(buf + kTcPlane);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {  // + 32 bytes of K a step
+    wgmma_tf32(acc, a[s][1], dHi + 2 * s);
+    wgmma_tf32(acc, a[s][0], dLo + 2 * s);
+    wgmma_tf32(acc, a[s][0], dHi + 2 * s);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  tc_hold(acc);
+  tc_hold(a);
+}
+
+// acc = B(θ)[0:64, 0:kdim] · W[0:kdim, 128p : 128p + 128] from the split
+// image of W; sTheta holds the 64 rows' θ, sR is the region of kTcRegion
+// floats, 1024-byte aligned.  Every thread calls it; it synchronises first
+// (sR may still be read by the caller, sTheta is written) and last (sR is
+// free on return).
+__device__ __forceinline__ void tc_product(const float* __restrict__ sTheta,
+                                           const float* __restrict__ image, int kdim,
+                                           int p, float* sR, float (&acc)[8][4]) {
+  const int nk = (kdim + kTcK - 1) / kTcK;
+  const float* src = image + (long long)p * nk * kTcStage;
+  const int row = ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+  uint32_t a[2][2][4];
+  __syncthreads();  // the caller no longer reads sR; sTheta is written
+  const float th0 = sTheta[row], th1 = sTheta[row + 8];
+  tc_copy(src, sR);
+  cp_async_commit();
+  if (nk > 1) tc_copy(src + kTcStage, sR + kTcStage);
+  cp_async_commit();
+  for (int kt = 0; kt < nk; ++kt) tc_step(th0, th1, kdim, src, nk, kt, sR, acc, a);
+  __syncthreads();
+}
+
+}  // namespace

@@ -41,8 +41,15 @@ that rounding.
 
 On CUDA tensors each op launches its kernel (``csrc/blocked_mp.cu``) or
 raises; on CPU tensors it runs the plain version beside it, a row-chunked
-gather chain.
+gather chain.  Every kernel but row 9's gives a block 4 sorted rows
+and compacts their live slots; rows 10 and 11 form
+the series product on the tensor cores in 3xTF32 (``csrc/tc_tile.cuh``,
+float32-accurate; rows 8 and 9 are fp32 FMA), from a split copy of the
+series in a scratch the wrapper allocates (:func:`tc_image_floats`).
+:func:`launch_plan` holds the shared-memory sums the launches use.
 """
+
+import ctypes
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -58,31 +65,79 @@ SOURCE = CudaSource("blocked_mp.cu")
 SUM = Kernel(SOURCE, "tmd_blocked_sum", [P] * 5 + [I32] * 3)
 DATTR = Kernel(SOURCE, "tmd_blocked_dattr", [P] * 5 + [I32] * 3)
 SUM_CHEB = Kernel(SOURCE, "tmd_blocked_sum_cheb",
-                  [P] * 6 + [I32] * 4 + [F32] * 2)
+                  [P] * 7 + [I32] * 4 + [F32] * 2)
 DD_CHEB = Kernel(SOURCE, "tmd_blocked_dd_cheb",
-                 [P] * 7 + [I32] * 4 + [F32] * 2 + [I32])
+                 [P] * 8 + [I32] * 4 + [F32] * 2)
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
-_ROWS = 4             # sorted rows a sum-kernel block owns (kRows)
-_SPAN_BLOCKS = 4 * 132  # dd-kernel blocks wanted in flight: 4 per SM
+_ROWS = 4             # sorted rows a block owns, every row (kRows, kTcRows)
+# floats of rows 10-11's shared region: a ring of three series stages (hi
+# and lo planes of 128 x 16), the epilogue tile after the product
+_TC_REGION = 3 * 2 * 128 * 16
 
 
-def sum_smem(cheb: bool, k: int, f: int, t: int) -> int:
-    """Dynamic shared memory of a row 8 / row 10 launch, as ``sum_kernel``
-    lays it out."""
-    floats = 64 * 132 + _ROWS * 9 * f + 2 * 64
-    if cheb:
-        floats += 64 * (t + 4) + 32 * 128
-    return 4 * floats + 4 * (64 + 8 + _ROWS + 1 + _ROWS * k)
+def tc_image_floats(t: int, c3: int) -> int:
+    """Floats of the split series image rows 10 and 11 stream from: per
+    128-column pass and 16 series rows, a hi and a lo plane of 128 x 16."""
+    return -(-c3 // 128) * -(-t // 16) * 2 * 128 * 16
 
 
-def dd_span(e: int) -> int:
-    """Slots a row 11 block owns: a multiple of 256, up to 2,048, small
-    enough that ``_SPAN_BLOCKS`` blocks cover ``e`` slots."""
-    return 256 * max(1, min(8, e // (_SPAN_BLOCKS * 256)))
+def sum_smem(k: int, f: int) -> int:
+    """Dynamic shared memory of a row 8 launch: the [64, 132] attr tile,
+    the rows' accumulator, neighbor rows, warp counts, row starts and the
+    compacted slots."""
+    return 4 * (64 * 132 + _ROWS * 9 * f) + 4 * (64 + 8 + _ROWS + 1
+                                                 + _ROWS * k)
 
 
-def dd_smem(t: int, span: int) -> int:
-    return 4 * (64 * (t + 4) + 32 * 128 + 2 * 64) + 8 * 2 * 64 + 4 * (8 + span)
+def sum_cheb_smem(k: int, f: int) -> int:
+    """Row 10: 1 KB to align the region, the region (the series ring,
+    then the attr tile), the rows' accumulator, θ and fm, then neighbor
+    rows, warp counts, row starts (padded to 8) and the compacted slots
+    (the basis lives in registers)."""
+    return 1024 + 4 * (_TC_REGION + _ROWS * 9 * f + 2 * 64) \
+        + 4 * (64 + 16 + _ROWS * k)
+
+
+def dd_cheb_smem(k: int, f: int) -> int:
+    """Row 11: 1 KB to align the region, the region (the series ring,
+    then the ct tile), the rows' g9, the [2, 64] warpgroup sums, θ and
+    fm, then neighbor rows, slot rows, warp counts and the compacted
+    slots."""
+    return 1024 + 4 * (_TC_REGION + _ROWS * 9 * f + 4 * 64) \
+        + 4 * (2 * 64 + 8 + _ROWS * k)
+
+
+def launch_plan(n: int, k: int, f: int, t: int) -> dict:
+    """Blocks and dynamic shared memory of rows 8, 10 and 11 at ``n``
+    sorted rows of ``k`` slots, ``F = f``, ``T = t``; block ``b`` owns
+    the sorted rows ``[4b, 4b + 4)`` that exist."""
+    blocks = -(-n // _ROWS)
+    return {"blocked_mp_sum": (blocks, sum_smem(k, f)),
+            "blocked_mp_sum_cheb": (blocks, sum_cheb_smem(k, f)),
+            "blocked_mp_dd_cheb": (blocks, dd_cheb_smem(k, f))}
+
+
+def kernel_attributes(k: int, f: int, t: int) -> dict:
+    """What the compiler and the launch give rows 10 and 11 at ``(k, f,
+    t)``: registers and local (spill) bytes a thread, static and dynamic
+    shared memory a block, resident blocks an SM, and the floats of their
+    split-series scratch.  Builds the library; launches nothing."""
+    out = (ctypes.c_int * 5)()
+    lib = SOURCE.library()
+    fn = lib.tmd_blocked_mp_attributes
+    fn.argtypes = [I32] * 4 + [P]
+    fn.restype = I32
+    lib.tmd_tc_image_floats.argtypes = [I32, I32]
+    lib.tmd_tc_image_floats.restype = I32
+    attrs = {}
+    for row, name in ((10, "blocked_mp_sum_cheb"), (11, "blocked_mp_dd_cheb")):
+        rc = fn(row, k, f, t, ctypes.cast(out, P))
+        if rc != 0:
+            raise RuntimeError(f"tmd_blocked_mp_attributes: CUDA error {rc}")
+        attrs[name] = dict(zip(("registers", "local_bytes", "static_smem",
+                                "dynamic_smem", "blocks_per_sm"), out))
+        attrs[name]["image_floats"] = lib.tmd_tc_image_floats(t, 3 * f)
+    return attrs
 
 
 # ---------------------------------------------------------------- plain
@@ -195,7 +250,7 @@ def neighbor_sum_cuda(attr3f, feats9, idx, mask):
     dev, n, k, f, _ = _check(
         "blocked_neighbor_sum",
         dict(idx=idx, mask=mask, attr3f=attr3f, feats9=feats9),
-        sum_smem(False, k, feats9.shape[1] // 9, 0))
+        sum_smem(k, feats9.shape[1] // 9))
     out = torch.empty((n, 9 * f), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         SUM(ptr(idx), ptr(mask), ptr(attr3f), ptr(feats9), ptr(out), n, k, f)
@@ -218,25 +273,29 @@ def neighbor_sum_cheb_cuda(coeffs, d, fm, feats9, idx, lo: float, hi: float):
     dev, n, k, f, t = _check(
         "blocked_neighbor_sum_cheb",
         dict(idx=idx, d=d, fm=fm, coeffs=coeffs, feats9=feats9),
-        sum_smem(True, k, feats9.shape[1] // 9, coeffs.shape[0]))
+        sum_cheb_smem(k, feats9.shape[1] // 9))
     out = torch.empty((n, 9 * f), dtype=torch.float32, device=dev)
+    image = torch.empty(tc_image_floats(t, 3 * f), dtype=torch.float32,
+                        device=dev)
     with torch.cuda.device(dev):
         SUM_CHEB(ptr(idx), ptr(d), ptr(fm), ptr(coeffs), ptr(feats9),
-                 ptr(out), n, k, f, t, float(lo), float(hi))
+                 ptr(out), ptr(image), n, k, f, t, float(lo), float(hi))
     return out
 
 
 def dd_cheb_cuda(dser, d, fm, g9, feats9, idx, lo: float, hi: float):
     """Row 11 on CUDA tensors: ``[N, K]``."""
-    span = dd_span(idx.numel())
+    n, k = idx.shape
     dev, n, k, f, t = _check(
         "blocked_dd_cheb",
         dict(idx=idx, d=d, fm=fm, dser=dser, g9=g9, feats9=feats9),
-        dd_smem(dser.shape[0], span))
+        dd_cheb_smem(k, feats9.shape[1] // 9))
     out = torch.empty((n, k), dtype=torch.float32, device=dev)
+    image = torch.empty(tc_image_floats(t, 3 * f), dtype=torch.float32,
+                        device=dev)
     with torch.cuda.device(dev):
         DD_CHEB(ptr(idx), ptr(d), ptr(fm), ptr(dser), ptr(g9), ptr(feats9),
-                ptr(out), n, k, f, t, float(lo), float(hi), span)
+                ptr(out), ptr(image), n, k, f, t, float(lo), float(hi))
     return out
 
 

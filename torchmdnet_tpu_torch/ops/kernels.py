@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source exposes plain C entry points; it is compiled with
 ``nvcc`` for ``sm_90a`` into its own shared library under ``_build/`` the
 first time a kernel of it is launched, keyed by a hash of the source, the
-shared ``csrc/*.cuh`` headers and the flags, and loaded with ``ctypes``.
-Nothing is compiled at import.
+shared ``csrc/*.cuh`` headers and the flags, and loaded with ``ctypes``;
+the compiler's output (with ``ptxas``'s register and spill report) is
+kept beside it.  Nothing is compiled at import.
 
 Every entry point takes the CUDA stream as its last argument and returns
 ``cudaGetLastError()`` after its launches; :class:`Kernel` raises on a
@@ -24,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 P = ctypes.c_void_p
 I32 = ctypes.c_int
@@ -56,7 +57,7 @@ class CudaSource:
         digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return BUILD_DIR / f"{self.path.stem}-{digest[:16]}.so"
 
-    def start_build(self, extra_flags=()):
+    def start_build(self):
         """Start ``nvcc`` on this source unless its library exists; returns
         the running process (or None) and the library path."""
         out = self.library_path()
@@ -64,11 +65,10 @@ class CudaSource:
             return None, out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
-               str(self.path)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.path)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        proc.tmp, proc.out = tmp, out
+        proc.tmp = tmp
         return proc, out
 
     def library(self) -> ctypes.CDLL:
@@ -78,21 +78,24 @@ class CudaSource:
         return self._lib
 
 
-def build(sources, extra_flags=()) -> dict:
+def build(sources) -> dict:
     """Compile every source that has no library yet, all ``nvcc`` processes
-    at once; returns ``{source name: compiler output}`` and raises if one
+    at once; returns ``{source name: compiler output}`` (of the build that
+    made the library, also when it was made before) and raises if one
     fails."""
-    procs = [(src, src.start_build(extra_flags)[0]) for src in sources]
+    procs = [(src, *src.start_build()) for src in sources]
     logs, failed = {}, []
-    for src, proc in procs:
+    for src, proc, out in procs:
         if proc is None:
+            logs[src.path.name] = out.with_suffix(".log").read_text()
             continue
         log, _ = proc.communicate()
         logs[src.path.name] = log
         if proc.returncode != 0:
             failed.append(f"{src.path.name}:\n{log}")
             continue
-        os.replace(proc.tmp, proc.out)
+        out.with_suffix(".log").write_text(log)
+        os.replace(proc.tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
