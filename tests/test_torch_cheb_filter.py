@@ -13,7 +13,8 @@ from torchmdnet_tpu.ops import pallas_cheb
 from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs, cheb_fit_matrix, cheb_nodes
 from torchmdnet_tpu_torch.ops.cheb_filter import (
     cheb_filter, cheb_filter_cuda, cheb_filter_dot, cheb_filter_dot_cuda,
-    cheb_filter_dot_ref, cheb_filter_ref, cheb_project, cheb_project_ref)
+    cheb_filter_dot_ref, cheb_filter_ref, cheb_project, cheb_project_ref,
+    image_floats, launch_plan)
 
 RTOL = ATOL = 1e-4
 T, C, N, K = 32, 24, 16, 8
@@ -110,3 +111,33 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         cheb_filter_cuda(coeffs, d, fm, 0.0, HI)
     with pytest.raises(ValueError, match="CUDA"):
         cheb_filter_dot_cuda(coeffs, d, fm, ct, 0.0, HI)
+
+
+# (n, K, T, F) of chip_smoke.py: the dhfr brute K = 64 list, the training
+# batch's K = 40 list, and the ragged shapes of dhfr_shape_errors
+TC_PLAN_SHAPES = [(2560, 64, 128, 128), (1664, 40, 128, 128),
+                  (37, 8, 16, 8), (50, 33, 64, 32), (29, 96, 128, 128),
+                  (41, 64, 100, 64), (23, 360, 128, 128), (45, 40, 128, 128),
+                  (31, 64, 128, 68)]
+
+
+@pytest.mark.parametrize("n,k,t,f", TC_PLAN_SHAPES)
+def test_tc_launch_plan_fits_shared_memory(n, k, t, f):
+    """Kernels 5 and 7 at E = n·K slots: every launch fits a Hopper block's
+    232,448 B and leaves room for three blocks an SM (228 KB, 1 KB of it
+    reserved per block; their registers allow two); the split
+    series image holds a hi and a lo copy of every entry in whole 16 KB
+    stages; block ``b``'s span ``[b·span, b·span + span)`` gives each slot
+    one block and leaves no block empty."""
+    e, c = n * k, 3 * f
+    plan = launch_plan(e)
+    assert set(plan) == {"cheb_filter", "cheb_filter_dot"}
+    for name, (blocks, span, smem) in plan.items():
+        assert 0 < smem <= 232448, name
+        assert 233472 // (smem + 1024) >= 3, name
+        owned = [range(b * span, min(e, b * span + span))
+                 for b in range(blocks)]
+        assert [s for slots in owned for s in slots] == list(range(e))
+        assert all(len(slots) > 0 for slots in owned)
+    assert image_floats(t, c) >= 2 * t * c
+    assert image_floats(t, c) % (2 * 128 * 16) == 0

@@ -501,15 +501,6 @@ int launch_rows(Kern kernel, int rows, int n, size_t smem, void* stream, Args...
   return cudaGetLastError();
 }
 
-// Rows 10 and 11 split their series into image first (tc_split_kernel).
-int split_series(const float* series, int t, int c3, float* image, void* stream) {
-  const int total = tc_image_floats(t, c3) / 2;
-  if (total == 0) return cudaSuccess;
-  tc_split_kernel<<<(total + kTcThreads - 1) / kTcThreads, kTcThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(series, t, c3, image);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -533,7 +524,7 @@ int tmd_blocked_sum_cheb(const long long* idx, const float* d, const float* fm,
                          const float* coeffs, const float* feats, float* out,
                          float* image, int n, int k, int f, int t, float lo,
                          float hi, void* stream) {
-  const int err = split_series(coeffs, t, 3 * f, image, stream);
+  const int err = tc_split(coeffs, t, 3 * f, image, stream);
   if (err != cudaSuccess) return err;
   return launch_rows(blocked_sum_cheb_kernel, kTcRows, n, sum_cheb_smem(k, f),
                      stream, idx, d, fm, image, feats, out, n, k, f, t, lo, hi);
@@ -558,7 +549,7 @@ int tmd_blocked_dd_cheb(const long long* idx, const float* d, const float* fm,
                         const float* dser, const float* g9, const float* feats,
                         float* out, float* image, int n, int k, int f, int t,
                         float lo, float hi, void* stream) {
-  const int err = split_series(dser, t, 3 * f, image, stream);
+  const int err = tc_split(dser, t, 3 * f, image, stream);
   if (err != cudaSuccess) return err;
   return launch_rows(blocked_dd_cheb_kernel, kTcRows, n, dd_cheb_smem(k, f),
                      stream, idx, d, fm, image, g9, feats, out, n, k, f, t, lo, hi);

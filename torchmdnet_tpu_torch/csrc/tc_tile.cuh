@@ -1,13 +1,14 @@
-// The tensor-core tile product of csrc/blocked_mp.cu (Pallas rows 10 and
-// 11): the cos basis B(θ)[64 x kdim], B[r][k] = cos(k·θ_r), times a
-// [kdim x ncols] row-major series, one 128-column block (pass) at a time,
-// on Hopper's warpgroup MMA (wgmma) in TF32 with the 3xTF32 split.  Each
-// factor x is cut into hi = tf32(x) and lo = tf32(x − hi), and acc +=
-// a_lo·b_hi + a_hi·b_lo + a_hi·b_hi in fp32 (the lo·lo term is below
-// fp32's last bit), so the product keeps the port's float32 contract
-// (~1e-6 relative); single-pass TF32 (~1e-3) would not.
+// The tensor-core tile product of csrc/cheb_filter.cu (Pallas rows 5 and
+// 7) and csrc/blocked_mp.cu (rows 10 and 11): the cos basis B(θ)[64 x
+// kdim], B[r][k] = cos(k·θ_r), times a [kdim x ncols] row-major series, one
+// 128-column block (pass) at a time, on Hopper's warpgroup MMA (wgmma) in
+// TF32 with the 3xTF32 split.  Each factor x is cut into hi = tf32(x) and
+// lo = tf32(x − hi), and acc += a_lo·b_hi + a_hi·b_lo + a_hi·b_hi in fp32
+// (the lo·lo term is below fp32's last bit), so the product keeps the
+// port's float32 contract (~1e-6 relative); single-pass TF32 (~1e-3) would
+// not.
 //
-// The series is split once per launch (tc_split_kernel) into an image of
+// The series is split once per launch (tc_split) into an image of
 // shared-memory stages: per pass and per kTcK = 16 series rows, a hi and a
 // lo plane, K-major with the 64-byte swizzle that wgmma reads (one 64-byte
 // row a column).  A block streams a pass's stages through a ring of three
@@ -20,7 +21,8 @@
 // [64q, 64q + 64) for all 64 rows (wgmma m64n64k8, 32 fp32 accumulators a
 // thread) and issues 6 wgmma a stage (2 k-steps x 3 terms), then waits
 // for them: one fragment set, ~80 registers, so three blocks share an SM
-// and hide each other's waits.
+// and hide each other's waits (rows 10-11; rows 5 and 7 also hold a
+// stage's sums, below: ~115 registers, two blocks).
 
 #pragma once
 
@@ -173,6 +175,18 @@ tc_split_kernel(const float* __restrict__ W, int kdim, int ncols,
   }
 }
 
+// Splits series [kdim x ncols] into image [tc_image_floats(kdim, ncols)]
+// on stream: the first launch of every entry point that multiplies by it.
+inline int tc_split(const float* series, int kdim, int ncols, float* image,
+                    void* stream) {
+  const int total = tc_image_floats(kdim, ncols) / 2;
+  if (total == 0) return cudaSuccess;
+  tc_split_kernel<<<(total + kTcThreads - 1) / kTcThreads, kTcThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(series, kdim, ncols,
+                                                         image);
+  return cudaGetLastError();
+}
+
 // Copies one stage (kTcStage floats, contiguous) of the image into sR.
 __device__ __forceinline__ void tc_copy(const float* __restrict__ src, float* dst) {
 #pragma unroll
@@ -194,9 +208,28 @@ __device__ __forceinline__ float tc_cos(float x) {
   return __cosf(y);
 }
 
+// d += a · the stage at dHi/dLo: 6 wgmma (2 k-steps x 3 terms) and their
+// wait.
+__device__ __forceinline__ void tc_mma(float (&d)[8][4], uint32_t (&a)[2][2][4],
+                                       uint64_t dHi, uint64_t dLo) {
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {  // + 32 bytes of K a step
+    wgmma_tf32(d, a[s][1], dHi + 2 * s);
+    wgmma_tf32(d, a[s][0], dLo + 2 * s);
+    wgmma_tf32(d, a[s][0], dHi + 2 * s);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  tc_hold(d);
+  tc_hold(a);
+}
+
 // One stage kt of tc_product: the copy of stage kt + 2 into the buffer
 // stage kt − 1 read, the fragments cos(k·θ) of this thread's rows into a,
-// the stage's 6 wgmma and their wait.
+// and their products; with kStageSums into a zeroed set, added to acc in
+// fp32 after the wait.
+template <bool kStageSums>
 __device__ __forceinline__ void tc_step(float th0, float th1, int kdim,
                                         const float* __restrict__ src, int nk,
                                         int kt, float* sR, float (&acc)[8][4],
@@ -220,24 +253,35 @@ __device__ __forceinline__ void tc_step(float th0, float th1, int kdim,
     tf32_split(k + 4 < kdim ? tc_cos((float)(k + 4) * th1) : 0.0f, a[s][0][3], a[s][1][3]);
   }
   const uint64_t dHi = tc_desc(buf), dLo = tc_desc(buf + kTcPlane);
-  wgmma_fence();
+  if constexpr (kStageSums) {
+    float stage[8][4];
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {  // + 32 bytes of K a step
-    wgmma_tf32(acc, a[s][1], dHi + 2 * s);
-    wgmma_tf32(acc, a[s][0], dLo + 2 * s);
-    wgmma_tf32(acc, a[s][0], dHi + 2 * s);
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) stage[i][e] = 0.0f;
+    tc_mma(stage, a, dHi, dLo);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] += stage[i][e];
+  } else {
+    tc_mma(acc, a, dHi, dLo);
   }
-  wgmma_commit();
-  wgmma_wait<0>();
-  tc_hold(acc);
-  tc_hold(a);
 }
 
 // acc = B(θ)[0:64, 0:kdim] · W[0:kdim, 128p : 128p + 128] from the split
 // image of W; sTheta holds the 64 rows' θ, sR is the region of kTcRegion
 // floats, 1024-byte aligned.  Every thread calls it; it synchronises first
 // (sR may still be read by the caller, sTheta is written) and last (sR is
-// free on return).
+// free on return).  The tensor cores round each accumulation of a wgmma
+// less exactly than an fp32 add, and acc takes 48 of them a pass: ~2e-6
+// of max |acc| where the series' terms cancel.  kStageSums sums each stage
+// apart and adds it to acc in fp32 (8 adds a pass, ~1e-6) for 32 more
+// registers, which leave room for two blocks an SM, not three.  Rows 5
+// and 7, whose output is the filter itself, take it; rows 10-11 keep the
+// tensor cores' sums (~1.5e-6), as with stage sums they ran 10-19% slower
+// on an H100.
+template <bool kStageSums = false>
 __device__ __forceinline__ void tc_product(const float* __restrict__ sTheta,
                                            const float* __restrict__ image, int kdim,
                                            int p, float* sR, float (&acc)[8][4]) {
@@ -255,7 +299,8 @@ __device__ __forceinline__ void tc_product(const float* __restrict__ sTheta,
   cp_async_commit();
   if (nk > 1) tc_copy(src + kTcStage, sR + kTcStage);
   cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) tc_step(th0, th1, kdim, src, nk, kt, sR, acc, a);
+  for (int kt = 0; kt < nk; ++kt)
+    tc_step<kStageSums>(th0, th1, kdim, src, nk, kt, sR, acc, a);
   __syncthreads();
 }
 

@@ -55,8 +55,12 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs
+# rows 10-11 share kernels 5 and 7's shared region (the series ring, then
+# the epilogue tile) and split-series image
 from torchmdnet_tpu_torch.ops.cheb_filter import (
-    cheb_filter_dot_ref, cheb_filter_ref)
+    _TC_REGION, cheb_filter_dot_ref, cheb_filter_ref)
+from torchmdnet_tpu_torch.ops.cheb_filter import (
+    image_floats as tc_image_floats)
 from torchmdnet_tpu_torch.ops.kernels import (
     F32, I32, P, CudaSource, Kernel, ptr)
 from torchmdnet_tpu_torch.ops.message_passing import _pns_dattr, row_chunk
@@ -70,15 +74,6 @@ DD_CHEB = Kernel(SOURCE, "tmd_blocked_dd_cheb",
                  [P] * 8 + [I32] * 4 + [F32] * 2)
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 _ROWS = 4             # sorted rows a block owns, every row (kRows, kTcRows)
-# floats of rows 10-11's shared region: a ring of three series stages (hi
-# and lo planes of 128 x 16), the epilogue tile after the product
-_TC_REGION = 3 * 2 * 128 * 16
-
-
-def tc_image_floats(t: int, c3: int) -> int:
-    """Floats of the split series image rows 10 and 11 stream from: per
-    128-column pass and 16 series rows, a hi and a lo plane of 128 x 16."""
-    return -(-c3 // 128) * -(-t // 16) * 2 * 128 * 16
 
 
 def sum_smem(k: int, f: int) -> int:

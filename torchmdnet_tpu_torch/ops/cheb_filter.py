@@ -32,7 +32,13 @@ in parameter-gradient branches.
 On CUDA tensors each op launches its hand-written kernel of
 ``csrc/cheb_filter.cu`` (Pallas rows 5, 7 and 6) or raises; on CPU
 tensors it runs its plain version, the θ form of the JAX jnp fallback.
+Kernels 5 and 7 form the series product on the tensor cores in 3xTF32
+(``csrc/tc_tile.cuh``, float32-accurate), from a split copy of the series
+in a scratch the wrapper allocates (:func:`image_floats`); each block owns
+a span of 256 slots (:func:`launch_plan`).  Row 6 is fp32 FMA.
 """
+
+import ctypes
 
 import torch
 
@@ -41,15 +47,21 @@ from torchmdnet_tpu_torch.ops.kernels import (
     F32, I32, I64, P, CudaSource, Kernel, check_cuda_args, ptr)
 
 SOURCE = CudaSource("cheb_filter.cu")
-FILTER = Kernel(SOURCE, "tmd_cheb_filter", [P] * 4 + [I64, I32, I32, F32, F32])
+FILTER = Kernel(SOURCE, "tmd_cheb_filter",
+                [P] * 5 + [I64, I32, I32, F32, F32])
 FILTER_DOT = Kernel(SOURCE, "tmd_cheb_filter_dot",
-                    [P] * 5 + [I64, I32, I32, F32, F32])
+                    [P] * 6 + [I64, I32, I32, F32, F32])
 PROJECT = Kernel(SOURCE, "tmd_cheb_project",
                  [P] * 5 + [I64, I32, I32, I32, F32, F32])
 # row 6's grid: blocks wanted in flight (two 72 KB blocks on each of the
 # 132 SMs) and the most 256-slot spans one block compacts at once
 _PROJECT_BLOCKS, _PROJECT_MAX_SPANS = 264, 16
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+# kernels 5 and 7: floats of tc_tile.cuh's shared region (a ring of three
+# series stages, hi and lo planes of 128 x 16, then the epilogue's tile)
+# and the slots a block owns (kSpan)
+_TC_REGION = 3 * 2 * 128 * 16
+_TC_SPAN = 256
 
 
 def _basis(d, T, lo, hi):
@@ -78,7 +90,58 @@ def cheb_project_ref(d, fmask, ct, T: int, lo: float, hi: float):
     return basis.t() @ ct.reshape(-1, ct.shape[-1])
 
 
-def _check(name, tensors, t, c):
+def image_floats(t: int, c: int) -> int:
+    """Floats of the split series image kernels 5 and 7 (and rows 10-11 of
+    ``ops/blocked_mp.py``) stream from: per 128-column pass and 16 series
+    rows, a hi and a lo plane of 128 x 16."""
+    return -(-c // 128) * -(-t // 16) * 2 * 128 * 16
+
+
+def tc_smem(dot: bool) -> int:
+    """Dynamic shared memory of a kernel 5 (``dot`` False) or kernel 7
+    launch: 1 KB to align the region, the region, θ and fm, kernel 7's
+    [2, 64] warpgroup sums, then the span's live and dead offsets and the
+    warp counts (the basis lives in registers)."""
+    return 1024 + 4 * (_TC_REGION + 2 * 64 + (128 if dot else 0)) \
+        + 4 * (2 * _TC_SPAN + 16)
+
+
+def launch_plan(e: int) -> dict:
+    """``(blocks, span, dynamic shared memory)`` of kernels 5 and 7 at
+    ``e`` slots; block ``b`` owns the slots ``[b·span, b·span + span)``
+    below ``e``."""
+    blocks = -(-e // _TC_SPAN)
+    return {"cheb_filter": (blocks, _TC_SPAN, tc_smem(False)),
+            "cheb_filter_dot": (blocks, _TC_SPAN, tc_smem(True))}
+
+
+def kernel_attributes(t: int, c: int) -> dict:
+    """What the compiler and the launch give kernels 5 and 7: registers
+    and local (spill) bytes a thread, static and dynamic shared memory a
+    block, resident blocks an SM, and the floats of their split-series
+    scratch at ``(t, c)``.  Builds the library; launches nothing."""
+    out = (ctypes.c_int * 5)()
+    lib = SOURCE.library()
+    fn = lib.tmd_cheb_attributes
+    fn.argtypes = [I32, P]
+    fn.restype = I32
+    lib.tmd_tc_image_floats.argtypes = [I32, I32]
+    lib.tmd_tc_image_floats.restype = I32
+    attrs = {}
+    for row, name in ((5, "cheb_filter"), (7, "cheb_filter_dot")):
+        rc = fn(row, ctypes.cast(out, P))
+        if rc != 0:
+            raise RuntimeError(f"tmd_cheb_attributes: CUDA error {rc}")
+        attrs[name] = dict(zip(("registers", "local_bytes", "static_smem",
+                                "dynamic_smem", "blocks_per_sm"), out))
+        attrs[name]["image_floats"] = lib.tmd_tc_image_floats(t, c)
+    return attrs
+
+
+def _check(name, tensors, t, c, smem):
+    """Raise unless every tensor is a contiguous, 16-byte aligned float32
+    tensor of its shape on one CUDA device and the launch fits shared
+    memory."""
     dev = tensors["d"].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: expects CUDA tensors, got {dev}")
@@ -91,34 +154,44 @@ def _check(name, tensors, t, c):
                              f"expected {want[key]}")
         if ten.data_ptr() % 16:
             raise ValueError(f"{name}: {key} is not 16-byte aligned")
-    smem = 4 * (64 * (t + 4) + 32 * 128 + 128) + 4 * (2 * 256 + 16)
     if c % 4 or t < 1 or smem > _SMEM_LIMIT:
-        raise ValueError(f"{name}: channels {c} must be a multiple of 4 and "
-                         f"{t} series terms must fit shared memory")
+        raise ValueError(f"{name}: channels {c} must be a multiple of 4, "
+                         f"series terms {t} at least 1, and {smem} bytes of "
+                         f"shared memory at most {_SMEM_LIMIT}")
     return dev
+
+
+def filter_tc(coeffs, d, fmask, ct, lo: float, hi: float):
+    """Kernel 5 (``ct`` None: returns ``[*d.shape, C]``) or kernel 7
+    (returns ``d.shape``) on CUDA tensors."""
+    t, c = coeffs.shape
+    dot = ct is not None
+    tensors = dict(d=d, fmask=fmask, coeffs=coeffs)
+    if dot:
+        tensors["ct"] = ct
+    dev = _check("cheb_filter_dot" if dot else "cheb_filter", tensors, t, c,
+                 tc_smem(dot))
+    out = torch.empty(tuple(d.shape) + (() if dot else (c,)),
+                      dtype=torch.float32, device=dev)
+    image = torch.empty(image_floats(t, c), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        if dot:
+            FILTER_DOT(ptr(d), ptr(fmask), ptr(coeffs), ptr(ct), ptr(out),
+                       ptr(image), d.numel(), t, c, lo, hi)
+        else:
+            FILTER(ptr(d), ptr(fmask), ptr(coeffs), ptr(out), ptr(image),
+                   d.numel(), t, c, lo, hi)
+    return out
 
 
 def cheb_filter_cuda(coeffs, d, fmask, lo: float, hi: float):
     """Kernel 5 on CUDA tensors: returns ``[*d.shape, C]``."""
-    t, c = coeffs.shape
-    dev = _check("cheb_filter", dict(d=d, fmask=fmask, coeffs=coeffs), t, c)
-    out = torch.empty(tuple(d.shape) + (c,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        FILTER(ptr(d), ptr(fmask), ptr(coeffs), ptr(out), d.numel(), t, c,
-               lo, hi)
-    return out
+    return filter_tc(coeffs, d, fmask, None, lo, hi)
 
 
 def cheb_filter_dot_cuda(coeffs, d, fmask, ct, lo: float, hi: float):
     """Kernel 7 on CUDA tensors: returns ``d.shape``."""
-    t, c = coeffs.shape
-    dev = _check("cheb_filter_dot",
-                 dict(d=d, fmask=fmask, coeffs=coeffs, ct=ct), t, c)
-    out = torch.empty(d.shape, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        FILTER_DOT(ptr(d), ptr(fmask), ptr(coeffs), ptr(ct), ptr(out),
-                   d.numel(), t, c, lo, hi)
-    return out
+    return filter_tc(coeffs, d, fmask, ct, lo, hi)
 
 
 def project_chunks(e: int, t: int, c: int):
@@ -133,8 +206,11 @@ def project_chunks(e: int, t: int, c: int):
 def cheb_project_cuda(d, fmask, ct, T: int, lo: float, hi: float):
     """Row 6 on CUDA tensors: returns ``[T, C]``."""
     c = ct.shape[-1]
-    dev = _check("cheb_project", dict(d=d, fmask=fmask, ct=ct), T, c)
     per, chunks = project_chunks(d.numel(), T, c)
+    # the weighted basis and ct tiles, θ and fm, the chunk's live slots, a
+    # span's live and dead slots and the warp counts
+    smem = 4 * (64 * 132 + 64 * 128 + 128) + 4 * (per * 256 + 2 * 256 + 16)
+    dev = _check("cheb_project", dict(d=d, fmask=fmask, ct=ct), T, c, smem)
     partial = torch.empty((max(chunks, 1), T, c), dtype=torch.float32,
                           device=dev)
     out = torch.empty((T, c), dtype=torch.float32, device=dev)
