@@ -8,8 +8,10 @@ Run from the root of a checkout, with no arguments:
 It builds the port's CUDA kernels from ``torchmdnet_tpu_torch/csrc`` with
 ``nvcc`` (one process per source, all at once) and holds each kernel
 against its plain PyTorch version on the card at the main paths' shapes:
-the embedding and edge-MLP kernels at N=25,088 atoms, K=96 slots, F=128
-channels, R=32 rbf; the q-tier kernels A/B at the 27,024 cell-blocked
+the embedding kernels at N=25,088 atoms, K=96 slots, F=128 channels, R=32
+rbf; TensorNet2's edge-MLP tail (kernel 3) on the slot weights of the
+same lattice's gather MD list (K=96 at 4.5 + 1 Å) and with every slot
+live; the q-tier kernels A/B at the 27,024 cell-blocked
 rows of the same lattice with T=64 series terms, and again with the exact
 rbf base (R=32) and on the grouped tier's column-partitioned K′ list of
 that lattice (rows 12-13 in their four bodies); the windowed-Coulomb
@@ -72,9 +74,10 @@ epochs on 384 synthetic QM9-scale molecules in batches of 64 and
 checked and reloaded on the card.
 
 Before the kernels phase, ``tc_attributes`` gives the tensor-core kernels
-(rows 5, 7, 10 and 11) as compiled: registers, spill bytes, shared memory
-and blocks an SM; the kernels phase also holds rows 5 and 7 against
-float64.
+(rows 3, 5, 7, 10 and 11) as compiled: registers, spill bytes, shared
+memory and blocks an SM; the kernels phase also holds rows 5 and 7 against
+float64, and reads the device time (no host time) of each kernel that
+has a library yardstick and of that yardstick.
 Each phase prints one JSON line; the card's name and power limit (as
 ``nvidia-smi`` gives them) and a ``{"kernels": [...]}`` line follow, and
 the last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -105,6 +108,11 @@ TOL = 1e-4  # max |kernel − plain| / max |plain|, float32 with reordered sums
 # 0.7-1.4e-6 on an H100, the same product summed on the tensor cores read
 # 2.1-2.4e-6, and single-pass TF32 reads ~1e-3
 CHEB_TOL = 2e-6
+# kernel 3 (edge_mlp_pre), max |kernel − plain| / max |plain|: two 3xTF32
+# products summed on the tensor cores over K = F and K = 2F, each through
+# a silu; the limit leaves room for the tensor cores' own accumulation
+# (~2e-6 of a product's max at K = 128, rows 5 and 10)
+EDGE_TOL = 1e-5
 # blocked against gather path forces, relative to max |F|: the q_tab
 # series approximation of the edge-MLP base is the difference.  Two runs
 # on an H100 read 3.3e-6 and 2.5e-6; the limit leaves 30x room for the
@@ -295,6 +303,42 @@ def time_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=10, warmup=2, spin_ms=2.0):
+    """Median device time of ``fn`` over ``reps`` calls, without the host
+    time of its wrapper: a spin kernel holds the stream while the host
+    enqueues the call, so that the CUDA events around it bracket the
+    call's own kernels and no host gap.  The spin is doubled until it
+    outlasts the host's enqueue.  (Short ``torch.profiler`` sessions lose
+    all device activity on the card once unprofiled work has run: PERF.md
+    §7.)"""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    while len(times) < reps:
+        before, start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(3))
+        t0 = time.perf_counter()
+        before.record()
+        torch.cuda._sleep(int(spin_ms * 1e6))  # spin_ms · 10^6 clock cycles
+        start.record()
+        fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if host_ms >= before.elapsed_time(start):
+            spin_ms *= 2
+            check(spin_ms < 1e3, "device_ms: the host's enqueue never ends")
+            continue
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_times(kern, library):
+    """The kernel's and its library yardstick's device times."""
+    return dict(device_ms=device_ms(kern), library_device_ms=device_ms(library))
+
+
 def rel_err(got, want):
     """(max abs error, max abs error / max |want|)."""
     err = float((got - want).abs().max())
@@ -308,7 +352,9 @@ def check(cond, what):
 
 def limit(name):
     """The agreement a kernel row or shape case ``name`` is held to."""
-    return CHEB_TOL if name.startswith("cheb_filter") else TOL
+    if name.startswith("cheb_filter"):
+        return CHEB_TOL
+    return EDGE_TOL if name.startswith("edge_mlp_pre") else TOL
 
 
 def nbytes(*tensors):
@@ -390,9 +436,12 @@ def phase_tc_attributes(specs):
     registers and local (spill) bytes a thread, static and dynamic shared
     memory and resident blocks an SM (``cudaFuncGetAttributes``, occupancy
     API); the dynamic shared memory and the split-series scratch must
-    equal the wrappers' plans, and kernels 5 and 7 must not spill."""
+    equal the wrappers' plans, and kernels 5 and 7 must not spill.  Kernel
+    3 the same at F = 128 (its split W2 and W3) and on the gather path's
+    N·K slots."""
     from torchmdnet_tpu_torch.ops import blocked_mp as bm
     from torchmdnet_tpu_torch.ops import cheb_filter as cf
+    from torchmdnet_tpu_torch.ops import edge_mlp as em
 
     attrs = {}
     image = bm.tc_image_floats(DHFR_T, 3 * F)
@@ -421,6 +470,17 @@ def phase_tc_attributes(specs):
               "wrapper's")
         attrs[name] = dict(a, span=plans["dhfr"][1],
                            blocks={key: p[0] for key, p in plans.items()})
+    for name, a in em.kernel_attributes(F).items():
+        blocks, span, smem, image = em.launch_plan(N_ATOMS * K, F)[name]
+        check(a["dynamic_smem"] == smem,
+              f"{name}: the kernel's shared memory {a['dynamic_smem']} "
+              f"differs from the plan's {smem}")
+        check(a["blocks_per_sm"] >= 1, f"{name}: does not fit an SM")
+        check(a["local_bytes"] == 0, f"{name}: spills")
+        check(a["image_floats"] == image,
+              f"{name}: the kernel's image scratch differs from the "
+              "wrapper's")
+        attrs[name] = dict(a, span=span, blocks=blocks)
     emit({"phase": "tc_attributes", "attributes": attrs})
 
 
@@ -997,13 +1057,79 @@ def blocked_library(v):
             "blocked_mp_dd_cheb": lambda: torch.matmul(basis, v["dser"])}
 
 
+def gather_list_cw(system):
+    """Kernel 3's slot weights on the lattice's gather-path MD list (the
+    rebuild of ``md/integrators.py``: K slots at 4.5 Å + SKIN, the cell
+    strategy, self slots in): the cosine cutoff at 4.5 Å times the mask,
+    [N, K]."""
+    from torchmdnet_tpu_torch.ops import rbf
+    from torchmdnet_tpu_torch.ops.neighbors import (
+        build_neighbor_matrix, neighbor_geometry)
+
+    _, pos, _, box, L = system
+    dev = torch.device("cuda")
+    pt = torch.as_tensor(pos, device=dev)
+    bt = torch.as_tensor(box, device=dev)
+    nz = max(int(L // (4.5 + SKIN)), 3)
+    nbr = build_neighbor_matrix(
+        pt, torch.zeros(len(pos), dtype=torch.long, device=dev),
+        strategy="cell", k_max=K, cutoff_upper=4.5 + SKIN, loop=True, box=bt,
+        cells_per_dim=(nz, nz, nz))
+    check(not bool(nbr.overflow), "gather MD list: neighbor overflow")
+    _, d = neighbor_geometry(pt, nbr, box=bt)
+    return (rbf.cosine_cutoff(d, 4.5, 0.0) * nbr.mask).contiguous()
+
+
+def edge_pre_inputs(cw, seed, f=F):
+    """Kernel 3's operands on the slot weights ``cw`` [N, K]: pre1 [N, K,
+    f] ~ N(0, 1) and W2, b2, W3, b3 in ``Linear``'s uniform range, from
+    ``seed``."""
+    gen = torch.Generator(device=cw.device).manual_seed(seed)
+
+    def uniform(*shape, fan):
+        return (torch.rand(shape, generator=gen, device=cw.device) * 2 - 1) \
+            / math.sqrt(fan)
+
+    return [torch.randn(cw.shape + (f,), generator=gen, device=cw.device),
+            cw, uniform(f, 2 * f, fan=f), uniform(2 * f, fan=f),
+            uniform(2 * f, 3 * f, fan=2 * f), uniform(3 * f, fan=2 * f)]
+
+
+def edge_pre_calls(w):
+    """Kernel 3 and its plain chain on the operands ``w``."""
+    from torchmdnet_tpu_torch.ops import edge_mlp as em
+
+    return (lambda: em.edge_mlp_pre_cuda(*w),
+            lambda: em.edge_mlp_pre_ref(*w))
+
+
+def edge_pre_row(peak, w):
+    """Kernel 3 against its plain chain on ``w``: errors (the cw = 0 slots
+    must be exact zeros), CUDA-event and profiler device times of both, the
+    bound (the live slots' products at the 3xTF32 rate; their pre1 rows,
+    cw and the whole output once) and the plain cuBLAS chain as the
+    library yardstick."""
+    kern, plain = edge_pre_calls(w)
+    err, rel, got = compare(kern, plain)
+    check(not got[0][w[1] == 0].any(), "edge_mlp_pre: a cw = 0 slot is not 0")
+    live = int((w[1] != 0).sum())
+    f = w[0].shape[-1]
+    flops = live * 2 * (f * 2 * f + 2 * f * 3 * f)
+    nb = live * f * 4 + nbytes(*w[1:], got[0])
+    del got
+    b_ms, b_by = bound(flops, nb, peak, flops)
+    return dict(max_abs_err=err, max_rel_err=rel, ms=time_ms(kern),
+                plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(plain), **device_times(kern, plain),
+                live_slots=live, gflop=flops / 1e9, gbytes=nb / 1e9)
+
+
 def phase_kernels(peak, system, dhfr, seg, specs):
-    from torchmdnet_tpu_torch.ops import edge_mlp as em_ops
     from torchmdnet_tpu_torch.ops import radial_embedding as re_ops
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
-    rows = {}
+    rows, geometry = {}, {}
 
     # kernel 1: embedding forward
     x = embedding_inputs(gen, dev)
@@ -1055,36 +1181,16 @@ def phase_kernels(peak, system, dhfr, seg, specs):
     del x, g
 
     # kernel 3: edge MLP tail, one of the four calls of a gather-path
-    # evaluation
-    count = torch.randint(60, 85, (N_ATOMS, 1), generator=gen, device=dev)
-    mask = (torch.arange(K, device=dev)[None, :] < count).float()
-    w = [torch.randn((N_ATOMS, K, F), generator=gen, device=dev),
-         torch.rand((N_ATOMS, K), generator=gen, device=dev) * mask,
-         (torch.rand((F, 2 * F), generator=gen, device=dev) * 2 - 1)
-         / math.sqrt(F),
-         (torch.rand(2 * F, generator=gen, device=dev) * 2 - 1) / math.sqrt(F),
-         (torch.rand((2 * F, 3 * F), generator=gen, device=dev) * 2 - 1)
-         / math.sqrt(2 * F),
-         (torch.rand(3 * F, generator=gen, device=dev) * 2 - 1)
-         / math.sqrt(2 * F)]
-    out_k = em_ops.edge_mlp_pre_cuda(*w)
-    out_p = em_ops.edge_mlp_pre_ref(*w)
-    torch.cuda.synchronize()
-    err, rel = rel_err(out_k, out_p)
-    check(torch.isfinite(out_k).all(), "edge_mlp_pre: non-finite")
-    valid = float(mask.sum())
-    flops = valid * (2 * F * 2 * F + 2 * 2 * F * 3 * F)
-    b_ms, b_by = bound(flops, nbytes(*w, out_k), peak)
-    plain_ms = time_ms(lambda: em_ops.edge_mlp_pre_ref(*w))
-    rows["edge_mlp_pre"] = dict(
-        max_abs_err=err, max_rel_err=rel,
-        ms=time_ms(lambda: em_ops.edge_mlp_pre_cuda(*w)), plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by,
-        # the cuBLAS-backed plain chain is the library yardstick here
-        library_ms=time_ms(lambda: em_ops.edge_mlp_pre_ref(*w)),
-        gflop=flops / 1e9, gbytes=nbytes(*w, out_k) / 1e9)
-    del out_k, out_p, w
-    torch.cuda.empty_cache()
+    # evaluation, on the gather MD list's slot weights, then with every
+    # slot live
+    cw = gather_list_cw(system)
+    geometry["gather"] = {"rows": cw.shape[0], "k": K, "slots": cw.numel(),
+                          "live_slots": int((cw != 0).sum())}
+    dense = torch.rand(cw.shape, generator=gen, device=dev) * 0.5 + 0.5
+    for name, weights in (("edge_mlp_pre", cw), ("edge_mlp_pre_dense", dense)):
+        rows[name] = edge_pre_row(peak, edge_pre_inputs(weights, 31))
+        torch.cuda.empty_cache()
+    del cw, dense
 
     # kernels A, A with du, B (tabulated and exact base) and C, D on the
     # lattice's real blocked geometry (the MD rebuild's: lists at cutoff +
@@ -1099,12 +1205,12 @@ def phase_kernels(peak, system, dhfr, seg, specs):
     calls.update(wc_calls(wv, COULOMB_RC + SKIN))
     kernel_rows(rows, peak, calls, work, q["mask"])
     cand, inside = work["pairs"]
-    geometry = {"n_pad": spec.n_pad, "blocks": spec.n_blocks,
+    geometry.update({"n_pad": spec.n_pad, "blocks": spec.n_blocks,
                 "nx": spec.nx, "nzf": spec.nzf, "stencil_s": wspec.s,
                 "cut_bins": wspec.cut_bins, "k": K,
                 "valid_slots": int(q["mask"].sum()),
                 "live_slots": int((q["cw"] != 0).sum()),
-                "window_pairs": cand, "pairs_inside_rc": inside}
+                "window_pairs": cand, "pairs_inside_rc": inside})
     del q, wv
     torch.cuda.empty_cache()
     spec, _, q, _ = blocked_inputs(pos, L, CAP, K, F, Q_TAB, C_CH, 4.5 + SKIN,
@@ -1132,7 +1238,8 @@ def phase_kernels(peak, system, dhfr, seg, specs):
         rows[name] = dict(
             max_abs_err=err, max_rel_err=rel, ms=time_ms(kern),
             plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(library[name]), gflop=flops / 1e9,
+            library_ms=time_ms(library[name]),
+            **device_times(kern, library[name]), gflop=flops / 1e9,
             gbytes=nb / 1e9)
         if name.startswith("cheb"):
             rows[name]["vs_float64"] = float64_errors(v, name, got[0],
@@ -1151,15 +1258,16 @@ def phase_kernels(peak, system, dhfr, seg, specs):
     err, rel, got = compare(kern, plain)
     flops, nb = project_work(v)
     b_ms, b_by = bound(flops, nb, peak)
+    library = project_library(v)
     rows["cheb_project"] = dict(
         max_abs_err=err, max_rel_err=rel, ms=time_ms(kern),
         plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(project_library(v)), gflop=flops / 1e9,
-        gbytes=nb / 1e9)
+        library_ms=time_ms(library), **device_times(kern, library),
+        gflop=flops / 1e9, gbytes=nb / 1e9)
     geometry["train"] = {"rows": v["d"].shape[0], "k": TRAIN_K,
                          "t": TRAIN_T, "slots": v["d"].numel(),
                          "fm_slots": int((v["fm"] != 0).sum())}
-    del v, got
+    del v, got, library
     torch.cuda.empty_cache()
 
     # rows 8-11 on the dhfr system's cell-blocked sort: the grouped K′ list
@@ -1180,11 +1288,14 @@ def phase_kernels(peak, system, dhfr, seg, specs):
             flops, nb, tc = work[name]
             b_ms, b_by = bound(flops, nb, peak, tc)
             lib = library.get(name)
-            rows[name if layout == "grouped" else f"{name}@{layout}"] = dict(
+            row = dict(
                 max_abs_err=err, max_rel_err=rel, ms=time_ms(kern),
                 plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
                 library_ms=None if lib is None else time_ms(lib),
                 gflop=flops / 1e9, gbytes=nb / 1e9)
+            if lib is not None:
+                row.update(device_times(kern, lib))
+            rows[name if layout == "grouped" else f"{name}@{layout}"] = row
             del got
         geometry["dhfr_blocked"][layout] = {
             "n_pad": spec.n_pad, "blocks": spec.n_blocks,
@@ -1196,12 +1307,41 @@ def phase_kernels(peak, system, dhfr, seg, specs):
         torch.cuda.empty_cache()
 
     emit({"phase": "kernels", "tolerance": TOL, "cheb_tolerance": CHEB_TOL,
-          "geometry": geometry, "rows": rows})
+          "edge_tolerance": EDGE_TOL, "geometry": geometry, "rows": rows})
     for name, row in rows.items():
         tol = limit(name)
         check(row["max_rel_err"] <= tol,
               f"{name}: max rel err {row['max_rel_err']:.3g} > {tol}")
     return rows
+
+
+def edge_pre_shape_errors(gen):
+    """Kernel 3 against its plain version where its tiles, spans and
+    passes are ragged: F = 36 (2F and 3F end in partial 128-column passes)
+    and F = 132 and 256 (a layer-1 pass held in registers), slot counts
+    that are not a multiple of the span, ~40% of the slots live, and at
+    F = 36 a span with no live slot followed by one with every slot live;
+    the cw = 0 slots exact zeros."""
+    from torchmdnet_tpu_torch.ops import edge_mlp as em
+
+    dev = torch.device("cuda")
+    worst = {}
+    for n, k, f in ((50, 45, 36), (37, 13, 36), (9, 100, 132), (7, 96, 256)):
+        shape = (n, k)
+        cw = torch.rand(shape, generator=gen, device=dev) * (
+            torch.rand(shape, generator=gen, device=dev) < 0.4)
+        span = em.launch_plan(n * k, f)["edge_mlp_pre"][1]
+        flat = cw.view(-1)
+        if flat.numel() > 2 * span:
+            flat[:span] = 0.0
+            flat[span:2 * span] = torch.rand(span, generator=gen,
+                                             device=dev) + 0.1
+        kern, plain = edge_pre_calls(edge_pre_inputs(cw, n * k + f, f))
+        err, rel, got = compare(kern, plain)
+        check(not got[0][cw == 0].any(),
+              f"edge_mlp_pre (F={f}): a cw = 0 slot is not exactly 0")
+        worst[f"edge_mlp_pre_n{n}_k{k}_f{f}_ragged"] = rel
+    return worst
 
 
 def dhfr_shape_errors(gen):
@@ -1399,8 +1539,8 @@ def phase_shapes():
         w = [randn(n, k, f), torch.rand((n, k), generator=gen, device=dev),
              randn(f, 2 * f) * 0.1, randn(2 * f) * 0.1,
              randn(2 * f, 3 * f) * 0.1, randn(3 * f) * 0.1]
-        errs.append(rel_err(em_ops.edge_mlp_pre_cuda(*w),
-                            em_ops.edge_mlp_pre_ref(*w))[1])
+        worst[f"edge_mlp_pre_n{n}_k{k}_f{f}"] = rel_err(
+            em_ops.edge_mlp_pre_cuda(*w), em_ops.edge_mlp_pre_ref(*w))[1]
         worst[f"n{n}_k{k}_r{r}_f{f}"] = max(errs)
 
     # q-tier and windowed Coulomb on small random boxes: (atoms, box,
@@ -1427,13 +1567,14 @@ def phase_shapes():
         errs += [compare(*pair)[1] for pair in q_calls(qc).values()]
         worst[f"blocked_n{n}_cap{cap}_f{f}_c{c}_s{wspec.s}"] = max(errs)
 
+    worst.update(edge_pre_shape_errors(gen))
     worst.update(q_shape_errors(gen))
     worst.update(dhfr_shape_errors(gen))
     worst.update(project_shape_errors(gen))
     worst.update(blocked_shape_errors(gen))
     torch.cuda.synchronize()
     emit({"phase": "shapes", "max_rel_err": worst, "tolerance": TOL,
-          "cheb_tolerance": CHEB_TOL})
+          "cheb_tolerance": CHEB_TOL, "edge_tolerance": EDGE_TOL})
     for name, err in worst.items():
         check(err <= limit(name),
               f"{name}: a kernel disagrees at a small shape, {err:.3g}")
@@ -1723,7 +1864,7 @@ PROFILE_GROUPS = (
                                            "blocked_sum_cheb_kernel",
                                            "blocked_dd_cheb_kernel")),
     ("kernels 5/7 Chebyshev filter", ("cheb_tc_kernel",)),
-    ("series split of rows 5, 7, 10, 11", ("tc_split_kernel",)),
+    ("series and weight split of rows 3, 5, 7, 10, 11", ("tc_split_kernel",)),
     ("row 6 Chebyshev projection", ("project_kernel", "project_sum_kernel")),
     ("kernel 4 edge_mlp", ("edge_mlp_kernel",)),
     ("kernel A/B q-tier", ("q_kernel",)),

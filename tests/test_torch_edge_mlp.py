@@ -12,7 +12,7 @@ from torchmdnet_tpu.ops import pallas_kernels
 from torchmdnet_tpu.ops.pallas_kernels import fused_edge_mlp_pre
 from torchmdnet_tpu_torch.ops.edge_mlp import (
     edge_mlp_cuda, edge_mlp_pre, edge_mlp_pre_cuda, edge_mlp_pre_ref,
-    edge_mlp_ref, fused_edge_mlp)
+    edge_mlp_ref, fused_edge_mlp, launch_plan)
 
 RTOL = ATOL = 1e-4
 
@@ -68,6 +68,33 @@ def test_backward_only_for_requested_inputs():
 def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         edge_mlp_pre_cuda(*map(torch.from_numpy, _inputs()))
+
+
+def test_plain_version_is_zero_on_dead_slots():
+    x = _inputs(seed=5)
+    x[1][x[1] < 0.4] = 0.0
+    x[1][3] = 0.0  # a row with no live slot
+    got = edge_mlp_pre_ref(*map(torch.from_numpy, x)).numpy()
+    assert (x[1] == 0).any() and (x[1] != 0).any()
+    assert not got[x[1] == 0].any()
+    assert np.abs(got[x[1] != 0]).max() > 0
+
+
+def _image_floats(kdim, ncols):
+    """A split weight's floats: hi and lo planes of 128 x 16 per
+    128-column pass and 16 rows."""
+    return -(-ncols // 128) * -(-kdim // 16) * 2 * 128 * 16
+
+
+@pytest.mark.parametrize("n, k, f", [(25088, 96, 128), (37, 13, 36),
+                                     (50, 20, 36), (7, 96, 256)])
+def test_kernel3_launch_plan(n, k, f):
+    """Kernel 3's grid covers every slot once, its shared memory fits a
+    Hopper block and its scratch holds W2's and W3's split images."""
+    blocks, span, smem, image = launch_plan(n * k, f)["edge_mlp_pre"]
+    assert (blocks - 1) * span < n * k <= blocks * span
+    assert smem <= 232448
+    assert image == _image_floats(f, 2 * f) + _image_floats(2 * f, 3 * f)
 
 
 def _inputs4(n=16, k=8, r=12, f=16, seed=0):

@@ -1,5 +1,6 @@
-// TensorNet and TensorNet2 edge MLPs for Hopper (sm_90a), fp32 FMA
-// throughout (no TF32, parity with "highest").
+// TensorNet and TensorNet2 edge MLPs for Hopper (sm_90a), float32-accurate:
+// kernel 3 forms its two products on the tensor cores in 3xTF32
+// (csrc/tc_tile.cuh; never single-pass TF32), kernel 4 in fp32 FMA.
 //
 // Replaces two Pallas TPU kernels of torchmdnet_tpu/ops/pallas_kernels.py:
 //   kernel 3  _edge_mlp_pre_kernel (:182, pallas_call :208,
@@ -11,29 +12,52 @@
 // for E = N*K edge slots; x [E, R], pre1 [E, F], W1 [R, F], W2 [F, 2F],
 // W3 [2F, 3F] (input-major, the JAX kernel layout), out [E, 3F].
 //
-// Bound, kernel 3 (N=25,088, K=96, F=128, per call, all slots):
-// 2*E*(F*2F + 2F*3F) = 631 GFLOP against 4.9 GB of traffic, so fp32
-// operations bound it: ~9.4 ms at the NVIDIA H100 SXM data-sheet 67 TFLOP/s
-// (700 W); tensor cores would make it memory-bound at ~1.5 ms (3.35 TB/s),
-// which is later work.  Kernel 4 (dhfr: N=2,560, K=64, R=32, ~97.6 k slots
-// with cw != 0): 2*97.6k*(R*F + F*2F + 2F*3F) = 26 GFLOP, ~0.4 ms at
-// 67 TFLOP/s, against 0.25 GB of output (~0.08 ms): operations again.
+// Bound, kernel 3 (the north star's gather path: N=25,088, K=96 slots at
+// 4.5 Å + 1 Å skin, F=128, 924,946 of the 2,408,448 slots with cw != 0,
+// per call; H100 SXM data sheet at 700 W: 495 TFLOP/s TF32 on the tensor
+// cores, 3.35 TB/s): the live slots' products are 2*live*(F*2F + 2F*3F)
+// = 242 GFLOP, three TF32 products each in 3xTF32, ~1.47 ms; the live
+// rows of pre1, cw and the whole [E, 3F] output, zeros included, are
+// 4.2 GB, ~1.25 ms: operations bound it, bytes close behind.  Kernel 4
+// (dhfr: N=2,560, K=64, R=32, ~97.6 k slots with cw != 0):
+// 2*97.6k*(R*F + F*2F + 2F*3F) = 26 GFLOP, ~0.4 ms at the fp32 rate of
+// 67 TFLOP/s, against 0.25 GB of output (~0.08 ms): operations.
 //
-// Design against that bound: a block takes a tile of 64 edges and keeps
-// the whole chain on chip — silu(pre1) [64 x F] and h2 [64 x 2F] live in
-// shared memory and only the [64 x 3F] result is written, so the [E, 2F]
-// intermediate never reaches device memory.  Both products stream their
-// weight matrix through shared memory in 32-row k-tiles of 128 columns;
-// each of the 256 threads accumulates a 4 x 8 register tile, reading 4 A
-// and 8 B values from shared memory per 32 FMAs.  Kernel 4 puts the first
-// layer in front (an x tile [64 x R] gives h1 = silu(x W1 + b1) in shared
-// memory) and, as its cw = 0 slots (padding, beyond the cutoff) are ~40%
-// of a dhfr list, a block owns a span of 256 slots, compacts those with
-// cw != 0 in slot order and runs the chain on tiles of 64 of them only,
-// writing exact zeros for the rest.
+// Kernel 3's design against its bound (edge_mlp_pre_kernel): a block owns
+// a span of kPreSpan = 1024 slots (~393 live on the gather MD list: six
+// full 64-slot tiles and a partial one, 12% of the tiles' rows empty,
+// where 256-slot spans leave 23%), compacts those with cw != 0 in slot
+// order and writes exact zeros for the rest (whole [3F] rows of float4
+// stores), so only live slots reach the tensor cores.  Per tile of 64
+// live slots it keeps the whole chain on chip: sA = silu(pre1) [64 x F]
+// from float4 loads of the live rows; two 128-column passes of sA W2
+// (tc_product_act: W2 split once per launch into hi/lo planes streamed
+// through a cp.async ring, A fragments read from sA) whose epilogues put
+// silu(acc + b2) from the fragments into the h2 tile sH [64 x 2F + 4];
+// then three passes of sH W3 whose epilogues put silu(acc + b3) * cw into
+// the free ring as a [64 x kTcLdW] tile, stored with coalesced float4
+// stores per live slot.  sA lives in sH's last F columns, which the last
+// layer-1 pass writes after its product has read them.  The [E, 2F]
+// intermediate never reaches device memory, and there are no atomics:
+// the same result on every run.  The ring (64 KB), sH (66.5 KB) and the
+// span's lists (8 KB) make 141,632 B at F = 128, so one block of 8 warps
+// runs an SM, and the product keeps one wgmma group in flight instead of
+// a second block.
+
+// Kernel 4's design: a block takes a tile of 64 edges and keeps the chain
+// on chip the same way, on fp32 FMA: both products stream their weight
+// matrix through shared memory in 32-row k-tiles of 128 columns; each of
+// the 256 threads accumulates a 4 x 8 register tile, reading 4 A and 8 B
+// values from shared memory per 32 FMAs.  The first layer comes in front
+// (an x tile [64 x R] gives h1 = silu(x W1 + b1) in shared memory) and, as
+// its cw = 0 slots (padding, beyond the cutoff) are ~40% of a dhfr list,
+// a block owns a span of 256 slots, compacts those with cw != 0 and runs
+// the chain on tiles of 64 of them only, writing exact zeros for the rest.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -43,7 +67,10 @@ constexpr int kTileK = 32;    // weight rows per shared-memory tile
 constexpr int kThreads = 256; // 16 x 16 threads, each 4 rows x 8 columns
 constexpr int kPad = 4;       // row padding of the activations in smem
 constexpr int kSpan = kThreads;  // slots a kernel-4 block owns
+constexpr int kPreSpan = 1024;   // slots a kernel-3 block owns
 constexpr int kWarps = kThreads / 32;
+static_assert(kThreads == kTcThreads, "one launch width for every kernel");
+static_assert(kPreSpan % kThreads == 0, "a span is whole compaction rounds");
 
 __device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
 
@@ -89,104 +116,163 @@ __device__ __forceinline__ void tile_product(
   }
 }
 
-// Splits the slots [s0, s0 + kSpan) ∩ [0, E) into those with flag != 0
-// (sLive) and the rest (sDead), each in slot order, as offsets from s0.
-// Returns the live count; *ndead gets the other.  Every thread calls it.
+// Splits the slots [s0, s0 + kLen) ∩ [0, E) into those with flag != 0
+// (sLive) and the rest (sDead), each in slot order, as offsets from s0,
+// kThreads slots a round.  Returns the live count; *ndead gets the
+// other.  Every thread calls it.
+template <int kLen>
 __device__ __forceinline__ int compact_span(const float* __restrict__ flag,
                                             long long s0, long long E,
                                             int* sLive, int* sDead,
                                             int* sCount, int* ndead) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bool in = s0 + tid < E;
-  const bool live = in && flag[s0 + tid] != 0.0f;
-  const unsigned lb = __ballot_sync(0xffffffffu, live);
-  const unsigned ib = __ballot_sync(0xffffffffu, in);
-  if (lane == 0) {
-    sCount[warp] = __popc(lb);
-    sCount[kWarps + warp] = __popc(ib);
-  }
-  __syncthreads();
-  int live_before = 0, in_before = 0, nlive = 0, nin = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    if (w < warp) {
-      live_before += sCount[w];
-      in_before += sCount[kWarps + w];
+  int nlive = 0, nin = 0;
+#pragma unroll 1
+  for (int c0 = 0; c0 < kLen; c0 += kThreads) {
+    const bool in = s0 + c0 + tid < E;
+    const bool live = in && flag[s0 + c0 + tid] != 0.0f;
+    const unsigned lb = __ballot_sync(0xffffffffu, live);
+    const unsigned ib = __ballot_sync(0xffffffffu, in);
+    if (lane == 0) {
+      sCount[warp] = __popc(lb);
+      sCount[kWarps + warp] = __popc(ib);
     }
-    nlive += sCount[w];
-    nin += sCount[kWarps + w];
+    __syncthreads();
+    int live_before = nlive, in_before = nin;
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) {
+        live_before += sCount[w];
+        in_before += sCount[kWarps + w];
+      }
+      nlive += sCount[w];
+      nin += sCount[kWarps + w];
+    }
+    const unsigned below = (1u << lane) - 1u;
+    const int lrank = live_before + __popc(lb & below);
+    const int irank = in_before + __popc(ib & below);
+    if (live)
+      sLive[lrank] = c0 + tid;
+    else if (in)
+      sDead[irank - lrank] = c0 + tid;
+    __syncthreads();  // the lists are whole; sCount is read
   }
-  const unsigned below = (1u << lane) - 1u;
-  const int lrank = live_before + __popc(lb & below);
-  const int irank = in_before + __popc(ib & below);
-  if (live)
-    sLive[lrank] = tid;
-  else if (in)
-    sDead[irank - lrank] = tid;
-  __syncthreads();
   *ndead = nin - nlive;
   return nlive;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Kernel 3's h2 tile [64][ldh]: 2F columns, and silu(pre1) [64][F] in the
+// columns [a0, a0 + F) of the same rows, a0 = 128·(P − Q) for P = ⌈2F/128⌉
+// layer-1 passes and Q = ⌈F/128⌉ ≤ 2: the first P − Q passes write below
+// a0, the last writes over silu(pre1) after the last read of it, and with
+// Q = 2 the one before it keeps its result in registers until then.
+__host__ __device__ __forceinline__ int pre_a0(int f) {
+  return kTcN * ((2 * f + kTcN - 1) / kTcN - (f + kTcN - 1) / kTcN);
+}
+__host__ __device__ __forceinline__ int pre_ldh(int f) {
+  return max(2 * f, pre_a0(f) + f) + kPad;
+}
+
+// Kernel 3.  img2, img3: the split images of W2 [F, 2F] and W3 [2F, 3F].
+// Block b owns the slots [b·kPreSpan, b·kPreSpan + kPreSpan) below E.
+__global__ void __launch_bounds__(kTcThreads, 1)
 edge_mlp_pre_kernel(const float* __restrict__ pre1, const float* __restrict__ cw,
-                    const float* __restrict__ w2, const float* __restrict__ b2,
-                    const float* __restrict__ w3, const float* __restrict__ b3,
+                    const float* __restrict__ img2, const float* __restrict__ b2,
+                    const float* __restrict__ img3, const float* __restrict__ b3,
                     float* __restrict__ out, long long E, int F, int F2, int F3) {
   extern __shared__ __align__(16) float smem[];
-  const int lda = F + kPad, ldh = F2 + kPad;
-  float* sA = smem;                  // [64][F + pad]   silu(pre1)
-  float* sH = sA + kTileM * lda;     // [64][2F + pad]  h2
-  float* sW = sH + kTileM * ldh;     // [32][128]       weight tile
+  const int ldh = pre_ldh(F);
+  float* sR = smem + tc_region_offset(smem);  // the ring, then the out tile
+  float* sH = sR + kTcActRegion;              // [64][ldh]  h2, silu(pre1)
+  float* sA = sH + pre_a0(F);                 // silu(pre1), row stride ldh
+  float* sCw = sH + kTcM * ldh;               // [64]
+  int* sLive = reinterpret_cast<int*>(sCw + kTcM);  // [kPreSpan]
+  int* sDead = sLive + kPreSpan;                    // [kPreSpan]
+  int* sCount = sDead + kPreSpan;                   // [2 * kWarps]
 
   const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const long long e0 = (long long)blockIdx.x * kTileM;
+  const long long s0 = (long long)blockIdx.x * kPreSpan;
+  int ndead;
+  const int nlive = compact_span<kPreSpan>(cw, s0, E, sLive, sDead, sCount, &ndead);
 
-  // silu(pre1) tile; rows past E are zero
+  // slots with cw = 0: exact zeros, no arithmetic
+  const int c4 = F3 / 4;
+  for (int v = tid; v < ndead * c4; v += kTcThreads)
+    reinterpret_cast<float4*>(out + (s0 + sDead[v / c4]) * F3)[v % c4] =
+        make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  // h2 = silu(acc + b2) of layer-1 pass p from the fragments into sH
+  auto store_h2 = [&](const float (&acc)[8][4], int p) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = p * kTcN + tc_col(i);  // even; F2 is a multiple of 8
+      if (col >= F2) continue;
+      const float2 bias = *reinterpret_cast<const float2*>(b2 + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(sH + tc_row(h) * ldh + col) =
+            make_float2(silu(acc[i][2 * h] + bias.x),
+                        silu(acc[i][2 * h + 1] + bias.y));
+    }
+  };
   const int f4 = F / 4;
-  for (int v = tid; v < kTileM * f4; v += kThreads) {
-    const int row = v / f4, col = (v % f4) * 4;
-    float4 p = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (e0 + row < E) {
-      p = *reinterpret_cast<const float4*>(pre1 + (e0 + row) * F + col);
-      p.x = silu(p.x);
-      p.y = silu(p.y);
-      p.z = silu(p.z);
-      p.w = silu(p.w);
-    }
-    float* dst = sA + row * lda + col;
-    dst[0] = p.x;
-    dst[1] = p.y;
-    dst[2] = p.z;
-    dst[3] = p.w;
-  }
-
-  float acc[4][8];
-  // h2 = silu(sA W2 + b2) into shared memory
-  for (int c0 = 0; c0 < F2; c0 += kTileN) {
-    tile_product(sA, lda, w2, F, F2, c0, sW, acc);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = c0 + tx + 16 * j;
-      if (col < F2) {
-        const float bias = b2[col];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) sH[(ty * 4 + i) * ldh + col] = silu(acc[i][j] + bias);
+  const int npass = (F2 + kTcN - 1) / kTcN;
+  const bool hold = (F + kTcN - 1) / kTcN == 2;
+  float acc[8][4], held[8][4];
+  for (int t0 = 0; t0 < nlive; t0 += kTcM) {
+    const int nt = min(kTcM, nlive - t0);
+    // silu(pre1) of the tile's live slots; the rows past nt are zeros
+    for (int v = tid; v < kTcM * f4; v += kTcThreads) {
+      const int r = v / f4, col = (v - r * f4) * 4;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r < nt) {
+        x = *reinterpret_cast<const float4*>(pre1 + (s0 + sLive[t0 + r]) * F + col);
+        x = make_float4(silu(x.x), silu(x.y), silu(x.z), silu(x.w));
       }
+      *reinterpret_cast<float4*>(sA + r * ldh + col) = x;
     }
-  }
-  // out = silu(h2 W3 + b3) * cw, one 128-column block at a time
-  for (int c0 = 0; c0 < F3; c0 += kTileN) {
-    tile_product(sH, ldh, w3, F2, F3, c0, sW, acc);
+    if (tid < kTcM) sCw[tid] = tid < nt ? cw[s0 + sLive[t0 + tid]] : 0.0f;
+
+    // h2 = silu(silu(pre1) W2 + b2)
+    for (int p = 0; p < npass; ++p) {
+      tc_product_act(sA, ldh, img2, F, p, sR, acc);  // syncs first, last
+      if (hold && p == npass - 2) {  // it would overwrite what pass p + 1 reads
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long e = e0 + ty * 4 + i;
-      if (e >= E) continue;
-      const float c = cw[e];
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = c0 + tx + 16 * j;
-        if (col < F3) out[e * F3 + col] = silu(acc[i][j] + b3[col]) * c;
+          for (int e = 0; e < 4; ++e) held[i][e] = acc[i][e];
+        continue;
+      }
+      store_h2(acc, p);
+      if (hold && p == npass - 1) store_h2(held, p - 1);
+    }
+    // out = silu(h2 W3 + b3) * cw, one 128-column pass at a time
+    for (int p = 0; p * kTcN < F3; ++p) {
+      const int c0 = p * kTcN;
+      tc_product_act(sH, ldh, img3, F2, p, sR, acc);  // syncs first, last
+      // the out tile [64][kTcLdW] over the free ring, the live rows only
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = tc_row(h);
+        if (r >= nt) continue;
+        const float c = sCw[r];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int col = c0 + tc_col(i);  // even; F3 is a multiple of 4
+          if (col >= F3) continue;
+          const float2 bias = *reinterpret_cast<const float2*>(b3 + col);
+          *reinterpret_cast<float2*>(sR + r * kTcLdW + tc_col(i)) =
+              make_float2(silu(acc[i][2 * h] + bias.x) * c,
+                          silu(acc[i][2 * h + 1] + bias.y) * c);
+        }
+      }
+      __syncthreads();
+      // a warp stores one slot's 128 columns: 512 contiguous bytes
+      for (int v = tid; v < nt * (kTcN / 4); v += kTcThreads) {
+        const int r = v / (kTcN / 4), q = v % (kTcN / 4);
+        const int col = c0 + 4 * q;
+        if (col < F3)
+          *reinterpret_cast<float4*>(out + (s0 + sLive[t0 + r]) * F3 + col) =
+              *reinterpret_cast<const float4*>(sR + r * kTcLdW + 4 * q);
       }
     }
   }
@@ -215,7 +301,7 @@ edge_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cw,
   const int ty = tid / 16, tx = tid % 16;
   const long long s0 = (long long)blockIdx.x * kSpan;
   int ndead;
-  const int nlive = compact_span(cw, s0, E, sLive, sDead, sCount, &ndead);
+  const int nlive = compact_span<kSpan>(cw, s0, E, sLive, sDead, sCount, &ndead);
 
   // slots with cw = 0: exact zeros, no arithmetic
   const int c4 = F3 / 4;
@@ -288,6 +374,16 @@ edge_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cw,
   }
 }
 
+// Dynamic shared memory of a kernel-3 launch at f (ops/edge_mlp.py::
+// pre_smem keeps the same sum): 1 KB to align the region, the region (the
+// ring, then the out tile), the h2 tile that also holds silu(pre1), cw,
+// then the span's live and dead offsets and the warp counts.
+size_t pre_smem(int f) {
+  return 1024 +
+         sizeof(float) * ((size_t)kTcActRegion + (size_t)kTcM * pre_ldh(f) + kTcM) +
+         sizeof(int) * (2 * kPreSpan + 2 * kWarps);
+}
+
 }  // namespace
 
 extern "C" {
@@ -296,24 +392,59 @@ const char* tmd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// pre1 [e, f]; cw [e]; w2 [f, 2f]; b2 [2f]; w3 [2f, 3f]; b3 [3f]; out [e, 3f].
-// f must be a multiple of 4.
+// Kernel 3.  pre1 [e, f]; cw [e]; w2 [f, 2f]; b2 [2f]; w3 [2f, 3f]; b3 [3f];
+// out [e, 3f]; image [tmd_edge_mlp_image_floats(f)] scratch.  f a
+// multiple of 4, at most 256.  W2 and W3 are split into image, then the
+// kernel runs.
 int tmd_edge_mlp_pre(const float* pre1, const float* cw, const float* w2,
                      const float* b2, const float* w3, const float* b3,
-                     float* out, long long e, int f, void* stream) {
+                     float* out, float* image, long long e, int f,
+                     void* stream) {
+  if (f < 4 || f > 2 * kTcN || f % 4) return cudaErrorInvalidValue;
   const int f2 = 2 * f, f3 = 3 * f;
-  const size_t smem = sizeof(float) * ((size_t)kTileM * (f + kPad) +
-                                       (size_t)kTileM * (f2 + kPad) +
-                                       (size_t)kTileK * kTileN);
+  const size_t smem = pre_smem(f);
   cudaError_t err = cudaFuncSetAttribute(
       edge_mlp_pre_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (e + kTileM - 1) / kTileM;
+  const long long blocks = (e + kPreSpan - 1) / kPreSpan;
   if (blocks == 0) return cudaSuccess;
-  edge_mlp_pre_kernel<<<(unsigned)blocks, kThreads, smem,
+  float* img3 = image + tc_image_floats(f, f2);
+  int rc = tc_split(w2, f, f2, image, stream);
+  if (rc != cudaSuccess) return rc;
+  rc = tc_split(w3, f2, f3, img3, stream);
+  if (rc != cudaSuccess) return rc;
+  edge_mlp_pre_kernel<<<(unsigned)blocks, kTcThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
-      pre1, cw, w2, b2, w3, b3, out, e, f, f2, f3);
+      pre1, cw, image, b2, img3, b3, out, e, f, f2, f3);
   return cudaGetLastError();
+}
+
+// Floats of kernel 3's image scratch at f: W2's image, then W3's.
+int tmd_edge_mlp_image_floats(int f) {
+  return tc_image_floats(f, 2 * f) + tc_image_floats(2 * f, 3 * f);
+}
+
+// What the compiler and the launch give kernel 3 at f: out = registers a
+// thread, local (spill) bytes a thread, static and dynamic shared memory
+// bytes a block, resident blocks an SM.
+int tmd_edge_mlp_attributes(int f, int* out) {
+  const size_t smem = pre_smem(f);
+  cudaError_t err = cudaFuncSetAttribute(
+      edge_mlp_pre_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, edge_mlp_pre_kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, edge_mlp_pre_kernel, kTcThreads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)attr.sharedSizeBytes;
+  out[3] = (int)smem;
+  out[4] = blocks;
+  return cudaSuccess;
 }
 
 // Kernel 4.  x [e, r]; cw [e]; w1 [r, f]; b1 [f]; w2 [f, 2f]; b2 [2f];

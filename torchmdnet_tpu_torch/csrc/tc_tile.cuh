@@ -1,28 +1,33 @@
 // The tensor-core tile product of csrc/cheb_filter.cu (Pallas rows 5 and
-// 7) and csrc/blocked_mp.cu (rows 10 and 11): the cos basis B(θ)[64 x
-// kdim], B[r][k] = cos(k·θ_r), times a [kdim x ncols] row-major series, one
-// 128-column block (pass) at a time, on Hopper's warpgroup MMA (wgmma) in
-// TF32 with the 3xTF32 split.  Each factor x is cut into hi = tf32(x) and
-// lo = tf32(x − hi), and acc += a_lo·b_hi + a_hi·b_lo + a_hi·b_hi in fp32
-// (the lo·lo term is below fp32's last bit), so the product keeps the
-// port's float32 contract (~1e-6 relative); single-pass TF32 (~1e-3) would
-// not.
+// 7), csrc/blocked_mp.cu (rows 10 and 11) and csrc/edge_mlp.cu (kernel 3):
+// an A operand [64 x kdim] times a [kdim x ncols] row-major series or
+// weight W, one 128-column block (pass) at a time, on Hopper's warpgroup
+// MMA (wgmma) in TF32 with the 3xTF32 split.  Each factor x is cut into
+// hi = tf32(x) and lo = tf32(x − hi), and acc += a_lo·b_hi + a_hi·b_lo +
+// a_hi·b_hi in fp32 (the lo·lo term is below fp32's last bit), so the
+// product keeps the port's float32 contract (~1e-6 relative); single-pass
+// TF32 (~1e-3) would not.
 //
-// The series is split once per launch (tc_split) into an image of
-// shared-memory stages: per pass and per kTcK = 16 series rows, a hi and a
-// lo plane, K-major with the 64-byte swizzle that wgmma reads (one 64-byte
-// row a column).  A block streams a pass's stages through a ring of three
-// with cp.async, two ahead of the one being multiplied, so the product
-// needs no registers, conversions or shared stores for the series.  The
-// basis goes to wgmma from registers: each thread computes and splits the
-// cosines of its fragment (two rows, four k a stage) from the rows' θ, so
-// the basis takes no shared memory and no pass over it.  Block:
-// kTcThreads = 256 threads, two warpgroups; warpgroup q owns the columns
-// [64q, 64q + 64) for all 64 rows (wgmma m64n64k8, 32 fp32 accumulators a
-// thread) and issues 6 wgmma a stage (2 k-steps x 3 terms), then waits
-// for them: one fragment set, ~80 registers, so three blocks share an SM
-// and hide each other's waits (rows 10-11; rows 5 and 7 also hold a
-// stage's sums, below: ~115 registers, two blocks).
+// W is split once per launch (tc_split) into an image of shared-memory
+// stages: per pass and per kTcK = 16 rows, a hi and a lo plane, K-major
+// with the 64-byte swizzle that wgmma reads (one 64-byte row a column).
+// A block streams a pass's stages through a ring of three (four for the
+// activation product) with cp.async, two ahead of the one being
+// multiplied, so the product needs no
+// registers, conversions or shared stores for W.  A goes to wgmma from
+// registers: each thread builds and splits its fragment (two rows, four k
+// a stage) where it is needed, from one of two sources (tc_step's Frag):
+// the cos basis B(θ)[r][k] = cos(k·θ_r), computed from the rows' θ, so the
+// basis takes no shared memory and no pass over it (tc_product; rows 5, 7,
+// 10, 11), or an fp32 activation tile in shared memory (tc_product_act;
+// kernel 3).  Block: kTcThreads = 256 threads, two warpgroups; warpgroup
+// q owns the columns [64q, 64q + 64) for all 64 rows (wgmma m64n64k8, 32
+// fp32 accumulators a thread) and issues 6 wgmma a stage (2 k-steps x 3
+// terms), then waits for them: one fragment set, ~80 registers, so three
+// blocks share an SM and hide each other's waits (rows 10-11; rows 5 and 7
+// also hold a stage's sums, below: ~115 registers, two blocks).  Kernel
+// 3's block fills an SM alone, so its product waits for the stage before
+// and keeps two fragment sets.
 
 #pragma once
 
@@ -43,6 +48,9 @@ constexpr int kTcLdW = kTcN + 8;  // row stride of the caller's epilogue tile
 // the caller's [64][kTcLdW] tile after it
 constexpr int kTcRegion = kTcStages * kTcStage;
 static_assert(kTcRegion >= kTcM * kTcLdW, "the epilogue tile fits the region");
+// tc_product_act's ring is one stage longer (below): its region
+constexpr int kTcActStages = 4;
+constexpr int kTcActRegion = kTcActStages * kTcStage;
 
 // Floats of the split image of a [kdim x ncols] series.
 __host__ __device__ __forceinline__ int tc_image_floats(int kdim, int ncols) {
@@ -225,16 +233,57 @@ __device__ __forceinline__ void tc_mma(float (&d)[8][4], uint32_t (&a)[2][2][4],
   tc_hold(a);
 }
 
-// One stage kt of tc_product: the copy of stage kt + 2 into the buffer
-// stage kt − 1 read, the fragments cos(k·θ) of this thread's rows into a,
-// and their products; with kStageSums into a zeroed set, added to acc in
-// fp32 after the wait.
-template <bool kStageSums>
-__device__ __forceinline__ void tc_step(float th0, float th1, int kdim,
+// Where a stage's A fragment comes from.  Each source fills a[s][0] (hi)
+// and a[s][1] (lo) with this thread's operand at rows tc_row(0) and
+// tc_row(1), k = 16kt + 8s + t and k + 4 (t = lane % 4), as wgmma's
+// m64nNk8 register layout wants; k past kdim gives 0.
+//
+// The cos basis cos(k·θ_r), computed from the rows' θ (rows 5, 7, 10, 11).
+struct TcCosBasis {
+  float th0, th1;
+  int kdim;
+  __device__ __forceinline__ void operator()(int kt, uint32_t (&a)[2][2][4]) const {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int k = kt * kTcK + 8 * s + t;
+      tf32_split(k < kdim ? tc_cos((float)k * th0) : 0.0f, a[s][0][0], a[s][1][0]);
+      tf32_split(k < kdim ? tc_cos((float)k * th1) : 0.0f, a[s][0][1], a[s][1][1]);
+      tf32_split(k + 4 < kdim ? tc_cos((float)(k + 4) * th0) : 0.0f, a[s][0][2], a[s][1][2]);
+      tf32_split(k + 4 < kdim ? tc_cos((float)(k + 4) * th1) : 0.0f, a[s][0][3], a[s][1][3]);
+    }
+  }
+};
+
+// An fp32 activation tile [64][lda] in shared memory (kernel 3): row0 and
+// row1 point at rows tc_row(0) and tc_row(1).  With lda ≡ 4 (mod 32) the
+// eight row groups of a warp and its four k hit 32 distinct banks.
+struct TcActivation {
+  const float* row0;
+  const float* row1;
+  int kdim;
+  __device__ __forceinline__ void operator()(int kt, uint32_t (&a)[2][2][4]) const {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int k = kt * kTcK + 8 * s + t;
+      tf32_split(k < kdim ? row0[k] : 0.0f, a[s][0][0], a[s][1][0]);
+      tf32_split(k < kdim ? row1[k] : 0.0f, a[s][0][1], a[s][1][1]);
+      tf32_split(k + 4 < kdim ? row0[k + 4] : 0.0f, a[s][0][2], a[s][1][2]);
+      tf32_split(k + 4 < kdim ? row1[k + 4] : 0.0f, a[s][0][3], a[s][1][3]);
+    }
+  }
+};
+
+// One stage kt of a product: the copy of stage kt + 2 into the buffer
+// stage kt − 1 read, this thread's A fragment of stage kt into a, and
+// their products; with kStageSums into a zeroed set, added to acc in fp32
+// after the wait.
+template <bool kStageSums, typename Frag>
+__device__ __forceinline__ void tc_step(const Frag& frag,
                                         const float* __restrict__ src, int nk,
                                         int kt, float* sR, float (&acc)[8][4],
                                         uint32_t (&a)[2][2][4]) {
-  const int t = threadIdx.x & 3;
   cp_async_wait<1>();
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   // Stage kt has landed for every thread's copies, and every thread has
@@ -244,14 +293,7 @@ __device__ __forceinline__ void tc_step(float th0, float th1, int kdim,
     tc_copy(src + (kt + 2) * kTcStage, sR + ((kt + 2) % kTcStages) * kTcStage);
   cp_async_commit();
   const float* buf = sR + (kt % kTcStages) * kTcStage + (threadIdx.x >> 7) * 64 * kTcK;
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int k = kt * kTcK + 8 * s + t;
-    tf32_split(k < kdim ? tc_cos((float)k * th0) : 0.0f, a[s][0][0], a[s][1][0]);
-    tf32_split(k < kdim ? tc_cos((float)k * th1) : 0.0f, a[s][0][1], a[s][1][1]);
-    tf32_split(k + 4 < kdim ? tc_cos((float)(k + 4) * th0) : 0.0f, a[s][0][2], a[s][1][2]);
-    tf32_split(k + 4 < kdim ? tc_cos((float)(k + 4) * th1) : 0.0f, a[s][0][3], a[s][1][3]);
-  }
+  frag(kt, a);
   const uint64_t dHi = tc_desc(buf), dLo = tc_desc(buf + kTcPlane);
   if constexpr (kStageSums) {
     float stage[8][4];
@@ -287,20 +329,94 @@ __device__ __forceinline__ void tc_product(const float* __restrict__ sTheta,
                                            int p, float* sR, float (&acc)[8][4]) {
   const int nk = (kdim + kTcK - 1) / kTcK;
   const float* src = image + (long long)p * nk * kTcStage;
-  const int row = ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2);
+  const int row = tc_row(0);
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
   uint32_t a[2][2][4];
   __syncthreads();  // the caller no longer reads sR; sTheta is written
-  const float th0 = sTheta[row], th1 = sTheta[row + 8];
+  const TcCosBasis frag{sTheta[row], sTheta[row + 8], kdim};
   tc_copy(src, sR);
   cp_async_commit();
   if (nk > 1) tc_copy(src + kTcStage, sR + kTcStage);
   cp_async_commit();
   for (int kt = 0; kt < nk; ++kt)
-    tc_step<kStageSums>(th0, th1, kdim, src, nk, kt, sR, acc, a);
+    tc_step<kStageSums>(frag, src, nk, kt, sR, acc, a);
+  __syncthreads();
+}
+
+// One stage kt of tc_product_act, with the fragment set S = kt % 2: the
+// copy of stage kt + 2 into the buffer stage kt − 2 read, this thread's A
+// fragment of stage kt into a[S], its 6 wgmma, and a wait for those of
+// stage kt − 1 only, so that stage kt's run on while the next stage's
+// fragments are read.
+template <int S, typename Frag>
+__device__ __forceinline__ void tc_step_act(const Frag& frag,
+                                            const float* __restrict__ src, int nk,
+                                            int kt, float* sR, float (&acc)[8][4],
+                                            uint32_t (&a)[2][2][2][4]) {
+  cp_async_wait<1>();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  // Stage kt has landed for every thread's copies, and every thread has
+  // waited for its stage kt − 2 products (the wait of step kt − 1): that
+  // stage's buffer takes kt + 2, and its fragment set takes kt.
+  __syncthreads();
+  if (kt + 2 < nk)
+    tc_copy(src + (kt + 2) * kTcStage,
+            sR + ((kt + 2) % kTcActStages) * kTcStage);
+  cp_async_commit();
+  const float* buf =
+      sR + (kt % kTcActStages) * kTcStage + (threadIdx.x >> 7) * 64 * kTcK;
+  frag(kt, a[S]);
+  const uint64_t dHi = tc_desc(buf), dLo = tc_desc(buf + kTcPlane);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    wgmma_tf32(acc, a[S][s][1], dHi + 2 * s);
+    wgmma_tf32(acc, a[S][s][0], dLo + 2 * s);
+    wgmma_tf32(acc, a[S][s][0], dHi + 2 * s);
+  }
+  wgmma_commit();
+  wgmma_wait<1>();
+  tc_hold(acc);
+  tc_hold(a[0]);
+  tc_hold(a[1]);
+}
+
+// acc = sAct[0:64, 0:kdim] · W[0:kdim, 128p : 128p + 128]: the product
+// with an fp32 activation tile of row stride lda (≡ 4 mod 32) in shared
+// memory as A, each fragment read and split where tc_product computes the
+// basis.  One block runs an SM here (kernel 3), so no other block hides
+// a stage's wait: one wgmma group stays in flight over two fragment sets,
+// through a ring of kTcActStages in a region of kTcActRegion floats,
+// 1024-byte aligned.  Synchronises first (sAct is written, sR free) and
+// last; the tensor cores sum the stages.
+__device__ __forceinline__ void tc_product_act(const float* sAct, int lda,
+                                               const float* __restrict__ image,
+                                               int kdim, int p, float* sR,
+                                               float (&acc)[8][4]) {
+  const int nk = (kdim + kTcK - 1) / kTcK;
+  const float* src = image + (long long)p * nk * kTcStage;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+  uint32_t a[2][2][2][4];
+  __syncthreads();
+  const TcActivation frag{sAct + tc_row(0) * lda, sAct + tc_row(1) * lda, kdim};
+  tc_copy(src, sR);
+  cp_async_commit();
+  if (nk > 1) tc_copy(src + kTcStage, sR + kTcStage);
+  cp_async_commit();
+  for (int kt = 0; kt < nk; kt += 2) {
+    tc_step_act<0>(frag, src, nk, kt, sR, acc, a);
+    if (kt + 1 < nk) tc_step_act<1>(frag, src, nk, kt + 1, sR, acc, a);
+  }
+  wgmma_wait<0>();
+  tc_hold(acc);
+  tc_hold(a[0]);
+  tc_hold(a[1]);
   __syncthreads();
 }
 

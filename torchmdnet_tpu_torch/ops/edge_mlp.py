@@ -15,24 +15,91 @@ Counterparts of ``torchmdnet_tpu/ops/pallas_kernels.py``:
 
 with weights in the JAX kernel layout (``W1 [R, F]``, ``W2 [F, 2F]``,
 ``W3 [2F, 3F]``).  On a CUDA tensor each forward is a hand-written kernel
-of ``csrc/edge_mlp.cu``; on a CPU tensor it is the plain chain beside it.
-The backward recomputes through the plain chain over row chunks, as the
-JAX ``_bwd``/``_bwd_pre`` (``:118``, ``:237``) do (the JAX package has no
-backward kernel for these ops); it is first-order only.
+of ``csrc/edge_mlp.cu`` or raises; on a CPU tensor it is the plain chain
+beside it.  Both kernels run the chain on the slots with ``cw ≠ 0`` only
+and write exact zeros for the others.  Kernel 3 forms its two products on
+the tensor cores in 3xTF32 (``csrc/tc_tile.cuh``, float32-accurate), from
+split copies of ``W2`` and ``W3`` in a scratch the wrapper allocates
+(:func:`image_floats`); :func:`launch_plan` holds its grid and shared
+memory.  Kernel 4 is fp32 FMA.  The backward recomputes through the plain
+chain over row chunks, as the JAX ``_bwd``/``_bwd_pre`` (``:118``,
+``:237``) do (the JAX package has no backward kernel for these ops); it is
+first-order only.
 """
+
+import ctypes
 
 import torch
 import torch.nn.functional as F_
 from torch.autograd.function import once_differentiable
 
+# kernel 3's weights are split into kernels 5 and 7's image layout
+from torchmdnet_tpu_torch.ops.cheb_filter import (
+    image_floats as tc_image_floats)
 from torchmdnet_tpu_torch.ops.kernels import (
     I32, I64, P, CudaSource, Kernel, check_cuda_args, ptr)
 from torchmdnet_tpu_torch.ops.message_passing import row_chunk
 
 SOURCE = CudaSource("edge_mlp.cu")
-FORWARD = Kernel(SOURCE, "tmd_edge_mlp_pre", [P] * 7 + [I64, I32])
+FORWARD = Kernel(SOURCE, "tmd_edge_mlp_pre", [P] * 8 + [I64, I32])
 FUSED = Kernel(SOURCE, "tmd_edge_mlp", [P] * 9 + [I64, I32, I32])
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+_PRE_SPAN = 1024  # slots a kernel 3 block owns (kPreSpan)
+# floats of kernel 3's shared region: a ring of four weight stages (hi and
+# lo planes of 128 x 16), then the out tile (kTcActRegion)
+_ACT_REGION = 4 * 2 * 128 * 16
+_PRE_MAX_F = 256  # the widest F kernel 3 takes (two 128-column passes)
+
+
+def image_floats(f: int) -> int:
+    """Floats of kernel 3's scratch at ``F = f``: W2's split image, then
+    W3's."""
+    return tc_image_floats(f, 2 * f) + tc_image_floats(2 * f, 3 * f)
+
+
+def _pre_ldh(f: int) -> int:
+    """Row stride of kernel 3's h2 tile: 2F columns, and ``silu(pre1)``
+    [64, F] from column ``128·(⌈2F/128⌉ − ⌈F/128⌉)`` of the same rows."""
+    a0 = 128 * (-(-2 * f // 128) - -(-f // 128))
+    return max(2 * f, a0 + f) + 4
+
+
+def pre_smem(f: int) -> int:
+    """Dynamic shared memory of a kernel 3 launch: 1 KB to align the
+    region, the region, the h2 tile that also holds ``silu(pre1)``, the
+    tile's cw, then the span's live and dead offsets and the warp
+    counts."""
+    return 1024 + 4 * (_ACT_REGION + 64 * _pre_ldh(f) + 64) \
+        + 4 * (2 * _PRE_SPAN + 16)
+
+
+def launch_plan(e: int, f: int) -> dict:
+    """``(blocks, span, dynamic shared memory, image floats)`` of kernel 3
+    at ``e`` slots and ``F = f``; block ``b`` owns the slots ``[b·span,
+    b·span + span)`` below ``e``."""
+    return {"edge_mlp_pre": (-(-e // _PRE_SPAN), _PRE_SPAN, pre_smem(f),
+                             image_floats(f))}
+
+
+def kernel_attributes(f: int) -> dict:
+    """What the compiler and the launch give kernel 3 at ``F = f``:
+    registers and local (spill) bytes a thread, static and dynamic shared
+    memory a block, resident blocks an SM, and the floats of its image
+    scratch.  Builds the library; launches nothing."""
+    out = (ctypes.c_int * 5)()
+    lib = SOURCE.library()
+    fn = lib.tmd_edge_mlp_attributes
+    fn.argtypes = [I32, P]
+    fn.restype = I32
+    lib.tmd_edge_mlp_image_floats.argtypes = [I32]
+    lib.tmd_edge_mlp_image_floats.restype = I32
+    rc = fn(f, ctypes.cast(out, P))
+    if rc != 0:
+        raise RuntimeError(f"tmd_edge_mlp_attributes: CUDA error {rc}")
+    attrs = dict(zip(("registers", "local_bytes", "static_smem",
+                      "dynamic_smem", "blocks_per_sm"), out))
+    attrs["image_floats"] = lib.tmd_edge_mlp_image_floats(f)
+    return {"edge_mlp_pre": attrs}
 
 
 def edge_mlp_ref(x, cw, w1, b1, w2, b2, w3, b3):
@@ -93,12 +160,14 @@ def edge_mlp_pre_cuda(pre1, cw, w2, b2, w3, b3):
     tensors = dict(pre1=pre1, cw=cw, w2=w2, b2=b2, w3=w3, b3=b3)
     shapes = dict(pre1=(n, k, f), cw=(n, k), w2=(f, 2 * f), b2=(2 * f,),
                   w3=(2 * f, 3 * f), b3=(3 * f,))
-    smem = 4 * (64 * (f + 4) + 64 * (2 * f + 4) + 32 * 128)
-    dev = _check("edge_mlp_pre", tensors, shapes, (f,), smem)
+    dev = _check("edge_mlp_pre", tensors, shapes, (f,), pre_smem(f))
+    if f > _PRE_MAX_F:
+        raise ValueError(f"edge_mlp_pre: F = {f} is above {_PRE_MAX_F}")
     out = torch.empty((n, k, 3 * f), dtype=torch.float32, device=dev)
+    image = torch.empty(image_floats(f), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         FORWARD(ptr(pre1), ptr(cw), ptr(w2), ptr(b2), ptr(w3), ptr(b3),
-                ptr(out), n * k, f)
+                ptr(out), ptr(image), n * k, f)
     return out
 
 
