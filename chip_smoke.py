@@ -74,10 +74,11 @@ epochs on 384 synthetic QM9-scale molecules in batches of 64 and
 checked and reloaded on the card.
 
 Before the kernels phase, ``tc_attributes`` gives the tensor-core kernels
-(rows 3, 5, 7, 10 and 11) as compiled: registers, spill bytes, shared
-memory and blocks an SM; the kernels phase also holds rows 5 and 7 against
-float64, and reads the device time (no host time) of each kernel that
-has a library yardstick and of that yardstick.
+(rows 3, 5, 7, 10, 11 and kernel B) as compiled: registers, spill bytes,
+shared memory and blocks an SM; the kernels phase also holds rows 5 and 7
+against float64, and reads the device time (no host time) of each kernel
+that has a library yardstick and of that yardstick, and of the q-tier
+and windowed-Coulomb kernels.
 Each phase prints one JSON line; the card's name and power limit (as
 ``nvidia-smi`` gives them) and a ``{"kernels": [...]}`` line follow, and
 the last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -113,6 +114,10 @@ CHEB_TOL = 2e-6
 # a silu; the limit leaves room for the tensor cores' own accumulation
 # (~2e-6 of a product's max at K = 128, rows 5 and 10)
 EDGE_TOL = 1e-5
+# kernel B (blocked_q_dq, both bases and layouts), max |kernel − plain| /
+# max |plain| per output (du, dd or drbf, dcw): five 3xTF32 products
+# chained through silu and dsilu, the same product family as kernel 3
+DQ_TOL = 1e-5
 # blocked against gather path forces, relative to max |F|: the q_tab
 # series approximation of the edge-MLP base is the difference.  Two runs
 # on an H100 read 3.3e-6 and 2.5e-6; the limit leaves 30x room for the
@@ -354,6 +359,8 @@ def limit(name):
     """The agreement a kernel row or shape case ``name`` is held to."""
     if name.startswith("cheb_filter"):
         return CHEB_TOL
+    if name.startswith("blocked_q_dq"):
+        return DQ_TOL
     return EDGE_TOL if name.startswith("edge_mlp_pre") else TOL
 
 
@@ -428,7 +435,7 @@ def phase_device():
     return smi, name, peak
 
 
-def phase_tc_attributes(specs):
+def phase_tc_attributes(specs, q_specs):
     """The tensor-core kernels as compiled and launched: rows 10 and 11 at
     the dhfr cell-blocked shapes (the sorts of ``specs``: the grouped K′
     and the brute K=64 list; F=128, T=128), kernels 5 and 7 at the dhfr
@@ -438,8 +445,11 @@ def phase_tc_attributes(specs):
     API); the dynamic shared memory and the split-series scratch must
     equal the wrappers' plans, and kernels 5 and 7 must not spill.  Kernel
     3 the same at F = 128 (its split W2 and W3) and on the gather path's
-    N·K slots."""
+    N·K slots; kernel B, both bases, at F = 128, T = 64, R = 32 on the
+    north star's sorts of ``q_specs`` (K = 96 and the grouped K′), with no
+    spill."""
     from torchmdnet_tpu_torch.ops import blocked_mp as bm
+    from torchmdnet_tpu_torch.ops import blocked_q as bq
     from torchmdnet_tpu_torch.ops import cheb_filter as cf
     from torchmdnet_tpu_torch.ops import edge_mlp as em
 
@@ -481,6 +491,21 @@ def phase_tc_attributes(specs):
               f"{name}: the kernel's image scratch differs from the "
               "wrapper's")
         attrs[name] = dict(a, span=span, blocks=blocks)
+    for spec in q_specs.values():
+        k = sum(spec.col_slots) if spec.col_slots else K
+        for name, a in bq.kernel_attributes(F, k, Q_TAB, R).items():
+            rbf = name.endswith("_rbf")
+            blocks, _, chunk, smem, image = bq.launch_plan(
+                spec.n_pad, k, F, R if rbf else Q_TAB, rbf)[name]
+            check(a["dynamic_smem"] == smem,
+                  f"{name}: the kernel's shared memory {a['dynamic_smem']} "
+                  f"differs from the plan's {smem}")
+            check(a["blocks_per_sm"] >= 1, f"{name}: does not fit an SM")
+            check(a["local_bytes"] == 0, f"{name}: spills")
+            check(a["image_floats"] == image,
+                  f"{name}: the kernel's image scratch differs from the "
+                  "wrapper's")
+            attrs[f"{name}@k{k}"] = dict(a, blocks=blocks, chunk=chunk)
     emit({"phase": "tc_attributes", "attributes": attrs})
 
 
@@ -636,17 +661,20 @@ def compare(kern, plain):
 # ---------------------------------------------------------------- kernels
 def kernel_rows(rows, peak, calls, work, mask):
     """Each kernel of ``calls`` against its plain version: errors, ms,
-    plain ms and bound into ``rows``; the exact q-tier's rbf cotangent
-    must be exactly 0 on the slots ``mask`` leaves out."""
+    device ms, plain ms and bound into ``rows``; the exact q-tier's rbf
+    cotangent must be exactly 0 on the slots ``mask`` leaves out.  A
+    ``work`` entry is (FLOP, bytes) or (FLOP, bytes, the FLOP of them that
+    the kernel runs on the tensor cores in 3xTF32)."""
     for name, (kern, plain) in calls.items():
         err, rel, got = compare(kern, plain)
         if name.startswith("blocked_q_dq_rbf"):
             check(not got[1][~mask].any(),
                   f"{name}: an invalid slot's rbf cotangent is not 0")
-        flops, nb = work[name]
-        b_ms, b_by = bound(flops, nb, peak)
+        flops, nb, *tc = work[name]
+        b_ms, b_by = bound(flops, nb, peak, *tc)
         rows[name] = dict(
             max_abs_err=err, max_rel_err=rel, ms=time_ms(kern),
+            device_ms=device_ms(kern),
             plain_ms=time_ms(plain, reps=3, warmup=1), bound_ms=b_ms,
             bound_by=b_by, library_ms=None, gflop=flops / 1e9,
             gbytes=nb / 1e9)
@@ -657,7 +685,8 @@ def kernel_rows(rows, peak, calls, work, mask):
 def q_work(q, f, t, suffix=""):
     """(FLOP, bytes) each q-tier kernel needs on ``q``: kernel A runs the
     chain on the slots with cw ≠ 0, kernel B on every valid slot (the
-    backprop on the cw ≠ 0 ones).  Inputs: the mask of every slot, the
+    backprop on the cw ≠ 0 ones); for B also the FLOP of its products,
+    which it runs on the tensor cores in 3xTF32.  Inputs: the mask of every slot, the
     per-slot operands (d or the rbf row, cw, idx) of the valid slots, the
     row arrays and weights once; outputs once (B's per-slot ones on every
     slot: zeros elsewhere).  Names as :func:`q_calls` gives them."""
@@ -682,10 +711,10 @@ def q_work(q, f, t, suffix=""):
         # B: the forward chain and the fold on every valid slot, the
         # backprop and the base cotangent (dser's series or W1aᵀ) on the
         # live ones
+        products = 2 * valid * (base + l2 + l3) + 2 * live * (l3 + l2 + base)
         work["blocked_q_dq" + name + suffix] = (
-            2 * valid * (base + l2 + l3 + g9 + 3 * f)
-            + 2 * live * (l3 + l2 + base),
-            ins + grow + w1 + outf + n * k * 4 + dbase)
+            products + 2 * valid * (g9 + 3 * f),
+            ins + grow + w1 + outf + n * k * 4 + dbase, products)
     return work
 
 
@@ -1460,14 +1489,16 @@ def blocked_shape_errors(gen):
 def q_shape_errors(gen):
     """Kernels A and B, both bases, on synthetic lists of grouped-tier
     widths: K′ not a multiple of 4 or 16, up to 512 slots a row (one
-    compaction pass) and 520 (two), rbf widths not a multiple of 4, a row
+    compaction pass) and 520 (two), rbf widths not a multiple of 4, F = 68
+    (kernel B holds a W3 pass whose columns pass 3F in the next), a row
     with no valid slot, a row whose slots are all valid with cw = 0, an
     empty slot group, d at 0, at hi and beyond."""
     dev = torch.device("cuda")
     worst = {}
     hi = 4.5
     for n, k, f, t, r in ((37, 13, 12, 8, 5), (50, 330, 32, 16, 7),
-                          (21, 512, 128, 64, 32), (19, 520, 128, 64, 32)):
+                          (23, 40, 68, 16, 12), (21, 512, 128, 64, 32),
+                          (19, 520, 128, 64, 32)):
         def randn(*shape, scale=1.0):
             return torch.randn(shape, generator=gen, device=dev) * scale
 
@@ -1493,14 +1524,21 @@ def q_shape_errors(gen):
                  rbf=torch.rand((n, k, r), generator=gen, device=dev)
                  * mask[..., None], w1a=randn(r, f, scale=r ** -0.5))
         calls = q_calls(q)
-        errs = [compare(*pair)[1] for pair in calls.values()]
+        errs = {name: compare(*pair)[1] for name, pair in calls.items()}
         outs = {name: as_list(kern()) for name, (kern, _) in calls.items()}
         check(all(float(o[0][1].abs().max()) == 0.0 for name, o in
                   outs.items() if "_dq" not in name),
               "kernel A: a row with no valid slot is not 0")
         check(not outs["blocked_q_dq_rbf"][1][~mask].any(),
               "kernel B (rbf): an invalid slot's cotangent is not 0")
-        worst[f"q_n{n}_k{k}_f{f}_t{t}_r{r}"] = max(errs)
+        check(all(not o[j][~mask].any() for name, o in outs.items()
+                  if "_dq" in name for j in (1, 2)),
+              "kernel B: an invalid slot's dd, drbf or dcw is not 0")
+        tag = f"n{n}_k{k}_f{f}_t{t}_r{r}"
+        worst[f"q_{tag}"] = max(e for name, e in errs.items()
+                                if "_dq" not in name)
+        worst[f"blocked_q_dq_{tag}"] = max(e for name, e in errs.items()
+                                           if "_dq" in name)
     return worst
 
 
@@ -1556,7 +1594,7 @@ def phase_shapes():
                                             rc, n)
         calls = q_calls(q)
         calls.update(wc_calls(wv, rc))
-        errs = [compare(*pair)[1] for pair in calls.values()]
+        errs = {name: compare(*pair)[1] for name, pair in calls.items()}
         # the same rows cut short of a whole row block of the kernels
         cut = spec.n_pad - 5
         qc = dict(q, **{key: q[key][:cut] for key in
@@ -1564,8 +1602,13 @@ def phase_shapes():
                          "rbf")})
         qc["idx"] = torch.clamp(q["idx"][:cut], max=cut - 1)
         qc["mask"] = qc["mask"] & (q["idx"][:cut] < cut)
-        errs += [compare(*pair)[1] for pair in q_calls(qc).values()]
-        worst[f"blocked_n{n}_cap{cap}_f{f}_c{c}_s{wspec.s}"] = max(errs)
+        errs.update({name + "_cut": compare(*pair)[1]
+                     for name, pair in q_calls(qc).items()})
+        tag = f"n{n}_cap{cap}_f{f}_c{c}_s{wspec.s}"
+        worst[f"blocked_{tag}"] = max(e for name, e in errs.items()
+                                      if "_dq" not in name)
+        worst[f"blocked_q_dq_{tag}"] = max(e for name, e in errs.items()
+                                           if "_dq" in name)
 
     worst.update(edge_pre_shape_errors(gen))
     worst.update(q_shape_errors(gen))
@@ -1864,10 +1907,12 @@ PROFILE_GROUPS = (
                                            "blocked_sum_cheb_kernel",
                                            "blocked_dd_cheb_kernel")),
     ("kernels 5/7 Chebyshev filter", ("cheb_tc_kernel",)),
-    ("series and weight split of rows 3, 5, 7, 10, 11", ("tc_split_kernel",)),
+    ("series and weight split of rows 3, 5, 7, 10, 11, 13",
+     ("tc_split_kernel",)),
     ("row 6 Chebyshev projection", ("project_kernel", "project_sum_kernel")),
     ("kernel 4 edge_mlp", ("edge_mlp_kernel",)),
-    ("kernel A/B q-tier", ("q_kernel",)),
+    ("kernel A q-tier", ("q_kernel",)),
+    ("kernel B q-tier", ("dq_tc_kernel",)),
     ("kernel C/D windowed Coulomb", ("wc_kernel",)),
     ("kernel 3 edge_mlp_pre", ("edge_mlp_pre_kernel",)),
     ("kernel 2 embedding bwd", ("emb_bwd_kernel", "sum_partials_kernel")),
@@ -2672,7 +2717,9 @@ def main():
     dhfr, seg = dhfr_system()
     specs = {"grouped": dhfr_blocked_spec(dhfr, True),
              "ungrouped": dhfr_blocked_spec(dhfr, False)}
-    phase_tc_attributes(specs)
+    q_specs = {"ungrouped": northstar_spec(system),
+               "grouped": northstar_spec(system, grouped=True)}
+    phase_tc_attributes(specs, q_specs)
     rows = phase_kernels(peak, system, dhfr, seg, specs)
     phase_shapes()
     phase_small()
@@ -2681,7 +2728,7 @@ def main():
     phase_profile("gather", gather_run)
     g_steps, g_launch = phase_md_gather(gather_pot, system)
 
-    spec = northstar_spec(system)
+    spec = q_specs["ungrouped"]
     pot, blocked_run, blocked_out = phase_blocked_energy(
         system, spec, gather_pot, gather_out)
     del gather_pot, gather_out, gather_run

@@ -2,6 +2,8 @@
 and TensorNet's fused edge MLP's plain PyTorch versions against the JAX
 Pallas kernels (interpret mode), forward and backward."""
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -144,3 +146,70 @@ def test_fused_edge_mlp_backward_matches_pallas_kernel():
 def test_fused_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         edge_mlp_cuda(*map(torch.from_numpy, _inputs4()))
+
+
+# (model, F, R, the kernel's shared memory at that width, refused): kernel
+# 3 at TensorNet2's widths, kernel 4 at TensorNet's; the bytes are the
+# kernels' layouts (edge_mlp.cu::pre_smem and tmd_edge_mlp's sum)
+PLAN_CASES = [("tensornet2", 128, 32, 141632, False),
+              ("tensornet2", 256, 32, 207168, False),
+              ("tensornet2", 512, 32, 338240, True),
+              ("tensornet", 128, 32, 128320, False),
+              ("tensornet", 256, 32, 226624, False),
+              ("tensornet", 256, 64, 234816, True),
+              ("tensornet", 512, 32, 423232, True)]
+
+
+@pytest.mark.parametrize("model, f, r, smem, refused", PLAN_CASES)
+def test_models_keep_the_kernel_where_its_plan_cannot_launch(
+        model, f, r, smem, refused):
+    """With ``pallas_edge_mlp`` a model takes kernel 3 (TensorNet2) or 4
+    (TensorNet, ``r`` rbf) at every width: the JAX op leaves its kernel
+    only for a row count its tile does not divide or a dtype other than
+    float32, never for a width, so no model switches to the plain chain
+    where the port's kernel cannot launch.  There the wrapper raises,
+    before it looks at the device."""
+    from torchmdnet_tpu_torch.models.tensornet import Interaction
+    from torchmdnet_tpu_torch.models.tensornet2 import Interaction2
+    from torchmdnet_tpu_torch.ops.edge_mlp import (
+        fused_plan_error, fused_smem, pre_plan_error, pre_smem)
+
+    if model == "tensornet2":
+        layer = Interaction2(f, r, 16, pallas_edge_mlp=True)
+        assert pre_smem(f) == smem
+        error = pre_plan_error(f)
+        args = _inputs(n=2, k=3, f=f, seed=6)
+        wrapper = edge_mlp_pre_cuda
+    else:
+        layer = Interaction(f, r, pallas_edge_mlp=True)
+        assert fused_smem(r, f) == smem
+        error = fused_plan_error(r, f)
+        args = _inputs4(n=2, k=3, r=r, f=f, seed=6)
+        wrapper = edge_mlp_cuda
+    assert layer.fused
+    assert (error is not None) == refused
+    assert (smem > 232448) == refused
+    with pytest.raises(ValueError, match=re.escape(error or "CUDA")) as raised:
+        wrapper(*map(torch.from_numpy, args))
+    assert ("CUDA" in str(raised.value)) != refused
+
+
+def test_wide_tail_matches_the_jax_chain():
+    """On the CPU TensorNet2's edge-MLP tail at F = 512, a width kernel 3
+    refuses, is the JAX op's chain (``edge_mlp_pre_jnp``) on the same
+    inputs."""
+    from torchmdnet_tpu_torch.models.tensornet2 import Interaction2
+
+    f = 512
+    torch.manual_seed(0)
+    layer = Interaction2(f, 32, 16, pallas_edge_mlp=True)
+    pre1, cw = _inputs(n=3, k=4, f=f, seed=7)[:2]
+    l2, l3 = layer.linears_scalar[1], layer.linears_scalar[2]
+    weights = [w.detach().numpy() for w in (l2.weight.t(), l2.bias,
+                                             l3.weight.t(), l3.bias)]
+    want = np.asarray(pallas_kernels.edge_mlp_pre_jnp(
+        *map(jnp.asarray, [pre1, cw, *weights])))
+    with torch.no_grad():
+        got = layer._mlp_tail(torch.from_numpy(pre1),
+                              torch.from_numpy(cw)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)

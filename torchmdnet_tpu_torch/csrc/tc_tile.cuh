@@ -19,15 +19,18 @@
 // a stage) where it is needed, from one of two sources (tc_step's Frag):
 // the cos basis B(θ)[r][k] = cos(k·θ_r), computed from the rows' θ, so the
 // basis takes no shared memory and no pass over it (tc_product; rows 5, 7,
-// 10, 11), or an fp32 activation tile in shared memory (tc_product_act;
-// kernel 3).  Block: kTcThreads = 256 threads, two warpgroups; warpgroup
+// 10, 11), or fp32 rows in memory: an activation tile in shared memory
+// (tc_product_act, kernel 3; tc_product_from, kernel B of
+// csrc/blocked_q.cu, whose exact base also reads its rbf rows from device
+// memory this way).  Block: kTcThreads = 256 threads, two warpgroups; warpgroup
 // q owns the columns [64q, 64q + 64) for all 64 rows (wgmma m64n64k8, 32
 // fp32 accumulators a thread) and issues 6 wgmma a stage (2 k-steps x 3
 // terms), then waits for them: one fragment set, ~80 registers, so three
 // blocks share an SM and hide each other's waits (rows 10-11; rows 5 and 7
 // also hold a stage's sums, below: ~115 registers, two blocks).  Kernel
 // 3's block fills an SM alone, so its product waits for the stage before
-// and keeps two fragment sets.
+// and keeps two fragment sets.  Kernel B's fills an SM alone too, but
+// beside its epilogues a second fragment set spills, so it keeps one.
 
 #pragma once
 
@@ -160,7 +163,10 @@ __device__ __forceinline__ int tc_col(int i) {
 // (p·nstages + s)·kTcStage, its hi plane then its lo plane; element (n, k)
 // of a plane at byte n·64 + 4k with the 16-byte chunk index (bits 4-5)
 // XORed with bits 7-8 of that offset (the 64-byte swizzle).  Rows past
-// kdim and columns past ncols are zeros.
+// kdim and columns past ncols are zeros.  With kT the series is the
+// transpose of W [ncols x kdim] (row-major): element (row, col) is
+// W[col·kdim + row].
+template <bool kT>
 __global__ void __launch_bounds__(kTcThreads)
 tc_split_kernel(const float* __restrict__ W, int kdim, int ncols,
                 float* __restrict__ image) {
@@ -172,7 +178,8 @@ tc_split_kernel(const float* __restrict__ W, int kdim, int ncols,
     const int p = stage / nstages, s = stage - p * nstages;
     const int n = e / kTcK, k = e - n * kTcK;
     const int row = s * kTcK + k, col = p * kTcN + n;
-    const float x = row < kdim && col < ncols ? W[(long long)row * ncols + col] : 0.0f;
+    const long long at = kT ? (long long)col * kdim + row : (long long)row * ncols + col;
+    const float x = row < kdim && col < ncols ? W[at] : 0.0f;
     uint32_t hi, lo;
     tf32_split(x, hi, lo);
     int o = n * 64 + 4 * k;
@@ -183,15 +190,19 @@ tc_split_kernel(const float* __restrict__ W, int kdim, int ncols,
   }
 }
 
-// Splits series [kdim x ncols] into image [tc_image_floats(kdim, ncols)]
-// on stream: the first launch of every entry point that multiplies by it.
+// Splits series [kdim x ncols] (with transposed, the transpose of a
+// row-major [ncols x kdim]) into image [tc_image_floats(kdim, ncols)] on
+// stream: the first launch of every entry point that multiplies by it.
 inline int tc_split(const float* series, int kdim, int ncols, float* image,
-                    void* stream) {
+                    void* stream, bool transposed = false) {
   const int total = tc_image_floats(kdim, ncols) / 2;
   if (total == 0) return cudaSuccess;
-  tc_split_kernel<<<(total + kTcThreads - 1) / kTcThreads, kTcThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(series, kdim, ncols,
-                                                         image);
+  const int blocks = (total + kTcThreads - 1) / kTcThreads;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (transposed)
+    tc_split_kernel<true><<<blocks, kTcThreads, 0, st>>>(series, kdim, ncols, image);
+  else
+    tc_split_kernel<false><<<blocks, kTcThreads, 0, st>>>(series, kdim, ncols, image);
   return cudaGetLastError();
 }
 
@@ -201,6 +212,18 @@ __device__ __forceinline__ void tc_copy(const float* __restrict__ src, float* ds
   for (int q = 0; q < kTcStage / 4 / kTcThreads; ++q) {
     const int v = 4 * (threadIdx.x + kTcThreads * q);
     cp_async16(dst + v, src + v);
+  }
+}
+
+// Copies this warpgroup's half of one stage (its 64 columns of the hi and
+// of the lo plane: 4 KB of each) of the image into sR.
+__device__ __forceinline__ void tc_copy_half(const float* __restrict__ src, float* dst) {
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int v = 4 * (t + 128 * q);  // [0, 2048): the two half planes
+    const int o = (v >> 10) * kTcPlane + wg * 64 * kTcK + (v & 1023);
+    cp_async16(dst + o, src + o);
   }
 }
 
@@ -255,9 +278,10 @@ struct TcCosBasis {
   }
 };
 
-// An fp32 activation tile [64][lda] in shared memory (kernel 3): row0 and
-// row1 point at rows tc_row(0) and tc_row(1).  With lda ≡ 4 (mod 32) the
-// eight row groups of a warp and its four k hit 32 distinct banks.
+// An fp32 activation tile [64][lda] in shared memory (kernel 3, kernel
+// B), or any rows in device memory (kernel B's rbf): row0 and row1 point
+// at rows tc_row(0) and tc_row(1).  With lda ≡ 4 (mod 32) the eight row
+// groups of a warp and its four k hit 32 distinct shared-memory banks.
 struct TcActivation {
   const float* row0;
   const float* row1;
@@ -275,10 +299,12 @@ struct TcActivation {
   }
 };
 
-// One stage kt of a product: the copy of stage kt + 2 into the buffer
-// stage kt − 1 read, this thread's A fragment of stage kt into a, and
-// their products; with kStageSums into a zeroed set, added to acc in fp32
-// after the wait.
+// One stage kt of a product: the copy of this warpgroup's half of stage
+// kt + 2 into the buffer stage kt − 1 read, this thread's A fragment of
+// stage kt into a, and their products; with kStageSums into a zeroed set,
+// added to acc in fp32 after the wait.  The warpgroups synchronise apart
+// (named barriers 1 and 2), so one builds its fragments while the other's
+// wgmma run.
 template <bool kStageSums, typename Frag>
 __device__ __forceinline__ void tc_step(const Frag& frag,
                                         const float* __restrict__ src, int nk,
@@ -286,11 +312,13 @@ __device__ __forceinline__ void tc_step(const Frag& frag,
                                         uint32_t (&a)[2][2][4]) {
   cp_async_wait<1>();
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  // Stage kt has landed for every thread's copies, and every thread has
-  // waited for its stage kt − 1 products: that stage's buffer takes kt + 2.
-  __syncthreads();
+  // This warpgroup's half of stage kt has landed for all its threads'
+  // copies, and all of them have waited for their stage kt − 1 products:
+  // that half of the buffer takes kt + 2.  Each warpgroup copies and
+  // reads only its own 64 columns, so the two meet at no barrier here.
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + (int)(threadIdx.x >> 7)) : "memory");
   if (kt + 2 < nk)
-    tc_copy(src + (kt + 2) * kTcStage, sR + ((kt + 2) % kTcStages) * kTcStage);
+    tc_copy_half(src + (kt + 2) * kTcStage, sR + ((kt + 2) % kTcStages) * kTcStage);
   cp_async_commit();
   const float* buf = sR + (kt % kTcStages) * kTcStage + (threadIdx.x >> 7) * 64 * kTcK;
   frag(kt, a);
@@ -311,11 +339,37 @@ __device__ __forceinline__ void tc_step(const Frag& frag,
   }
 }
 
+// acc = A[0:64, 0:kdim] · W[0:kdim, 128p : 128p + 128] from the split
+// image of W, the A fragments from frag (either source above), through
+// the three-stage ring in sR, the region of kTcRegion floats, 1024-byte
+// aligned.  Every thread calls it.  The caller synchronises first (sR is
+// free, and what frag reads is written); it synchronises last (sR is free
+// on return).  kStageSums: see tc_product.
+template <bool kStageSums = false, typename Frag>
+__device__ __forceinline__ void tc_product_from(const Frag& frag,
+                                                const float* __restrict__ image,
+                                                int kdim, int p, float* sR,
+                                                float (&acc)[8][4]) {
+  const int nk = (kdim + kTcK - 1) / kTcK;
+  const float* src = image + (long long)p * nk * kTcStage;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+  uint32_t a[2][2][4];
+  tc_copy_half(src, sR);
+  cp_async_commit();
+  if (nk > 1) tc_copy_half(src + kTcStage, sR + kTcStage);
+  cp_async_commit();
+  for (int kt = 0; kt < nk; ++kt)
+    tc_step<kStageSums>(frag, src, nk, kt, sR, acc, a);
+  __syncthreads();
+}
+
 // acc = B(θ)[0:64, 0:kdim] · W[0:kdim, 128p : 128p + 128] from the split
-// image of W; sTheta holds the 64 rows' θ, sR is the region of kTcRegion
-// floats, 1024-byte aligned.  Every thread calls it; it synchronises first
-// (sR may still be read by the caller, sTheta is written) and last (sR is
-// free on return).  The tensor cores round each accumulation of a wgmma
+// image of W; sTheta holds the 64 rows' θ.  It synchronises first (sR may
+// still be read by the caller, sTheta is written) and last (sR is free on
+// return).  The tensor cores round each accumulation of a wgmma
 // less exactly than an fp32 add, and acc takes 48 of them a pass: ~2e-6
 // of max |acc| where the series' terms cancel.  kStageSums sums each stage
 // apart and adds it to acc in fp32 (8 adds a pass, ~1e-6) for 32 more
@@ -327,23 +381,10 @@ template <bool kStageSums = false>
 __device__ __forceinline__ void tc_product(const float* __restrict__ sTheta,
                                            const float* __restrict__ image, int kdim,
                                            int p, float* sR, float (&acc)[8][4]) {
-  const int nk = (kdim + kTcK - 1) / kTcK;
-  const float* src = image + (long long)p * nk * kTcStage;
-  const int row = tc_row(0);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
-  uint32_t a[2][2][4];
   __syncthreads();  // the caller no longer reads sR; sTheta is written
-  const TcCosBasis frag{sTheta[row], sTheta[row + 8], kdim};
-  tc_copy(src, sR);
-  cp_async_commit();
-  if (nk > 1) tc_copy(src + kTcStage, sR + kTcStage);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt)
-    tc_step<kStageSums>(frag, src, nk, kt, sR, acc, a);
-  __syncthreads();
+  const int row = tc_row(0);
+  tc_product_from<kStageSums>(TcCosBasis{sTheta[row], sTheta[row + 8], kdim},
+                              image, kdim, p, sR, acc);
 }
 
 // One stage kt of tc_product_act, with the fragment set S = kt % 2: the

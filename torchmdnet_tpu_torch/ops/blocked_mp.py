@@ -55,15 +55,13 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs
-# rows 10-11 share kernels 5 and 7's shared region (the series ring, then
-# the epilogue tile) and split-series image
 from torchmdnet_tpu_torch.ops.cheb_filter import (
-    _TC_REGION, cheb_filter_dot_ref, cheb_filter_ref)
-from torchmdnet_tpu_torch.ops.cheb_filter import (
-    image_floats as tc_image_floats)
+    cheb_filter_dot_ref, cheb_filter_ref)
 from torchmdnet_tpu_torch.ops.kernels import (
     F32, I32, P, CudaSource, Kernel, ptr)
 from torchmdnet_tpu_torch.ops.message_passing import _pns_dattr, row_chunk
+from torchmdnet_tpu_torch.ops.tc_tile import REGION, SMEM_LIMIT
+from torchmdnet_tpu_torch.ops.tc_tile import image_floats as tc_image_floats
 
 SOURCE = CudaSource("blocked_mp.cu")
 SUM = Kernel(SOURCE, "tmd_blocked_sum", [P] * 5 + [I32] * 3)
@@ -72,7 +70,6 @@ SUM_CHEB = Kernel(SOURCE, "tmd_blocked_sum_cheb",
                   [P] * 7 + [I32] * 4 + [F32] * 2)
 DD_CHEB = Kernel(SOURCE, "tmd_blocked_dd_cheb",
                  [P] * 8 + [I32] * 4 + [F32] * 2)
-_SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 _ROWS = 4             # sorted rows a block owns, every row (kRows, kTcRows)
 
 
@@ -89,7 +86,7 @@ def sum_cheb_smem(k: int, f: int) -> int:
     then the attr tile), the rows' accumulator, θ and fm, then neighbor
     rows, warp counts, row starts (padded to 8) and the compacted slots
     (the basis lives in registers)."""
-    return 1024 + 4 * (_TC_REGION + _ROWS * 9 * f + 2 * 64) \
+    return 1024 + 4 * (REGION + _ROWS * 9 * f + 2 * 64) \
         + 4 * (64 + 16 + _ROWS * k)
 
 
@@ -98,7 +95,7 @@ def dd_cheb_smem(k: int, f: int) -> int:
     then the ct tile), the rows' g9, the [2, 64] warpgroup sums, θ and
     fm, then neighbor rows, slot rows, warp counts and the compacted
     slots."""
-    return 1024 + 4 * (_TC_REGION + _ROWS * 9 * f + 4 * 64) \
+    return 1024 + 4 * (REGION + _ROWS * 9 * f + 4 * 64) \
         + 4 * (2 * 64 + 8 + _ROWS * k)
 
 
@@ -233,9 +230,9 @@ def _check(name, tensors, smem):
     if f % 4 or tensors["feats9"].shape[1] % 9:
         raise ValueError(f"{name}: feats9 width must be 9F with F a multiple "
                          f"of 4, got {tensors['feats9'].shape[1]}")
-    if smem > _SMEM_LIMIT:
+    if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: K={k}, F={f}, T={t} needs {smem} bytes of "
-                         f"shared memory (> {_SMEM_LIMIT})")
+                         f"shared memory (> {SMEM_LIMIT})")
     return dev, n, k, f, t
 
 

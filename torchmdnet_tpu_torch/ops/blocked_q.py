@@ -34,8 +34,15 @@ window features and the basis dot to bf16 (~1e-3 relative,
 that rounding.
 
 On CUDA tensors each function launches its kernel (``csrc/blocked_q.cu``)
-or raises; on CPU tensors it runs the plain version beside it.
+or raises; on CPU tensors it runs the plain version beside it.  Kernel A
+runs in fp32 FMA.  Kernel B runs its products on the tensor cores in
+3xTF32 (``csrc/tc_tile.cuh``, float32-accurate) from split copies of its
+six weights (the base, W2, W3, W3ᵀ, W2ᵀ and the base's cotangent) in a
+scratch the wrapper allocates (:func:`dq_image_floats`); :func:`launch_plan`
+holds its grid and shared memory, for F ≤ 128.
 """
+
+import ctypes
 
 import torch
 import torch.nn.functional as F_
@@ -45,6 +52,8 @@ from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs, cheb_theta, cos_bas
 from torchmdnet_tpu_torch.ops.kernels import (
     F32, I32, I64, P, CudaSource, Kernel, ptr)
 from torchmdnet_tpu_torch.ops.message_passing import row_chunk
+from torchmdnet_tpu_torch.ops.tc_tile import REGION, SMEM_LIMIT
+from torchmdnet_tpu_torch.ops.tc_tile import image_floats as tc_image_floats
 
 SOURCE = CudaSource("blocked_q.cu")
 _COMMON = [P] * 7  # d or rbf, cw, mask, idx, urow, ucol, xwin
@@ -52,30 +61,109 @@ _TAIL = [I64, I32, I32, I32, F32, F32]  # n, k, f, t, lo, span
 FORWARD = Kernel(SOURCE, "tmd_blocked_q_fwd", _COMMON + [P] * 6 + _TAIL)
 FORWARD_DU = Kernel(SOURCE, "tmd_blocked_q_fwd_du",
                     _COMMON + [P] * 10 + _TAIL)
-DQ = Kernel(SOURCE, "tmd_blocked_q_dq", _COMMON + [P] * 12 + _TAIL)
+# kernel B: + grow, coeffs, dser, w2, b2, w3, b3, du, dd, dcw, image
+DQ = Kernel(SOURCE, "tmd_blocked_q_dq", _COMMON + [P] * 11 + _TAIL)
 # the exact-rbf forms (tab=False): rbf [N, K, R] for d, W1a for coeffs
 FORWARD_RBF = Kernel(SOURCE, "tmd_blocked_q_fwd_rbf",
                      _COMMON + [P] * 6 + [I64, I32, I32, I32])
 FORWARD_DU_RBF = Kernel(SOURCE, "tmd_blocked_q_fwd_du_rbf",
                         _COMMON + [P] * 10 + [I64, I32, I32, I32])
 DQ_RBF = Kernel(SOURCE, "tmd_blocked_q_dq_rbf",
-                _COMMON + [P] * 12 + [I64, I32, I32, I32, I32])
-# bytes of dynamic shared memory one Hopper block may use, less the
-# kernel's static arrays
-_SMEM_LIMIT = 232448 - 4096
-_LIST_CAP = 16 * 512  # slots a block compacts at a time (16-bit ids)
+                _COMMON + [P] * 10 + [I64, I32, I32, I32])
+_A_SMEM_LIMIT = SMEM_LIMIT - 4096  # kernel A: less its static arrays
+_LIST_CAP = 16 * 512  # slots a kernel A block compacts at a time (16-bit ids)
+# kernel B (dq_tc_kernel): sorted rows a block owns, slots it compacts at
+# a time, and the widest F and rbf width it takes
+_DQ_ROWS, _DQ_CHUNK = 16, 4096
+_DQ_MAX_F = _DQ_MAX_R = 128
 
 
 def smem_bytes(mode: int, f: int, t: int, k: int) -> int:
-    """Dynamic shared memory of a launch (mode 0 = A, 1 = A with du,
-    2 = B; ``t`` series terms or rbf width), as ``q_kernel`` lays it
-    out."""
+    """Dynamic shared memory of a kernel A launch (mode 0 = A, 1 = A with
+    du; ``t`` series terms or rbf width), as ``q_kernel`` lays it out."""
     tm = 64 if mode == 0 else 32
     lda, ldh, ldb, ldz, ldt = f + 4, 2 * f + 4, t + 4, 3 * f + 4, 132
     floats = 32 * 128 + tm * (ldb + lda + ldh + ldt)
     if mode:
         floats += tm * (lda + ldh + ldt + ldz)
     return 4 * floats + 2 * min(16 * k, _LIST_CAP)
+
+
+def dq_smem(f: int, k: int) -> int:
+    """Dynamic shared memory of a kernel B launch, as ``dq_tc_kernel``
+    lays it out: 1 KB to align the ring, the ring, the [64, 3F + 4] and
+    [64, 2F + 4] activation tiles, the [2, 64] warpgroup sums, dcw, cw
+    and θ, the tile's rows, neighbours and slot offsets, the warp counts,
+    and the 16-bit slot ids of a compaction pass."""
+    floats = REGION + 64 * (3 * f + 4) + 64 * (2 * f + 4) + 5 * 64
+    return 1024 + 4 * floats + 4 * (3 * 64 + 8) + 2 * min(_DQ_ROWS * k,
+                                                          _DQ_CHUNK)
+
+
+def dq_image_floats(f: int, t: int, rbf: bool = False) -> int:
+    """Floats of kernel B's scratch at ``F = f`` with ``t`` series terms
+    (or, ``rbf``, the rbf width): the split images of the base ``[t,
+    F]``, W2, W3, W3ᵀ, W2ᵀ and the base's cotangent (``dser [t, F]``, or
+    W1aᵀ ``[F, t]``)."""
+    return (tc_image_floats(t, f) + tc_image_floats(f, 2 * f)
+            + tc_image_floats(2 * f, 3 * f) + tc_image_floats(3 * f, 2 * f)
+            + tc_image_floats(2 * f, f)
+            + (tc_image_floats(f, t) if rbf else tc_image_floats(t, f)))
+
+
+def launch_plan(n: int, k: int, f: int, t: int, rbf: bool = False) -> dict:
+    """Kernel B at ``n`` sorted rows of ``k`` slots, ``F = f`` and ``t``
+    series terms (``rbf``: its exact form, ``t`` the rbf width): ``(blocks,
+    rows a block, slots a compaction pass, dynamic shared memory, image
+    floats)``; block ``b`` owns the rows ``[b·rows, b·rows + rows)`` below
+    ``n``."""
+    name = "blocked_q_dq_rbf" if rbf else "blocked_q_dq"
+    return {name: (-(-n // _DQ_ROWS), _DQ_ROWS, min(_DQ_ROWS * k, _DQ_CHUNK),
+                   dq_smem(f, k), dq_image_floats(f, t, rbf))}
+
+
+def dq_plan_error(f: int, t: int, k: int, rbf: bool = False):
+    """Why kernel B cannot launch at ``(F, t, K)``, or None: F a multiple
+    of 4 up to 128 (its W3 passes below 2F hold at most one pass in
+    registers), an rbf width up to 128 (one pass of W1aᵀ), and the plan's
+    shared memory within a block's 232,448 B."""
+    if f % 4 or not 4 <= f <= _DQ_MAX_F:
+        return f"channels {f} must be a multiple of 4 in [4, {_DQ_MAX_F}]"
+    if t < 1:
+        return f"{'rbf width' if rbf else 'series terms'} {t} must be >= 1"
+    if rbf and t > _DQ_MAX_R:
+        return f"rbf width {t} is above {_DQ_MAX_R}"
+    smem = dq_smem(f, k)
+    if smem > SMEM_LIMIT:
+        return f"F={f}, K={k} needs {smem} bytes of shared memory " \
+               f"(> {SMEM_LIMIT})"
+    return None
+
+
+def kernel_attributes(f: int, k: int, t: int, r: int) -> dict:
+    """What the compiler and the launch give kernel B, both bases, at
+    ``(F, K)``: registers and local (spill) bytes a thread, static and
+    dynamic shared memory a block, resident blocks an SM, and the floats
+    of its image scratch at ``t`` series terms or ``r`` rbf channels.
+    Builds the library; launches nothing."""
+    lib = SOURCE.library()
+    fn = lib.tmd_blocked_q_dq_attributes
+    fn.argtypes = [I32, I32, I32, P]
+    fn.restype = I32
+    images = lib.tmd_blocked_q_dq_image_floats
+    images.argtypes = [I32, I32, I32]
+    images.restype = I32
+    attrs = {}
+    for rbf, name, width in ((0, "blocked_q_dq", t),
+                             (1, "blocked_q_dq_rbf", r)):
+        out = (ctypes.c_int * 5)()
+        rc = fn(rbf, f, k, ctypes.cast(out, P))
+        if rc != 0:
+            raise RuntimeError(f"tmd_blocked_q_dq_attributes: CUDA error {rc}")
+        attrs[name] = dict(zip(("registers", "local_bytes", "static_smem",
+                                "dynamic_smem", "blocks_per_sm"), out))
+        attrs[name]["image_floats"] = images(f, width, rbf)
+    return attrs
 
 
 def _dsilu(x):
@@ -199,14 +287,14 @@ def q_dq_rbf_ref(rbf, cw, mask, idx, urow, ucol, xwin, g9, w1a, w2, b2, w3,
 
 def _check(name, tensors, mode):
     """Raise unless every tensor is on one CUDA device, contiguous, of its
-    type and shape, and the launch fits shared memory.  ``coeffs`` is the
-    [T, F] base weight: the series, or W1a with ``rbf`` given."""
+    type and shape, and the launch fits (mode 0 = A, 1 = A with du, 2 =
+    B).  ``coeffs`` is the [T, F] base weight: the series, or W1a with
+    ``rbf`` given."""
     n, k = tensors["idx"].shape
     T, f = tensors["coeffs"].shape
-    t4 = -(-T // 4) * 4
     shapes = dict(d=(n, k), rbf=(n, k, T), cw=(n, k), mask=(n, k),
                   idx=(n, k), urow=(n, f), ucol=(n, f), xwin=(n, 9 * f),
-                  grow=(n, 9 * f), coeffs=(T, f), dser=(T, f), w1at=(f, t4),
+                  grow=(n, 9 * f), coeffs=(T, f), dser=(T, f),
                   w2=(f, 2 * f), b2=(2 * f,), w3=(2 * f, 3 * f), b3=(3 * f,),
                   w2t=(2 * f, f), w3t=(3 * f, 2 * f))
     first = tensors["rbf" if "rbf" in tensors else "d"]
@@ -226,12 +314,17 @@ def _check(name, tensors, mode):
                              f"expected {shapes[key]}")
         if x.data_ptr() % 16:  # weights are read as float4
             raise ValueError(f"{name}: {key} is not 16-byte aligned")
+    if mode == 2:
+        error = dq_plan_error(f, T, k, rbf="rbf" in tensors)
+        if error:
+            raise ValueError(f"{name}: {error}")
+        return dev, n, k, f, T
     if f % 4:
         raise ValueError(f"{name}: channels {f} must be a multiple of 4")
     smem = smem_bytes(mode, f, T, k)
-    if smem > _SMEM_LIMIT:
+    if smem > _A_SMEM_LIMIT:
         raise ValueError(f"{name}: F={f}, T={T}, K={k} needs {smem} bytes of "
-                         f"shared memory (> {_SMEM_LIMIT})")
+                         f"shared memory (> {_A_SMEM_LIMIT})")
     return dev, n, k, f, T
 
 
@@ -287,33 +380,33 @@ def q_dq_cuda(d, cw, mask, idx, urow, ucol, xwin, g9, coeffs, dser, w2, b2,
     """Kernel B, tabulated base, on CUDA tensors: ``(du, dd, dcw)``."""
     tensors = dict(d=d, cw=cw, mask=mask, idx=idx, urow=urow, ucol=ucol,
                    xwin=xwin, grow=g9, coeffs=coeffs, dser=dser, w2=w2, b2=b2,
-                   w3=w3, b3=b3, **_transposed(w2, w3))
+                   w3=w3, b3=b3)
     dev, n, k, f, T = _check("blocked_q_dq", tensors, 2)
     with torch.cuda.device(dev):
         du = torch.empty((n, f), dtype=torch.float32, device=dev)
         dd = torch.empty((n, k), dtype=torch.float32, device=dev)
         dcw = torch.empty((n, k), dtype=torch.float32, device=dev)
+        image = torch.empty(dq_image_floats(f, T), dtype=torch.float32,
+                            device=dev)
         DQ(*[ptr(t) for t in tensors.values()], ptr(du), ptr(dd), ptr(dcw),
-           n, k, f, T, float(lo), float(hi - lo))
+           ptr(image), n, k, f, T, float(lo), float(hi - lo))
     return du, dd, dcw
 
 
 def q_dq_rbf_cuda(rbf, cw, mask, idx, urow, ucol, xwin, g9, w1a, w2, b2, w3,
                   b3):
     """Kernel B, exact base, on CUDA tensors: ``(du, drbf, dcw)``."""
-    r, f = w1a.shape
-    w1at = w1a.new_zeros((f, -(-r // 4) * 4))
-    w1at[:, :r] = w1a.t()
     tensors = dict(rbf=rbf, cw=cw, mask=mask, idx=idx, urow=urow, ucol=ucol,
-                   xwin=xwin, grow=g9, coeffs=w1a, w1at=w1at, w2=w2, b2=b2,
-                   w3=w3, b3=b3, **_transposed(w2, w3))
-    dev, n, k, f, T = _check("blocked_q_dq_rbf", tensors, 2)
+                   xwin=xwin, grow=g9, coeffs=w1a, w2=w2, b2=b2, w3=w3, b3=b3)
+    dev, n, k, f, r = _check("blocked_q_dq_rbf", tensors, 2)
     with torch.cuda.device(dev):
         du = torch.empty((n, f), dtype=torch.float32, device=dev)
         drbf = torch.empty((n, k, r), dtype=torch.float32, device=dev)
         dcw = torch.empty((n, k), dtype=torch.float32, device=dev)
+        image = torch.empty(dq_image_floats(f, r, rbf=True),
+                            dtype=torch.float32, device=dev)
         DQ_RBF(*[ptr(t) for t in tensors.values()], ptr(du), ptr(drbf),
-               ptr(dcw), n, k, f, r, w1at.shape[1])
+               ptr(dcw), ptr(image), n, k, f, r)
     return du, drbf, dcw
 
 

@@ -45,6 +45,7 @@ import torch
 from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs, cheb_theta, cos_basis
 from torchmdnet_tpu_torch.ops.kernels import (
     F32, I32, I64, P, CudaSource, Kernel, check_cuda_args, ptr)
+from torchmdnet_tpu_torch.ops.tc_tile import REGION, SMEM_LIMIT, image_floats
 
 SOURCE = CudaSource("cheb_filter.cu")
 FILTER = Kernel(SOURCE, "tmd_cheb_filter",
@@ -56,12 +57,7 @@ PROJECT = Kernel(SOURCE, "tmd_cheb_project",
 # row 6's grid: blocks wanted in flight (two 72 KB blocks on each of the
 # 132 SMs) and the most 256-slot spans one block compacts at once
 _PROJECT_BLOCKS, _PROJECT_MAX_SPANS = 264, 16
-_SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
-# kernels 5 and 7: floats of tc_tile.cuh's shared region (a ring of three
-# series stages, hi and lo planes of 128 x 16, then the epilogue's tile)
-# and the slots a block owns (kSpan)
-_TC_REGION = 3 * 2 * 128 * 16
-_TC_SPAN = 256
+_TC_SPAN = 256  # slots a kernel 5 or 7 block owns (kSpan)
 
 
 def _basis(d, T, lo, hi):
@@ -90,19 +86,12 @@ def cheb_project_ref(d, fmask, ct, T: int, lo: float, hi: float):
     return basis.t() @ ct.reshape(-1, ct.shape[-1])
 
 
-def image_floats(t: int, c: int) -> int:
-    """Floats of the split series image kernels 5 and 7 (and rows 10-11 of
-    ``ops/blocked_mp.py``) stream from: per 128-column pass and 16 series
-    rows, a hi and a lo plane of 128 x 16."""
-    return -(-c // 128) * -(-t // 16) * 2 * 128 * 16
-
-
 def tc_smem(dot: bool) -> int:
     """Dynamic shared memory of a kernel 5 (``dot`` False) or kernel 7
     launch: 1 KB to align the region, the region, θ and fm, kernel 7's
     [2, 64] warpgroup sums, then the span's live and dead offsets and the
     warp counts (the basis lives in registers)."""
-    return 1024 + 4 * (_TC_REGION + 2 * 64 + (128 if dot else 0)) \
+    return 1024 + 4 * (REGION + 2 * 64 + (128 if dot else 0)) \
         + 4 * (2 * _TC_SPAN + 16)
 
 
@@ -154,10 +143,10 @@ def _check(name, tensors, t, c, smem):
                              f"expected {want[key]}")
         if ten.data_ptr() % 16:
             raise ValueError(f"{name}: {key} is not 16-byte aligned")
-    if c % 4 or t < 1 or smem > _SMEM_LIMIT:
+    if c % 4 or t < 1 or smem > SMEM_LIMIT:
         raise ValueError(f"{name}: channels {c} must be a multiple of 4, "
                          f"series terms {t} at least 1, and {smem} bytes of "
-                         f"shared memory at most {_SMEM_LIMIT}")
+                         f"shared memory at most {SMEM_LIMIT}")
     return dev
 
 

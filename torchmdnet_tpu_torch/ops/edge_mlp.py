@@ -21,10 +21,12 @@ and write exact zeros for the others.  Kernel 3 forms its two products on
 the tensor cores in 3xTF32 (``csrc/tc_tile.cuh``, float32-accurate), from
 split copies of ``W2`` and ``W3`` in a scratch the wrapper allocates
 (:func:`image_floats`); :func:`launch_plan` holds its grid and shared
-memory.  Kernel 4 is fp32 FMA.  The backward recomputes through the plain
-chain over row chunks, as the JAX ``_bwd``/``_bwd_pre`` (``:118``,
-``:237``) do (the JAX package has no backward kernel for these ops); it is
-first-order only.
+memory.  Kernel 4 is fp32 FMA.  On the card a width whose plan does not
+fit a Hopper block (:func:`pre_plan_error`, :func:`fused_plan_error`)
+raises, as every other launch that cannot run does.  The backward
+recomputes through the plain chain over row chunks, as the JAX
+``_bwd``/``_bwd_pre`` (``:118``, ``:237``) do (the JAX package has no
+backward kernel for these ops); it is first-order only.
 """
 
 import ctypes
@@ -33,21 +35,16 @@ import torch
 import torch.nn.functional as F_
 from torch.autograd.function import once_differentiable
 
-# kernel 3's weights are split into kernels 5 and 7's image layout
-from torchmdnet_tpu_torch.ops.cheb_filter import (
-    image_floats as tc_image_floats)
 from torchmdnet_tpu_torch.ops.kernels import (
     I32, I64, P, CudaSource, Kernel, check_cuda_args, ptr)
 from torchmdnet_tpu_torch.ops.message_passing import row_chunk
+from torchmdnet_tpu_torch.ops.tc_tile import ACT_REGION, SMEM_LIMIT
+from torchmdnet_tpu_torch.ops.tc_tile import image_floats as tc_image_floats
 
 SOURCE = CudaSource("edge_mlp.cu")
 FORWARD = Kernel(SOURCE, "tmd_edge_mlp_pre", [P] * 8 + [I64, I32])
 FUSED = Kernel(SOURCE, "tmd_edge_mlp", [P] * 9 + [I64, I32, I32])
-_SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 _PRE_SPAN = 1024  # slots a kernel 3 block owns (kPreSpan)
-# floats of kernel 3's shared region: a ring of four weight stages (hi and
-# lo planes of 128 x 16), then the out tile (kTcActRegion)
-_ACT_REGION = 4 * 2 * 128 * 16
 _PRE_MAX_F = 256  # the widest F kernel 3 takes (two 128-column passes)
 
 
@@ -69,8 +66,38 @@ def pre_smem(f: int) -> int:
     region, the region, the h2 tile that also holds ``silu(pre1)``, the
     tile's cw, then the span's live and dead offsets and the warp
     counts."""
-    return 1024 + 4 * (_ACT_REGION + 64 * _pre_ldh(f) + 64) \
+    return 1024 + 4 * (ACT_REGION + 64 * _pre_ldh(f) + 64) \
         + 4 * (2 * _PRE_SPAN + 16)
+
+
+def fused_smem(r: int, f: int) -> int:
+    """Dynamic shared memory of a kernel 4 launch: the x, h1 and h2 tiles
+    of 64 rows (each padded by 4), a 32 x 128 weight tile, cw, then the
+    span's live and dead offsets and the warp counts."""
+    return 4 * (64 * (r + f + 2 * f + 12) + 32 * 128 + 64) + 4 * (512 + 16)
+
+
+def pre_plan_error(f: int):
+    """Why kernel 3 cannot launch at ``F = f``, or None: F a multiple of 4
+    up to 256 (two 128-column passes of W2 at most), its plan within a
+    block's shared memory."""
+    if f % 4 or not 4 <= f <= _PRE_MAX_F:
+        return f"F = {f} must be a multiple of 4 in [4, {_PRE_MAX_F}]"
+    if pre_smem(f) > SMEM_LIMIT:
+        return f"F = {f} needs {pre_smem(f)} bytes of shared memory " \
+               f"(> {SMEM_LIMIT})"
+    return None
+
+
+def fused_plan_error(r: int, f: int):
+    """Why kernel 4 cannot launch at ``R = r``, ``F = f``, or None: both
+    multiples of 4, its plan within a block's shared memory."""
+    if r % 4 or f % 4:
+        return f"widths R = {r}, F = {f} must be multiples of 4"
+    if fused_smem(r, f) > SMEM_LIMIT:
+        return f"R = {r}, F = {f} needs {fused_smem(r, f)} bytes of " \
+               f"shared memory (> {SMEM_LIMIT})"
+    return None
 
 
 def launch_plan(e: int, f: int) -> dict:
@@ -119,10 +146,11 @@ def edge_mlp_pre_ref(pre1, cw, w2, b2, w3, b3):
     return h * cw[..., None]
 
 
-def _check(name, tensors: dict, shapes: dict, widths, smem: int):
-    """Raise unless the tensors are aligned float32 CUDA tensors of the
-    given shapes, every width is a multiple of 4 and ``smem`` bytes fit a
-    block."""
+def _check(name, tensors: dict, shapes: dict, error):
+    """Raise unless the plan fits (``error`` is its plan error) and the
+    tensors are aligned float32 CUDA tensors of the given shapes."""
+    if error:
+        raise ValueError(f"{name}: {error}")
     dev = next(iter(tensors.values())).device
     if dev.type != "cuda":
         raise ValueError(f"{name}: expects CUDA tensors, got {dev}")
@@ -133,9 +161,6 @@ def _check(name, tensors: dict, shapes: dict, widths, smem: int):
                              f"expected {shapes[key]}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} is not 16-byte aligned")
-    if any(w % 4 for w in widths) or smem > _SMEM_LIMIT:
-        raise ValueError(f"{name}: widths {widths} must be multiples of 4 "
-                         "and fit shared memory")
     return dev
 
 
@@ -146,8 +171,7 @@ def edge_mlp_cuda(x, cw, w1, b1, w2, b2, w3, b3):
     tensors = dict(x=x, cw=cw, w1=w1, b1=b1, w2=w2, b2=b2, w3=w3, b3=b3)
     shapes = dict(x=(n, k, r), cw=(n, k), w1=(r, f), b1=(f,), w2=(f, 2 * f),
                   b2=(2 * f,), w3=(2 * f, 3 * f), b3=(3 * f,))
-    smem = 4 * (64 * (r + f + 2 * f + 12) + 32 * 128 + 64) + 4 * (512 + 16)
-    dev = _check("edge_mlp", tensors, shapes, (r, f), smem)
+    dev = _check("edge_mlp", tensors, shapes, fused_plan_error(r, f))
     out = torch.empty((n, k, 3 * f), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         FUSED(*(ptr(t) for t in tensors.values()), ptr(out), n * k, r, f)
@@ -160,9 +184,7 @@ def edge_mlp_pre_cuda(pre1, cw, w2, b2, w3, b3):
     tensors = dict(pre1=pre1, cw=cw, w2=w2, b2=b2, w3=w3, b3=b3)
     shapes = dict(pre1=(n, k, f), cw=(n, k), w2=(f, 2 * f), b2=(2 * f,),
                   w3=(2 * f, 3 * f), b3=(3 * f,))
-    dev = _check("edge_mlp_pre", tensors, shapes, (f,), pre_smem(f))
-    if f > _PRE_MAX_F:
-        raise ValueError(f"edge_mlp_pre: F = {f} is above {_PRE_MAX_F}")
+    dev = _check("edge_mlp_pre", tensors, shapes, pre_plan_error(f))
     out = torch.empty((n, k, 3 * f), dtype=torch.float32, device=dev)
     image = torch.empty(image_floats(f), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

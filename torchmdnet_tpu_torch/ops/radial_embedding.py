@@ -20,12 +20,12 @@ from torch.autograd.function import once_differentiable
 from torchmdnet_tpu_torch.ops.kernels import (
     I32, P, CudaSource, Kernel, check_cuda_args, null_or_ptr, ptr)
 from torchmdnet_tpu_torch.ops.message_passing import row_chunk
+from torchmdnet_tpu_torch.ops.tc_tile import SMEM_LIMIT
 
 SOURCE = CudaSource("radial_embedding.cu")
 FORWARD = Kernel(SOURCE, "tmd_radial_embedding_fwd", [P] * 11 + [I32] * 4)
 BACKWARD = Kernel(SOURCE, "tmd_radial_embedding_bwd", [P] * 21 + [I32] * 5)
 KERNEL_R = (8, 16, 32)  # rbf widths the kernels are compiled for
-_SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 
 
 def radial_embedding_ref(edge_attr, C, vx, vy, vz, zw1, zw2g, emask_f, kall,
@@ -104,9 +104,9 @@ def _check_cuda(name, tensors, n, k, r, f):
     # rbf, cutoff, mask and unit vector, and (backward) 32-slot partials
     smem = 4 * (k * r + 5 * k + (32 * (f // 32) * (r + 16) if "g" in tensors
                                  else 0))
-    if smem > _SMEM_LIMIT:
+    if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: K={k}, R={r}, F={f} needs {smem} bytes of "
-                         f"shared memory (> {_SMEM_LIMIT})")
+                         f"shared memory (> {SMEM_LIMIT})")
     shapes = {"edge_attr": (n, k, r), "C": (n, k), "vx": (n, k), "vy": (n, k),
               "vz": (n, k), "zw1": (n, f), "zw2g": (n, k, f),
               "emask_f": (n, k), "kall": (r, 3 * f), "ball": (3 * f,),

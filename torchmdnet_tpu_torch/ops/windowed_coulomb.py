@@ -53,6 +53,9 @@ class CoulombWindows(NamedTuple):
     e2: torch.Tensor
     row_valid: torch.Tensor  # [n_pad] bool: real-atom rows
     box_diag: torch.Tensor   # [3] float32
+    # the same three lengths on the host, read once per rebuild: kernels C
+    # and D take them as arguments, so a launch waits for no device copy
+    box_host: tuple
 
     @property
     def cap(self) -> int:
@@ -67,7 +70,8 @@ def make_coulomb_windows(win: StencilWindows, mask_rows,
     box_diag = torch.as_tensor(box_diag, dtype=torch.float32,
                                device=mask_rows.device).reshape(3)
     return CoulombWindows(*(t.contiguous() for t in win),
-                          mask_rows.contiguous(), box_diag.contiguous())
+                          mask_rows.contiguous(), box_diag.contiguous(),
+                          tuple(float(v) for v in box_diag.tolist()))
 
 
 def window_partners(cwin: CoulombWindows):
@@ -171,10 +175,9 @@ def _launch_args(name, pos_s, b_s, cwin: CoulombWindows, extra: dict):
         raise ValueError(f"{name}: {nb} blocks of {n_pad} rows, {nsc} stencil "
                          f"columns (≤ {_MAX_PIECES // 2}) and {c} channels "
                          f"(≤ {_MAX_CHANNELS}) are not supported")
-    bd = [float(v) for v in cwin.box_diag.tolist()]
     ptrs = [ptr(t) for t in (cwin.a1, cwin.e1, cwin.a2, cwin.e2,
                              cwin.row_valid)]
-    return ptrs, [nb, cwin.cap, nsc, c, *bd]
+    return ptrs, [nb, cwin.cap, nsc, c, *cwin.box_host]
 
 
 def wc_fwd_cuda(pos_s, b_s, cwin: CoulombWindows, rc: float, eps: float,
