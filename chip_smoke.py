@@ -74,7 +74,7 @@ epochs on 384 synthetic QM9-scale molecules in batches of 64 and
 checked and reloaded on the card.
 
 Before the kernels phase, ``tc_attributes`` gives the tensor-core kernels
-(rows 3, 5, 7, 10, 11 and kernel B) as compiled: registers, spill bytes,
+(rows 3, 5, 7, 10, 11 and kernels A and B) as compiled: registers, spill bytes,
 shared memory and blocks an SM; the kernels phase also holds rows 5 and 7
 against float64, and reads the device time (no host time) of each kernel
 that has a library yardstick and of that yardstick, and of the q-tier
@@ -114,9 +114,10 @@ CHEB_TOL = 2e-6
 # a silu; the limit leaves room for the tensor cores' own accumulation
 # (~2e-6 of a product's max at K = 128, rows 5 and 10)
 EDGE_TOL = 1e-5
-# kernel B (blocked_q_dq, both bases and layouts), max |kernel − plain| /
-# max |plain| per output (du, dd or drbf, dcw): five 3xTF32 products
-# chained through silu and dsilu, the same product family as kernel 3
+# kernels A and B (blocked_q_*, both bases and layouts), max |kernel −
+# plain| / max |plain| per output (out, du, dd or drbf, dcw): up to five
+# 3xTF32 products chained through silu and dsilu, the same product family
+# as kernel 3
 DQ_TOL = 1e-5
 # blocked against gather path forces, relative to max |F|: the q_tab
 # series approximation of the edge-MLP base is the difference.  Two runs
@@ -263,6 +264,19 @@ def counters():
             "blocked_mp_dd_cheb": blocked_mp.DD_CHEB}
 
 
+def launch_counts():
+    """Kernel name → its launches so far."""
+    return {k: c.launches for k, c in counters().items()}
+
+
+def check_launched(names, before):
+    """Each kernel of ``names`` launched since the counts ``before``: the
+    CUDA kernel ran, not a plain chain."""
+    now = launch_counts()
+    for name in names:
+        check(now[name] > before[name], f"{name}: the kernel did not launch")
+
+
 def emit(obj):
     """Print one JSON line, and keep a copy in ``OUT_DIR/smoke.jsonl`` (the
     end of a long standard output may be all a caller gets back)."""
@@ -359,7 +373,7 @@ def limit(name):
     """The agreement a kernel row or shape case ``name`` is held to."""
     if name.startswith("cheb_filter"):
         return CHEB_TOL
-    if name.startswith("blocked_q_dq"):
+    if name.startswith("blocked_q"):
         return DQ_TOL
     return EDGE_TOL if name.startswith("edge_mlp_pre") else TOL
 
@@ -445,9 +459,10 @@ def phase_tc_attributes(specs, q_specs):
     API); the dynamic shared memory and the split-series scratch must
     equal the wrappers' plans, and kernels 5 and 7 must not spill.  Kernel
     3 the same at F = 128 (its split W2 and W3) and on the gather path's
-    N·K slots; kernel B, both bases, at F = 128, T = 64, R = 32 on the
-    north star's sorts of ``q_specs`` (K = 96 and the grouped K′), with no
-    spill."""
+    N·K slots; kernels A, A with du and B, both bases, at F = 128, T =
+    64, R = 32 on the north star's sorts of ``q_specs`` (K = 96 and the
+    grouped K′), with no spill and their image and tile scratch equal to
+    the wrapper's."""
     from torchmdnet_tpu_torch.ops import blocked_mp as bm
     from torchmdnet_tpu_torch.ops import blocked_q as bq
     from torchmdnet_tpu_torch.ops import cheb_filter as cf
@@ -481,7 +496,7 @@ def phase_tc_attributes(specs, q_specs):
         attrs[name] = dict(a, span=plans["dhfr"][1],
                            blocks={key: p[0] for key, p in plans.items()})
     for name, a in em.kernel_attributes(F).items():
-        blocks, span, smem, image = em.launch_plan(N_ATOMS * K, F)[name]
+        blocks, span, smem, image, _ = em.launch_plan(N_ATOMS * K, F)[name]
         check(a["dynamic_smem"] == smem,
               f"{name}: the kernel's shared memory {a['dynamic_smem']} "
               f"differs from the plan's {smem}")
@@ -491,19 +506,21 @@ def phase_tc_attributes(specs, q_specs):
               f"{name}: the kernel's image scratch differs from the "
               "wrapper's")
         attrs[name] = dict(a, span=span, blocks=blocks)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for spec in q_specs.values():
         k = sum(spec.col_slots) if spec.col_slots else K
         for name, a in bq.kernel_attributes(F, k, Q_TAB, R).items():
             rbf = name.endswith("_rbf")
-            blocks, _, chunk, smem, image = bq.launch_plan(
-                spec.n_pad, k, F, R if rbf else Q_TAB, rbf)[name]
+            mode = bq.MODES.index(name.removesuffix("_rbf"))
+            blocks, _, chunk, smem, image, tiles = bq.launch_plan(
+                spec.n_pad, k, F, R if rbf else Q_TAB, rbf, mode, sms)[name]
             check(a["dynamic_smem"] == smem,
                   f"{name}: the kernel's shared memory {a['dynamic_smem']} "
                   f"differs from the plan's {smem}")
             check(a["blocks_per_sm"] >= 1, f"{name}: does not fit an SM")
             check(a["local_bytes"] == 0, f"{name}: spills")
-            check(a["image_floats"] == image,
-                  f"{name}: the kernel's image scratch differs from the "
+            check(a["image_floats"] == image and a["tile_floats"] * blocks
+                  == tiles, f"{name}: the kernel's scratch differs from the "
                   "wrapper's")
             attrs[f"{name}@k{k}"] = dict(a, blocks=blocks, chunk=chunk)
     emit({"phase": "tc_attributes", "attributes": attrs})
@@ -683,10 +700,11 @@ def kernel_rows(rows, peak, calls, work, mask):
 
 
 def q_work(q, f, t, suffix=""):
-    """(FLOP, bytes) each q-tier kernel needs on ``q``: kernel A runs the
-    chain on the slots with cw ≠ 0, kernel B on every valid slot (the
-    backprop on the cw ≠ 0 ones); for B also the FLOP of its products,
-    which it runs on the tensor cores in 3xTF32.  Inputs: the mask of every slot, the
+    """(FLOP, bytes, tensor-core FLOP) each q-tier kernel needs on ``q``:
+    kernel A runs the chain on the slots with cw ≠ 0, kernel B on every
+    valid slot (the backprop on the cw ≠ 0 ones); the third element is
+    the FLOP of their products, which both run on the tensor cores in
+    3xTF32.  Inputs: the mask of every slot, the
     per-slot operands (d or the rbf row, cw, idx) of the valid slots, the
     row arrays and weights once; outputs once (B's per-slot ones on every
     slot: zeros elsewhere).  Names as :func:`q_calls` gives them."""
@@ -703,11 +721,13 @@ def q_work(q, f, t, suffix=""):
             ("", t * f, 4 + 4 + 8, t * f * 4, n * k * 4),
             ("_rbf", r * f, 4 * r + 4 + 8, r * f * 4, n * k * r * 4)):
         ins = rows + w1 + valid * slot_in
+        fwd = 2 * live * (base + l2 + l3)
         work["blocked_q_fwd" + name + suffix] = (
-            2 * live * (base + l2 + l3 + g9), ins + out9)
+            fwd + 2 * live * g9, ins + out9, fwd)
+        # with du: the W3ᵀ and W2ᵀ backprop and the fold beside
+        fwd_du = 2 * live * (base + 2 * (l2 + l3))
         work["blocked_q_fwd_du" + name + suffix] = (
-            2 * live * (base + 2 * (l2 + l3) + 2 * g9),
-            ins + grow + out9 + outf)
+            fwd_du + 4 * live * g9, ins + grow + out9 + outf, fwd_du)
         # B: the forward chain and the fold on every valid slot, the
         # backprop and the base cotangent (dser's series or W1aᵀ) on the
         # live ones
@@ -1173,6 +1193,7 @@ def phase_kernels(peak, system, dhfr, seg, specs):
     rows["radial_embedding_fwd"] = dict(
         max_abs_err=err, max_rel_err=rel,
         ms=time_ms(lambda: re_ops.radial_embedding_fwd_cuda(*x)),
+        device_ms=device_ms(lambda: re_ops.radial_embedding_fwd_cuda(*x)),
         plain_ms=time_ms(lambda: re_ops.radial_embedding_ref(*x)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, gflop=flops / 1e9,
         gbytes=nbytes(*x, out_k) / 1e9)
@@ -1200,6 +1221,8 @@ def phase_kernels(peak, system, dhfr, seg, specs):
             max_abs_err=err, max_rel_err=rel,
             worst_output=max(errs, key=lambda n: errs[n][1]),
             ms=time_ms(lambda: re_ops.radial_embedding_bwd_cuda(
+                x, g, True, want_dk)),
+            device_ms=device_ms(lambda: re_ops.radial_embedding_bwd_cuda(
                 x, g, True, want_dk)),
             plain_ms=time_ms(lambda: re_ops.radial_embedding_bwd_ref(
                 x, g, needs), reps=3, warmup=1),
@@ -1324,6 +1347,8 @@ def phase_kernels(peak, system, dhfr, seg, specs):
                 gflop=flops / 1e9, gbytes=nb / 1e9)
             if lib is not None:
                 row.update(device_times(kern, lib))
+            else:
+                row["device_ms"] = device_ms(kern)
             rows[name if layout == "grouped" else f"{name}@{layout}"] = row
             del got
         geometry["dhfr_blocked"][layout] = {
@@ -1347,15 +1372,18 @@ def phase_kernels(peak, system, dhfr, seg, specs):
 def edge_pre_shape_errors(gen):
     """Kernel 3 against its plain version where its tiles, spans and
     passes are ragged: F = 36 (2F and 3F end in partial 128-column passes)
-    and F = 132 and 256 (a layer-1 pass held in registers), slot counts
-    that are not a multiple of the span, ~40% of the slots live, and at
-    F = 36 a span with no live slot followed by one with every slot live;
-    the cw = 0 slots exact zeros."""
+    and F = 132 and 256 (a layer-1 pass held in registers), F = 264 and
+    512 (the wide form: tiles in device memory, blocks walking several
+    spans), slot counts that are not a multiple of the span, ~40% of the
+    slots live, and at F = 36 and 264 a span with no live slot followed
+    by one with every slot live; the cw = 0 slots exact zeros, and the
+    kernel launched."""
     from torchmdnet_tpu_torch.ops import edge_mlp as em
 
     dev = torch.device("cuda")
     worst = {}
-    for n, k, f in ((50, 45, 36), (37, 13, 36), (9, 100, 132), (7, 96, 256)):
+    for n, k, f in ((50, 45, 36), (37, 13, 36), (9, 100, 132), (7, 96, 256),
+                    (300, 40, 264), (11, 96, 512)):
         shape = (n, k)
         cw = torch.rand(shape, generator=gen, device=dev) * (
             torch.rand(shape, generator=gen, device=dev) < 0.4)
@@ -1366,10 +1394,42 @@ def edge_pre_shape_errors(gen):
             flat[span:2 * span] = torch.rand(span, generator=gen,
                                              device=dev) + 0.1
         kern, plain = edge_pre_calls(edge_pre_inputs(cw, n * k + f, f))
+        before = launch_counts()
         err, rel, got = compare(kern, plain)
+        check_launched(["edge_mlp_pre"], before)
         check(not got[0][cw == 0].any(),
               f"edge_mlp_pre (F={f}): a cw = 0 slot is not exactly 0")
         worst[f"edge_mlp_pre_n{n}_k{k}_f{f}_ragged"] = rel
+    return worst
+
+
+def fused_shape_errors(gen):
+    """Kernel 4 where 64 rows of its tiles pass a block's shared memory:
+    (R, F) = (64, 256) on 32-slot tiles and (32, 512) on 32 (a slot count
+    not a multiple of the tile or the span, ~40% of the slots with cw =
+    0, exact zeros there), the kernel launched."""
+    from torchmdnet_tpu_torch.ops import edge_mlp as em
+
+    dev = torch.device("cuda")
+    worst = {}
+    for n, k, r, f in ((9, 61, 64, 256), (7, 45, 32, 512)):
+        def randn(*shape, scale):
+            return torch.randn(shape, generator=gen, device=dev) * scale
+
+        cw = torch.rand((n, k), generator=gen, device=dev) * (
+            torch.rand((n, k), generator=gen, device=dev) < 0.6)
+        w = [torch.rand((n, k, r), generator=gen, device=dev), cw,
+             randn(r, f, scale=r ** -0.5), randn(f, scale=0.1),
+             randn(f, 2 * f, scale=f ** -0.5), randn(2 * f, scale=0.1),
+             randn(2 * f, 3 * f, scale=(2 * f) ** -0.5),
+             randn(3 * f, scale=0.1)]
+        before = launch_counts()
+        err, rel, got = compare(lambda: em.edge_mlp_cuda(*w),
+                                lambda: em.edge_mlp_ref(*w))
+        check_launched(["edge_mlp"], before)
+        check(not got[0][cw == 0].any(),
+              f"edge_mlp (R={r}, F={f}): a cw = 0 slot is not exactly 0")
+        worst[f"edge_mlp_n{n}_k{k}_r{r}_f{f}_rows{em.fused_rows(r, f)}"] = rel
     return worst
 
 
@@ -1487,18 +1547,23 @@ def blocked_shape_errors(gen):
 
 
 def q_shape_errors(gen):
-    """Kernels A and B, both bases, on synthetic lists of grouped-tier
-    widths: K′ not a multiple of 4 or 16, up to 512 slots a row (one
-    compaction pass) and 520 (two), rbf widths not a multiple of 4, F = 68
-    (kernel B holds a W3 pass whose columns pass 3F in the next), a row
-    with no valid slot, a row whose slots are all valid with cw = 0, an
-    empty slot group, d at 0, at hi and beyond."""
+    """Kernels A, A with du and B, both bases, on synthetic lists of
+    grouped-tier widths: K′ not a multiple of 4 or 16, up to 512 slots a
+    row (one compaction pass) and 520 (two), rbf widths not a multiple of
+    4, F = 68 (a held W3 pass whose columns pass 3F in the next), F = 132,
+    140 and 256 (the wide form: tiles in device memory, two or more
+    passes of the base and of W2ᵀ) and an rbf width of 160 (two passes of
+    W1aᵀ), a row with no valid slot, a row whose slots are all valid with
+    cw = 0 (both exact zeros in A's outputs), a row of 100 live slots
+    (it spans two 64-slot tiles), an empty slot group, d at 0, at hi and
+    beyond; every kernel launched."""
     dev = torch.device("cuda")
     worst = {}
     hi = 4.5
     for n, k, f, t, r in ((37, 13, 12, 8, 5), (50, 330, 32, 16, 7),
                           (23, 40, 68, 16, 12), (21, 512, 128, 64, 32),
-                          (19, 520, 128, 64, 32)):
+                          (19, 520, 128, 64, 32), (23, 140, 132, 16, 12),
+                          (19, 120, 140, 64, 160), (17, 140, 256, 64, 32)):
         def randn(*shape, scale=1.0):
             return torch.randn(shape, generator=gen, device=dev) * scale
 
@@ -1511,6 +1576,9 @@ def q_shape_errors(gen):
         d = torch.rand((n, k), generator=gen, device=dev) * 1.2 * hi
         d[0, :3] = torch.tensor([0.0, hi, 1.1 * hi], device=dev)
         d[2] = 1.1 * hi                 # valid slots, all with cw = 0
+        if k >= 100:                    # 100 live slots: two tiles
+            mask[3, :100] = True
+            d[3, :100] = torch.rand(100, generator=gen, device=dev) * hi
         cw = torch.where(mask & (d < hi),
                          torch.cos(d * math.pi / hi) * 0.5 + 0.5, 0.0)
         q = dict(d=d, cw=cw, mask=mask, idx=idx, urow=randn(n, f, scale=0.5),
@@ -1524,19 +1592,22 @@ def q_shape_errors(gen):
                  rbf=torch.rand((n, k, r), generator=gen, device=dev)
                  * mask[..., None], w1a=randn(r, f, scale=r ** -0.5))
         calls = q_calls(q)
+        before = launch_counts()
         errs = {name: compare(*pair)[1] for name, pair in calls.items()}
+        check_launched(calls, before)
         outs = {name: as_list(kern()) for name, (kern, _) in calls.items()}
-        check(all(float(o[0][1].abs().max()) == 0.0 for name, o in
-                  outs.items() if "_dq" not in name),
-              "kernel A: a row with no valid slot is not 0")
+        check(all(float(x[row].abs().max()) == 0.0 for name, o in
+                  outs.items() if "_dq" not in name for x in o
+                  for row in (1, 2)),
+              "kernel A: a row with no live slot is not 0")
         check(not outs["blocked_q_dq_rbf"][1][~mask].any(),
               "kernel B (rbf): an invalid slot's cotangent is not 0")
         check(all(not o[j][~mask].any() for name, o in outs.items()
                   if "_dq" in name for j in (1, 2)),
               "kernel B: an invalid slot's dd, drbf or dcw is not 0")
         tag = f"n{n}_k{k}_f{f}_t{t}_r{r}"
-        worst[f"q_{tag}"] = max(e for name, e in errs.items()
-                                if "_dq" not in name)
+        worst[f"blocked_q_fwd_{tag}"] = max(e for name, e in errs.items()
+                                            if "_dq" not in name)
         worst[f"blocked_q_dq_{tag}"] = max(e for name, e in errs.items()
                                            if "_dq" in name)
     return worst
@@ -1547,7 +1618,9 @@ def phase_shapes():
     every compiled rbf width and a range of channel counts for kernels
     1-3; for A-D a partial last row block, ghost rows, several channel
     counts and block sizes, and z-wrapped window pieces; for 4-7
-    partial slot spans, masked rows and distances at and beyond hi."""
+    partial slot spans, masked rows and distances at and beyond hi; and
+    the widths whose tiles do not fit a block's shared memory (kernels
+    3, 4, A and B), each checked to have launched its kernel."""
     from torchmdnet_tpu_torch.ops import edge_mlp as em_ops
     from torchmdnet_tpu_torch.ops import radial_embedding as re_ops
 
@@ -1605,12 +1678,15 @@ def phase_shapes():
         errs.update({name + "_cut": compare(*pair)[1]
                      for name, pair in q_calls(qc).items()})
         tag = f"n{n}_cap{cap}_f{f}_c{c}_s{wspec.s}"
-        worst[f"blocked_{tag}"] = max(e for name, e in errs.items()
-                                      if "_dq" not in name)
+        worst[f"blocked_q_fwd_{tag}"] = max(
+            e for name, e in errs.items() if name.startswith("blocked_q_fwd"))
         worst[f"blocked_q_dq_{tag}"] = max(e for name, e in errs.items()
                                            if "_dq" in name)
+        worst[f"windowed_coulomb_{tag}"] = max(
+            e for name, e in errs.items() if name.startswith("windowed"))
 
     worst.update(edge_pre_shape_errors(gen))
+    worst.update(fused_shape_errors(gen))
     worst.update(q_shape_errors(gen))
     worst.update(dhfr_shape_errors(gen))
     worst.update(project_shape_errors(gen))
@@ -1911,8 +1987,8 @@ PROFILE_GROUPS = (
      ("tc_split_kernel",)),
     ("row 6 Chebyshev projection", ("project_kernel", "project_sum_kernel")),
     ("kernel 4 edge_mlp", ("edge_mlp_kernel",)),
-    ("kernel A q-tier", ("q_kernel",)),
     ("kernel B q-tier", ("dq_tc_kernel",)),
+    ("kernel A q-tier", ("q_tc_kernel",)),
     ("kernel C/D windowed Coulomb", ("wc_kernel",)),
     ("kernel 3 edge_mlp_pre", ("edge_mlp_pre_kernel",)),
     ("kernel 2 embedding bwd", ("emb_bwd_kernel", "sum_partials_kernel")),

@@ -89,14 +89,21 @@ def _image_floats(kdim, ncols):
 
 
 @pytest.mark.parametrize("n, k, f", [(25088, 96, 128), (37, 13, 36),
-                                     (50, 20, 36), (7, 96, 256)])
+                                     (50, 20, 36), (7, 96, 256),
+                                     (300, 40, 264), (11, 96, 512)])
 def test_kernel3_launch_plan(n, k, f):
-    """Kernel 3's grid covers every slot once, its shared memory fits a
-    Hopper block and its scratch holds W2's and W3's split images."""
-    blocks, span, smem, image = launch_plan(n * k, f)["edge_mlp_pre"]
-    assert (blocks - 1) * span < n * k <= blocks * span
+    """Kernel 3's blocks walk the 1,024-slot spans (one span each at F ≤
+    256, one block an SM above), every slot once; its shared memory fits a
+    Hopper block, its image scratch holds W2's and W3's split images and
+    its tile scratch, above F = 256, each block's h2 [64, 2F + 4] and
+    silu(pre1) [64, F + 4] tiles."""
+    blocks, span, smem, image, tiles = launch_plan(n * k, f)["edge_mlp_pre"]
+    spans = -(-n * k // span)
+    assert (spans - 1) * span < n * k <= spans * span
+    assert blocks == (spans if f <= 256 else min(spans, 132))
     assert smem <= 232448
     assert image == _image_floats(f, 2 * f) + _image_floats(2 * f, 3 * f)
+    assert tiles == (0 if f <= 256 else blocks * 64 * (3 * f + 8))
 
 
 def _inputs4(n=16, k=8, r=12, f=16, seed=0):
@@ -148,16 +155,19 @@ def test_fused_cuda_wrapper_refuses_cpu_tensors():
         edge_mlp_cuda(*map(torch.from_numpy, _inputs4()))
 
 
-# (model, F, R, the kernel's shared memory at that width, refused): kernel
-# 3 at TensorNet2's widths, kernel 4 at TensorNet's; the bytes are the
-# kernels' layouts (edge_mlp.cu::pre_smem and tmd_edge_mlp's sum)
-PLAN_CASES = [("tensornet2", 128, 32, 141632, False),
-              ("tensornet2", 256, 32, 207168, False),
-              ("tensornet2", 512, 32, 338240, True),
+# (model, F, R, the kernel's shared memory at that width or None,
+# refused): kernel 3 at TensorNet2's widths, kernel 4 at TensorNet's; the
+# bytes are the kernels' layouts (edge_mlp.cu::pre_smem and fused_smem:
+# kernel 3's tiles leave shared memory above F = 256, kernel 4 takes
+# 32-slot tiles at (R, F) = (64, 256) and (32, 512)); what still refuses
+# is a width that is not a multiple of 4
+PLAN_CASES = [("tensornet2", 128, 32, 125248, False),
+              ("tensornet2", 512, 32, 58688, False),
+              ("tensornet2", 130, 32, None, True),
               ("tensornet", 128, 32, 128320, False),
-              ("tensornet", 256, 32, 226624, False),
-              ("tensornet", 256, 64, 234816, True),
-              ("tensornet", 512, 32, 423232, True)]
+              ("tensornet", 256, 64, 126656, False),
+              ("tensornet", 512, 32, 220864, False),
+              ("tensornet", 256, 30, None, True)]
 
 
 @pytest.mark.parametrize("model, f, r, smem, refused", PLAN_CASES)
@@ -166,38 +176,42 @@ def test_models_keep_the_kernel_where_its_plan_cannot_launch(
     """With ``pallas_edge_mlp`` a model takes kernel 3 (TensorNet2) or 4
     (TensorNet, ``r`` rbf) at every width: the JAX op leaves its kernel
     only for a row count its tile does not divide or a dtype other than
-    float32, never for a width, so no model switches to the plain chain
-    where the port's kernel cannot launch.  There the wrapper raises,
-    before it looks at the device."""
+    float32, never for a width, so no model switches to the plain chain.
+    Every width that is a multiple of 4 has a plan within a block's
+    shared memory; at any other the wrapper raises, before it looks at
+    the device."""
     from torchmdnet_tpu_torch.models.tensornet import Interaction
     from torchmdnet_tpu_torch.models.tensornet2 import Interaction2
     from torchmdnet_tpu_torch.ops.edge_mlp import (
-        fused_plan_error, fused_smem, pre_plan_error, pre_smem)
+        fused_plan_error, fused_rows, fused_smem, pre_plan_error, pre_smem)
 
     if model == "tensornet2":
         layer = Interaction2(f, r, 16, pallas_edge_mlp=True)
-        assert pre_smem(f) == smem
         error = pre_plan_error(f)
+        if smem:
+            assert pre_smem(f) == smem
         args = _inputs(n=2, k=3, f=f, seed=6)
         wrapper = edge_mlp_pre_cuda
     else:
         layer = Interaction(f, r, pallas_edge_mlp=True)
-        assert fused_smem(r, f) == smem
         error = fused_plan_error(r, f)
+        if smem:
+            assert fused_smem(r, f, fused_rows(r, f)) == smem
         args = _inputs4(n=2, k=3, r=r, f=f, seed=6)
         wrapper = edge_mlp_cuda
     assert layer.fused
     assert (error is not None) == refused
-    assert (smem > 232448) == refused
+    assert (smem is None) == refused
+    assert smem is None or smem <= 232448
     with pytest.raises(ValueError, match=re.escape(error or "CUDA")) as raised:
         wrapper(*map(torch.from_numpy, args))
     assert ("CUDA" in str(raised.value)) != refused
 
 
 def test_wide_tail_matches_the_jax_chain():
-    """On the CPU TensorNet2's edge-MLP tail at F = 512, a width kernel 3
-    refuses, is the JAX op's chain (``edge_mlp_pre_jnp``) on the same
-    inputs."""
+    """On the CPU TensorNet2's edge-MLP tail at F = 512, a width whose
+    kernel 3 tiles go to device memory, is the JAX op's chain
+    (``edge_mlp_pre_jnp``) on the same inputs."""
     from torchmdnet_tpu_torch.models.tensornet2 import Interaction2
 
     f = 512

@@ -31,7 +31,7 @@
 // stores), so only live slots reach the tensor cores.  Per tile of 64
 // live slots it keeps the whole chain on chip: sA = silu(pre1) [64 x F]
 // from float4 loads of the live rows; two 128-column passes of sA W2
-// (tc_product_act: W2 split once per launch into hi/lo planes streamed
+// (tc_product_from: W2 split once per launch into hi/lo planes streamed
 // through a cp.async ring, A fragments read from sA) whose epilogues put
 // silu(acc + b2) from the fragments into the h2 tile sH [64 x 2F + 4];
 // then three passes of sH W3 whose epilogues put silu(acc + b3) * cw into
@@ -39,10 +39,13 @@
 // stores per live slot.  sA lives in sH's last F columns, which the last
 // layer-1 pass writes after its product has read them.  The [E, 2F]
 // intermediate never reaches device memory, and there are no atomics:
-// the same result on every run.  The ring (64 KB), sH (66.5 KB) and the
-// span's lists (8 KB) make 141,632 B at F = 128, so one block of 8 warps
-// runs an SM, and the product keeps one wgmma group in flight instead of
-// a second block.
+// the same result on every run.  The ring (48 KB), sH (66.5 KB) and the
+// span's lists (8 KB) make 125,248 B at F = 128, so one block of 8 warps
+// runs an SM.  Above F = 256 (the wide form) h2 and silu(pre1) do not
+// fit a block: each resident block keeps them apart in its region of a
+// device-memory scratch the wrapper allocates (the grid is one block an
+// SM, walking the spans), and tc_product_from reads its A fragments
+// there; no pass is held.
 
 // Kernel 4's design: a block takes a tile of 64 edges and keeps the chain
 // on chip the same way, on fp32 FMA: both products stream their weight
@@ -53,6 +56,8 @@
 // its cw = 0 slots (padding, beyond the cutoff) are ~40% of a dhfr list,
 // a block owns a span of 256 slots, compacts those with cw != 0 and runs
 // the chain on tiles of 64 of them only, writing exact zeros for the rest.
+// Where 64 rows of the x, h1 and h2 tiles pass a block's 232,448 B (R =
+// 64, F = 256 needs 234,816 B), the tiles take 32 rows, or 16.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,10 +66,9 @@
 
 namespace {
 
-constexpr int kTileM = 64;    // edges per block
 constexpr int kTileN = 128;   // output columns per pass
 constexpr int kTileK = 32;    // weight rows per shared-memory tile
-constexpr int kThreads = 256; // 16 x 16 threads, each 4 rows x 8 columns
+constexpr int kThreads = 256; // 16 x 16 threads, each RM rows x 8 columns
 constexpr int kPad = 4;       // row padding of the activations in smem
 constexpr int kSpan = kThreads;  // slots a kernel-4 block owns
 constexpr int kPreSpan = 1024;   // slots a kernel-3 block owns
@@ -76,15 +80,16 @@ __device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
 
 // acc[i][j] = sum_k A[row_i][k] * W[k][col_j] over k < kdim for the
 // 128-column block starting at c0 (columns >= ncols read as zero).
-// A is a [64 x kdim] activation in shared memory with row stride lda;
+// A is a [16·RM x kdim] activation in shared memory with row stride lda;
 // W is [kdim x ncols] row-major in device memory.
+template <int RM>
 __device__ __forceinline__ void tile_product(
     const float* __restrict__ sAct, int lda, const float* __restrict__ W,
-    int kdim, int ncols, int c0, float* __restrict__ sW, float (&acc)[4][8]) {
+    int kdim, int ncols, int c0, float* __restrict__ sW, float (&acc)[RM][8]) {
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
@@ -103,13 +108,13 @@ __device__ __forceinline__ void tile_product(
     __syncthreads();
     const int kt = min(kTileK, kdim - k0);
     for (int kk = 0; kk < kt; ++kk) {
-      float a[4], b[8];
+      float a[RM], b[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sAct[(ty * 4 + i) * lda + k0 + kk];
+      for (int i = 0; i < RM; ++i) a[i] = sAct[(ty * RM + i) * lda + k0 + kk];
 #pragma unroll
       for (int j = 0; j < 8; ++j) b[j] = sW[kk * kTileN + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RM; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
@@ -160,46 +165,75 @@ __device__ __forceinline__ int compact_span(const float* __restrict__ flag,
   return nlive;
 }
 
-// Kernel 3's h2 tile [64][ldh]: 2F columns, and silu(pre1) [64][F] in the
-// columns [a0, a0 + F) of the same rows, a0 = 128·(P − Q) for P = ⌈2F/128⌉
-// layer-1 passes and Q = ⌈F/128⌉ ≤ 2: the first P − Q passes write below
-// a0, the last writes over silu(pre1) after the last read of it, and with
-// Q = 2 the one before it keeps its result in registers until then.
+// Kernel 3's h2 tile [64][ldh] in the narrow form (F ≤ 256): 2F
+// columns, and silu(pre1) [64][F] in the columns [a0, a0 + F) of the same
+// rows, a0 = 128·(P − Q) for P = ⌈2F/128⌉ layer-1 passes and Q = ⌈F/128⌉
+// ≤ 2: the first P − Q passes write below a0, the last writes over
+// silu(pre1) after the last read of it, and with Q = 2 the one before it
+// keeps its result in registers until then.
 __host__ __device__ __forceinline__ int pre_a0(int f) {
   return kTcN * ((2 * f + kTcN - 1) / kTcN - (f + kTcN - 1) / kTcN);
 }
 __host__ __device__ __forceinline__ int pre_ldh(int f) {
   return max(2 * f, pre_a0(f) + f) + kPad;
 }
+constexpr int kPreMaxNarrowF = 2 * kTcN;
+// Floats of a block's tiles in the wide form (F > 256), in device
+// memory: h2 [64][2F + 4] and silu(pre1) [64][F + 4], apart (no pass is
+// held).
+__host__ __device__ __forceinline__ long long pre_tile_floats(int f) {
+  return (long long)kTcM * (3 * f + 2 * kPad);
+}
+
+// Kernel 3's product of layer pass p with the activation act [64][lda]
+// as A; it synchronises first (act is written, sR free) and last.  The
+// wide form sums each stage apart and adds it in fp32 (kStageSums, as
+// rows 5 and 7 do): its sums over K = F and 2F run past 512 terms.
+template <bool kStageSums>
+__device__ __forceinline__ void pre_product(const float* act, int lda,
+                                            const float* __restrict__ img,
+                                            int kdim, int p, float* sR,
+                                            float (&acc)[8][4]) {
+  __syncthreads();
+  tc_product_from<kStageSums>(
+      TcActivation{act + tc_row(0) * lda, act + tc_row(1) * lda, kdim}, img,
+      kdim, p, sR, acc);
+}
 
 // Kernel 3.  img2, img3: the split images of W2 [F, 2F] and W3 [2F, 3F].
-// Block b owns the slots [b·kPreSpan, b·kPreSpan + kPreSpan) below E.
+// Block b owns the spans b, b + grid, … of kPreSpan slots below E: one
+// span each in the narrow form, whose tiles sit in shared memory; in the
+// wide form (F > 256) the grid is one block an SM, each with its
+// pre_tile_floats of tiles.
+template <bool kWide>
 __global__ void __launch_bounds__(kTcThreads, 1)
 edge_mlp_pre_kernel(const float* __restrict__ pre1, const float* __restrict__ cw,
                     const float* __restrict__ img2, const float* __restrict__ b2,
                     const float* __restrict__ img3, const float* __restrict__ b3,
-                    float* __restrict__ out, long long E, int F, int F2, int F3) {
+                    float* __restrict__ out, float* tiles, long long E, int F,
+                    int F2, int F3) {
   extern __shared__ __align__(16) float smem[];
-  const int ldh = pre_ldh(F);
+  const int ldh = kWide ? F2 + kPad : pre_ldh(F);
+  const int lda = kWide ? F + kPad : ldh;
   float* sR = smem + tc_region_offset(smem);  // the ring, then the out tile
-  float* sH = sR + kTcActRegion;              // [64][ldh]  h2, silu(pre1)
-  float* sA = sH + pre_a0(F);                 // silu(pre1), row stride ldh
-  float* sCw = sH + kTcM * ldh;               // [64]
+  float* sH;                                  // [64][ldh]  h2
+  float* sA;                                  // [64][lda]  silu(pre1)
+  float* sCw;                                 // [64]
+  if constexpr (kWide) {
+    sH = tiles + (long long)blockIdx.x * pre_tile_floats(F);
+    sA = sH + kTcM * ldh;
+    sCw = sR + kTcRegion;
+  } else {
+    sH = sR + kTcRegion;
+    sA = sH + pre_a0(F);
+    sCw = sH + kTcM * ldh;
+  }
   int* sLive = reinterpret_cast<int*>(sCw + kTcM);  // [kPreSpan]
   int* sDead = sLive + kPreSpan;                    // [kPreSpan]
   int* sCount = sDead + kPreSpan;                   // [2 * kWarps]
 
   const int tid = threadIdx.x;
-  const long long s0 = (long long)blockIdx.x * kPreSpan;
-  int ndead;
-  const int nlive = compact_span<kPreSpan>(cw, s0, E, sLive, sDead, sCount, &ndead);
-
-  // slots with cw = 0: exact zeros, no arithmetic
-  const int c4 = F3 / 4;
-  for (int v = tid; v < ndead * c4; v += kTcThreads)
-    reinterpret_cast<float4*>(out + (s0 + sDead[v / c4]) * F3)[v % c4] =
-        make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-
+  const long long nspans = (E + kPreSpan - 1) / kPreSpan;
   // h2 = silu(acc + b2) of layer-1 pass p from the fragments into sH
   auto store_h2 = [&](const float (&acc)[8][4], int p) {
 #pragma unroll
@@ -216,8 +250,19 @@ edge_mlp_pre_kernel(const float* __restrict__ pre1, const float* __restrict__ cw
   };
   const int f4 = F / 4;
   const int npass = (F2 + kTcN - 1) / kTcN;
-  const bool hold = (F + kTcN - 1) / kTcN == 2;
+  const bool hold = !kWide && (F + kTcN - 1) / kTcN == 2;
   float acc[8][4], held[8][4];
+  for (long long span = blockIdx.x; span < nspans; span += gridDim.x) {
+  const long long s0 = span * kPreSpan;
+  int ndead;
+  const int nlive = compact_span<kPreSpan>(cw, s0, E, sLive, sDead, sCount, &ndead);
+
+  // slots with cw = 0: exact zeros, no arithmetic
+  const int c4 = F3 / 4;
+  for (int v = tid; v < ndead * c4; v += kTcThreads)
+    reinterpret_cast<float4*>(out + (s0 + sDead[v / c4]) * F3)[v % c4] =
+        make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
   for (int t0 = 0; t0 < nlive; t0 += kTcM) {
     const int nt = min(kTcM, nlive - t0);
     // silu(pre1) of the tile's live slots; the rows past nt are zeros
@@ -228,13 +273,13 @@ edge_mlp_pre_kernel(const float* __restrict__ pre1, const float* __restrict__ cw
         x = *reinterpret_cast<const float4*>(pre1 + (s0 + sLive[t0 + r]) * F + col);
         x = make_float4(silu(x.x), silu(x.y), silu(x.z), silu(x.w));
       }
-      *reinterpret_cast<float4*>(sA + r * ldh + col) = x;
+      *reinterpret_cast<float4*>(sA + r * lda + col) = x;
     }
     if (tid < kTcM) sCw[tid] = tid < nt ? cw[s0 + sLive[t0 + tid]] : 0.0f;
 
     // h2 = silu(silu(pre1) W2 + b2)
     for (int p = 0; p < npass; ++p) {
-      tc_product_act(sA, ldh, img2, F, p, sR, acc);  // syncs first, last
+      pre_product<kWide>(sA, lda, img2, F, p, sR, acc);  // syncs first, last
       if (hold && p == npass - 2) {  // it would overwrite what pass p + 1 reads
 #pragma unroll
         for (int i = 0; i < 8; ++i)
@@ -248,7 +293,7 @@ edge_mlp_pre_kernel(const float* __restrict__ pre1, const float* __restrict__ cw
     // out = silu(h2 W3 + b3) * cw, one 128-column pass at a time
     for (int p = 0; p * kTcN < F3; ++p) {
       const int c0 = p * kTcN;
-      tc_product_act(sH, ldh, img3, F2, p, sR, acc);  // syncs first, last
+      pre_product<kWide>(sH, ldh, img3, F2, p, sR, acc);  // syncs first, last
       // the out tile [64][kTcLdW] over the free ring, the live rows only
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -276,9 +321,15 @@ edge_mlp_pre_kernel(const float* __restrict__ pre1, const float* __restrict__ cw
       }
     }
   }
+  __syncthreads();  // the span's lists, sCw and the out tile are read
+  }
 }
 
-// Kernel 4: the three-layer chain on the slots with cw != 0.
+// Kernel 4: the three-layer chain on the slots with cw != 0, in tiles of
+// kTileM = 16·RM of them (64; 32 or 16 where 64 rows of the x, h1 and h2
+// tiles do not fit a block, fused_smem): each output's sums in the same
+// order at every tile size.
+template <int RM>
 __global__ void __launch_bounds__(kThreads)
 edge_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cw,
                 const float* __restrict__ w1, const float* __restrict__ b1,
@@ -286,13 +337,14 @@ edge_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cw,
                 const float* __restrict__ w3, const float* __restrict__ b3,
                 float* __restrict__ out, long long E, int R, int F, int F2,
                 int F3) {
+  constexpr int kTileM = 16 * RM;
   extern __shared__ __align__(16) float smem[];
   const int ldx = R + kPad, lda = F + kPad, ldh = F2 + kPad;
-  float* sX = smem;                  // [64][R + pad]   x
-  float* sA = sX + kTileM * ldx;     // [64][F + pad]   h1
-  float* sH = sA + kTileM * lda;     // [64][2F + pad]  h2
+  float* sX = smem;                  // [RM·16][R + pad]   x
+  float* sA = sX + kTileM * ldx;     // [RM·16][F + pad]   h1
+  float* sH = sA + kTileM * lda;     // [RM·16][2F + pad]  h2
   float* sW = sH + kTileM * ldh;     // [32][128]       weight tile
-  float* sCw = sW + kTileK * kTileN; // [64]
+  float* sCw = sW + kTileK * kTileN; // [RM·16]
   int* sLive = reinterpret_cast<int*>(sCw + kTileM);  // [kSpan]
   int* sDead = sLive + kSpan;                          // [kSpan]
   int* sCount = sDead + kSpan;                         // [2 * kWarps]
@@ -311,7 +363,7 @@ edge_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cw,
         make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 
-  float acc[4][8];
+  float acc[RM][8];
   const int r4 = R / 4;
   for (int t0 = 0; t0 < nlive; t0 += kTileM) {
     __syncthreads();  // the previous tile's x, cw and h2 are consumed
@@ -331,36 +383,36 @@ edge_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cw,
       sCw[tid] = t0 + tid < nlive ? cw[s0 + sLive[t0 + tid]] : 0.0f;
     // h1 = silu(x W1 + b1)
     for (int c0 = 0; c0 < F; c0 += kTileN) {
-      tile_product(sX, ldx, w1, R, F, c0, sW, acc);
+      tile_product<RM>(sX, ldx, w1, R, F, c0, sW, acc);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = c0 + tx + 16 * j;
         if (col < F) {
           const float bias = b1[col];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) sA[(ty * 4 + i) * lda + col] = silu(acc[i][j] + bias);
+          for (int i = 0; i < RM; ++i) sA[(ty * RM + i) * lda + col] = silu(acc[i][j] + bias);
         }
       }
     }
     // h2 = silu(h1 W2 + b2)
     for (int c0 = 0; c0 < F2; c0 += kTileN) {
-      tile_product(sA, lda, w2, F, F2, c0, sW, acc);
+      tile_product<RM>(sA, lda, w2, F, F2, c0, sW, acc);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = c0 + tx + 16 * j;
         if (col < F2) {
           const float bias = b2[col];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) sH[(ty * 4 + i) * ldh + col] = silu(acc[i][j] + bias);
+          for (int i = 0; i < RM; ++i) sH[(ty * RM + i) * ldh + col] = silu(acc[i][j] + bias);
         }
       }
     }
     // out = silu(h2 W3 + b3) * cw
     for (int c0 = 0; c0 < F3; c0 += kTileN) {
-      tile_product(sH, ldh, w3, F2, F3, c0, sW, acc);
+      tile_product<RM>(sH, ldh, w3, F2, F3, c0, sW, acc);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = ty * 4 + i;
+      for (int i = 0; i < RM; ++i) {
+        const int row = ty * RM + i;
         if (t0 + row >= nlive) continue;
         const long long e = s0 + sLive[t0 + row];
         const float c = sCw[row];
@@ -376,12 +428,31 @@ edge_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cw,
 
 // Dynamic shared memory of a kernel-3 launch at f (ops/edge_mlp.py::
 // pre_smem keeps the same sum): 1 KB to align the region, the region (the
-// ring, then the out tile), the h2 tile that also holds silu(pre1), cw,
-// then the span's live and dead offsets and the warp counts.
+// ring, then the out tile), in the narrow form the h2 tile that also
+// holds silu(pre1), cw, then the span's live and dead offsets and the
+// warp counts.
 size_t pre_smem(int f) {
+  const bool wide = f > kPreMaxNarrowF;
+  const size_t tiles = wide ? 0 : (size_t)kTcM * pre_ldh(f);
   return 1024 +
-         sizeof(float) * ((size_t)kTcActRegion + (size_t)kTcM * pre_ldh(f) + kTcM) +
+         sizeof(float) * ((size_t)kTcRegion + tiles + kTcM) +
          sizeof(int) * (2 * kPreSpan + 2 * kWarps);
+}
+
+const void* pre_kernel(int f) {
+  return f > kPreMaxNarrowF ? (const void*)edge_mlp_pre_kernel<true>
+                            : (const void*)edge_mlp_pre_kernel<false>;
+}
+
+// Dynamic shared memory of a kernel-4 launch at (r, f) with tiles of rows
+// slots (ops/edge_mlp.py::fused_smem keeps the same sum): the x, h1 and h2
+// tiles, the weight tile, cw, then the span's live and dead offsets and the
+// warp counts.
+size_t fused_smem(int r, int f, int rows) {
+  return sizeof(float) * ((size_t)rows * (r + kPad) + (size_t)rows * (f + kPad) +
+                          (size_t)rows * (2 * f + kPad) +
+                          (size_t)kTileK * kTileN + rows) +
+         sizeof(int) * (2 * kSpan + 2 * kWarps);
 }
 
 }  // namespace
@@ -393,29 +464,34 @@ const char* tmd_error_string(int code) {
 }
 
 // Kernel 3.  pre1 [e, f]; cw [e]; w2 [f, 2f]; b2 [2f]; w3 [2f, 3f]; b3 [3f];
-// out [e, 3f]; image [tmd_edge_mlp_image_floats(f)] scratch.  f a
-// multiple of 4, at most 256.  W2 and W3 are split into image, then the
-// kernel runs.
+// out [e, 3f]; image [tmd_edge_mlp_image_floats(f)] scratch; for f > 256
+// tiles [grid · tmd_edge_mlp_tile_floats(f)] scratch (else null).  grid:
+// the spans' count ⌈e/1024⌉, or for f > 256 at most that.  f a multiple
+// of 4.  W2 and W3 are split into image, then the kernel runs.
 int tmd_edge_mlp_pre(const float* pre1, const float* cw, const float* w2,
                      const float* b2, const float* w3, const float* b3,
-                     float* out, float* image, long long e, int f,
-                     void* stream) {
-  if (f < 4 || f > 2 * kTcN || f % 4) return cudaErrorInvalidValue;
+                     float* out, float* image, float* tiles, long long e,
+                     int f, int grid, void* stream) {
+  if (f < 4 || f % 4 || grid < 1) return cudaErrorInvalidValue;
+  if (f > kPreMaxNarrowF && tiles == nullptr) return cudaErrorInvalidValue;
   const int f2 = 2 * f, f3 = 3 * f;
+  const void* kern = pre_kernel(f);
   const size_t smem = pre_smem(f);
   cudaError_t err = cudaFuncSetAttribute(
-      edge_mlp_pre_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (e + kPreSpan - 1) / kPreSpan;
-  if (blocks == 0) return cudaSuccess;
+  if (e == 0) return cudaSuccess;
   float* img3 = image + tc_image_floats(f, f2);
   int rc = tc_split(w2, f, f2, image, stream);
   if (rc != cudaSuccess) return rc;
   rc = tc_split(w3, f2, f3, img3, stream);
   if (rc != cudaSuccess) return rc;
-  edge_mlp_pre_kernel<<<(unsigned)blocks, kTcThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      pre1, cw, image, b2, img3, b3, out, e, f, f2, f3);
+  const float* img2 = image;
+  void* args[] = {&pre1, &cw, &img2, &b2, &img3, &b3, &out, &tiles, &e,
+                  (void*)&f, (void*)&f2, (void*)&f3};
+  err = cudaLaunchKernel(kern, dim3((unsigned)grid), dim3(kTcThreads), args, smem,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -424,20 +500,27 @@ int tmd_edge_mlp_image_floats(int f) {
   return tc_image_floats(f, 2 * f) + tc_image_floats(2 * f, 3 * f);
 }
 
+// Floats of one resident kernel-3 block's tiles in device memory (0 for
+// f ≤ 256).
+long long tmd_edge_mlp_tile_floats(int f) {
+  return f > kPreMaxNarrowF ? pre_tile_floats(f) : 0;
+}
+
 // What the compiler and the launch give kernel 3 at f: out = registers a
 // thread, local (spill) bytes a thread, static and dynamic shared memory
 // bytes a block, resident blocks an SM.
 int tmd_edge_mlp_attributes(int f, int* out) {
+  const void* kern = pre_kernel(f);
   const size_t smem = pre_smem(f);
   cudaError_t err = cudaFuncSetAttribute(
-      edge_mlp_pre_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, edge_mlp_pre_kernel);
+  err = cudaFuncGetAttributes(&attr, kern);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, edge_mlp_pre_kernel, kTcThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kTcThreads,
+                                                      smem);
   if (err != cudaSuccess) return err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
@@ -448,25 +531,30 @@ int tmd_edge_mlp_attributes(int f, int* out) {
 }
 
 // Kernel 4.  x [e, r]; cw [e]; w1 [r, f]; b1 [f]; w2 [f, 2f]; b2 [2f];
-// w3 [2f, 3f]; b3 [3f]; out [e, 3f].  r and f multiples of 4.
+// w3 [2f, 3f]; b3 [3f]; out [e, 3f].  r and f multiples of 4.  Tiles of
+// 64 slots, or the largest of 32 and 16 whose plan fits a block.
 int tmd_edge_mlp(const float* x, const float* cw, const float* w1,
                  const float* b1, const float* w2, const float* b2,
                  const float* w3, const float* b3, float* out, long long e,
                  int r, int f, void* stream) {
+  if (r < 4 || f < 4 || r % 4 || f % 4) return cudaErrorInvalidValue;
+  int rows = 64;
+  while (rows > 16 && fused_smem(r, f, rows) > 232448) rows /= 2;
+  const void* kern = rows == 64 ? (const void*)edge_mlp_kernel<4>
+                   : rows == 32 ? (const void*)edge_mlp_kernel<2>
+                                : (const void*)edge_mlp_kernel<1>;
   const int f2 = 2 * f, f3 = 3 * f;
-  const size_t smem = sizeof(float) * ((size_t)kTileM * (r + kPad) +
-                                       (size_t)kTileM * (f + kPad) +
-                                       (size_t)kTileM * (f2 + kPad) +
-                                       (size_t)kTileK * kTileN + kTileM) +
-                      sizeof(int) * (2 * kSpan + 2 * kWarps);
+  const size_t smem = fused_smem(r, f, rows);
   cudaError_t err = cudaFuncSetAttribute(
-      edge_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (e + kSpan - 1) / kSpan;
   if (blocks == 0) return cudaSuccess;
-  edge_mlp_kernel<<<(unsigned)blocks, kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      x, cw, w1, b1, w2, b2, w3, b3, out, e, r, f, f2, f3);
+  void* args[] = {&x, &cw, &w1, &b1, &w2, &b2, &w3, &b3, &out, &e,
+                  (void*)&r, (void*)&f, (void*)&f2, (void*)&f3};
+  err = cudaLaunchKernel(kern, dim3((unsigned)blocks), dim3(kThreads), args, smem,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

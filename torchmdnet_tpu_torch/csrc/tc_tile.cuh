@@ -1,5 +1,6 @@
 // The tensor-core tile product of csrc/cheb_filter.cu (Pallas rows 5 and
-// 7), csrc/blocked_mp.cu (rows 10 and 11) and csrc/edge_mlp.cu (kernel 3):
+// 7), csrc/blocked_mp.cu (rows 10 and 11), csrc/edge_mlp.cu (kernel 3)
+// and csrc/blocked_q.cu (kernels A and B, rows 12 and 13):
 // an A operand [64 x kdim] times a [kdim x ncols] row-major series or
 // weight W, one 128-column block (pass) at a time, on Hopper's warpgroup
 // MMA (wgmma) in TF32 with the 3xTF32 split.  Each factor x is cut into
@@ -11,26 +12,26 @@
 // W is split once per launch (tc_split) into an image of shared-memory
 // stages: per pass and per kTcK = 16 rows, a hi and a lo plane, K-major
 // with the 64-byte swizzle that wgmma reads (one 64-byte row a column).
-// A block streams a pass's stages through a ring of three (four for the
-// activation product) with cp.async, two ahead of the one being
-// multiplied, so the product needs no
+// A block streams a pass's stages through a ring of three with cp.async,
+// two ahead of the one being multiplied, so the product needs no
 // registers, conversions or shared stores for W.  A goes to wgmma from
 // registers: each thread builds and splits its fragment (two rows, four k
 // a stage) where it is needed, from one of two sources (tc_step's Frag):
 // the cos basis B(θ)[r][k] = cos(k·θ_r), computed from the rows' θ, so the
 // basis takes no shared memory and no pass over it (tc_product; rows 5, 7,
-// 10, 11), or fp32 rows in memory: an activation tile in shared memory
-// (tc_product_act, kernel 3; tc_product_from, kernel B of
-// csrc/blocked_q.cu, whose exact base also reads its rbf rows from device
-// memory this way).  Block: kTcThreads = 256 threads, two warpgroups; warpgroup
+// 10, 11), or fp32 rows in memory: an activation tile in shared memory,
+// or in device memory where it does not fit a block (tc_product_from:
+// kernel 3 and kernels A and B of csrc/blocked_q.cu, whose exact base
+// also reads its rbf rows from device memory this way).  Block: kTcThreads = 256 threads, two warpgroups; warpgroup
 // q owns the columns [64q, 64q + 64) for all 64 rows (wgmma m64n64k8, 32
 // fp32 accumulators a thread) and issues 6 wgmma a stage (2 k-steps x 3
 // terms), then waits for them: one fragment set, ~80 registers, so three
 // blocks share an SM and hide each other's waits (rows 10-11; rows 5 and 7
-// also hold a stage's sums, below: ~115 registers, two blocks).  Kernel
-// 3's block fills an SM alone, so its product waits for the stage before
-// and keeps two fragment sets.  Kernel B's fills an SM alone too, but
-// beside its epilogues a second fragment set spills, so it keeps one.
+// also hold a stage's sums, below: ~115 registers, two blocks).  Kernels
+// 3, A and B fill an SM with one block; a second fragment set (a wait for
+// the stage before only, over a ring of four) gained kernel 3 under 1% on
+// its main list (3% with every slot live) on an H100 and spills in A and
+// B, so every product keeps one.
 
 #pragma once
 
@@ -51,9 +52,6 @@ constexpr int kTcLdW = kTcN + 8;  // row stride of the caller's epilogue tile
 // the caller's [64][kTcLdW] tile after it
 constexpr int kTcRegion = kTcStages * kTcStage;
 static_assert(kTcRegion >= kTcM * kTcLdW, "the epilogue tile fits the region");
-// tc_product_act's ring is one stage longer (below): its region
-constexpr int kTcActStages = 4;
-constexpr int kTcActRegion = kTcActStages * kTcStage;
 
 // Floats of the split image of a [kdim x ncols] series.
 __host__ __device__ __forceinline__ int tc_image_floats(int kdim, int ncols) {
@@ -278,8 +276,9 @@ struct TcCosBasis {
   }
 };
 
-// An fp32 activation tile [64][lda] in shared memory (kernel 3, kernel
-// B), or any rows in device memory (kernel B's rbf): row0 and row1 point
+// An fp32 activation tile [64][lda] in shared memory (kernel 3, kernels
+// A and B), or any rows in device memory (their wide forms' tiles, the
+// exact base's rbf rows): row0 and row1 point
 // at rows tc_row(0) and tc_row(1).  With lda ≡ 4 (mod 32) the eight row
 // groups of a warp and its four k hit 32 distinct shared-memory banks.
 struct TcActivation {
@@ -385,80 +384,6 @@ __device__ __forceinline__ void tc_product(const float* __restrict__ sTheta,
   const int row = tc_row(0);
   tc_product_from<kStageSums>(TcCosBasis{sTheta[row], sTheta[row + 8], kdim},
                               image, kdim, p, sR, acc);
-}
-
-// One stage kt of tc_product_act, with the fragment set S = kt % 2: the
-// copy of stage kt + 2 into the buffer stage kt − 2 read, this thread's A
-// fragment of stage kt into a[S], its 6 wgmma, and a wait for those of
-// stage kt − 1 only, so that stage kt's run on while the next stage's
-// fragments are read.
-template <int S, typename Frag>
-__device__ __forceinline__ void tc_step_act(const Frag& frag,
-                                            const float* __restrict__ src, int nk,
-                                            int kt, float* sR, float (&acc)[8][4],
-                                            uint32_t (&a)[2][2][2][4]) {
-  cp_async_wait<1>();
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  // Stage kt has landed for every thread's copies, and every thread has
-  // waited for its stage kt − 2 products (the wait of step kt − 1): that
-  // stage's buffer takes kt + 2, and its fragment set takes kt.
-  __syncthreads();
-  if (kt + 2 < nk)
-    tc_copy(src + (kt + 2) * kTcStage,
-            sR + ((kt + 2) % kTcActStages) * kTcStage);
-  cp_async_commit();
-  const float* buf =
-      sR + (kt % kTcActStages) * kTcStage + (threadIdx.x >> 7) * 64 * kTcK;
-  frag(kt, a[S]);
-  const uint64_t dHi = tc_desc(buf), dLo = tc_desc(buf + kTcPlane);
-  wgmma_fence();
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    wgmma_tf32(acc, a[S][s][1], dHi + 2 * s);
-    wgmma_tf32(acc, a[S][s][0], dLo + 2 * s);
-    wgmma_tf32(acc, a[S][s][0], dHi + 2 * s);
-  }
-  wgmma_commit();
-  wgmma_wait<1>();
-  tc_hold(acc);
-  tc_hold(a[0]);
-  tc_hold(a[1]);
-}
-
-// acc = sAct[0:64, 0:kdim] · W[0:kdim, 128p : 128p + 128]: the product
-// with an fp32 activation tile of row stride lda (≡ 4 mod 32) in shared
-// memory as A, each fragment read and split where tc_product computes the
-// basis.  One block runs an SM here (kernel 3), so no other block hides
-// a stage's wait: one wgmma group stays in flight over two fragment sets,
-// through a ring of kTcActStages in a region of kTcActRegion floats,
-// 1024-byte aligned.  Synchronises first (sAct is written, sR free) and
-// last; the tensor cores sum the stages.
-__device__ __forceinline__ void tc_product_act(const float* sAct, int lda,
-                                               const float* __restrict__ image,
-                                               int kdim, int p, float* sR,
-                                               float (&acc)[8][4]) {
-  const int nk = (kdim + kTcK - 1) / kTcK;
-  const float* src = image + (long long)p * nk * kTcStage;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
-  uint32_t a[2][2][2][4];
-  __syncthreads();
-  const TcActivation frag{sAct + tc_row(0) * lda, sAct + tc_row(1) * lda, kdim};
-  tc_copy(src, sR);
-  cp_async_commit();
-  if (nk > 1) tc_copy(src + kTcStage, sR + kTcStage);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; kt += 2) {
-    tc_step_act<0>(frag, src, nk, kt, sR, acc, a);
-    if (kt + 1 < nk) tc_step_act<1>(frag, src, nk, kt + 1, sR, acc, a);
-  }
-  wgmma_wait<0>();
-  tc_hold(acc);
-  tc_hold(a[0]);
-  tc_hold(a[1]);
-  __syncthreads();
 }
 
 }  // namespace

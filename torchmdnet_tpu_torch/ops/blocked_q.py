@@ -34,12 +34,17 @@ window features and the basis dot to bf16 (~1e-3 relative,
 that rounding.
 
 On CUDA tensors each function launches its kernel (``csrc/blocked_q.cu``)
-or raises; on CPU tensors it runs the plain version beside it.  Kernel A
-runs in fp32 FMA.  Kernel B runs its products on the tensor cores in
-3xTF32 (``csrc/tc_tile.cuh``, float32-accurate) from split copies of its
-six weights (the base, W2, W3, W3ᵀ, W2ᵀ and the base's cotangent) in a
-scratch the wrapper allocates (:func:`dq_image_floats`); :func:`launch_plan`
-holds its grid and shared memory, for F ≤ 128.
+or raises; on CPU tensors it runs the plain version beside it.  Kernels A
+and B run their products on the tensor cores in 3xTF32
+(``csrc/tc_tile.cuh``, float32-accurate) from split copies of their
+weights (the base, W2 and W3; with du and in B W3ᵀ and W2ᵀ; in B the
+base's cotangent) in a scratch the wrapper allocates
+(:func:`q_image_floats`).  Above F = 128 a block's activation tiles do
+not fit its shared memory: each resident block keeps them in its region
+of a second scratch (:func:`q_tile_floats`), and the grid is one block
+an SM.  :func:`launch_plan` holds the grid, shared memory and both
+scratches; every width the JAX op computes launches (:func:`plan_error`
+refuses only a width that is not a positive multiple of 4).
 """
 
 import ctypes
@@ -50,119 +55,134 @@ from torch.autograd.function import once_differentiable
 
 from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs, cheb_theta, cos_basis
 from torchmdnet_tpu_torch.ops.kernels import (
-    F32, I32, I64, P, CudaSource, Kernel, ptr)
+    F32, I32, I64, P, CudaSource, Kernel, null_or_ptr, ptr)
 from torchmdnet_tpu_torch.ops.message_passing import row_chunk
-from torchmdnet_tpu_torch.ops.tc_tile import REGION, SMEM_LIMIT
+from torchmdnet_tpu_torch.ops.tc_tile import H100_SMS, REGION
 from torchmdnet_tpu_torch.ops.tc_tile import image_floats as tc_image_floats
 
 SOURCE = CudaSource("blocked_q.cu")
 _COMMON = [P] * 7  # d or rbf, cw, mask, idx, urow, ucol, xwin
-_TAIL = [I64, I32, I32, I32, F32, F32]  # n, k, f, t, lo, span
+# every form ends in image, tiles, then n, k, f, t (+ lo, span), grid
+_TAIL = [P, P, I64, I32, I32, I32, F32, F32, I32]
+_TAIL_RBF = [P, P, I64, I32, I32, I32, I32]
+# kernel A: + coeffs, w2, b2, w3, b3, out; with du + grow, du
 FORWARD = Kernel(SOURCE, "tmd_blocked_q_fwd", _COMMON + [P] * 6 + _TAIL)
 FORWARD_DU = Kernel(SOURCE, "tmd_blocked_q_fwd_du",
-                    _COMMON + [P] * 10 + _TAIL)
-# kernel B: + grow, coeffs, dser, w2, b2, w3, b3, du, dd, dcw, image
-DQ = Kernel(SOURCE, "tmd_blocked_q_dq", _COMMON + [P] * 11 + _TAIL)
+                    _COMMON + [P] * 8 + _TAIL)
+# kernel B: + grow, coeffs, dser, w2, b2, w3, b3, du, dd, dcw
+DQ = Kernel(SOURCE, "tmd_blocked_q_dq", _COMMON + [P] * 10 + _TAIL)
 # the exact-rbf forms (tab=False): rbf [N, K, R] for d, W1a for coeffs
 FORWARD_RBF = Kernel(SOURCE, "tmd_blocked_q_fwd_rbf",
-                     _COMMON + [P] * 6 + [I64, I32, I32, I32])
+                     _COMMON + [P] * 6 + _TAIL_RBF)
 FORWARD_DU_RBF = Kernel(SOURCE, "tmd_blocked_q_fwd_du_rbf",
-                        _COMMON + [P] * 10 + [I64, I32, I32, I32])
-DQ_RBF = Kernel(SOURCE, "tmd_blocked_q_dq_rbf",
-                _COMMON + [P] * 10 + [I64, I32, I32, I32])
-_A_SMEM_LIMIT = SMEM_LIMIT - 4096  # kernel A: less its static arrays
-_LIST_CAP = 16 * 512  # slots a kernel A block compacts at a time (16-bit ids)
-# kernel B (dq_tc_kernel): sorted rows a block owns, slots it compacts at
-# a time, and the widest F and rbf width it takes
-_DQ_ROWS, _DQ_CHUNK = 16, 4096
-_DQ_MAX_F = _DQ_MAX_R = 128
+                        _COMMON + [P] * 8 + _TAIL_RBF)
+DQ_RBF = Kernel(SOURCE, "tmd_blocked_q_dq_rbf", _COMMON + [P] * 9 + _TAIL_RBF)
+# q_chain: sorted rows a block owns, slots it compacts at a time, the
+# widest F whose tiles sit in shared memory
+_ROWS, _CHUNK, _NARROW_F = 16, 4096, 128
+# the kernels of mode 0 (A), 1 (A with du) and 2 (B)
+MODES = ("blocked_q_fwd", "blocked_q_fwd_du", "blocked_q_dq")
 
 
-def smem_bytes(mode: int, f: int, t: int, k: int) -> int:
-    """Dynamic shared memory of a kernel A launch (mode 0 = A, 1 = A with
-    du; ``t`` series terms or rbf width), as ``q_kernel`` lays it out."""
-    tm = 64 if mode == 0 else 32
-    lda, ldh, ldb, ldz, ldt = f + 4, 2 * f + 4, t + 4, 3 * f + 4, 132
-    floats = 32 * 128 + tm * (ldb + lda + ldh + ldt)
+def q_tile_floats(f: int, mode: int = 2) -> int:
+    """Floats of one block's activation tiles in the wide form (F > 128;
+    0 at or below): sX ``[64, 3F + 4]``; with du (mode 1) and in B (mode
+    2) also sZ ``[64, 2F + 4]`` and the dz3 plane ``[64, 3F + 4]``."""
+    if f <= _NARROW_F:
+        return 0
+    return 64 * (3 * f + 4) + (64 * (5 * f + 8) if mode else 0)
+
+
+def q_smem(f: int, k: int, mode: int = 2) -> int:
+    """Dynamic shared memory of a launch of mode 0 (kernel A), 1 (A with
+    du) or 2 (B), as ``q_chain`` lays it out: 1 KB to align the ring, the
+    ring, for F ≤ 128 the [64, 3F + 4] tile (and, but for A, the [64, 2F +
+    4] one), the [2, 64] warpgroup sums, dcw, cw and θ, the tile's rows,
+    neighbours and slot offsets, the warp counts, and the 16-bit slot ids
+    of a compaction pass."""
+    tiles = 0
+    if f <= _NARROW_F:
+        tiles = 64 * (3 * f + 4) + (64 * (2 * f + 4) if mode else 0)
+    floats = REGION + tiles + 5 * 64
+    return 1024 + 4 * floats + 4 * (3 * 64 + 8) + 2 * min(_ROWS * k, _CHUNK)
+
+
+def q_image_floats(f: int, t: int, rbf: bool = False, mode: int = 2) -> int:
+    """Floats of the weight scratch at ``F = f`` with ``t`` series terms
+    (or, ``rbf``, the rbf width): the split images of the base ``[t, F]``,
+    W2 and W3; with du and in B W3ᵀ and W2ᵀ; in B the base's cotangent
+    (``dser [t, F]``, or W1aᵀ ``[F, t]``)."""
+    x = tc_image_floats(t, f) + tc_image_floats(f, 2 * f) \
+        + tc_image_floats(2 * f, 3 * f)
     if mode:
-        floats += tm * (lda + ldh + ldt + ldz)
-    return 4 * floats + 2 * min(16 * k, _LIST_CAP)
+        x += tc_image_floats(3 * f, 2 * f) + tc_image_floats(2 * f, f)
+    if mode == 2:
+        x += tc_image_floats(f, t) if rbf else tc_image_floats(t, f)
+    return x
 
 
-def dq_smem(f: int, k: int) -> int:
-    """Dynamic shared memory of a kernel B launch, as ``dq_tc_kernel``
-    lays it out: 1 KB to align the ring, the ring, the [64, 3F + 4] and
-    [64, 2F + 4] activation tiles, the [2, 64] warpgroup sums, dcw, cw
-    and θ, the tile's rows, neighbours and slot offsets, the warp counts,
-    and the 16-bit slot ids of a compaction pass."""
-    floats = REGION + 64 * (3 * f + 4) + 64 * (2 * f + 4) + 5 * 64
-    return 1024 + 4 * floats + 4 * (3 * 64 + 8) + 2 * min(_DQ_ROWS * k,
-                                                          _DQ_CHUNK)
+def launch_plan(n: int, k: int, f: int, t: int, rbf: bool = False,
+                mode: int = 2, sms: int = H100_SMS) -> dict:
+    """Mode 0 (kernel A), 1 (A with du) or 2 (B) at ``n`` sorted rows of
+    ``k`` slots, ``F = f`` and ``t`` series terms (``rbf``: the exact
+    form, ``t`` the rbf width) on a card of ``sms`` SMs: ``(blocks, rows a
+    row block, slots a compaction pass, dynamic shared memory, image
+    floats, tile floats)``.  Block ``b`` owns the row blocks ``b, b +
+    blocks, …`` below ``⌈n/rows⌉``, each of the sorted rows ``[rb·rows,
+    rb·rows + rows)``: one row block each for F ≤ 128, one block an SM
+    above, each with its ``q_tile_floats`` of the tile scratch."""
+    row_blocks = -(-n // _ROWS)
+    blocks = row_blocks if f <= _NARROW_F else max(1, min(row_blocks, sms))
+    name = MODES[mode] + ("_rbf" if rbf else "")
+    return {name: (blocks, _ROWS, min(_ROWS * k, _CHUNK), q_smem(f, k, mode),
+                   q_image_floats(f, t, rbf, mode),
+                   blocks * q_tile_floats(f, mode))}
 
 
-def dq_image_floats(f: int, t: int, rbf: bool = False) -> int:
-    """Floats of kernel B's scratch at ``F = f`` with ``t`` series terms
-    (or, ``rbf``, the rbf width): the split images of the base ``[t,
-    F]``, W2, W3, W3ᵀ, W2ᵀ and the base's cotangent (``dser [t, F]``, or
-    W1aᵀ ``[F, t]``)."""
-    return (tc_image_floats(t, f) + tc_image_floats(f, 2 * f)
-            + tc_image_floats(2 * f, 3 * f) + tc_image_floats(3 * f, 2 * f)
-            + tc_image_floats(2 * f, f)
-            + (tc_image_floats(f, t) if rbf else tc_image_floats(t, f)))
-
-
-def launch_plan(n: int, k: int, f: int, t: int, rbf: bool = False) -> dict:
-    """Kernel B at ``n`` sorted rows of ``k`` slots, ``F = f`` and ``t``
-    series terms (``rbf``: its exact form, ``t`` the rbf width): ``(blocks,
-    rows a block, slots a compaction pass, dynamic shared memory, image
-    floats)``; block ``b`` owns the rows ``[b·rows, b·rows + rows)`` below
-    ``n``."""
-    name = "blocked_q_dq_rbf" if rbf else "blocked_q_dq"
-    return {name: (-(-n // _DQ_ROWS), _DQ_ROWS, min(_DQ_ROWS * k, _DQ_CHUNK),
-                   dq_smem(f, k), dq_image_floats(f, t, rbf))}
-
-
-def dq_plan_error(f: int, t: int, k: int, rbf: bool = False):
-    """Why kernel B cannot launch at ``(F, t, K)``, or None: F a multiple
-    of 4 up to 128 (its W3 passes below 2F hold at most one pass in
-    registers), an rbf width up to 128 (one pass of W1aᵀ), and the plan's
-    shared memory within a block's 232,448 B."""
-    if f % 4 or not 4 <= f <= _DQ_MAX_F:
-        return f"channels {f} must be a multiple of 4 in [4, {_DQ_MAX_F}]"
+def plan_error(f: int, t: int, rbf: bool = False):
+    """Why kernels A and B cannot launch at ``F = f`` with ``t`` series
+    terms or rbf channels, or None: F a positive multiple of 4 and ``t``
+    at least 1.  Any K and every such width launches: the plan's shared
+    memory stays within a block's 232,448 B (:func:`q_smem`; the tiles of
+    F > 128 go to device memory), and a scratch larger than the card's
+    free memory fails at its allocation."""
+    if f % 4 or f < 4:
+        return f"channels {f} must be a positive multiple of 4"
     if t < 1:
         return f"{'rbf width' if rbf else 'series terms'} {t} must be >= 1"
-    if rbf and t > _DQ_MAX_R:
-        return f"rbf width {t} is above {_DQ_MAX_R}"
-    smem = dq_smem(f, k)
-    if smem > SMEM_LIMIT:
-        return f"F={f}, K={k} needs {smem} bytes of shared memory " \
-               f"(> {SMEM_LIMIT})"
     return None
 
 
 def kernel_attributes(f: int, k: int, t: int, r: int) -> dict:
-    """What the compiler and the launch give kernel B, both bases, at
-    ``(F, K)``: registers and local (spill) bytes a thread, static and
-    dynamic shared memory a block, resident blocks an SM, and the floats
-    of its image scratch at ``t`` series terms or ``r`` rbf channels.
+    """What the compiler and the launch give kernels A, A with du and B,
+    both bases, at ``(F, K)``: registers and local (spill) bytes a thread,
+    static and dynamic shared memory a block, resident blocks an SM, the
+    floats of the image scratch at ``t`` series terms or ``r`` rbf
+    channels and of one block's tiles in device memory (0 at F ≤ 128).
     Builds the library; launches nothing."""
     lib = SOURCE.library()
-    fn = lib.tmd_blocked_q_dq_attributes
-    fn.argtypes = [I32, I32, I32, P]
+    fn = lib.tmd_blocked_q_attributes
+    fn.argtypes = [I32, I32, I32, I32, P]
     fn.restype = I32
-    images = lib.tmd_blocked_q_dq_image_floats
-    images.argtypes = [I32, I32, I32]
+    images = lib.tmd_blocked_q_image_floats
+    images.argtypes = [I32, I32, I32, I32]
     images.restype = I32
+    tiles = lib.tmd_blocked_q_tile_floats
+    tiles.argtypes = [I32, I32]
+    tiles.restype = I64
     attrs = {}
-    for rbf, name, width in ((0, "blocked_q_dq", t),
-                             (1, "blocked_q_dq_rbf", r)):
-        out = (ctypes.c_int * 5)()
-        rc = fn(rbf, f, k, ctypes.cast(out, P))
-        if rc != 0:
-            raise RuntimeError(f"tmd_blocked_q_dq_attributes: CUDA error {rc}")
-        attrs[name] = dict(zip(("registers", "local_bytes", "static_smem",
-                                "dynamic_smem", "blocks_per_sm"), out))
-        attrs[name]["image_floats"] = images(f, width, rbf)
+    for mode, base in enumerate(MODES):
+        for rbf, suffix, width in ((0, "", t), (1, "_rbf", r)):
+            out = (ctypes.c_int * 5)()
+            rc = fn(mode, rbf, f, k, ctypes.cast(out, P))
+            if rc != 0:
+                raise RuntimeError(
+                    f"tmd_blocked_q_attributes: CUDA error {rc}")
+            a = dict(zip(("registers", "local_bytes", "static_smem",
+                          "dynamic_smem", "blocks_per_sm"), out))
+            a["image_floats"] = images(mode, f, width, rbf)
+            a["tile_floats"] = tiles(mode, f)
+            attrs[base + suffix] = a
     return attrs
 
 
@@ -285,18 +305,20 @@ def q_dq_rbf_ref(rbf, cw, mask, idx, urow, ucol, xwin, g9, w1a, w2, b2, w3,
                      tuple(rbf.shape))
 
 
-def _check(name, tensors, mode):
+def _check(name, tensors):
     """Raise unless every tensor is on one CUDA device, contiguous, of its
-    type and shape, and the launch fits (mode 0 = A, 1 = A with du, 2 =
-    B).  ``coeffs`` is the [T, F] base weight: the series, or W1a with
-    ``rbf`` given."""
+    type and shape, and the widths launch (:func:`plan_error`).
+    ``coeffs`` is the [T, F] base weight: the series, or W1a with ``rbf``
+    given."""
     n, k = tensors["idx"].shape
     T, f = tensors["coeffs"].shape
+    error = plan_error(f, T, rbf="rbf" in tensors)
+    if error:
+        raise ValueError(f"{name}: {error}")
     shapes = dict(d=(n, k), rbf=(n, k, T), cw=(n, k), mask=(n, k),
                   idx=(n, k), urow=(n, f), ucol=(n, f), xwin=(n, 9 * f),
                   grow=(n, 9 * f), coeffs=(T, f), dser=(T, f),
-                  w2=(f, 2 * f), b2=(2 * f,), w3=(2 * f, 3 * f), b3=(3 * f,),
-                  w2t=(2 * f, f), w3t=(3 * f, 2 * f))
+                  w2=(f, 2 * f), b2=(2 * f,), w3=(2 * f, 3 * f), b3=(3 * f,))
     first = tensors["rbf" if "rbf" in tensors else "d"]
     dev = first.device
     if dev.type != "cuda":
@@ -314,48 +336,46 @@ def _check(name, tensors, mode):
                              f"expected {shapes[key]}")
         if x.data_ptr() % 16:  # weights are read as float4
             raise ValueError(f"{name}: {key} is not 16-byte aligned")
-    if mode == 2:
-        error = dq_plan_error(f, T, k, rbf="rbf" in tensors)
-        if error:
-            raise ValueError(f"{name}: {error}")
-        return dev, n, k, f, T
-    if f % 4:
-        raise ValueError(f"{name}: channels {f} must be a multiple of 4")
-    smem = smem_bytes(mode, f, T, k)
-    if smem > _A_SMEM_LIMIT:
-        raise ValueError(f"{name}: F={f}, T={T}, K={k} needs {smem} bytes of "
-                         f"shared memory (> {_A_SMEM_LIMIT})")
     return dev, n, k, f, T
 
 
-def _transposed(w2, w3):
-    return dict(w2t=w2.t().contiguous(), w3t=w3.t().contiguous())
+def _launch(kernel, mode, tensors, outs, scalars):
+    """Checks ``tensors`` (their order is the entry point's), allocates
+    the outputs ``outs(n, k, f, T)`` and the two scratches of
+    :func:`launch_plan`, and launches ``kernel`` with ``scalars(n, k, f,
+    T)`` before the grid.  Returns the outputs."""
+    rbf = "rbf" in tensors
+    dev, n, k, f, T = _check(kernel.symbol, tensors)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    (grid, _, _, _, image_n, tiles_n), = launch_plan(
+        n, k, f, T, rbf, mode, sms).values()
+    with torch.cuda.device(dev):
+        got = [torch.empty(shape, dtype=torch.float32, device=dev)
+               for shape in outs(n, k, f, T)]
+        image = torch.empty(image_n, dtype=torch.float32, device=dev)
+        tiles = torch.empty(tiles_n, dtype=torch.float32, device=dev) \
+            if tiles_n else None
+        kernel(*[ptr(t) for t in tensors.values()], *[ptr(t) for t in got],
+               ptr(image), null_or_ptr(tiles),
+               *scalars(n, k, f, T), grid)
+    return got[0] if len(got) == 1 else tuple(got)
 
 
 def _fwd_cuda(kernels, base_key, base, cw, mask, idx, urow, ucol, xwin, w1,
-              w2, b2, w3, b3, tail, grow):
+              w2, b2, w3, b3, scalars, grow):
     """Kernel A (``grow`` given: its with-du form) on CUDA tensors;
-    ``kernels`` = (plain form, with-du form), ``tail(n, k, f, T)`` the
-    trailing scalars."""
+    ``kernels`` = (plain form, with-du form), ``scalars(n, k, f, T)`` the
+    trailing scalars before the grid."""
     tensors = {base_key: base, "cw": cw, "mask": mask, "idx": idx,
-               "urow": urow, "ucol": ucol, "xwin": xwin, "coeffs": w1,
-               "w2": w2, "b2": b2, "w3": w3, "b3": b3}
+               "urow": urow, "ucol": ucol, "xwin": xwin}
     if grow is not None:
-        tensors.update(grow=grow, **_transposed(w2, w3))
-    dev, n, k, f, T = _check(kernels[0].symbol, tensors,
-                             0 if grow is None else 1)
-    common = [ptr(tensors[key]) for key in
-              (base_key, "cw", "mask", "idx", "urow", "ucol", "xwin")]
-    weights = [ptr(t) for t in (w1, w2, b2, w3, b3)]
-    with torch.cuda.device(dev):
-        out = torch.empty((n, 9 * f), dtype=torch.float32, device=dev)
-        if grow is None:
-            kernels[0](*common, *weights, ptr(out), *tail(n, k, f, T))
-            return out
-        du = torch.empty((n, f), dtype=torch.float32, device=dev)
-        kernels[1](*common, ptr(grow), *weights, ptr(tensors["w2t"]),
-                   ptr(tensors["w3t"]), ptr(out), ptr(du), *tail(n, k, f, T))
-        return out, du
+        tensors["grow"] = grow
+    tensors.update(coeffs=w1, w2=w2, b2=b2, w3=w3, b3=b3)
+    if grow is None:
+        return _launch(kernels[0], 0, tensors,
+                       lambda n, k, f, T: [(n, 9 * f)], scalars)
+    return _launch(kernels[1], 1, tensors,
+                   lambda n, k, f, T: [(n, 9 * f), (n, f)], scalars)
 
 
 def q_fwd_cuda(d, cw, mask, idx, urow, ucol, xwin, coeffs, w2, b2, w3, b3,
@@ -381,16 +401,9 @@ def q_dq_cuda(d, cw, mask, idx, urow, ucol, xwin, g9, coeffs, dser, w2, b2,
     tensors = dict(d=d, cw=cw, mask=mask, idx=idx, urow=urow, ucol=ucol,
                    xwin=xwin, grow=g9, coeffs=coeffs, dser=dser, w2=w2, b2=b2,
                    w3=w3, b3=b3)
-    dev, n, k, f, T = _check("blocked_q_dq", tensors, 2)
-    with torch.cuda.device(dev):
-        du = torch.empty((n, f), dtype=torch.float32, device=dev)
-        dd = torch.empty((n, k), dtype=torch.float32, device=dev)
-        dcw = torch.empty((n, k), dtype=torch.float32, device=dev)
-        image = torch.empty(dq_image_floats(f, T), dtype=torch.float32,
-                            device=dev)
-        DQ(*[ptr(t) for t in tensors.values()], ptr(du), ptr(dd), ptr(dcw),
-           ptr(image), n, k, f, T, float(lo), float(hi - lo))
-    return du, dd, dcw
+    return _launch(DQ, 2, tensors,
+                   lambda n, k, f, T: [(n, f), (n, k), (n, k)],
+                   lambda n, k, f, T: (n, k, f, T, float(lo), float(hi - lo)))
 
 
 def q_dq_rbf_cuda(rbf, cw, mask, idx, urow, ucol, xwin, g9, w1a, w2, b2, w3,
@@ -398,16 +411,9 @@ def q_dq_rbf_cuda(rbf, cw, mask, idx, urow, ucol, xwin, g9, w1a, w2, b2, w3,
     """Kernel B, exact base, on CUDA tensors: ``(du, drbf, dcw)``."""
     tensors = dict(rbf=rbf, cw=cw, mask=mask, idx=idx, urow=urow, ucol=ucol,
                    xwin=xwin, grow=g9, coeffs=w1a, w2=w2, b2=b2, w3=w3, b3=b3)
-    dev, n, k, f, r = _check("blocked_q_dq_rbf", tensors, 2)
-    with torch.cuda.device(dev):
-        du = torch.empty((n, f), dtype=torch.float32, device=dev)
-        drbf = torch.empty((n, k, r), dtype=torch.float32, device=dev)
-        dcw = torch.empty((n, k), dtype=torch.float32, device=dev)
-        image = torch.empty(dq_image_floats(f, r, rbf=True),
-                            dtype=torch.float32, device=dev)
-        DQ_RBF(*[ptr(t) for t in tensors.values()], ptr(du), ptr(drbf),
-               ptr(dcw), ptr(image), n, k, f, r)
-    return du, drbf, dcw
+    return _launch(DQ_RBF, 2, tensors,
+                   lambda n, k, f, T: [(n, f), (n, k, T), (n, k)],
+                   lambda n, k, f, T: (n, k, f, T))
 
 
 def q_fwd(*args, **kwargs):

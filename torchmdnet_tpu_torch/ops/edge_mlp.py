@@ -21,9 +21,11 @@ and write exact zeros for the others.  Kernel 3 forms its two products on
 the tensor cores in 3xTF32 (``csrc/tc_tile.cuh``, float32-accurate), from
 split copies of ``W2`` and ``W3`` in a scratch the wrapper allocates
 (:func:`image_floats`); :func:`launch_plan` holds its grid and shared
-memory.  Kernel 4 is fp32 FMA.  On the card a width whose plan does not
-fit a Hopper block (:func:`pre_plan_error`, :func:`fused_plan_error`)
-raises, as every other launch that cannot run does.  The backward
+memory; above F = 256 its h2 and ``silu(pre1)`` tiles go to a second
+device-memory scratch, one region for each resident block.  Kernel 4 is
+fp32 FMA on tiles of 64 slots, or 32 or 16 where 64 rows do not fit a
+block (:func:`fused_rows`).  Every width that is a positive multiple of 4
+launches (:func:`pre_plan_error`, :func:`fused_plan_error`).  The backward
 recomputes through the plain chain over row chunks, as the JAX
 ``_bwd``/``_bwd_pre`` (``:118``, ``:237``) do (the JAX package has no
 backward kernel for these ops); it is first-order only.
@@ -36,16 +38,16 @@ import torch.nn.functional as F_
 from torch.autograd.function import once_differentiable
 
 from torchmdnet_tpu_torch.ops.kernels import (
-    I32, I64, P, CudaSource, Kernel, check_cuda_args, ptr)
+    I32, I64, P, CudaSource, Kernel, check_cuda_args, null_or_ptr, ptr)
 from torchmdnet_tpu_torch.ops.message_passing import row_chunk
-from torchmdnet_tpu_torch.ops.tc_tile import ACT_REGION, SMEM_LIMIT
+from torchmdnet_tpu_torch.ops.tc_tile import H100_SMS, REGION, SMEM_LIMIT
 from torchmdnet_tpu_torch.ops.tc_tile import image_floats as tc_image_floats
 
 SOURCE = CudaSource("edge_mlp.cu")
-FORWARD = Kernel(SOURCE, "tmd_edge_mlp_pre", [P] * 8 + [I64, I32])
+FORWARD = Kernel(SOURCE, "tmd_edge_mlp_pre", [P] * 9 + [I64, I32, I32])
 FUSED = Kernel(SOURCE, "tmd_edge_mlp", [P] * 9 + [I64, I32, I32])
 _PRE_SPAN = 1024  # slots a kernel 3 block owns (kPreSpan)
-_PRE_MAX_F = 256  # the widest F kernel 3 takes (two 128-column passes)
+_PRE_NARROW_F = 256  # the widest F whose kernel 3 tiles sit in shared memory
 
 
 def image_floats(f: int) -> int:
@@ -55,57 +57,79 @@ def image_floats(f: int) -> int:
 
 
 def _pre_ldh(f: int) -> int:
-    """Row stride of kernel 3's h2 tile: 2F columns, and ``silu(pre1)``
-    [64, F] from column ``128·(⌈2F/128⌉ − ⌈F/128⌉)`` of the same rows."""
+    """Row stride of kernel 3's h2 tile in the narrow form (F ≤ 256): 2F
+    columns, and ``silu(pre1)`` [64, F] from column ``128·(⌈2F/128⌉ −
+    ⌈F/128⌉)`` of the same rows."""
     a0 = 128 * (-(-2 * f // 128) - -(-f // 128))
     return max(2 * f, a0 + f) + 4
 
 
+def pre_tile_floats(f: int) -> int:
+    """Floats of one block's tiles in kernel 3's wide form (F > 256; 0 at
+    or below): h2 ``[64, 2F + 4]`` and ``silu(pre1)`` ``[64, F + 4]``."""
+    return 64 * (3 * f + 8) if f > _PRE_NARROW_F else 0
+
+
 def pre_smem(f: int) -> int:
     """Dynamic shared memory of a kernel 3 launch: 1 KB to align the
-    region, the region, the h2 tile that also holds ``silu(pre1)``, the
-    tile's cw, then the span's live and dead offsets and the warp
+    region, the region (the ring of ``tc_product_from``), in the narrow
+    form the h2 tile that also holds ``silu(pre1)``, the tile's cw, then
+    the span's live and dead offsets and the warp counts."""
+    tiles = 64 * _pre_ldh(f) if f <= _PRE_NARROW_F else 0
+    return 1024 + 4 * (REGION + tiles + 64) + 4 * (2 * _PRE_SPAN + 16)
+
+
+def fused_smem(r: int, f: int, rows: int = 64) -> int:
+    """Dynamic shared memory of a kernel 4 launch on tiles of ``rows``
+    slots: the x, h1 and h2 tiles (each padded by 4), a 32 x 128 weight
+    tile, cw, then the span's live and dead offsets and the warp
     counts."""
-    return 1024 + 4 * (ACT_REGION + 64 * _pre_ldh(f) + 64) \
-        + 4 * (2 * _PRE_SPAN + 16)
+    return 4 * (rows * (r + f + 2 * f + 12) + 32 * 128 + rows) \
+        + 4 * (512 + 16)
 
 
-def fused_smem(r: int, f: int) -> int:
-    """Dynamic shared memory of a kernel 4 launch: the x, h1 and h2 tiles
-    of 64 rows (each padded by 4), a 32 x 128 weight tile, cw, then the
-    span's live and dead offsets and the warp counts."""
-    return 4 * (64 * (r + f + 2 * f + 12) + 32 * 128 + 64) + 4 * (512 + 16)
+def fused_rows(r: int, f: int) -> int:
+    """Slots of a kernel 4 tile: 64, or the largest of 32 and 16 whose
+    plan fits a block's 232,448 B (the sums' order is the same)."""
+    rows = 64
+    while rows > 16 and fused_smem(r, f, rows) > SMEM_LIMIT:
+        rows //= 2
+    return rows
 
 
 def pre_plan_error(f: int):
-    """Why kernel 3 cannot launch at ``F = f``, or None: F a multiple of 4
-    up to 256 (two 128-column passes of W2 at most), its plan within a
-    block's shared memory."""
-    if f % 4 or not 4 <= f <= _PRE_MAX_F:
-        return f"F = {f} must be a multiple of 4 in [4, {_PRE_MAX_F}]"
-    if pre_smem(f) > SMEM_LIMIT:
-        return f"F = {f} needs {pre_smem(f)} bytes of shared memory " \
-               f"(> {SMEM_LIMIT})"
+    """Why kernel 3 cannot launch at ``F = f``, or None: F a positive
+    multiple of 4.  Every such width launches (the tiles of F > 256 go to
+    device memory); a scratch larger than the card's free memory fails at
+    its allocation."""
+    if f % 4 or f < 4:
+        return f"F = {f} must be a positive multiple of 4"
     return None
 
 
 def fused_plan_error(r: int, f: int):
     """Why kernel 4 cannot launch at ``R = r``, ``F = f``, or None: both
-    multiples of 4, its plan within a block's shared memory."""
-    if r % 4 or f % 4:
-        return f"widths R = {r}, F = {f} must be multiples of 4"
-    if fused_smem(r, f) > SMEM_LIMIT:
-        return f"R = {r}, F = {f} needs {fused_smem(r, f)} bytes of " \
-               f"shared memory (> {SMEM_LIMIT})"
+    positive multiples of 4, and the plan of 16-slot tiles within a
+    block's shared memory (up to F ≈ 1,000)."""
+    if r % 4 or f % 4 or r < 4 or f < 4:
+        return f"widths R = {r}, F = {f} must be positive multiples of 4"
+    smem = fused_smem(r, f, fused_rows(r, f))
+    if smem > SMEM_LIMIT:
+        return f"R = {r}, F = {f} needs {smem} bytes of shared memory " \
+               f"at 16-slot tiles (> {SMEM_LIMIT})"
     return None
 
 
-def launch_plan(e: int, f: int) -> dict:
-    """``(blocks, span, dynamic shared memory, image floats)`` of kernel 3
-    at ``e`` slots and ``F = f``; block ``b`` owns the slots ``[b·span,
-    b·span + span)`` below ``e``."""
-    return {"edge_mlp_pre": (-(-e // _PRE_SPAN), _PRE_SPAN, pre_smem(f),
-                             image_floats(f))}
+def launch_plan(e: int, f: int, sms: int = H100_SMS) -> dict:
+    """``(blocks, span, dynamic shared memory, image floats, tile floats)``
+    of kernel 3 at ``e`` slots and ``F = f`` on a card of ``sms`` SMs;
+    block ``b`` owns the spans ``b, b + blocks, …`` of ``span`` slots below
+    ``e``: one span each for F ≤ 256, one block an SM above, each with
+    its ``pre_tile_floats`` of the tile scratch."""
+    spans = -(-e // _PRE_SPAN)
+    blocks = spans if f <= _PRE_NARROW_F else max(1, min(spans, sms))
+    return {"edge_mlp_pre": (blocks, _PRE_SPAN, pre_smem(f), image_floats(f),
+                             blocks * pre_tile_floats(f))}
 
 
 def kernel_attributes(f: int) -> dict:
@@ -123,9 +147,12 @@ def kernel_attributes(f: int) -> dict:
     rc = fn(f, ctypes.cast(out, P))
     if rc != 0:
         raise RuntimeError(f"tmd_edge_mlp_attributes: CUDA error {rc}")
+    lib.tmd_edge_mlp_tile_floats.argtypes = [I32]
+    lib.tmd_edge_mlp_tile_floats.restype = I64
     attrs = dict(zip(("registers", "local_bytes", "static_smem",
                       "dynamic_smem", "blocks_per_sm"), out))
     attrs["image_floats"] = lib.tmd_edge_mlp_image_floats(f)
+    attrs["tile_floats"] = lib.tmd_edge_mlp_tile_floats(f)
     return {"edge_mlp_pre": attrs}
 
 
@@ -185,11 +212,15 @@ def edge_mlp_pre_cuda(pre1, cw, w2, b2, w3, b3):
     shapes = dict(pre1=(n, k, f), cw=(n, k), w2=(f, 2 * f), b2=(2 * f,),
                   w3=(2 * f, 3 * f), b3=(3 * f,))
     dev = _check("edge_mlp_pre", tensors, shapes, pre_plan_error(f))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    (grid, _, _, image_n, tiles_n), = launch_plan(n * k, f, sms).values()
     out = torch.empty((n, k, 3 * f), dtype=torch.float32, device=dev)
-    image = torch.empty(image_floats(f), dtype=torch.float32, device=dev)
+    image = torch.empty(image_n, dtype=torch.float32, device=dev)
+    tiles = torch.empty(tiles_n, dtype=torch.float32, device=dev) \
+        if tiles_n else None
     with torch.cuda.device(dev):
         FORWARD(ptr(pre1), ptr(cw), ptr(w2), ptr(b2), ptr(w3), ptr(b3),
-                ptr(out), ptr(image), n * k, f)
+                ptr(out), ptr(image), null_or_ptr(tiles), n * k, f, grid)
     return out
 
 
