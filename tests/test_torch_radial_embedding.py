@@ -84,3 +84,118 @@ def test_backward_is_first_order_only():
 def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         radial_embedding_fwd_cuda(*map(torch.from_numpy, _inputs()))
+
+
+def test_wide_widths_match_pallas_kernel():
+    """At R = 64 (the JAX CLI default) and F = 48, widths the kernels must
+    take, the plain chain is the JAX op's, forward and backward."""
+    n, f = 32, 48
+    x = _inputs(n=n, k=8, r=64, f=f, seed=3)
+    want = np.asarray(_jax_fused(*map(jnp.asarray, x)))
+    got = radial_embedding(*map(torch.from_numpy, x)).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    g = np.random.RandomState(4).randn(n, 9 * f).astype(np.float32)
+    _, vjp = jax.vjp(_jax_fused, *map(jnp.asarray, x))
+    want = vjp(jnp.asarray(g))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in x]
+    radial_embedding(*leaves).backward(torch.from_numpy(g))
+    for i, name in enumerate(NAMES):
+        if name != "emask_f":
+            np.testing.assert_allclose(leaves[i].grad.numpy(),
+                                       np.asarray(want[i]), rtol=RTOL,
+                                       atol=ATOL, err_msg=name)
+
+
+# channel widths the kernels take with every rbf width and slot count the
+# JAX op computes (the parent's kernels took R ∈ {8, 16, 32} and F a
+# multiple of 32 up to 256 only)
+PLAN_F = [4, 36, 48, 128, 256, 512]
+
+
+@pytest.mark.parametrize("f", PLAN_F)
+def test_every_width_has_a_plan(f):
+    """Kernels 1 and 2 launch at F = f with R ∈ {8, 32, 50, 64, 128} and
+    K up to 520: the plan's shared memory stays within a Hopper block's
+    232,448 B, the tiles of a wide F go to a device-memory scratch of one
+    region a block, and the dk form's partial rows are one a block (the
+    bytes themselves are pinned by ``test_plan_bytes``)."""
+    from torchmdnet_tpu_torch.ops.radial_embedding import (
+        MODES, emb_plan_error, launch_plan)
+
+    n = 25088
+    for r in (8, 32, 50, 64, 128):
+        for k in (13, 96, 360, 520):
+            assert emb_plan_error(k, r, f) is None
+            for mode, name in enumerate(MODES):
+                (blocks, rows, chunk, smem, tiles, part, _), = \
+                    launch_plan(n, k, r, f, mode).values()
+                wide = f > (512 if mode == 0 else 128)
+                assert rows == 16 and chunk == min(16 * k, 4096)
+                assert smem <= 232448
+                assert blocks == (min(-(-n // 16), 132) if wide or mode == 2
+                                  else -(-n // 16))
+                assert (tiles > 0) == wide and tiles % blocks == 0
+                assert part == (blocks * (r + 1) * 3 * f if mode == 2 else 0)
+
+
+# (mode, F, wide, dynamic shared memory B, tile floats a block, kall
+# staged) at K = 96, R = 32 on 25,088 rows: the main width (kernel 1
+# 92,464 B, two blocks an SM; kernel 2 221,472 B with kall staged, as the
+# compiled kernels report on an H100), its wide form, and F = 640, where
+# both kernels keep their tiles in device memory
+PLAN_BYTES = [(0, 128, None, 92464, 0, False),
+              (1, 128, None, 221472, 0, True),
+              (2, 128, None, 221472, 0, True),
+              (0, 128, True, 58672, 64 * 132, False),
+              (1, 128, True, 88352, 64 * 132 + 64 * 388, True),
+              (0, 640, None, 58672, 64 * 644, False),
+              (1, 640, None, 38688, 64 * 644 + 64 * 1924, False),
+              (2, 640, None, 38688, 64 * 644 + 64 * 1924, False)]
+
+
+@pytest.mark.parametrize("mode, f, wide, smem, tile, kall_smem", PLAN_BYTES)
+def test_plan_bytes(mode, f, wide, smem, tile, kall_smem):
+    from torchmdnet_tpu_torch.ops.radial_embedding import launch_plan
+
+    (blocks, _, _, got_smem, tiles, _, got_kall), = launch_plan(
+        25088, 96, 32, f, mode, 132, wide).values()
+    assert (got_smem, got_kall) == (smem, kall_smem)
+    assert tiles == blocks * tile
+
+
+@pytest.mark.parametrize("f", [30, 0])
+def test_plan_names_a_width_it_refuses(f):
+    from torchmdnet_tpu_torch.ops.radial_embedding import emb_plan_error
+
+    assert f"channels {f}" in emb_plan_error(96, 32, f)
+
+
+# (R, F, refused): the JAX CLI's 64 rbf, F = 48 and F = 30
+MODEL_CASES = [(64, 128, False), (32, 48, False), (32, 30, True)]
+
+
+@pytest.mark.parametrize("r, f, refused", MODEL_CASES)
+def test_models_keep_the_kernel_at_every_width(r, f, refused):
+    """With ``pallas_embedding`` a TensorNet takes kernels 1 and 2 at every
+    width: the JAX op leaves its kernel only for a row count its tile does
+    not divide or a dtype other than float32 (``pallas_embedding.py:121-
+    124``), never for a width.  The wrappers consult the plan before they
+    look at the device, so on CPU tensors they raise the plan's error
+    where it refuses and only "CUDA" elsewhere."""
+    from torchmdnet_tpu_torch.models.tensornet import TensorNet
+    from torchmdnet_tpu_torch.ops.radial_embedding import (
+        emb_plan_error, radial_embedding_bwd_cuda)
+
+    if not refused:
+        model = TensorNet(hidden_channels=f, num_layers=1, num_rbf=r,
+                          pallas_embedding=True)
+        assert model.tensor_embedding.fused
+    error = emb_plan_error(8, r, f)
+    assert (error is not None) == refused
+    x = [torch.from_numpy(a) for a in _inputs(n=2, k=8, r=r, f=f, seed=5)]
+    g = torch.zeros(2, 9 * f)
+    for call in (lambda: radial_embedding_fwd_cuda(*x),
+                 lambda: radial_embedding_bwd_cuda(x, g, False, False)):
+        with pytest.raises(ValueError, match=error or "CUDA") as raised:
+            call()
+        assert ("CUDA" in str(raised.value)) != refused

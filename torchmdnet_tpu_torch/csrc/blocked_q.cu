@@ -144,37 +144,6 @@ __device__ __forceinline__ float dsilu(float x) {
   return s * (1.0f + x * (1.0f - s));
 }
 
-// Appends, in slot order, the local slot ids s < total with pred(s) to
-// list[base..]; returns how many.  Deterministic block-wide compaction.
-template <class Pred>
-__device__ int compact(int total, Pred pred, unsigned short* list, int base,
-                       int* sWarp) {
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int per = (total + kTcThreads - 1) / kTcThreads;
-  const int s0 = tid * per, s1 = min(total, s0 + per);
-  int cnt = 0;
-  for (int s = s0; s < s1; ++s) cnt += pred(s) ? 1 : 0;
-  int incl = cnt;  // inclusive warp scan
-#pragma unroll
-  for (int off = 1; off < 32; off *= 2) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += v;
-  }
-  __syncthreads();  // sWarp reuse
-  if (lane == 31) sWarp[warp] = incl;
-  __syncthreads();
-  int before = 0, all = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    if (w < warp) before += sWarp[w];
-    all += sWarp[w];
-  }
-  int pos = base + before + incl - cnt;
-  for (int s = s0; s < s1; ++s)
-    if (pred(s)) list[pos++] = (unsigned short)s;
-  __syncthreads();
-  return all;
-}
-
 // Slot ids a block compacts at a time.
 __host__ __device__ __forceinline__ int q_list_cap(int k) {
   return kQRows * k < kQChunk ? kQRows * k : kQChunk;
@@ -349,11 +318,11 @@ __device__ __forceinline__ void q_chain(const QParams& p) {
     const int cn = min(cap, total - q0);
     const uint8_t* mk = p.mask + g0 + q0;
     const float* cwq = p.cw + g0 + q0;
-    const int n_live = compact(
+    const int n_live = tc_compact(
         cn, [&](int s) { return mk[s] && cwq[s] != 0.0f; }, sList, 0, sCount);
     int n_all = n_live;
     if constexpr (MODE == kB)
-      n_all += compact(
+      n_all += tc_compact(
           cn, [&](int s) { return mk[s] && cwq[s] == 0.0f; }, sList, n_live,
           sCount);
 

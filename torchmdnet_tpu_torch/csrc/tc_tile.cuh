@@ -1,6 +1,9 @@
 // The tensor-core tile product of csrc/cheb_filter.cu (Pallas rows 5 and
 // 7), csrc/blocked_mp.cu (rows 10 and 11), csrc/edge_mlp.cu (kernel 3)
-// and csrc/blocked_q.cu (kernels A and B, rows 12 and 13):
+// and csrc/blocked_q.cu (kernels A and B, rows 12 and 13); its split,
+// wgmma step (tc_mma) and block-wide compaction (tc_compact) also serve
+// csrc/radial_embedding.cu (kernels 1 and 2, rows 1 and 2), which builds
+// its B operand in shared memory:
 // an A operand [64 x kdim] times a [kdim x ncols] row-major series or
 // weight W, one 128-column block (pass) at a time, on Hopper's warpgroup
 // MMA (wgmma) in TF32 with the 3xTF32 split.  Each factor x is cut into
@@ -75,6 +78,40 @@ __device__ __forceinline__ uint32_t tf32_bits(float x) {
 __device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32_bits(x);
   lo = tf32_bits(x - __uint_as_float(hi));
+}
+
+// Appends, in slot order, the local slot ids s < total with pred(s) to
+// list[base..]; returns how many.  Deterministic block-wide compaction of
+// kTcThreads threads; sWarp holds kTcThreads / 32 ints (kernels A and B,
+// kernels 1 and 2).
+template <class Pred>
+__device__ int tc_compact(int total, Pred pred, unsigned short* list, int base,
+                          int* sWarp) {
+  constexpr int kWarps = kTcThreads / 32;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int per = (total + kTcThreads - 1) / kTcThreads;
+  const int s0 = tid * per, s1 = min(total, s0 + per);
+  int cnt = 0;
+  for (int s = s0; s < s1; ++s) cnt += pred(s) ? 1 : 0;
+  int incl = cnt;  // inclusive warp scan
+#pragma unroll
+  for (int off = 1; off < 32; off *= 2) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  __syncthreads();  // sWarp reuse
+  if (lane == 31) sWarp[warp] = incl;
+  __syncthreads();
+  int before = 0, all = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) before += sWarp[w];
+    all += sWarp[w];
+  }
+  int pos = base + before + incl - cnt;
+  for (int s = s0; s < s1; ++s)
+    if (pred(s)) list[pos++] = (unsigned short)s;
+  __syncthreads();
+  return all;
 }
 
 // Shared-memory matrix descriptor of a K-major plane with the 64-byte
