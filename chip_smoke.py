@@ -17,7 +17,7 @@ rows of the same lattice with T=64 series terms, and again with the exact
 rbf base (R=32) and on the grouped tier's column-partitioned K′ list of
 that lattice (rows 12-13 in their four bodies); the windowed-Coulomb
 kernels C/D at 48 charge channels over the lattice's real stencil
-windows; TensorNet's fused edge MLP (kernel 4) and Chebyshev filters
+windows, held to 1e-5 of max |plain| per output; TensorNet's fused edge MLP (kernel 4) and Chebyshev filters
 (kernels 5 and 7) on the real brute K=64 list of the dhfr system (2,489
 atoms in 2,560 rows, T=128); TensorNet's blocked message passing (rows
 8-11) on the dhfr system's cell-blocked sort (3,136 rows of 16-row blocks)
@@ -75,7 +75,7 @@ epochs on 384 synthetic QM9-scale molecules in batches of 64 and
 checked and reloaded on the card.
 
 Before the kernels phase, ``tc_attributes`` gives the tensor-core kernels
-(rows 1, 2, 3, 5, 7, 10, 11 and kernels A and B) as compiled: registers, spill bytes,
+(rows 1, 2, 3, 5, 7, 10, 11 and kernels A-D) as compiled: registers, spill bytes,
 shared memory and blocks an SM; the kernels phase also holds rows 5 and 7
 against float64, and reads the device time (no host time) of each kernel
 that has a library yardstick and of that yardstick, and of the q-tier
@@ -126,6 +126,12 @@ DQ_TOL = 1e-5
 # slots, then fp32 sums over slots and channels in another order than the
 # plain chain's
 EMB_TOL = 1e-5
+# kernels C and D (windowed_coulomb_*), max |kernel − plain| / max |plain|
+# per output (Φ; dpos and S2): 3xTF32 products on the tensor cores (Φ,
+# S2 over a block's window rows, pd over the channels), then fp32 sums
+# over warps and, for dpos, over the pairs, in another order than the
+# plain chain's
+WC_TOL = 1e-5
 # blocked against gather path forces, relative to max |F|: the q_tab
 # series approximation of the edge-MLP base is the difference.  Two runs
 # on an H100 read 3.3e-6 and 2.5e-6; the limit leaves 30x room for the
@@ -384,6 +390,8 @@ def limit(name):
         return DQ_TOL
     if name.startswith("radial_embedding"):
         return EMB_TOL
+    if name.startswith("windowed_coulomb"):
+        return WC_TOL
     return EDGE_TOL if name.startswith("edge_mlp_pre") else TOL
 
 
@@ -458,7 +466,7 @@ def phase_device():
     return smi, name, peak
 
 
-def phase_tc_attributes(specs, q_specs):
+def phase_tc_attributes(specs, q_specs, wspec):
     """The tensor-core kernels as compiled and launched: rows 10 and 11 at
     the dhfr cell-blocked shapes (the sorts of ``specs``: the grouped K′
     and the brute K=64 list; F=128, T=128), kernels 5 and 7 at the dhfr
@@ -474,12 +482,17 @@ def phase_tc_attributes(specs, q_specs):
     the wrapper's; kernels 1 and 2 (each backward form) at the embedding's
     main shapes (N = 25,088, K = 96, R = 32, F = 128), with no spill and
     their shared memory, staged kall and tile scratch the wrapper's, and
-    (reported only) their wide forms there."""
+    (reported only) their wide forms there; kernels C and D at the north
+    star's blocks, channels and stencil (``wspec``: cap 16, C = 48) and at
+    cap 32, C = 132, S = 6, with no spill and their plan (tiles a pass,
+    passes, channel chunks, shared memory, the staged rows' scratch) the
+    wrapper's."""
     from torchmdnet_tpu_torch.ops import blocked_mp as bm
     from torchmdnet_tpu_torch.ops import blocked_q as bq
     from torchmdnet_tpu_torch.ops import cheb_filter as cf
     from torchmdnet_tpu_torch.ops import edge_mlp as em
     from torchmdnet_tpu_torch.ops import radial_embedding as re_ops
+    from torchmdnet_tpu_torch.ops import windowed_coulomb as wc
 
     attrs = {}
     image = bm.tc_image_floats(DHFR_T, 3 * F)
@@ -550,6 +563,18 @@ def phase_tc_attributes(specs, q_specs):
         attrs[name] = dict(a, blocks=blocks, chunk=chunk, part_floats=part)
     for name, a in re_ops.kernel_attributes(F, K, R, wide=True).items():
         attrs[f"{name}@wide"] = a
+    n_pad = q_specs["ungrouped"].n_pad
+    for cap, c, nsc, tag in ((CAP, C_CH, wspec.nsc, ""),
+                             (32, 132, 13 * 13, "@cap32_c132_s6")):
+        for name, a in wc.kernel_attributes(cap, c, nsc, n_pad).items():
+            plan = wc.wc_plan(cap, c, nsc, name.endswith("bwd"))
+            check(all(a[k] == v for k, v in plan._asdict().items())
+                  and a["rows_floats"] == wc.rows_floats(n_pad, plan),
+                  f"{name}: the kernel's plan {a} differs from the "
+                  f"wrapper's {plan}")
+            check(a["blocks_per_sm"] >= 1, f"{name}: does not fit an SM")
+            check(a["local_bytes"] == 0, f"{name}: spills")
+            attrs[name + tag] = a
     emit({"phase": "tc_attributes", "attributes": attrs})
 
 
@@ -766,10 +791,14 @@ def q_work(q, f, t, suffix=""):
 
 
 def wc_work(w, rc, c):
-    """(FLOP, bytes) kernels C and D need on ``w``: every candidate pair
-    of a real row with a live window row pays its geometry (~20 FLOP);
-    only the pairs inside ``rc`` need G (~40 FLOP) and the channel FMAs
-    (2C for Φ; in D 2C for S2, 2C for pd and ~70 for G, G' and dpos)."""
+    """(FLOP, bytes, tensor-core FLOP) kernels C and D need on ``w``:
+    every candidate pair of a real row with a live window row pays its
+    geometry (~20 FLOP); only the pairs inside ``rc`` need G (~40 FLOP)
+    and the channel FMAs (2C for Φ; in D 2C for S2, 2C for pd and ~70 for
+    G, G' and dpos), the products of which both kernels run on the tensor
+    cores in 3xTF32.  ``pairs`` also gives the window rows of all blocks
+    and the bytes the kernels stage from them (x, y, z, ct and the
+    channels of each chunk: ``wc_plan``)."""
     from torchmdnet_tpu_torch.ops import windowed_coulomb as wc
 
     cwin = w["cwin"]
@@ -781,11 +810,17 @@ def wc_work(w, rc, c):
     n = cwin.row_valid.shape[0]
     plan = nbytes(cwin.a1, cwin.e1, cwin.a2, cwin.e2, cwin.row_valid)
     src = n * (4 + c) * 4
+    rows = float((torch.cat([cwin.e1, cwin.e2], 1)
+                  - torch.cat([cwin.a1, cwin.a2], 1)).clamp_min(0).sum())
+    chunks = wc.wc_plan(cwin.cap, c, cwin.a1.shape[1]).chunks
     return {"windowed_coulomb_fwd": (cand * 20 + inside * (2 * c + 40),
-                                     src + plan + n * c * 4),
+                                     src + plan + n * c * 4,
+                                     inside * 2 * c),
             "windowed_coulomb_bwd": (cand * 20 + inside * (4 * c + 70),
-                                     src + plan + c * 4 + n * (c + 3) * 4),
-            "pairs": (cand, inside)}
+                                     src + plan + c * 4 + n * (c + 3) * 4,
+                                     inside * 4 * c),
+            "pairs": (cand, inside, rows,
+                      rows * (16 * chunks + 4 * (-(-c // 4) * 4)))}
 
 
 def fitted_coeffs(mlp, t, hi):
@@ -1340,13 +1375,15 @@ def phase_kernels(peak, system, dhfr, seg, specs):
     calls = q_calls(q)
     calls.update(wc_calls(wv, COULOMB_RC + SKIN))
     kernel_rows(rows, peak, calls, work, q["mask"])
-    cand, inside = work["pairs"]
+    cand, inside, window_rows, staged = work["pairs"]
     geometry.update({"n_pad": spec.n_pad, "blocks": spec.n_blocks,
                 "nx": spec.nx, "nzf": spec.nzf, "stencil_s": wspec.s,
                 "cut_bins": wspec.cut_bins, "k": K,
                 "valid_slots": int(q["mask"].sum()),
                 "live_slots": int((q["cw"] != 0).sum()),
-                "window_pairs": cand, "pairs_inside_rc": inside})
+                "window_pairs": cand, "pairs_inside_rc": inside,
+                "window_rows": window_rows,
+                "wc_staged_gbytes": staged / 1e9})
     del q, wv
     torch.cuda.empty_cache()
     spec, _, q, _ = blocked_inputs(pos, L, CAP, K, F, Q_TAB, C_CH, 4.5 + SKIN,
@@ -1756,7 +1793,8 @@ def phase_shapes():
     """Every kernel against its plain version at small ragged shapes:
     every compiled rbf width and a range of channel counts for kernels
     1-3; for A-D a partial last row block, ghost rows, several channel
-    counts and block sizes, and z-wrapped window pieces; for 4-7
+    counts and block sizes, and z-wrapped window pieces (C and D also at
+    C = 132 and 37 and at S = 6, their ghost rows exactly 0); for 4-7
     partial slot spans, masked rows and distances at and beyond hi; and
     the widths whose tiles do not fit a block's shared memory (kernels
     3, 4, A and B), each checked to have launched its kernel."""
@@ -1777,18 +1815,29 @@ def phase_shapes():
 
     # q-tier and windowed Coulomb on small random boxes: (atoms, box,
     # block rows, slots, channels, series terms, Coulomb channels, list
-    # cutoff, Coulomb cutoff)
+    # cutoff, Coulomb cutoff); C = 132 (three chunks of 48 channels) and
+    # 37 (not a multiple of 4), and a 2 Å list under an 11.5 Å Coulomb
+    # cutoff: S = 6, 169 stencil columns
     rng = np.random.RandomState(5)
     for n, L, cap, k, f, t, c, mrc, rc in (
             (150, 12.5, 8, 40, 32, 16, 8, 4.0, 4.0),
             (500, 19.0, 16, 96, 64, 32, 48, 5.5, 6.0),
-            (400, 18.0, 32, 96, 128, 8, 20, 5.5, 5.5)):
+            (400, 18.0, 32, 96, 128, 8, 20, 5.5, 5.5),
+            (500, 19.0, 16, 96, 32, 16, 132, 5.5, 6.0),
+            (400, 18.0, 8, 96, 32, 16, 37, 5.5, 5.5),
+            (2200, 28.0, 32, 64, 32, 16, 20, 2.0, 11.5)):
         pos = rng.uniform(0, L, (n, 3)).astype(np.float32)
         spec, wspec, q, wv = blocked_inputs(pos, L, cap, k, f, t, c, mrc,
                                             rc, n)
         calls = q_calls(q)
         calls.update(wc_calls(wv, rc))
-        errs = {name: compare(*pair)[1] for name, pair in calls.items()}
+        errs = {}
+        for name, pair in calls.items():
+            _, errs[name], got = compare(*pair)
+            if name.startswith("windowed"):
+                ghost = ~wv["cwin"].row_valid
+                check(ghost.any() and not any(x[ghost].any() for x in got),
+                      f"{name}: a ghost row is not exactly 0")
         # the same rows cut short of a whole row block of the kernels
         cut = spec.n_pad - 5
         qc = dict(q, **{key: q[key][:cut] for key in
@@ -2111,7 +2160,7 @@ PROFILE_GROUPS = (
     ("kernel 4 edge_mlp", ("edge_mlp_kernel",)),
     ("kernel B q-tier", ("dq_tc_kernel",)),
     ("kernel A q-tier", ("q_tc_kernel",)),
-    ("kernel C/D windowed Coulomb", ("wc_kernel",)),
+    ("kernel C/D windowed Coulomb", ("wc_tc_kernel",)),
     ("kernel 3 edge_mlp_pre", ("edge_mlp_pre_kernel",)),
     ("kernel 2 embedding bwd", ("emb_bwd_tc_kernel", "emb_dk_sum_kernel")),
     ("kernel 1 embedding fwd", ("emb_fwd_tc_kernel",)),
@@ -2905,6 +2954,7 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from torchmdnet_tpu_torch.models.model import create_model
+    from torchmdnet_tpu_torch.ops.cell_blocks import tune_stencil_window_spec
     from torchmdnet_tpu_torch.ops.config import set_matmul_precision
 
     set_matmul_precision("highest")
@@ -2917,7 +2967,9 @@ def main():
              "ungrouped": dhfr_blocked_spec(dhfr, False)}
     q_specs = {"ungrouped": northstar_spec(system),
                "grouped": northstar_spec(system, grouped=True)}
-    phase_tc_attributes(specs, q_specs)
+    wspec = tune_stencil_window_spec(None, [system[4]] * 3,
+                                     q_specs["ungrouped"], COULOMB_RC + SKIN)
+    phase_tc_attributes(specs, q_specs, wspec)
     rows = phase_kernels(peak, system, dhfr, seg, specs)
     phase_shapes()
     phase_small()

@@ -3,7 +3,8 @@
 // and csrc/blocked_q.cu (kernels A and B, rows 12 and 13); its split,
 // wgmma step (tc_mma) and block-wide compaction (tc_compact) also serve
 // csrc/radial_embedding.cu (kernels 1 and 2, rows 1 and 2), which builds
-// its B operand in shared memory:
+// its B operand in shared memory, and its split csrc/windowed_coulomb.cu
+// (kernels C and D, rows 14 and 15, on mma.sync):
 // an A operand [64 x kdim] times a [kdim x ncols] row-major series or
 // weight W, one 128-column block (pass) at a time, on Hopper's warpgroup
 // MMA (wgmma) in TF32 with the 3xTF32 split.  Each factor x is cut into

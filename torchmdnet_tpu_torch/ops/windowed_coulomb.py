@@ -18,12 +18,16 @@ minimum-image deltas.  The backward stays row-local, as ``_wce_bwd``
     ∂b_i   = qw ⊙ (ct_i · Φ_i + S2_i),   ∂qw_c = Σ_i ct_i · b_ic · Φ_ic
 
 On CUDA tensors Φ and (∂pos, S2) are the hand-written kernels of
-``csrc/windowed_coulomb.cu``; on CPU tensors they are the per-block dense
-pair loops beside them.  Numerics: f32, what the JAX package computes
-(its hi/lo bf16 split of every matmul is f32-grade; the port has no
-split).
+``csrc/windowed_coulomb.cu`` (their channel products on the tensor cores
+in 3xTF32, float32-accurate) or raise; on CPU tensors they are the
+per-block dense pair loops beside them.  Every channel count and stencil
+radius the JAX op computes launches: channels go in chunks of at most 64
+(:func:`wc_plan`), and the piece table is sized at launch
+(:func:`wc_plan_error` names what still cannot).  Numerics: f32, what the
+JAX package computes (its hi/lo bf16 split of every matmul is f32-grade).
 """
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -33,15 +37,97 @@ from torchmdnet_tpu_torch.ops.cell_blocks import StencilWindows
 from torchmdnet_tpu_torch.ops.coulomb import _rf_constants, g_and_grad
 from torchmdnet_tpu_torch.ops.kernels import (
     F32, I32, I64, P, CudaSource, Kernel, ptr)
+from torchmdnet_tpu_torch.ops.tc_tile import SMEM_LIMIT
 
 SOURCE = CudaSource("windowed_coulomb.cu")
-_TAIL = [I64, I32, I32, I32] + [F32] * 7  # n_blocks, cap, nsc, c, box, rc², rf
-FORWARD = Kernel(SOURCE, "tmd_windowed_coulomb_fwd", [P] * 7 + _TAIL)
-BACKWARD = Kernel(SOURCE, "tmd_windowed_coulomb_bwd", [P] * 9 + _TAIL)
-_MAX_PIECES = 2 * 121  # csrc/windowed_coulomb.cu kMaxPieces: S <= 5
-_MAX_CHANNELS = 128    # csrc/windowed_coulomb.cu 16 * kMaxCg
+# n_blocks, cap, nsc, c, box, rc², rf constants
+_TAIL = [I64, I32, I32, I32] + [F32] * 7
+FORWARD = Kernel(SOURCE, "tmd_windowed_coulomb_fwd", [P] * 9 + _TAIL)
+BACKWARD = Kernel(SOURCE, "tmd_windowed_coulomb_bwd", [P] * 12 + _TAIL)
+NAMES = ("windowed_coulomb_fwd", "windowed_coulomb_bwd")
+# window rows a stage, stages in the ring, warps a block, the most n8
+# channel tiles a chunk, pairs of a warp step (csrc/windowed_coulomb.cu
+# kP, kRing, kWarps, kMaxNt, kStepPairs)
+_STAGE_ROWS, _RING, _WARPS, _MAX_NT, _STEP_PAIRS = 128, 3, 8, 8, 128
 # Transient budget of one block chunk of the plain pair loops.
 _PAIR_BUDGET_BYTES = 512 * 1024 * 1024
+
+
+class WcPlan(NamedTuple):
+    """How kernel C or D runs one cell block (one CUDA block each; the
+    grid is the cell blocks).  Beside it the launch takes a scratch of the
+    staged rows, :func:`rows_floats`."""
+
+    mt: int      # 16-row tiles a pass over the block's rows (1 or 2)
+    passes: int  # passes over the block's rows
+    nt: int      # 8-channel tiles a chunk
+    chunks: int  # channel chunks, each a walk of the whole window
+    smem: int    # dynamic shared memory, bytes
+
+
+def wc_plan(cap: int, c: int, nsc: int, bwd: bool = False) -> WcPlan:
+    """Kernel C (or with ``bwd`` D) at ``cap`` rows a block, ``c``
+    channels and ``nsc`` stencil columns, as ``windowed_coulomb.cu::
+    wc_plan`` plans it: one or two 16-row tiles a pass, channels split
+    into the fewest chunks of at most 64, each a multiple of 8; shared
+    memory for the ring of three 128-row stages of (x, y, z, ct, the
+    chunk's channels), in D the split (qw⊙b_i) rows (hi and lo, 8·nt + 4
+    floats each), each of the eight warps' compacted pairs (128 floats,
+    in D 256), the piece starts and offsets (2·nsc and 2·nsc + 1 ints)
+    and eight warp sums."""
+    mt = 2 if cap > 16 else 1
+    passes = -(-cap // (16 * mt))
+    chunks = -(-c // (8 * _MAX_NT))
+    per_chunk = -(-c // chunks)
+    nt = -(-per_chunk // 8)
+    floats = _RING * _STAGE_ROWS * (4 + 8 * nt) \
+        + (2 * 16 * mt * (8 * nt + 4) if bwd else 0) \
+        + (2 if bwd else 1) * _STEP_PAIRS * _WARPS
+    ints = 2 * (2 * nsc) + 1 + _WARPS
+    return WcPlan(mt, passes, nt, chunks, 4 * floats + 4 * ints)
+
+
+def wc_plan_error(cap: int, c: int, nsc: int):
+    """Why kernels C and D cannot launch at ``cap`` rows a block, ``c``
+    channels and ``nsc`` stencil columns, or None: at least one row and
+    one channel, and the piece table of ``2·nsc`` pieces within a block's
+    232,448 B of shared memory beside the ring and the pair scratch (up to
+    ~6,400 stencil columns, S ≤ 39).  Any channel count and any ``cap``
+    launch."""
+    if cap < 1 or c < 1:
+        return f"cap {cap} and channels {c} must be >= 1"
+    smem = wc_plan(cap, c, nsc, bwd=True).smem
+    if smem > SMEM_LIMIT:
+        return (f"{nsc} stencil columns need {smem} B of shared memory "
+                f"(> {SMEM_LIMIT})")
+    return None
+
+
+def kernel_attributes(cap: int, c: int, nsc: int, n_pad: int) -> dict:
+    """What the launch plan and the compiler give kernels C and D at
+    ``(cap, c, nsc)``: the plan's fields (:class:`WcPlan`), registers and
+    local (spill) bytes a thread, static shared memory, resident blocks
+    an SM, and the floats of the rows scratch at ``n_pad`` rows.  Builds
+    the library; launches nothing."""
+    lib = SOURCE.library()
+    fn = lib.tmd_windowed_coulomb_attributes
+    fn.argtypes = [I32] * 4 + [P]
+    fn.restype = I32
+    scratch = lib.tmd_windowed_coulomb_rows_floats
+    scratch.argtypes = [I32, I64, I32, I32, I32]
+    scratch.restype = I64
+    attrs = {}
+    for bwd, name in enumerate(NAMES):
+        out = (ctypes.c_int * 9)()
+        rc = fn(bwd, cap, c, nsc, ctypes.cast(out, P))
+        if rc != 0:
+            raise RuntimeError(
+                f"tmd_windowed_coulomb_attributes: CUDA error {rc}")
+        fields = WcPlan._fields + ("registers", "local_bytes",
+                                   "static_smem", "blocks_per_sm")
+        attrs[name] = dict(zip(fields, out))
+        attrs[name]["rows_floats"] = scratch(bwd, n_pad, cap, c, nsc)
+    return attrs
 
 
 class CoulombWindows(NamedTuple):
@@ -146,12 +232,11 @@ def wc_bwd_ref(pos_s, b_s, ct, qw, cwin: CoulombWindows, rc: float,
     return dpos, s2
 
 
-def _launch_args(name, pos_s, b_s, cwin: CoulombWindows, extra: dict):
-    """Check the operands of a kernel C/D launch; returns the pointer list
-    of the piece bounds and row mask and the scalar tail."""
+def check_operands(name, pos_s, b_s, cwin: CoulombWindows, extra: dict):
+    """Raise unless the operands of a kernel C/D launch have the types,
+    shapes and layout the kernels take and :func:`wc_plan_error` accepts
+    their widths (on any device)."""
     dev = pos_s.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: expects CUDA tensors, got {dev}")
     n_pad, c = b_s.shape
     nb, nsc = cwin.a1.shape
     tensors = dict(pos_s=pos_s, b_s=b_s, a1=cwin.a1, e1=cwin.e1, a2=cwin.a2,
@@ -171,39 +256,63 @@ def _launch_args(name, pos_s, b_s, cwin: CoulombWindows, extra: dict):
         if tuple(t.shape) != shapes[key]:
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
                              f"expected {shapes[key]}")
-    if nb * cwin.cap != n_pad or 2 * nsc > _MAX_PIECES or c > _MAX_CHANNELS:
-        raise ValueError(f"{name}: {nb} blocks of {n_pad} rows, {nsc} stencil "
-                         f"columns (≤ {_MAX_PIECES // 2}) and {c} channels "
-                         f"(≤ {_MAX_CHANNELS}) are not supported")
-    ptrs = [ptr(t) for t in (cwin.a1, cwin.e1, cwin.a2, cwin.e2,
-                             cwin.row_valid)]
-    return ptrs, [nb, cwin.cap, nsc, c, *cwin.box_host]
+    if nb * cwin.cap != n_pad:
+        raise ValueError(f"{name}: {nb} blocks do not tile {n_pad} rows")
+    why = wc_plan_error(cwin.cap, c, nsc)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
+
+
+def rows_floats(n_pad: int, plan: WcPlan) -> int:
+    """Floats of the rows scratch of a launch at ``n_pad`` rows
+    (``windowed_coulomb.cu::rows_floats``): every row as a stage holds it,
+    x, y, z, ct and one chunk's channels, for each chunk, and a stage of
+    rows with no atom after each chunk's."""
+    return plan.chunks * (n_pad + _STAGE_ROWS) * (4 + 8 * plan.nt)
+
+
+def _launch_args(name, pos_s, b_s, cwin: CoulombWindows, extra: dict):
+    """Check a kernel C/D launch; returns its rows scratch
+    (:func:`rows_floats`), the pointers of the row mask and the piece
+    bounds, and the scalar tail."""
+    if pos_s.device.type != "cuda":
+        raise ValueError(
+            f"{name}: expects CUDA tensors, got {pos_s.device}")
+    check_operands(name, pos_s, b_s, cwin, extra)
+    nb, nsc = cwin.a1.shape
+    n_pad, c = b_s.shape
+    plan = wc_plan(cwin.cap, c, nsc, name == NAMES[1])
+    rows = torch.empty(rows_floats(n_pad, plan), dtype=torch.float32,
+                       device=pos_s.device)
+    ptrs = [ptr(t) for t in (cwin.a1, cwin.e1, cwin.a2, cwin.e2)]
+    return rows, ptr(cwin.row_valid), ptrs, [nb, cwin.cap, nsc, c,
+                                             *cwin.box_host]
 
 
 def wc_fwd_cuda(pos_s, b_s, cwin: CoulombWindows, rc: float, eps: float,
                 factor: float):
     """Kernel C on CUDA tensors: ``Φ [n_pad, C]``."""
-    ptrs, tail = _launch_args("windowed_coulomb_fwd", pos_s, b_s, cwin, {})
+    rows, valid, ptrs, tail = _launch_args(NAMES[0], pos_s, b_s, cwin, {})
     k_rf, c_rf = _rf_constants(rc, eps)
     with torch.cuda.device(pos_s.device):
-        src = torch.cat([pos_s, torch.zeros_like(pos_s[:, :1]), b_s], dim=1)
         phi = torch.empty_like(b_s)
-        FORWARD(ptr(src), *ptrs, ptr(phi), *tail, rc * rc, k_rf, c_rf, factor)
+        FORWARD(ptr(pos_s), valid, ptr(b_s), ptr(rows), *ptrs, ptr(phi),
+                *tail, rc * rc, k_rf, c_rf, factor)
     return phi
 
 
 def wc_bwd_cuda(pos_s, b_s, ct, qw, cwin: CoulombWindows, rc: float,
                 eps: float, factor: float):
     """Kernel D on CUDA tensors: ``(∂pos [n_pad, 3], S2 [n_pad, C])``."""
-    ptrs, tail = _launch_args("windowed_coulomb_bwd", pos_s, b_s, cwin,
-                              dict(ct=ct, qw=qw))
+    rows, valid, ptrs, tail = _launch_args(NAMES[1], pos_s, b_s, cwin,
+                                           dict(ct=ct, qw=qw))
     k_rf, c_rf = _rf_constants(rc, eps)
     with torch.cuda.device(pos_s.device):
-        src = torch.cat([pos_s, ct[:, None], b_s], dim=1)
         dpos = torch.empty_like(pos_s)
         s2 = torch.empty_like(b_s)
-        BACKWARD(ptr(src), *ptrs, ptr(qw), ptr(s2), ptr(dpos), *tail,
-                 rc * rc, k_rf, c_rf, factor)
+        BACKWARD(ptr(pos_s), ptr(ct), valid, ptr(b_s), ptr(rows), *ptrs,
+                 ptr(qw), ptr(s2), ptr(dpos), *tail, rc * rc, k_rf, c_rf,
+                 factor)
     return dpos, s2
 
 
