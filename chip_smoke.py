@@ -21,7 +21,9 @@ windows, held to 1e-5 of max |plain| per output; TensorNet's fused edge MLP (ker
 (kernels 5 and 7) on the real brute K=64 list of the dhfr system (2,489
 atoms in 2,560 rows, T=128); TensorNet's blocked message passing (rows
 8-11) on the dhfr system's cell-blocked sort (3,136 rows of 16-row blocks)
-with the grouped K′=224 list and the brute K=64 list; the coefficient
+with the grouped K′=224 list and the brute K=64 list, and kernel 4 on the
+grouped list too (kernel 4 and row 8 held to 1e-5 of max |plain| per
+output, their dead slots and empty rows exact zeros); the coefficient
 gradient of the Chebyshev filters (row 6) on the brute K=40 list of
 ``bench.py::bench_train``'s training batch (1,664 rows, T=128).  Then it
 drives both
@@ -58,10 +60,13 @@ steps, 1 Å skin, K=128) timed after a warm-up chunk; and its cell-blocked
 tiers (``BENCH_BLOCKED=1``): each evaluation sorts the atoms into cell
 blocks, builds the sorted-space list (grouped: column-partitioned with the
 tuned per-column budgets; ungrouped: brute K=64) and evaluates with
-``blocked=True``, in three variants (tabulated grouped, the bench default;
-tabulated ungrouped; exact grouped) against their plain versions and the
-gather path, ms per evaluation of the bench chain alternated with the
-gather chain, a profile, and a Langevin MD chunk on a grouped spec tuned
+``blocked=True``, in four variants (tabulated grouped, the bench default;
+tabulated ungrouped; exact grouped; exact ungrouped) against their plain
+versions and the gather path, the kernels each launches (kernel 4 and
+rows 8-9 for the exact ones, rows 10-11 for the tabulated ones), ms per
+evaluation of the bench chain alternated with the gather chain, profiles
+of the tabulated and the exact grouped tier, and a Langevin MD chunk on a
+grouped spec tuned
 at 4.5 + 1 Å for the tabulated and the exact variant; and training,
 ``bench.py::bench_train``'s TensorNet (2 layers x 128, 5 Å, K=40, the
 Scalar head) on its batch of 64 molecules of 24 atoms, energy+force MSE
@@ -110,11 +115,16 @@ TOL = 1e-4  # max |kernel − plain| / max |plain|, float32 with reordered sums
 # 0.7-1.4e-6 on an H100, the same product summed on the tensor cores read
 # 2.1-2.4e-6, and single-pass TF32 reads ~1e-3
 CHEB_TOL = 2e-6
-# kernel 3 (edge_mlp_pre), max |kernel − plain| / max |plain|: two 3xTF32
-# products summed on the tensor cores over K = F and K = 2F, each through
-# a silu; the limit leaves room for the tensor cores' own accumulation
-# (~2e-6 of a product's max at K = 128, rows 5 and 10)
+# kernels 3 and 4 (edge_mlp_pre, edge_mlp), max |kernel − plain| / max
+# |plain|: two (kernel 4: three) 3xTF32 products summed on the tensor cores
+# over K = F and K = 2F (and R), each through a silu; the limit leaves room
+# for the tensor cores' own accumulation (~2e-6 of a product's max at K =
+# 128, rows 5 and 10)
 EDGE_TOL = 1e-5
+# row 8 (blocked_mp_sum), max |kernel − plain| / max |plain| per output:
+# fp32 sums of a row's valid slots' products in slot order, another order
+# than the plain chain's
+SUM_TOL = 1e-5
 # kernels A and B (blocked_q_*, both bases and layouts), max |kernel −
 # plain| / max |plain| per output (out, du, dd or drbf, dcw): up to five
 # 3xTF32 products chained through silu and dsilu, the same product family
@@ -392,7 +402,9 @@ def limit(name):
         return EMB_TOL
     if name.startswith("windowed_coulomb"):
         return WC_TOL
-    return EDGE_TOL if name.startswith("edge_mlp_pre") else TOL
+    if name.startswith("blocked_mp_sum") and "cheb" not in name:
+        return SUM_TOL
+    return EDGE_TOL if name.startswith("edge_mlp") else TOL
 
 
 def nbytes(*tensors):
@@ -467,16 +479,19 @@ def phase_device():
 
 
 def phase_tc_attributes(specs, q_specs, wspec):
-    """The tensor-core kernels as compiled and launched: rows 10 and 11 at
-    the dhfr cell-blocked shapes (the sorts of ``specs``: the grouped K′
-    and the brute K=64 list; F=128, T=128), kernels 5 and 7 at the dhfr
+    """The tensor-core kernels as compiled and launched: rows 10 and 11 (and
+    row 8, which must not spill) at the dhfr cell-blocked shapes (the
+    sorts of ``specs``: the grouped K′ and the brute K=64 list; F=128,
+    T=128), kernels 5 and 7 at the dhfr
     brute list's and the training batch's slots (T=128, C=384):
     registers and local (spill) bytes a thread, static and dynamic shared
     memory and resident blocks an SM (``cudaFuncGetAttributes``, occupancy
     API); the dynamic shared memory and the split-series scratch must
     equal the wrappers' plans, and kernels 5 and 7 must not spill.  Kernel
     3 the same at F = 128 (its split W2 and W3) and on the gather path's
-    N·K slots; kernels A, A with du and B, both bases, at F = 128, T =
+    N·K slots, kernel 4 at R = 32, F = 128 on the dhfr brute list's slots
+    (its split W1, W2 and W3) and at the widths of its other forms, both
+    with no spill and their scratch the wrapper's; kernels A, A with du and B, both bases, at F = 128, T =
     64, R = 32 on the north star's sorts of ``q_specs`` (K = 96 and the
     grouped K′), with no spill and their image and tile scratch equal to
     the wrapper's; kernels 1 and 2 (each backward form) at the embedding's
@@ -504,10 +519,12 @@ def phase_tc_attributes(specs, q_specs, wspec):
                   f"{name}: the kernel's shared memory {a['dynamic_smem']} "
                   f"differs from the plan's {plan[name][1]}")
             check(a["blocks_per_sm"] >= 1, f"{name}: does not fit an SM")
-            check(a["image_floats"] == image,
+            check(a.get("image_floats", image) == image,
                   f"{name}: the kernel's image scratch differs from the "
                   "wrapper's")
-            attrs[f"{name}@k{k}"] = a
+            check(name != "blocked_mp_sum" or a["local_bytes"] == 0,
+                  f"{name}: spills")
+            attrs[f"{name}@k{k}"] = dict(a, blocks=plan[name][0])
     slots = {"dhfr": DHFR_PAD * DHFR_K, "train": TRAIN_ROWS * TRAIN_K}
     for name, a in cf.kernel_attributes(DHFR_T, 3 * F).items():
         plans = {key: cf.launch_plan(e)[name] for key, e in slots.items()}
@@ -521,18 +538,29 @@ def phase_tc_attributes(specs, q_specs, wspec):
               "wrapper's")
         attrs[name] = dict(a, span=plans["dhfr"][1],
                            blocks={key: p[0] for key, p in plans.items()})
-    for name, a in em.kernel_attributes(F).items():
-        blocks, span, smem, image, _ = em.launch_plan(N_ATOMS * K, F)[name]
-        check(a["dynamic_smem"] == smem,
-              f"{name}: the kernel's shared memory {a['dynamic_smem']} "
-              f"differs from the plan's {smem}")
-        check(a["blocks_per_sm"] >= 1, f"{name}: does not fit an SM")
-        check(a["local_bytes"] == 0, f"{name}: spills")
-        check(a["image_floats"] == image,
-              f"{name}: the kernel's image scratch differs from the "
-              "wrapper's")
-        attrs[name] = dict(a, span=span, blocks=blocks)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # kernel 3 on the gather path's slots; kernel 4 on the dhfr brute
+    # list's at (R, F) = (32, 128), and (reported, the plan checked) at
+    # widths of its other forms: (64, 256) narrow, (32, 512) and (4,
+    # 1024) wide
+    slots = {"edge_mlp_pre": N_ATOMS * K, "edge_mlp": DHFR_PAD * DHFR_K}
+    for r, f, tag in ((R, F, ""), (64, 256, "@r64_f256"),
+                      (32, 512, "@r32_f512"), (4, 1024, "@r4_f1024")):
+        for name, a in em.kernel_attributes(f, r).items():
+            if tag and name == "edge_mlp_pre":
+                continue
+            blocks, chunks, smem, image, tiles = em.launch_plan(
+                slots[name], f, sms, r)[name]
+            check(a["dynamic_smem"] == smem,
+                  f"{name}{tag}: the kernel's shared memory "
+                  f"{a['dynamic_smem']} differs from the plan's {smem}")
+            check(a["blocks_per_sm"] >= 1, f"{name}{tag}: does not fit an SM")
+            check(a["local_bytes"] == 0, f"{name}{tag}: spills")
+            check(a["image_floats"] == image
+                  and a["tile_floats"] * blocks == tiles,
+                  f"{name}{tag}: the kernel's scratch differs from the "
+                  "wrapper's")
+            attrs[name + tag] = dict(a, chunks=chunks, blocks=blocks)
     for spec in q_specs.values():
         k = sum(spec.col_slots) if spec.col_slots else K
         for name, a in bq.kernel_attributes(F, k, Q_TAB, R).items():
@@ -903,9 +931,9 @@ def dhfr_work(v):
     """(FLOP, bytes, tensor-core FLOP) kernels 4, 5 and 7 need on ``v``:
     the series product on the slots with fm ≠ 0, which 5 and 7 run on the
     tensor cores in 3xTF32 (and, in 7, the dot with ct), the edge MLP's
-    three products on the slots with cw ≠ 0; each input read once (ct
-    only on the slots with fm ≠ 0) and each output written once, the zero
-    slots included."""
+    three products on the slots with cw ≠ 0, which kernel 4 runs on the
+    tensor cores in 3xTF32 too; each input read once (ct only on the slots
+    with fm ≠ 0) and each output written once, the zero slots included."""
     live_fm = float((v["fm"] != 0).sum())
     live_cw = float((v["cw"] != 0).sum())
     e, t, c = v["d"].numel(), v["coeffs"].shape[0], v["coeffs"].shape[1]
@@ -917,8 +945,19 @@ def dhfr_work(v):
         "cheb_filter_dot": (product + 2 * live_fm * c,
                             nbytes(v["d"], v["fm"], v["coeffs"])
                             + live_fm * c * 4 + e * 4, product),
-        "edge_mlp": (2 * live_cw * (R * F + F * 2 * F + 2 * F * 3 * F),
-                     nbytes(v["x"], v["cw"], *v["mlp"]) + e * c * 4, 0.0)}
+        "edge_mlp": fused_work(v)}
+
+
+def fused_work(v):
+    """(FLOP, bytes, tensor-core FLOP) kernel 4 needs on ``v``: its three
+    products on the slots with cw ≠ 0, all on the tensor cores in 3xTF32;
+    the live slots' x rows, cw and the weights once, the whole [E, 3F]
+    output, zeros included."""
+    live = float((v["cw"] != 0).sum())
+    r, f = v["mlp"][0].shape
+    flops = 2 * live * (r * f + f * 2 * f + 2 * f * 3 * f)
+    return (flops, live * r * 4 + nbytes(v["cw"], *v["mlp"])
+            + v["cw"].numel() * 3 * f * 4, flops)
 
 
 def dhfr_library(v):
@@ -1077,9 +1116,10 @@ def group_counts(spec, mask):
 def dhfr_blocked_inputs(ev, pos, seed):
     """The sorted-space list ``ev`` builds at the dhfr positions and
     operands for rows 8-11: its distances, ``fm = (d < 4.5) & mask``, the
-    exact edge weights (random edge MLP on the rbf, times the cosine
-    cutoff) as row 8's attr, the series fitted from the same MLP, random
-    feature rows and a row cotangent."""
+    exact edge weights (random edge MLP on the rbf ``x``, times the cosine
+    cutoff ``cw``: kernel 4's operands on this list) as row 8's attr, the
+    series fitted from the same MLP, random feature rows and a row
+    cotangent."""
     from torchmdnet_tpu_torch.models.common import make_rbf
     from torchmdnet_tpu_torch.ops import rbf
     from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs
@@ -1103,7 +1143,8 @@ def dhfr_blocked_inputs(ev, pos, seed):
     cw = rbf.cosine_cutoff(d, 4.5, 0.0) * nbr.mask
     coeffs = fitted_coeffs(mlp, DHFR_T, 4.5)
     v = dict(idx=nbr.idx, mask=nbr.mask, d=d.contiguous(),
-             fm=((d < 4.5) & nbr.mask).float(),
+             fm=((d < 4.5) & nbr.mask).float(), x=x.contiguous(),
+             cw=cw.contiguous(), mlp=mlp,
              attr=edge_mlp_ref(x, cw, *mlp).contiguous(), coeffs=coeffs,
              dser=cheb_deriv_coeffs(coeffs).contiguous(),
              feats=randn(n, 9 * F), g9=randn(n, 9 * F))
@@ -1338,6 +1379,8 @@ def embedding_rows(peak, x, g):
 
 
 def phase_kernels(peak, system, dhfr, seg, specs):
+    from torchmdnet_tpu_torch.ops import edge_mlp as em
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
     rows, geometry = {}, {}
@@ -1406,6 +1449,9 @@ def phase_kernels(peak, system, dhfr, seg, specs):
         if name.startswith("cheb"):
             check(not got[0][v["fm"] == 0].any(),
                   f"{name}: an fm = 0 slot is not exactly 0")
+        else:
+            check(not got[0][v["cw"] == 0].any(),
+                  f"{name}: a cw = 0 slot is not exactly 0")
         flops, nb, tc = work[name]
         b_ms, b_by = bound(flops, nb, peak, tc)
         rows[name] = dict(
@@ -1444,14 +1490,28 @@ def phase_kernels(peak, system, dhfr, seg, specs):
     torch.cuda.empty_cache()
 
     # rows 8-11 on the dhfr system's cell-blocked sort: the grouped K′ list
-    # (the bench default, the table's row) and the brute K=64 one
+    # (the bench default, the table's row) and the brute K=64 one; kernel 4
+    # on the grouped list too (the dhfr blocked exact path's)
     pos = torch.as_tensor(dhfr[1], device=dev)
     geometry["dhfr_blocked"] = {}
     for layout, spec in specs.items():
         v, groups = dhfr_blocked_inputs(BlockedDhfr(dhfr, seg, spec), pos, 66)
         work, library = blocked_work(v), blocked_library(v)
-        for name, (kern, plain) in blocked_calls(v).items():
+        calls = blocked_calls(v)
+        if layout == "grouped":  # kernel 4 on the dhfr blocked exact list
+            w4 = [v["x"], v["cw"], *v["mlp"]]
+            calls["edge_mlp"] = (lambda: em.edge_mlp_cuda(*w4),
+                                 lambda: em.edge_mlp_ref(*w4))
+            work["edge_mlp"] = fused_work(v)
+            library["edge_mlp"] = calls["edge_mlp"][1]
+        for name, (kern, plain) in calls.items():
             err, rel, got = compare(kern, plain)
+            if name == "edge_mlp":
+                check(not got[0][v["cw"] == 0].any(),
+                      "edge_mlp: a cw = 0 slot of the blocked list is not 0")
+            if name == "blocked_mp_sum":
+                check(not got[0][~v["mask"].any(1)].any(),
+                      "blocked_mp_sum: a row with no valid slot is not 0")
             if name == "blocked_mp_dattr":
                 check(not got[0][~v["mask"]].any(),
                       "blocked_mp_dattr: an invalid slot is not exactly 0")
@@ -1470,7 +1530,8 @@ def phase_kernels(peak, system, dhfr, seg, specs):
                 row.update(device_times(kern, lib))
             else:
                 row["device_ms"] = device_ms(kern)
-            rows[name if layout == "grouped" else f"{name}@{layout}"] = row
+            key = name if layout == "grouped" else f"{name}@{layout}"
+            rows["edge_mlp@dhfr_blocked" if name == "edge_mlp" else key] = row
             del got
         geometry["dhfr_blocked"][layout] = {
             "n_pad": spec.n_pad, "blocks": spec.n_blocks,
@@ -1492,14 +1553,13 @@ def phase_kernels(peak, system, dhfr, seg, specs):
 
 
 def edge_pre_shape_errors(gen):
-    """Kernel 3 against its plain version where its tiles, spans and
+    """Kernel 3 against its plain version where its tiles, windows and
     passes are ragged: F = 36 (2F and 3F end in partial 128-column passes)
     and F = 132 and 256 (a layer-1 pass held in registers), F = 264 and
-    512 (the wide form: tiles in device memory, blocks walking several
-    spans), slot counts that are not a multiple of the span, ~40% of the
-    slots live, and at F = 36 and 264 a span with no live slot followed
-    by one with every slot live; the cw = 0 slots exact zeros, and the
-    kernel launched."""
+    512 (the wide form: tiles in device memory), slot counts that are not
+    a multiple of the 1,024-slot window, ~40% of the slots live, and at F
+    = 36 and 264 a window with no live slot followed by one with every
+    slot live; the cw = 0 slots exact zeros, and the kernel launched."""
     from torchmdnet_tpu_torch.ops import edge_mlp as em
 
     dev = torch.device("cuda")
@@ -1509,7 +1569,7 @@ def edge_pre_shape_errors(gen):
         shape = (n, k)
         cw = torch.rand(shape, generator=gen, device=dev) * (
             torch.rand(shape, generator=gen, device=dev) < 0.4)
-        span = em.launch_plan(n * k, f)["edge_mlp_pre"][1]
+        span = em.WINDOW
         flat = cw.view(-1)
         if flat.numel() > 2 * span:
             flat[:span] = 0.0
@@ -1526,20 +1586,32 @@ def edge_pre_shape_errors(gen):
 
 
 def fused_shape_errors(gen):
-    """Kernel 4 where 64 rows of its tiles pass a block's shared memory:
-    (R, F) = (64, 256) on 32-slot tiles and (32, 512) on 32 (a slot count
-    not a multiple of the tile or the span, ~40% of the slots with cw =
-    0, exact zeros there), the kernel launched."""
+    """Kernel 4 in each of its forms: (R, F) = (64, 256) narrow, (32, 512)
+    and (4, 1024) wide (tiles in device memory), (160, 256) wide because
+    its x tile would not fit a block, (36, 132) and (12, 20) narrow with
+    partial 16-row stages of W1 and partial 128-column passes; slot counts
+    not a multiple of the tile, the 256-slot chunk or the 1,024-slot
+    window, ~40% of the slots with cw = 0 (exact zeros there), at (12, 20)
+    and (36, 132) a window with no live slot followed by one with every
+    slot live and several windows a block; the kernel launched."""
     from torchmdnet_tpu_torch.ops import edge_mlp as em
 
     dev = torch.device("cuda")
     worst = {}
-    for n, k, r, f in ((9, 61, 64, 256), (7, 45, 32, 512)):
+    for n, k, r, f in ((9, 61, 64, 256), (7, 45, 32, 512), (5, 13, 4, 1024),
+                       (11, 29, 160, 256), (300, 40, 36, 132),
+                       (3000, 100, 12, 20)):
         def randn(*shape, scale):
             return torch.randn(shape, generator=gen, device=dev) * scale
 
         cw = torch.rand((n, k), generator=gen, device=dev) * (
             torch.rand((n, k), generator=gen, device=dev) < 0.6)
+        span = em.WINDOW
+        flat = cw.view(-1)
+        if flat.numel() > 2 * span:
+            flat[:span] = 0.0
+            flat[span:2 * span] = torch.rand(span, generator=gen,
+                                             device=dev) + 0.1
         w = [torch.rand((n, k, r), generator=gen, device=dev), cw,
              randn(r, f, scale=r ** -0.5), randn(f, scale=0.1),
              randn(f, 2 * f, scale=f ** -0.5), randn(2 * f, scale=0.1),
@@ -1551,7 +1623,8 @@ def fused_shape_errors(gen):
         check_launched(["edge_mlp"], before)
         check(not got[0][cw == 0].any(),
               f"edge_mlp (R={r}, F={f}): a cw = 0 slot is not exactly 0")
-        worst[f"edge_mlp_n{n}_k{k}_r{r}_f{f}_rows{em.fused_rows(r, f)}"] = rel
+        form = "wide" if em.chain_wide(f, r) else "narrow"
+        worst[f"edge_mlp_n{n}_k{k}_r{r}_f{f}_{form}"] = rel
     return worst
 
 
@@ -1623,16 +1696,21 @@ def project_shape_errors(gen):
 
 def blocked_shape_errors(gen):
     """Rows 8-11 against their plain versions on synthetic lists: row
-    counts not a multiple of a sum block's 4 rows, K 8-96, F 8-128, T
-    16-128 (and 100, not a multiple of the 32-row tile), a masked row, an
-    empty slot group, the self slot at d = 0 (θ = π), d at hi and beyond."""
+    counts not a multiple of a block's 4 rows or tasks, K 8-224 (K′ = 224
+    as the dhfr grouped list, 37 and 33 not a multiple of the 32-slot
+    mask round), F 8-132 (132: two 128-channel groups of row 8's warps),
+    T 16-128 (and 100, not a multiple of the 32-row tile), a masked row
+    (row 8's output there exactly 0), an empty slot group, the self slot
+    at d = 0 (θ = π), d at hi and beyond.  Row 8 is held apart, to its own
+    limit."""
     dev = torch.device("cuda")
     worst = {}
     from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs
 
     hi = 4.5
     for n, k, f, t in ((37, 8, 8, 16), (50, 33, 32, 64), (29, 96, 128, 128),
-                       (41, 64, 64, 100)):
+                       (41, 64, 64, 100), (43, 224, 128, 128),
+                       (19, 37, 132, 16)):
         def randn(*shape):
             return torch.randn(shape, generator=gen, device=dev)
 
@@ -1664,7 +1742,8 @@ def blocked_shape_errors(gen):
               "row 9: an invalid slot is not exactly 0")
         check(not outs["blocked_mp_dd_cheb"][v["fm"] == 0].any(),
               "row 11: an fm = 0 slot is not exactly 0")
-        worst[f"blocked_mp_n{n}_k{k}_f{f}_t{t}"] = max(errs)
+        worst[f"blocked_mp_sum_n{n}_k{k}_f{f}"] = errs[0]
+        worst[f"blocked_mp_n{n}_k{k}_f{f}_t{t}"] = max(errs[1:])
     return worst
 
 
@@ -2154,14 +2233,14 @@ PROFILE_GROUPS = (
                                            "blocked_sum_cheb_kernel",
                                            "blocked_dd_cheb_kernel")),
     ("kernels 5/7 Chebyshev filter", ("cheb_tc_kernel",)),
-    ("series and weight split of rows 3, 5, 7, 10, 11, 13",
+    ("series and weight split of rows 3, 4, 5, 7, 10, 11, 13",
      ("tc_split_kernel",)),
     ("row 6 Chebyshev projection", ("project_kernel", "project_sum_kernel")),
-    ("kernel 4 edge_mlp", ("edge_mlp_kernel",)),
+    ("kernel 4 edge_mlp", ("edge_mlp_tc_kernel<true",)),
     ("kernel B q-tier", ("dq_tc_kernel",)),
     ("kernel A q-tier", ("q_tc_kernel",)),
     ("kernel C/D windowed Coulomb", ("wc_tc_kernel",)),
-    ("kernel 3 edge_mlp_pre", ("edge_mlp_pre_kernel",)),
+    ("kernel 3 edge_mlp_pre", ("edge_mlp_tc_kernel<false",)),
     ("kernel 2 embedding bwd", ("emb_bwd_tc_kernel", "emb_dk_sum_kernel")),
     ("kernel 1 embedding fwd", ("emb_fwd_tc_kernel",)),
     ("cuBLAS matmul", ("gemm", "sgemm")),
@@ -2602,14 +2681,22 @@ def phase_md_dhfr(pot, dhfr, seg, path):
 # variant → (extra args, spec layout, the gather-path variant it equals)
 DHFR_BLOCKED = {"tabulated_grouped": ({}, "grouped", "tabulated"),
                 "tabulated_ungrouped": ({}, "ungrouped", "tabulated"),
-                "exact_grouped": (DHFR_EXACT, "grouped", "exact")}
+                "exact_grouped": (DHFR_EXACT, "grouped", "exact"),
+                "exact_ungrouped": (DHFR_EXACT, "ungrouped", "exact")}
+# kernels an exact blocked evaluation must launch (kernel 4, rows 8 and 9)
+# and a tabulated one (rows 10 and 11)
+DHFR_BLOCKED_KERNELS = {
+    "exact": ("edge_mlp", "blocked_mp_sum", "blocked_mp_dattr"),
+    "tabulated": ("blocked_mp_sum_cheb", "blocked_mp_dd_cheb")}
 
 
 def phase_dhfr_blocked(dhfr, seg, specs, gather):
-    """``bench.py::main`` with ``BENCH_BLOCKED=1`` on the card, in three
+    """``bench.py::main`` with ``BENCH_BLOCKED=1`` on the card, in four
     variants with the gather path's weights: each with the kernels against
     its plain versions and against the gather path's forces at the same
-    positions, ghost rows, overflow and the fullest slot group, ms per
+    positions, the launches of one evaluation (each variant's kernels,
+    ``DHFR_BLOCKED_KERNELS``, must launch), ghost rows, overflow and the
+    fullest slot group, ms per
     evaluation of the bench chain, blocked and gather chains in turns
     (gather, blocked, blocked, gather for the default variant; blocked,
     gather for the others), of the plain chain (5 evaluations after two),
@@ -2637,7 +2724,7 @@ def phase_dhfr_blocked(dhfr, seg, specs, gather):
         ev = BlockedDhfr(dhfr, seg, spec)
         *_, nbr = ev.sorted_inputs(pos)
         torch.cuda.reset_peak_memory_stats()
-        y, f = ev(pot, pos)
+        (y, f), launches = counted_run(lambda: ev(pot, pos))
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         with plain_versions():
@@ -2677,7 +2764,8 @@ def phase_dhfr_blocked(dhfr, seg, specs, gather):
             "ms_per_eval": statistics.mean(chains["blocked"]),
             "ms_per_eval_all": chains["blocked"],
             "gather_ms_per_eval_all": chains["gather"],
-            "plain_ms_per_eval": plain_ms, "peak_mem_gb": peak / 1e9}
+            "plain_ms_per_eval": plain_ms, "peak_mem_gb": peak / 1e9,
+            "launches": {k: n for k, n in launches.items() if n}}
         blocked[name] = (pot, ev)
         del plain, y_p, f_p
         torch.cuda.empty_cache()
@@ -2690,6 +2778,9 @@ def phase_dhfr_blocked(dhfr, seg, specs, gather):
         check(r["vs_gather"]["force_rel_diff"] <= TOL,
               f"dhfr blocked {name}: vs gather forces "
               f"{r['vs_gather']['force_rel_diff']:.3g} of max |F|")
+        for k in DHFR_BLOCKED_KERNELS[DHFR_BLOCKED[name][2]]:
+            check(r["launches"].get(k, 0) > 0,
+                  f"dhfr blocked {name}: {k} was not launched")
     return blocked
 
 
@@ -2999,7 +3090,9 @@ def main():
     blocked = phase_dhfr_blocked(dhfr, seg, specs, gather)
     pot_b, ev_b = blocked["tabulated_grouped"]
     phase_profile("dhfr_blocked", lambda: ev_b(pot_b, dpos))
-    del blocked, pot_b, ev_b, gather
+    pot_x, ev_x = blocked["exact_grouped"]
+    phase_profile("dhfr_blocked_exact", lambda: ev_x(pot_x, dpos))
+    del blocked, pot_b, ev_b, pot_x, ev_x, gather
     torch.cuda.empty_cache()
     by_path = {"gather": (g_steps, g_launch), "blocked": (b_steps, b_launch),
                **q_paths}

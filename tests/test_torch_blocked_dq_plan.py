@@ -170,7 +170,8 @@ def test_plans_take_every_width(f, r):
     assert em.pre_plan_error(f) is None
     assert em.launch_plan(25088 * 96, f)["edge_mlp_pre"][2] <= SMEM_LIMIT
     assert em.fused_plan_error(r, f) is None
-    assert em.fused_smem(r, f, em.fused_rows(r, f)) <= SMEM_LIMIT
+    assert em.fused_smem(r, f) <= SMEM_LIMIT
+    assert em.launch_plan(2560 * 64, f, r=r)["edge_mlp"][2] <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("exact", [False, True])

@@ -167,14 +167,17 @@ PLAN_SHAPES = [(3136, 224, 128, 128), (3136, 360, 128, 128),
 
 @pytest.mark.parametrize("n,k,f,t", PLAN_SHAPES)
 def test_launch_plan_fits_shared_memory(n, k, f, t):
-    """Every launch of rows 8, 10 and 11 fits a Hopper block's 232,448 B;
-    rows 10 and 11 leave room for two blocks on an SM (228 KB, 1 KB of it
-    reserved per block) everywhere and for three at F = 128 with K up to
-    the grouped K′ = 224 (their launch bounds ask for three)."""
+    """Every launch of rows 8, 10 and 11 fits a Hopper block's 232,448 B:
+    row 8 takes no shared memory (a warp a row and 128-channel group, 4 a
+    block); rows 10 and 11 leave room for two blocks on an SM (228 KB, 1
+    KB of it reserved per block) everywhere and for three at F = 128 with
+    K up to the grouped K′ = 224 (their launch bounds ask for three)."""
     plan = bm.launch_plan(n, k, f, t)
     assert set(plan) == {"blocked_mp_sum", "blocked_mp_sum_cheb",
                          "blocked_mp_dd_cheb"}
-    for name, (blocks, smem) in plan.items():
+    assert plan["blocked_mp_sum"] == (-(-n * -(-f // 128) // 4), 0)
+    for name in ("blocked_mp_sum_cheb", "blocked_mp_dd_cheb"):
+        blocks, smem = plan[name]
         assert blocks == -(-n // 4)
         assert 0 < smem <= 232448, name
     for name in ("blocked_mp_sum_cheb", "blocked_mp_dd_cheb"):
@@ -186,11 +189,23 @@ def test_launch_plan_fits_shared_memory(n, k, f, t):
 
 
 @pytest.mark.parametrize("n", [1, 3, 4, 37, 41, 3136])
-def test_row_blocks_cover_every_row_once(n):
-    """Block ``b`` of rows 8, 10 and 11 owns the sorted rows ``[4b, 4b +
-    4)`` below ``n``: the plan's blocks give each row one block and leave
-    no block empty."""
-    for blocks, _ in bm.launch_plan(n, 64, 128, 128).values():
-        owned = [range(4 * b, min(n, 4 * b + 4)) for b in range(blocks)]
-        assert [r for rows in owned for r in rows] == list(range(n))
-        assert all(len(rows) > 0 for rows in owned)
+@pytest.mark.parametrize("f", [128, 132, 8])
+def test_row_blocks_cover_every_row_once(n, f):
+    """Block ``b`` of rows 10 and 11 owns the sorted rows ``[4b, 4b + 4)``
+    below ``n``; block ``b`` of row 8 the warp tasks ``[4b, 4b + 4)``,
+    task ``t`` the row ``t // G`` and the 128 channels from ``128·(t % G)``
+    (G = ⌈F/128⌉): the plan's blocks give each row one block (row 8: each
+    row's every channel group one warp) and leave no block empty."""
+    plan = bm.launch_plan(n, 64, f, 128)
+    groups = -(-f // 128)
+    assert bm.sum_tasks(n, f) == n * groups
+    for name, (blocks, _) in plan.items():
+        per, count = (4, bm.sum_tasks(n, f)) if name == "blocked_mp_sum" \
+            else (4, n)
+        owned = [range(per * b, min(count, per * b + per))
+                 for b in range(blocks)]
+        assert [u for units in owned for u in units] == list(range(count))
+        assert all(len(units) > 0 for units in owned)
+    tasks = range(bm.sum_tasks(n, f))
+    assert sorted((t // groups, 128 * (t % groups)) for t in tasks) == [
+        (r, c) for r in range(n) for c in range(0, f, 128)]

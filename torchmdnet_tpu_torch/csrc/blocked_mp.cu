@@ -39,14 +39,18 @@
 //   neighbors inside 9 stencil columns, so the gathers are L2 hits.
 //
 // Design against them:
-// - blocked_sum_kernel (row 8): a block owns kRows = 4 sorted rows (784
-//   blocks at N = 3,136, several per SM), compacts their valid slots in slot
-//   order and walks them in tiles of 64.  Per tile and 128-column pass it
-//   stages the attr columns in shared memory; each thread then owns fixed
-//   (row, irrep, channel) outputs of the block and adds Σ over the tile's
-//   slots of that row of attr·feats9[j], in slot order, into a
-//   shared-memory row accumulator: no atomics.  A column block w of attr
-//   feeds its 1, 3 or 5 irreps from the staged tile.
+// - blocked_sum_kernel (row 8): one warp per sorted row and 128-channel
+//   group (4 a block: 784 blocks at N = 3,136, F = 128), each lane four
+//   channels of all nine irreps, so every thread owns outputs that exist
+//   (the staged-tile kernel it replaces gave ~40% of its work items none)
+//   and each sums its row's valid slots in slot order into registers, no
+//   atomics.  The warp finds the valid slots by a ballot over 32 mask bytes
+//   at a time and reads attr and the neighbour's features straight from
+//   memory, twelve float4 loads in flight a slot: a slot's three attr
+//   quads once (streaming loads, 150 MB of live rows), the neighbour's
+//   nine 512-byte feature slices from L2 (the 14.5 MB of features stay
+//   there), 448 MB a call at dhfr (97 k valid slots x 4.6 KB).  No shared
+//   memory and no barrier: the L2 gathers are what is left.
 // - blocked_dattr_kernel (row 9): elementwise over (slot, 4 channels) with
 //   float4 loads and stores, the row's g9 and the neighbor's features gathered
 //   per slot, so the store stream is the whole cost.
@@ -83,9 +87,9 @@
 
 namespace {
 
-constexpr int kRows = 4;  // sorted rows a row 8 block owns
-static_assert(kThreads == kTcThreads, "one launch width for every kernel");
-constexpr int kLdA = kTileN + kPad;  // row stride of the staged attr tile
+constexpr int kSumThreads = 128;  // threads of a row 8 block
+constexpr int kSumWarps = kSumThreads / 32;  // its (row, channel group) tasks
+static_assert(kThreads == kTcThreads, "one launch width for rows 9-11");
 
 // First irrep of attr column block w: I = 0, A = 1..3, S = 4..8.
 __device__ __forceinline__ int first_irrep(int w) { return w == 0 ? 0 : (w == 1 ? 1 : 4); }
@@ -133,69 +137,62 @@ __device__ __forceinline__ void row_starts(const int* sLive, int nlive, int K,
   }
 }
 
-// Row 8: attr [N, K, 3F] read; live = mask.
-__global__ void __launch_bounds__(kThreads)
+// Row 8: one warp a (sorted row, 128-channel group) task, kSumWarps tasks
+// a block.  Lane l owns channels c = 128g + 4l … + 3 of all nine irreps:
+// it walks the row's valid slots in slot order (32 mask bytes a round,
+// their ballot, the valid slots' neighbour rows broadcast by shuffles)
+// and per slot loads the slot's three attr quads (streaming: read once)
+// and the neighbour's nine feature quads, twelve float4 loads in flight,
+// into nine float4 sums, written once.  No shared memory, no barrier.
+__global__ void __launch_bounds__(kSumThreads, 4)
 blocked_sum_kernel(const long long* __restrict__ idx,
                    const unsigned char* __restrict__ mask,
                    const float* __restrict__ attr,
                    const float* __restrict__ feats, float* __restrict__ out,
                    int N, int K, int F) {
-  extern __shared__ __align__(16) float smem[];
+  const int groups = (F + kTileN - 1) / kTileN;
+  const long long task =
+      (long long)blockIdx.x * kSumWarps + (threadIdx.x >> 5);
+  if (task >= (long long)N * groups) return;
+  const int row = (int)(task / groups), lane = threadIdx.x & 31;
+  const int c = (int)(task - (long long)row * groups) * kTileN + 4 * lane;
+  const bool on = c < F;
   const int C3 = 3 * F, C9 = 9 * F;
-  float* sA = smem;                                 // [64][128 + pad] attr
-  float* sAcc = sA + kTileM * kLdA;                 // [kRows][9F] outputs
-  int* sJ = reinterpret_cast<int*>(sAcc + kRows * C9);  // [64] neighbor rows
-  int* sCount = sJ + kTileM;                        // [kWarps]
-  int* sStart = sCount + kWarps;                    // [kRows + 1]
-  int* sLive = sStart + kRows + 1;                  // [kRows·K]
-
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * kRows;
-  const int nr = min(kRows, N - r0);
-  const long long s0 = (long long)r0 * K;
-  for (int v = tid; v < kRows * C9; v += kThreads) sAcc[v] = 0.0f;
-  const int nlive = compact(mask, s0, nr * K, sLive, sCount);
-  row_starts(sLive, nlive, K, kRows, sStart);
-
-  for (int t0 = 0; t0 < nlive; t0 += kTileM) {
-    const int nt = min(kTileM, nlive - t0);
-    __syncthreads();  // the previous tile is consumed, sStart is written
-    if (tid < kTileM) sJ[tid] = tid < nt ? (int)idx[s0 + sLive[t0 + tid]] : 0;
-    __syncthreads();
-    for (int c0 = 0; c0 < C3; c0 += kTileN) {
-      __syncthreads();  // the previous pass's sA is consumed
-      for (int v = tid; v < kTileM * (kTileN / 4); v += kThreads) {
-        const int s = v / (kTileN / 4), col = (v % (kTileN / 4)) * 4;
-        float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (s < nt && c0 + col < C3)
-          a = *reinterpret_cast<const float4*>(
-              attr + (s0 + sLive[t0 + s]) * C3 + c0 + col);
-        *reinterpret_cast<float4*>(sA + s * kLdA + col) = a;
-      }
-      __syncthreads();
-      // outputs (irrep i of the column's block, row r, column cl): a warp
-      // shares (i, r) and walks 32 neighbouring channels
-      for (int v = tid; v < 5 * kRows * kTileN; v += kThreads) {
-        const int cl = v % kTileN, r = (v / kTileN) % kRows,
-                  i = v / (kTileN * kRows);
-        const int col = c0 + cl;
-        if (col >= C3 || r >= nr) continue;
-        const int w = col / F, c = col - w * F;
-        if (i > 2 * w) continue;
-        const int a = max(sStart[r], t0) - t0;
-        const int b = min(sStart[r + 1], t0 + nt) - t0;
-        if (a >= b) continue;
-        const int dcol = (first_irrep(w) + i) * F + c;
-        float acc = 0.0f;
-        for (int s = a; s < b; ++s)
-          acc = fmaf(sA[s * kLdA + cl], feats[(long long)sJ[s] * C9 + dcol], acc);
-        sAcc[r * C9 + dcol] += acc;
+  const long long base = (long long)row * K;
+  float4 o[9];
+#pragma unroll
+  for (int d = 0; d < 9; ++d) o[d] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int s0 = 0; s0 < K; s0 += 32) {
+    const bool valid = s0 + lane < K && mask[base + s0 + lane];
+    const long long j = valid ? idx[base + s0 + lane] : 0;
+    unsigned bits = __ballot_sync(0xffffffffu, valid);
+    while (bits) {
+      const int b = __ffs(bits) - 1;
+      bits &= bits - 1;
+      const long long jb = __shfl_sync(0xffffffffu, j, b);
+      if (!on) continue;
+      const float* a = attr + (base + s0 + b) * C3 + c;
+      const float* x = feats + jb * C9 + c;
+      float4 w[3], xs[9];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) w[q] = __ldcs(reinterpret_cast<const float4*>(a + q * F));
+#pragma unroll
+      for (int d = 0; d < 9; ++d) xs[d] = __ldg(reinterpret_cast<const float4*>(x + d * F));
+#pragma unroll
+      for (int d = 0; d < 9; ++d) {
+        const float4 y = w[d == 0 ? 0 : (d < 4 ? 1 : 2)];
+        o[d].x = fmaf(y.x, xs[d].x, o[d].x);
+        o[d].y = fmaf(y.y, xs[d].y, o[d].y);
+        o[d].z = fmaf(y.z, xs[d].z, o[d].z);
+        o[d].w = fmaf(y.w, xs[d].w, o[d].w);
       }
     }
   }
-  __syncthreads();
-  for (int v = tid; v < nr * C9; v += kThreads)
-    out[(long long)r0 * C9 + v] = sAcc[v];
+  if (on) {
+#pragma unroll
+    for (int d = 0; d < 9; ++d)
+      *reinterpret_cast<float4*>(out + (long long)row * C9 + d * F + c) = o[d];
+  }
 }
 
 // Row 9: one thread per (slot, 4 channels) of the [E, 3F] output.
@@ -470,14 +467,9 @@ blocked_dd_cheb_kernel(const long long* __restrict__ idx,
   }
 }
 
-// Dynamic shared memory of a launch (ops/blocked_mp.py keeps the same sums).
-size_t sum_smem(int k, int f) {
-  return sizeof(float) * ((size_t)kTileM * kLdA + (size_t)kRows * 9 * f) +
-         sizeof(int) * ((size_t)kTileM + kWarps + kRows + 1 + (size_t)kRows * k);
-}
-
-// (rows 10 and 11: 1 KB for aligning the region to 1024 bytes; their basis
-// lives in registers)
+// Dynamic shared memory of rows 10 and 11 (ops/blocked_mp.py keeps the
+// same sums): 1 KB for aligning the region to 1024 bytes; their basis
+// lives in registers.  Row 8 takes none.
 size_t sum_cheb_smem(int k, int f) {
   return 1024 + sizeof(float) * (kTcRegion +
                                  (size_t)kTcRows * 9 * f + 2 * kTcM) +
@@ -510,12 +502,18 @@ const char* tmd_error_string(int code) {
 }
 
 // Row 8.  idx [n, k] int64; mask [n, k] bool; attr [n, k, 3f]; feats, out
-// [n, 9f].  f a multiple of 4.
+// [n, 9f].  f a multiple of 4.  Block b takes the (row, channel group)
+// tasks [4b, 4b + 4), task t = row · ⌈f/128⌉ + group.
 int tmd_blocked_sum(const long long* idx, const unsigned char* mask,
                     const float* attr, const float* feats, float* out, int n,
                     int k, int f, void* stream) {
-  return launch_rows(blocked_sum_kernel, kRows, n, sum_smem(k, f), stream, idx,
-                     mask, attr, feats, out, n, k, f);
+  const long long tasks = (long long)n * ((f + kTileN - 1) / kTileN);
+  const long long blocks = (tasks + kSumWarps - 1) / kSumWarps;
+  if (blocks == 0) return cudaSuccess;
+  blocked_sum_kernel<<<(unsigned)blocks, kSumThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(idx, mask, attr,
+                                                            feats, out, n, k, f);
+  return cudaGetLastError();
 }
 
 // Row 10.  idx [n, k] int64; d, fm [n, k]; coeffs [t, 3f]; feats, out [n, 9f];
@@ -558,13 +556,17 @@ int tmd_blocked_dd_cheb(const long long* idx, const float* d, const float* fm,
 // Floats of the image scratch rows 10 and 11 take at (t, c3 = 3f).
 int tmd_tc_image_floats(int t, int c3) { return tc_image_floats(t, c3); }
 
-// What the compiler and the launch give rows 10 (which = 10) and 11 (11)
-// at (k, f, t): out = registers a thread, local (spill) bytes a thread,
-// static and dynamic shared memory bytes a block, resident blocks an SM.
+// What the compiler and the launch give rows 8 (which = 8), 10 (10) and
+// 11 (11) at (k, f, t): out = registers a thread, local (spill) bytes a
+// thread, static and dynamic shared memory bytes a block, resident blocks
+// an SM.
 int tmd_blocked_mp_attributes(int which, int k, int f, int t, int* out) {
-  const void* kern = which == 10 ? (const void*)blocked_sum_cheb_kernel
-                                 : (const void*)blocked_dd_cheb_kernel;
-  const size_t smem = which == 10 ? sum_cheb_smem(k, f) : dd_cheb_smem(k, f);
+  const void* kern = which == 8    ? (const void*)blocked_sum_kernel
+                     : which == 10 ? (const void*)blocked_sum_cheb_kernel
+                                   : (const void*)blocked_dd_cheb_kernel;
+  const size_t smem = which == 8    ? 0
+                      : which == 10 ? sum_cheb_smem(k, f)
+                                    : dd_cheb_smem(k, f);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -572,7 +574,8 @@ int tmd_blocked_mp_attributes(int which, int k, int f, int t, int* out) {
   err = cudaFuncGetAttributes(&attr, kern);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kTcThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kern, which == 8 ? kSumThreads : kTcThreads, smem);
   if (err != cudaSuccess) return err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;

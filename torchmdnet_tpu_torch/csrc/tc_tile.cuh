@@ -1,5 +1,5 @@
 // The tensor-core tile product of csrc/cheb_filter.cu (Pallas rows 5 and
-// 7), csrc/blocked_mp.cu (rows 10 and 11), csrc/edge_mlp.cu (kernel 3)
+// 7), csrc/blocked_mp.cu (rows 10 and 11), csrc/edge_mlp.cu (kernels 3, 4)
 // and csrc/blocked_q.cu (kernels A and B, rows 12 and 13); its split,
 // wgmma step (tc_mma) and block-wide compaction (tc_compact) also serve
 // csrc/radial_embedding.cu (kernels 1 and 2, rows 1 and 2), which builds
@@ -25,14 +25,14 @@
 // basis takes no shared memory and no pass over it (tc_product; rows 5, 7,
 // 10, 11), or fp32 rows in memory: an activation tile in shared memory,
 // or in device memory where it does not fit a block (tc_product_from:
-// kernel 3 and kernels A and B of csrc/blocked_q.cu, whose exact base
+// kernels 3 and 4 and kernels A and B of csrc/blocked_q.cu, whose exact base
 // also reads its rbf rows from device memory this way).  Block: kTcThreads = 256 threads, two warpgroups; warpgroup
 // q owns the columns [64q, 64q + 64) for all 64 rows (wgmma m64n64k8, 32
 // fp32 accumulators a thread) and issues 6 wgmma a stage (2 k-steps x 3
 // terms), then waits for them: one fragment set, ~80 registers, so three
 // blocks share an SM and hide each other's waits (rows 10-11; rows 5 and 7
 // also hold a stage's sums, below: ~115 registers, two blocks).  Kernels
-// 3, A and B fill an SM with one block; a second fragment set (a wait for
+// 3, 4, A and B fill an SM with one block; a second fragment set (a wait for
 // the stage before only, over a ring of four) gained kernel 3 under 1% on
 // its main list (3% with every slot live) on an H100 and spills in A and
 // B, so every product keeps one.

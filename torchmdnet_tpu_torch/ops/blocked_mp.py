@@ -41,8 +41,10 @@ that rounding.
 
 On CUDA tensors each op launches its kernel (``csrc/blocked_mp.cu``) or
 raises; on CPU tensors it runs the plain version beside it, a row-chunked
-gather chain.  Every kernel but row 9's gives a block 4 sorted rows
-and compacts their live slots; rows 10 and 11 form
+gather chain.  Row 8 gives each warp one sorted row (and 128-channel
+group) and reads attr and the neighbours' features straight from memory;
+rows 10 and 11 give a block 4 sorted rows and compact their live slots,
+and form
 the series product on the tensor cores in 3xTF32 (``csrc/tc_tile.cuh``,
 float32-accurate; rows 8 and 9 are fp32 FMA), from a split copy of the
 series in a scratch the wrapper allocates (:func:`tc_image_floats`).
@@ -70,15 +72,8 @@ SUM_CHEB = Kernel(SOURCE, "tmd_blocked_sum_cheb",
                   [P] * 7 + [I32] * 4 + [F32] * 2)
 DD_CHEB = Kernel(SOURCE, "tmd_blocked_dd_cheb",
                  [P] * 8 + [I32] * 4 + [F32] * 2)
-_ROWS = 4             # sorted rows a block owns, every row (kRows, kTcRows)
-
-
-def sum_smem(k: int, f: int) -> int:
-    """Dynamic shared memory of a row 8 launch: the [64, 132] attr tile,
-    the rows' accumulator, neighbor rows, warp counts, row starts and the
-    compacted slots."""
-    return 4 * (64 * 132 + _ROWS * 9 * f) + 4 * (64 + 8 + _ROWS + 1
-                                                 + _ROWS * k)
+_ROWS = 4             # sorted rows a row 10 or 11 block owns (kTcRows)
+_SUM_TASKS = 4        # (row, 128-channel group) tasks a row 8 block owns
 
 
 def sum_cheb_smem(k: int, f: int) -> int:
@@ -99,21 +94,30 @@ def dd_cheb_smem(k: int, f: int) -> int:
         + 4 * (2 * 64 + 8 + _ROWS * k)
 
 
+def sum_tasks(n: int, f: int) -> int:
+    """Row 8's warp tasks at ``n`` sorted rows and ``F = f``: one per row
+    and 128-channel group, task ``t`` = row · ⌈F/128⌉ + group."""
+    return n * -(-f // 128)
+
+
 def launch_plan(n: int, k: int, f: int, t: int) -> dict:
     """Blocks and dynamic shared memory of rows 8, 10 and 11 at ``n``
-    sorted rows of ``k`` slots, ``F = f``, ``T = t``; block ``b`` owns
-    the sorted rows ``[4b, 4b + 4)`` that exist."""
+    sorted rows of ``k`` slots, ``F = f``, ``T = t``.  Row 8's block ``b``
+    owns the tasks ``[4b, 4b + 4)`` of :func:`sum_tasks` that exist (no
+    shared memory); a row 10 or 11 block ``b`` the sorted rows ``[4b, 4b
+    + 4)`` that exist."""
     blocks = -(-n // _ROWS)
-    return {"blocked_mp_sum": (blocks, sum_smem(k, f)),
+    return {"blocked_mp_sum": (-(-sum_tasks(n, f) // _SUM_TASKS), 0),
             "blocked_mp_sum_cheb": (blocks, sum_cheb_smem(k, f)),
             "blocked_mp_dd_cheb": (blocks, dd_cheb_smem(k, f))}
 
 
 def kernel_attributes(k: int, f: int, t: int) -> dict:
-    """What the compiler and the launch give rows 10 and 11 at ``(k, f,
-    t)``: registers and local (spill) bytes a thread, static and dynamic
-    shared memory a block, resident blocks an SM, and the floats of their
-    split-series scratch.  Builds the library; launches nothing."""
+    """What the compiler and the launch give rows 8, 10 and 11 at ``(k,
+    f, t)``: registers and local (spill) bytes a thread, static and
+    dynamic shared memory a block, resident blocks an SM, and for rows 10
+    and 11 the floats of their split-series scratch.  Builds the library;
+    launches nothing."""
     out = (ctypes.c_int * 5)()
     lib = SOURCE.library()
     fn = lib.tmd_blocked_mp_attributes
@@ -122,13 +126,15 @@ def kernel_attributes(k: int, f: int, t: int) -> dict:
     lib.tmd_tc_image_floats.argtypes = [I32, I32]
     lib.tmd_tc_image_floats.restype = I32
     attrs = {}
-    for row, name in ((10, "blocked_mp_sum_cheb"), (11, "blocked_mp_dd_cheb")):
+    for row, name in ((8, "blocked_mp_sum"), (10, "blocked_mp_sum_cheb"),
+                      (11, "blocked_mp_dd_cheb")):
         rc = fn(row, k, f, t, ctypes.cast(out, P))
         if rc != 0:
             raise RuntimeError(f"tmd_blocked_mp_attributes: CUDA error {rc}")
         attrs[name] = dict(zip(("registers", "local_bytes", "static_smem",
                                 "dynamic_smem", "blocks_per_sm"), out))
-        attrs[name]["image_floats"] = lib.tmd_tc_image_floats(t, 3 * f)
+        if row > 8:
+            attrs[name]["image_floats"] = lib.tmd_tc_image_floats(t, 3 * f)
     return attrs
 
 
@@ -241,8 +247,7 @@ def neighbor_sum_cuda(attr3f, feats9, idx, mask):
     n, k = idx.shape
     dev, n, k, f, _ = _check(
         "blocked_neighbor_sum",
-        dict(idx=idx, mask=mask, attr3f=attr3f, feats9=feats9),
-        sum_smem(k, feats9.shape[1] // 9))
+        dict(idx=idx, mask=mask, attr3f=attr3f, feats9=feats9), 0)
     out = torch.empty((n, 9 * f), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         SUM(ptr(idx), ptr(mask), ptr(attr3f), ptr(feats9), ptr(out), n, k, f)

@@ -16,21 +16,26 @@ Counterparts of ``torchmdnet_tpu/ops/pallas_kernels.py``:
 with weights in the JAX kernel layout (``W1 [R, F]``, ``W2 [F, 2F]``,
 ``W3 [2F, 3F]``).  On a CUDA tensor each forward is a hand-written kernel
 of ``csrc/edge_mlp.cu`` or raises; on a CPU tensor it is the plain chain
-beside it.  Both kernels run the chain on the slots with ``cw ≠ 0`` only
-and write exact zeros for the others.  Kernel 3 forms its two products on
-the tensor cores in 3xTF32 (``csrc/tc_tile.cuh``, float32-accurate), from
-split copies of ``W2`` and ``W3`` in a scratch the wrapper allocates
-(:func:`image_floats`); :func:`launch_plan` holds its grid and shared
-memory; above F = 256 its h2 and ``silu(pre1)`` tiles go to a second
-device-memory scratch, one region for each resident block.  Kernel 4 is
-fp32 FMA on tiles of 64 slots, or 32 or 16 where 64 rows do not fit a
-block (:func:`fused_rows`).  Every width that is a positive multiple of 4
-launches (:func:`pre_plan_error`, :func:`fused_plan_error`).  The backward
+beside it.  Both kernels are one chain on the tensor cores in 3xTF32
+(``csrc/tc_tile.cuh``, float32-accurate): they run it on the slots with
+``cw ≠ 0`` only, in tiles of 64, and write exact zeros for the others;
+kernel 4 forms its first layer ``silu(x·W1 + b1)`` in front of kernel 3's
+two products.  The weights are split once per launch into a scratch the
+wrapper allocates (:func:`image_floats`, :func:`fused_image_floats`);
+:func:`launch_plan` holds each kernel's grid, scratch and shared memory:
+one block an SM, each on a run of slots of equal cost (:func:`chain_ranges`,
+from a first pass's live count of each 256-slot chunk), in whole tiles.
+Where the tiles do not fit a block (kernel 3 above F = 256, kernel 4 also
+where its x tile would pass the block's shared memory, :func:`chain_wide`)
+they go to a second device-memory scratch, one region for each resident
+block.  Every width that is a positive multiple of 4 launches
+(:func:`pre_plan_error`, :func:`fused_plan_error`).  The backward
 recomputes through the plain chain over row chunks, as the JAX
 ``_bwd``/``_bwd_pre`` (``:118``, ``:237``) do (the JAX package has no
 backward kernel for these ops); it is first-order only.
 """
 
+import bisect
 import ctypes
 
 import torch
@@ -44,10 +49,12 @@ from torchmdnet_tpu_torch.ops.tc_tile import H100_SMS, REGION, SMEM_LIMIT
 from torchmdnet_tpu_torch.ops.tc_tile import image_floats as tc_image_floats
 
 SOURCE = CudaSource("edge_mlp.cu")
-FORWARD = Kernel(SOURCE, "tmd_edge_mlp_pre", [P] * 9 + [I64, I32, I32])
-FUSED = Kernel(SOURCE, "tmd_edge_mlp", [P] * 9 + [I64, I32, I32])
-_PRE_SPAN = 1024  # slots a kernel 3 block owns (kPreSpan)
-_PRE_NARROW_F = 256  # the widest F whose kernel 3 tiles sit in shared memory
+FORWARD = Kernel(SOURCE, "tmd_edge_mlp_pre", [P] * 10 + [I64, I32, I32])
+FUSED = Kernel(SOURCE, "tmd_edge_mlp", [P] * 12 + [I64] + [I32] * 3)
+CHUNK = 256  # slots of one live count (kChunk)
+WINDOW = 1024  # slots a block compacts at a time (kWin)
+LIVE_WEIGHT = 16  # a live slot's cost in slots with cw = 0 (kLiveWeight)
+_PRE_NARROW_F = 256  # the widest F whose tiles may sit in shared memory
 
 
 def image_floats(f: int) -> int:
@@ -56,45 +63,65 @@ def image_floats(f: int) -> int:
     return tc_image_floats(f, 2 * f) + tc_image_floats(2 * f, 3 * f)
 
 
+def fused_image_floats(r: int, f: int) -> int:
+    """Floats of kernel 4's scratch at ``R = r``, ``F = f``: W1's split
+    image, then W2's and W3's."""
+    return tc_image_floats(r, f) + image_floats(f)
+
+
 def _pre_ldh(f: int) -> int:
-    """Row stride of kernel 3's h2 tile in the narrow form (F ≤ 256): 2F
-    columns, and ``silu(pre1)`` [64, F] from column ``128·(⌈2F/128⌉ −
-    ⌈F/128⌉)`` of the same rows."""
+    """Row stride of the h2 tile in the narrow form: 2F columns, and the
+    W2 product's A ``[64, F]`` from column ``128·(⌈2F/128⌉ − ⌈F/128⌉)`` of
+    the same rows."""
     a0 = 128 * (-(-2 * f // 128) - -(-f // 128))
     return max(2 * f, a0 + f) + 4
+
+
+def x_ld(r: int) -> int:
+    """Row stride of kernel 4's x tile: ``R`` rounded up to 32, plus 4."""
+    return -(-r // 32) * 32 + 4
+
+
+def chain_smem(f: int, r: int, wide: bool) -> int:
+    """Dynamic shared memory of a launch at ``F = f`` (``r = 0``: kernel
+    3; else kernel 4 at ``R = r``): 1 KB to align the region, the region
+    (the ring of ``tc_product_from``), in the narrow form the h2 tile that
+    also holds the W2 product's A and kernel 4's x tile, the tile's cw,
+    then the lists (``kListInts``: a window's live slots and the 64 held
+    over, its dead slots, the warp counts)."""
+    tiles = 0 if wide else 64 * (_pre_ldh(f) + (x_ld(r) if r else 0))
+    lists = (WINDOW + 64) + WINDOW + 2 * 8
+    return 1024 + 4 * (REGION + tiles + 64) + 4 * lists
+
+
+def chain_wide(f: int, r: int = 0) -> bool:
+    """Whether the tiles go to device memory: above F = 256, and for
+    kernel 4 (``r > 0``) where its narrow tiles pass a block."""
+    return f > _PRE_NARROW_F or (
+        r > 0 and chain_smem(f, r, False) > SMEM_LIMIT)
 
 
 def pre_tile_floats(f: int) -> int:
     """Floats of one block's tiles in kernel 3's wide form (F > 256; 0 at
     or below): h2 ``[64, 2F + 4]`` and ``silu(pre1)`` ``[64, F + 4]``."""
-    return 64 * (3 * f + 8) if f > _PRE_NARROW_F else 0
+    return 64 * (3 * f + 8) if chain_wide(f) else 0
+
+
+def fused_tile_floats(r: int, f: int) -> int:
+    """Floats of one block's tiles in kernel 4's wide form (0 in the
+    narrow one): h2 ``[64, 2F + 4]``, its first layer ``[64, F + 4]`` and
+    x ``[64, x_ld(R)]``."""
+    return 64 * (3 * f + 8 + x_ld(r)) if chain_wide(f, r) else 0
 
 
 def pre_smem(f: int) -> int:
-    """Dynamic shared memory of a kernel 3 launch: 1 KB to align the
-    region, the region (the ring of ``tc_product_from``), in the narrow
-    form the h2 tile that also holds ``silu(pre1)``, the tile's cw, then
-    the span's live and dead offsets and the warp counts."""
-    tiles = 64 * _pre_ldh(f) if f <= _PRE_NARROW_F else 0
-    return 1024 + 4 * (REGION + tiles + 64) + 4 * (2 * _PRE_SPAN + 16)
+    """Dynamic shared memory of a kernel 3 launch."""
+    return chain_smem(f, 0, chain_wide(f))
 
 
-def fused_smem(r: int, f: int, rows: int = 64) -> int:
-    """Dynamic shared memory of a kernel 4 launch on tiles of ``rows``
-    slots: the x, h1 and h2 tiles (each padded by 4), a 32 x 128 weight
-    tile, cw, then the span's live and dead offsets and the warp
-    counts."""
-    return 4 * (rows * (r + f + 2 * f + 12) + 32 * 128 + rows) \
-        + 4 * (512 + 16)
-
-
-def fused_rows(r: int, f: int) -> int:
-    """Slots of a kernel 4 tile: 64, or the largest of 32 and 16 whose
-    plan fits a block's 232,448 B (the sums' order is the same)."""
-    rows = 64
-    while rows > 16 and fused_smem(r, f, rows) > SMEM_LIMIT:
-        rows //= 2
-    return rows
+def fused_smem(r: int, f: int) -> int:
+    """Dynamic shared memory of a kernel 4 launch."""
+    return chain_smem(f, r, chain_wide(f, r))
 
 
 def pre_plan_error(f: int):
@@ -109,51 +136,77 @@ def pre_plan_error(f: int):
 
 def fused_plan_error(r: int, f: int):
     """Why kernel 4 cannot launch at ``R = r``, ``F = f``, or None: both
-    positive multiples of 4, and the plan of 16-slot tiles within a
-    block's shared memory (up to F ≈ 1,000)."""
+    positive multiples of 4.  Every such pair launches (its tiles go to
+    device memory where they do not fit a block)."""
     if r % 4 or f % 4 or r < 4 or f < 4:
         return f"widths R = {r}, F = {f} must be positive multiples of 4"
-    smem = fused_smem(r, f, fused_rows(r, f))
-    if smem > SMEM_LIMIT:
-        return f"R = {r}, F = {f} needs {smem} bytes of shared memory " \
-               f"at 16-slot tiles (> {SMEM_LIMIT})"
     return None
 
 
-def launch_plan(e: int, f: int, sms: int = H100_SMS) -> dict:
-    """``(blocks, span, dynamic shared memory, image floats, tile floats)``
-    of kernel 3 at ``e`` slots and ``F = f`` on a card of ``sms`` SMs;
-    block ``b`` owns the spans ``b, b + blocks, …`` of ``span`` slots below
-    ``e``: one span each for F ≤ 256, one block an SM above, each with
-    its ``pre_tile_floats`` of the tile scratch."""
-    spans = -(-e // _PRE_SPAN)
-    blocks = spans if f <= _PRE_NARROW_F else max(1, min(spans, sms))
-    return {"edge_mlp_pre": (blocks, _PRE_SPAN, pre_smem(f), image_floats(f),
+def chain_ranges(counts, e: int, grid: int) -> list:
+    """The chunks ``[lo, hi)`` each of ``grid`` blocks owns, as the
+    kernels' ``range_kernel`` finds them from the live count of each
+    256-slot chunk of ``e`` slots: with ``cost(c) = LIVE_WEIGHT·counts[c]
+    + the chunk's slots`` and ``P(c)`` the cost before chunk ``c``, block
+    ``b`` owns the chunks with ``b·T ≤ P(c)·grid < (b + 1)·T``."""
+    scaled, total = [], 0  # P(c)·grid, increasing
+    for c, n in enumerate(counts):
+        scaled.append(total * grid)
+        total += LIVE_WEIGHT * n + min(CHUNK, e - c * CHUNK)
+    bounds = [bisect.bisect_left(scaled, b * total) for b in range(grid + 1)]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def launch_plan(e: int, f: int, sms: int = H100_SMS, r=None) -> dict:
+    """``(blocks, chunks, dynamic shared memory, image floats, tile
+    floats)`` of kernel 3 at ``e`` slots and ``F = f`` on a card of
+    ``sms`` SMs, and with ``r`` of kernel 4 at ``R = r`` too: one block
+    an SM (at most one a 256-slot chunk), each owning the run of chunks
+    :func:`chain_ranges` gives it; ``chunks`` live counts and ``blocks +
+    1`` run starts make the int scratch.  In a wide form each block has
+    its tile floats of the tile scratch."""
+    chunks = -(-e // CHUNK)
+    blocks = max(1, min(sms, chunks))
+    plan = {"edge_mlp_pre": (blocks, chunks, pre_smem(f), image_floats(f),
                              blocks * pre_tile_floats(f))}
+    if r is not None:
+        plan["edge_mlp"] = (blocks, chunks, fused_smem(r, f),
+                            fused_image_floats(r, f),
+                            blocks * fused_tile_floats(r, f))
+    return plan
 
 
-def kernel_attributes(f: int) -> dict:
-    """What the compiler and the launch give kernel 3 at ``F = f``:
-    registers and local (spill) bytes a thread, static and dynamic shared
-    memory a block, resident blocks an SM, and the floats of its image
-    scratch.  Builds the library; launches nothing."""
+def kernel_attributes(f: int, r=None) -> dict:
+    """What the compiler and the launch give kernel 3 at ``F = f`` (and
+    with ``r`` kernel 4 at ``R = r``): registers and local (spill) bytes
+    a thread, static and dynamic shared memory a block, resident blocks
+    an SM, and the floats of its image scratch and of one block's tiles.
+    Builds the library; launches nothing."""
     out = (ctypes.c_int * 5)()
     lib = SOURCE.library()
     fn = lib.tmd_edge_mlp_attributes
-    fn.argtypes = [I32, P]
+    fn.argtypes = [I32, I32, P]
     fn.restype = I32
     lib.tmd_edge_mlp_image_floats.argtypes = [I32]
     lib.tmd_edge_mlp_image_floats.restype = I32
-    rc = fn(f, ctypes.cast(out, P))
-    if rc != 0:
-        raise RuntimeError(f"tmd_edge_mlp_attributes: CUDA error {rc}")
-    lib.tmd_edge_mlp_tile_floats.argtypes = [I32]
+    lib.tmd_edge_mlp_fused_image_floats.argtypes = [I32, I32]
+    lib.tmd_edge_mlp_fused_image_floats.restype = I32
+    lib.tmd_edge_mlp_tile_floats.argtypes = [I32, I32]
     lib.tmd_edge_mlp_tile_floats.restype = I64
-    attrs = dict(zip(("registers", "local_bytes", "static_smem",
-                      "dynamic_smem", "blocks_per_sm"), out))
-    attrs["image_floats"] = lib.tmd_edge_mlp_image_floats(f)
-    attrs["tile_floats"] = lib.tmd_edge_mlp_tile_floats(f)
-    return {"edge_mlp_pre": attrs}
+    attrs = {}
+    for name, rr in (("edge_mlp_pre", 0), ("edge_mlp", r)):
+        if rr is None:
+            continue
+        rc = fn(f, rr, ctypes.cast(out, P))
+        if rc != 0:
+            raise RuntimeError(f"tmd_edge_mlp_attributes: CUDA error {rc}")
+        attrs[name] = dict(zip(("registers", "local_bytes", "static_smem",
+                                "dynamic_smem", "blocks_per_sm"), out))
+        attrs[name]["image_floats"] = (
+            lib.tmd_edge_mlp_fused_image_floats(rr, f) if rr
+            else lib.tmd_edge_mlp_image_floats(f))
+        attrs[name]["tile_floats"] = lib.tmd_edge_mlp_tile_floats(f, rr)
+    return attrs
 
 
 def edge_mlp_ref(x, cw, w1, b1, w2, b2, w3, b3):
@@ -199,10 +252,25 @@ def edge_mlp_cuda(x, cw, w1, b1, w2, b2, w3, b3):
     shapes = dict(x=(n, k, r), cw=(n, k), w1=(r, f), b1=(f,), w2=(f, 2 * f),
                   b2=(2 * f,), w3=(2 * f, 3 * f), b3=(3 * f,))
     dev = _check("edge_mlp", tensors, shapes, fused_plan_error(r, f))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid, chunks, _, image_n, tiles_n = launch_plan(n * k, f, sms,
+                                                    r)["edge_mlp"]
     out = torch.empty((n, k, 3 * f), dtype=torch.float32, device=dev)
+    image, tiles, counts = _scratch(image_n, tiles_n, chunks + grid + 1, dev)
     with torch.cuda.device(dev):
-        FUSED(*(ptr(t) for t in tensors.values()), ptr(out), n * k, r, f)
+        FUSED(*(ptr(t) for t in tensors.values()), ptr(out), ptr(image),
+              null_or_ptr(tiles), ptr(counts), n * k, r, f, grid)
     return out
+
+
+def _scratch(image_n, tiles_n, ints, dev):
+    """The split weights' image, the wide form's tiles (None in the
+    narrow form) and the chunks' live counts and the blocks' run starts
+    of a launch."""
+    image = torch.empty(image_n, dtype=torch.float32, device=dev)
+    tiles = torch.empty(tiles_n, dtype=torch.float32, device=dev) \
+        if tiles_n else None
+    return image, tiles, torch.empty(ints, dtype=torch.int32, device=dev)
 
 
 def edge_mlp_pre_cuda(pre1, cw, w2, b2, w3, b3):
@@ -213,14 +281,14 @@ def edge_mlp_pre_cuda(pre1, cw, w2, b2, w3, b3):
                   w3=(2 * f, 3 * f), b3=(3 * f,))
     dev = _check("edge_mlp_pre", tensors, shapes, pre_plan_error(f))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    (grid, _, _, image_n, tiles_n), = launch_plan(n * k, f, sms).values()
+    grid, chunks, _, image_n, tiles_n = launch_plan(n * k, f,
+                                                    sms)["edge_mlp_pre"]
     out = torch.empty((n, k, 3 * f), dtype=torch.float32, device=dev)
-    image = torch.empty(image_n, dtype=torch.float32, device=dev)
-    tiles = torch.empty(tiles_n, dtype=torch.float32, device=dev) \
-        if tiles_n else None
+    image, tiles, counts = _scratch(image_n, tiles_n, chunks + grid + 1, dev)
     with torch.cuda.device(dev):
         FORWARD(ptr(pre1), ptr(cw), ptr(w2), ptr(b2), ptr(w3), ptr(b3),
-                ptr(out), ptr(image), null_or_ptr(tiles), n * k, f, grid)
+                ptr(out), ptr(image), null_or_ptr(tiles), ptr(counts), n * k,
+                f, grid)
     return out
 
 
