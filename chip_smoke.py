@@ -22,10 +22,11 @@ windows, held to 1e-5 of max |plain| per output; TensorNet's fused edge MLP (ker
 atoms in 2,560 rows, T=128); TensorNet's blocked message passing (rows
 8-11) on the dhfr system's cell-blocked sort (3,136 rows of 16-row blocks)
 with the grouped K′=224 list and the brute K=64 list, and kernel 4 on the
-grouped list too (kernel 4 and row 8 held to 1e-5 of max |plain| per
-output, their dead slots and empty rows exact zeros); the coefficient
+grouped list too (kernel 4 and rows 8 and 9 held to 1e-5 of max |plain|
+per output, their dead slots and empty rows exact zeros); the coefficient
 gradient of the Chebyshev filters (row 6) on the brute K=40 list of
-``bench.py::bench_train``'s training batch (1,664 rows, T=128).  Then it
+``bench.py::bench_train``'s training batch (1,664 rows, T=128), beside
+the plain version's float64 error and bitwise equal across two calls.  Then it
 drives both
 paths of the port on the north star, TensorNet2 (2 layers x 128) + the
 10 Å ScalarPlusWeightedCoulomb head on the 25,088-atom periodic lattice,
@@ -121,9 +122,10 @@ CHEB_TOL = 2e-6
 # for the tensor cores' own accumulation (~2e-6 of a product's max at K =
 # 128, rows 5 and 10)
 EDGE_TOL = 1e-5
-# row 8 (blocked_mp_sum), max |kernel − plain| / max |plain| per output:
-# fp32 sums of a row's valid slots' products in slot order, another order
-# than the plain chain's
+# rows 8 and 9 (blocked_mp_sum, blocked_mp_dattr), max |kernel − plain| /
+# max |plain| per output: fp32 sums of a row's valid slots' products in
+# slot order (row 9: of a slot's irreps), another order than the plain
+# chain's
 SUM_TOL = 1e-5
 # kernels A and B (blocked_q_*, both bases and layouts), max |kernel −
 # plain| / max |plain| per output (out, du, dd or drbf, dcw): up to five
@@ -402,7 +404,8 @@ def limit(name):
         return EMB_TOL
     if name.startswith("windowed_coulomb"):
         return WC_TOL
-    if name.startswith("blocked_mp_sum") and "cheb" not in name:
+    if (name.startswith(("blocked_mp_sum", "blocked_mp_dattr"))
+            and "cheb" not in name):
         return SUM_TOL
     return EDGE_TOL if name.startswith("edge_mlp") else TOL
 
@@ -480,10 +483,11 @@ def phase_device():
 
 def phase_tc_attributes(specs, q_specs, wspec):
     """The tensor-core kernels as compiled and launched: rows 10 and 11 (and
-    row 8, which must not spill) at the dhfr cell-blocked shapes (the
-    sorts of ``specs``: the grouped K′ and the brute K=64 list; F=128,
-    T=128), kernels 5 and 7 at the dhfr
-    brute list's and the training batch's slots (T=128, C=384):
+    rows 8 and 9, which must not spill) at the dhfr cell-blocked shapes
+    (the sorts of ``specs``: the grouped K′ and the brute K=64 list;
+    F=128, T=128), kernels 5 and 7 at the dhfr
+    brute list's and the training batch's slots (T=128, C=384), row 6 at
+    the training batch's (no spill, two blocks an SM, its grid):
     registers and local (spill) bytes a thread, static and dynamic shared
     memory and resident blocks an SM (``cudaFuncGetAttributes``, occupancy
     API); the dynamic shared memory and the split-series scratch must
@@ -522,11 +526,22 @@ def phase_tc_attributes(specs, q_specs, wspec):
             check(a.get("image_floats", image) == image,
                   f"{name}: the kernel's image scratch differs from the "
                   "wrapper's")
-            check(name != "blocked_mp_sum" or a["local_bytes"] == 0,
-                  f"{name}: spills")
+            check(name not in ("blocked_mp_sum", "blocked_mp_dattr")
+                  or a["local_bytes"] == 0, f"{name}: spills")
             attrs[f"{name}@k{k}"] = dict(a, blocks=plan[name][0])
     slots = {"dhfr": DHFR_PAD * DHFR_K, "train": TRAIN_ROWS * TRAIN_K}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, a in cf.kernel_attributes(DHFR_T, 3 * F).items():
+        if name == "cheb_project":  # row 6 at the training batch
+            plan = cf.project_plan(slots["train"], TRAIN_T, 3 * F, sms)
+            check(a["dynamic_smem"] == plan["smem"],
+                  f"{name}: the kernel's shared memory {a['dynamic_smem']} "
+                  f"differs from the plan's {plan['smem']}")
+            check(a["blocks_per_sm"] >= 2, f"{name}: fewer than 2 blocks an SM")
+            check(a["local_bytes"] == 0, f"{name}: spills")
+            attrs[name] = dict(a, grid=plan["grid"],
+                               partial_floats=plan["partial_floats"])
+            continue
         plans = {key: cf.launch_plan(e)[name] for key, e in slots.items()}
         check(a["dynamic_smem"] == plans["dhfr"][2],
               f"{name}: the kernel's shared memory {a['dynamic_smem']} "
@@ -538,7 +553,6 @@ def phase_tc_attributes(specs, q_specs, wspec):
               "wrapper's")
         attrs[name] = dict(a, span=plans["dhfr"][1],
                            blocks={key: p[0] for key, p in plans.items()})
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     # kernel 3 on the gather path's slots; kernel 4 on the dhfr brute
     # list's at (R, F) = (32, 128), and (reported, the plan checked) at
     # widths of its other forms: (64, 256) narrow, (32, 512) and (4,
@@ -998,6 +1012,33 @@ def float64_errors(v, name, got, plain):
     return [float((t.double() - ref).abs().max()) / top for t in (got, plain)]
 
 
+def project_float64_errors(v, got, plain, t=TRAIN_T, hi=TRAIN_CUTOFF):
+    """Row 6's output ``got`` and its plain version's ``plain`` against the
+    same function in float64: ``{"same_theta": [kernel, plain],
+    "float64_theta": [kernel, plain]}``, max abs error / max |float64|,
+    the reference from the plain version's fp32 θ (the arguments ``j·θ``
+    the plain version takes), or from θ in float64.  The kernel's θ is
+    acosf's, one of the fp32 values near the true θ, and cos(j·θ) carries
+    its last bit ~j-fold: against the float64 θ both read alike."""
+    from torchmdnet_tpu_torch.ops.cheb import cheb_theta
+
+    ct = v["ct"].double().reshape(-1, v["ct"].shape[-1])
+    fm = v["fm"].double().reshape(-1, 1)
+    out = {}
+    for key, theta, j in (
+            ("same_theta", cheb_theta(v["d"], 0.0, hi),
+             torch.arange(t, device=v["d"].device, dtype=torch.float32)),
+            ("float64_theta", cheb_theta(v["d"].double(), 0.0, hi),
+             torch.arange(t, device=v["d"].device, dtype=torch.float64))):
+        x = (theta[..., None] * j).reshape(-1, t)
+        ref = (torch.cos(x.double()) * fm).t() @ ct
+        del x
+        top = float(ref.abs().max())
+        out[key] = [float((r.double() - ref).abs().max()) / top
+                    for r in (got, plain)]
+    return out
+
+
 def train_kernel_inputs(seed):
     """Row 6's operands on the training batch: the brute K=40 list of
     :func:`train_batch` (loop, ghosts masked), its distances, ``fm = (d <
@@ -1029,8 +1070,8 @@ def project_calls(v, t=TRAIN_T, hi=TRAIN_CUTOFF):
 
 def project_work(v, t=TRAIN_T):
     """(FLOP, bytes) row 6 needs on ``v``: the product on the slots with
-    fm ≠ 0; d and fm read once, ct only on those slots, the [T, C] output
-    written once."""
+    fm ≠ 0, which the kernel runs on the tensor cores in 3xTF32; d and fm
+    read once, ct only on those slots, the [T, C] output written once."""
     live = float((v["fm"] != 0).sum())
     c = v["ct"].shape[-1]
     return 2 * live * t * c, nbytes(v["d"], v["fm"]) + (live + t) * c * 4
@@ -1471,18 +1512,23 @@ def phase_kernels(peak, system, dhfr, seg, specs):
     del v, library
     torch.cuda.empty_cache()
 
-    # row 6 on the training batch's brute K=40 list
+    # row 6 on the training batch's brute K=40 list: its product on the
+    # tensor cores in 3xTF32, the bound at that rate; two calls bitwise
+    # equal (fixed-order sums, no atomics)
     v = train_kernel_inputs(88)
     (kern, plain), = project_calls(v).values()
     err, rel, got = compare(kern, plain)
+    check(torch.equal(got[0], kern()),
+          "cheb_project: two calls differ (the sums must be deterministic)")
     flops, nb = project_work(v)
-    b_ms, b_by = bound(flops, nb, peak)
+    b_ms, b_by = bound(flops, nb, peak, flops)
     library = project_library(v)
     rows["cheb_project"] = dict(
         max_abs_err=err, max_rel_err=rel, ms=time_ms(kern),
         plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(library), **device_times(kern, library),
-        gflop=flops / 1e9, gbytes=nb / 1e9)
+        gflop=flops / 1e9, gbytes=nb / 1e9,
+        vs_float64=project_float64_errors(v, got[0], plain()))
     geometry["train"] = {"rows": v["d"].shape[0], "k": TRAIN_K,
                          "t": TRAIN_T, "slots": v["d"].numel(),
                          "fm_slots": int((v["fm"] != 0).sum())}
@@ -1701,8 +1747,8 @@ def blocked_shape_errors(gen):
     mask round), F 8-132 (132: two 128-channel groups of row 8's warps),
     T 16-128 (and 100, not a multiple of the 32-row tile), a masked row
     (row 8's output there exactly 0), an empty slot group, the self slot
-    at d = 0 (θ = π), d at hi and beyond.  Row 8 is held apart, to its own
-    limit."""
+    at d = 0 (θ = π), d at hi and beyond.  Rows 8 and 9 are held apart,
+    to their own limit."""
     dev = torch.device("cuda")
     worst = {}
     from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs
@@ -1743,7 +1789,8 @@ def blocked_shape_errors(gen):
         check(not outs["blocked_mp_dd_cheb"][v["fm"] == 0].any(),
               "row 11: an fm = 0 slot is not exactly 0")
         worst[f"blocked_mp_sum_n{n}_k{k}_f{f}"] = errs[0]
-        worst[f"blocked_mp_n{n}_k{k}_f{f}_t{t}"] = max(errs[1:])
+        worst[f"blocked_mp_dattr_n{n}_k{k}_f{f}"] = errs[1]
+        worst[f"blocked_mp_n{n}_k{k}_f{f}_t{t}"] = max(errs[2:])
     return worst
 
 
@@ -2235,7 +2282,8 @@ PROFILE_GROUPS = (
     ("kernels 5/7 Chebyshev filter", ("cheb_tc_kernel",)),
     ("series and weight split of rows 3, 4, 5, 7, 10, 11, 13",
      ("tc_split_kernel",)),
-    ("row 6 Chebyshev projection", ("project_kernel", "project_sum_kernel")),
+    ("row 6 Chebyshev projection", ("project_tc_kernel",
+                                    "project_sum_kernel")),
     ("kernel 4 edge_mlp", ("edge_mlp_tc_kernel<true",)),
     ("kernel B q-tier", ("dq_tc_kernel",)),
     ("kernel A q-tier", ("q_tc_kernel",)),

@@ -8,7 +8,10 @@ scratch, and the widths they refuse; and that kernels 3 and 4
 import pytest
 import torch
 
+from torch_parity import one_torch_thread  # noqa: F401
 from torchmdnet_tpu_torch.ops import blocked_q as bq
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMEM_LIMIT = 232448
 

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import ATOL, RTOL, flatten_params
+from torch_parity import ATOL, RTOL, flatten_params, one_torch_thread
 from torchmdnet_tpu.models.model import create_model as jax_create_model
 from torchmdnet_tpu.ops import cell_blocks as jcb
 from torchmdnet_tpu.ops.neighbors import (
@@ -24,6 +24,8 @@ from torchmdnet_tpu_torch.ops import cell_blocks as tcb
 from torchmdnet_tpu_torch.ops.neighbors import build_neighbor_matrix
 from torchmdnet_tpu_torch.ops.windowed_coulomb import make_coulomb_windows
 from torchmdnet_tpu_torch.utils.jax_params import params_from_jax
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, CUTOFF, SKIN, K, RC = 216, 3.0, 0.5, 32, 4.0
 ARGS = dict(

@@ -167,15 +167,17 @@ PLAN_SHAPES = [(3136, 224, 128, 128), (3136, 360, 128, 128),
 
 @pytest.mark.parametrize("n,k,f,t", PLAN_SHAPES)
 def test_launch_plan_fits_shared_memory(n, k, f, t):
-    """Every launch of rows 8, 10 and 11 fits a Hopper block's 232,448 B:
-    row 8 takes no shared memory (a warp a row and 128-channel group, 4 a
-    block); rows 10 and 11 leave room for two blocks on an SM (228 KB, 1
+    """Every launch of rows 8-11 fits a Hopper block's 232,448 B: rows 8
+    and 9 take no shared memory (a warp a row and 128-channel group, row
+    9's also a 32-slot round; 4 a block); rows 10 and 11 leave room for two blocks on an SM (228 KB, 1
     KB of it reserved per block) everywhere and for three at F = 128 with
     K up to the grouped K′ = 224 (their launch bounds ask for three)."""
     plan = bm.launch_plan(n, k, f, t)
-    assert set(plan) == {"blocked_mp_sum", "blocked_mp_sum_cheb",
-                         "blocked_mp_dd_cheb"}
+    assert set(plan) == {"blocked_mp_sum", "blocked_mp_dattr",
+                         "blocked_mp_sum_cheb", "blocked_mp_dd_cheb"}
     assert plan["blocked_mp_sum"] == (-(-n * -(-f // 128) // 4), 0)
+    assert plan["blocked_mp_dattr"] == (
+        -(-n * -(-f // 128) * -(-k // 32) // 4), 0)
     for name in ("blocked_mp_sum_cheb", "blocked_mp_dd_cheb"):
         blocks, smem = plan[name]
         assert blocks == -(-n // 4)
@@ -194,14 +196,17 @@ def test_row_blocks_cover_every_row_once(n, f):
     """Block ``b`` of rows 10 and 11 owns the sorted rows ``[4b, 4b + 4)``
     below ``n``; block ``b`` of row 8 the warp tasks ``[4b, 4b + 4)``,
     task ``t`` the row ``t // G`` and the 128 channels from ``128·(t % G)``
-    (G = ⌈F/128⌉): the plan's blocks give each row one block (row 8: each
-    row's every channel group one warp) and leave no block empty."""
+    (G = ⌈F/128⌉), of row 9 its tasks ``[4b, 4b + 4)`` (each row 8 task cut
+    into ⌈K/32⌉ rounds, :func:`test_dattr_warps_write_every_output_once`):
+    the plan's blocks give each row one block (row 8: each row's every
+    channel group one warp) and leave no block empty."""
     plan = bm.launch_plan(n, 64, f, 128)
     groups = -(-f // 128)
     assert bm.sum_tasks(n, f) == n * groups
     for name, (blocks, _) in plan.items():
-        per, count = (4, bm.sum_tasks(n, f)) if name == "blocked_mp_sum" \
-            else (4, n)
+        per, count = {"blocked_mp_sum": (4, bm.sum_tasks(n, f)),
+                      "blocked_mp_dattr": (4, bm.dattr_tasks(n, 64, f))}.get(
+                          name, (4, n))
         owned = [range(per * b, min(count, per * b + per))
                  for b in range(blocks)]
         assert [u for units in owned for u in units] == list(range(count))
@@ -209,3 +214,39 @@ def test_row_blocks_cover_every_row_once(n, f):
     tasks = range(bm.sum_tasks(n, f))
     assert sorted((t // groups, 128 * (t % groups)) for t in tasks) == [
         (r, c) for r in range(n) for c in range(0, f, 128)]
+
+
+@pytest.mark.parametrize("k", [224, 64, 37])
+@pytest.mark.parametrize("f", [128, 132])
+def test_dattr_warps_write_every_output_once(k, f):
+    """Row 9's warps, as the kernel maps them on the dhfr grouped (K′ =
+    224) and ungrouped (K = 64) lists and a K that is no multiple of the
+    32-slot round: task t = (row · G + group) · ⌈K/32⌉ + round, its 32
+    lanes own channels ``128·group + 4·lane`` below F, and its round's
+    slots are written dead ones first, then the valid ones in slot order;
+    so every output [row, slot, w·F + c] of [N, K, 3F] is stored exactly
+    once, valid slot or not (a dead one as zeros), and each task loads its
+    row's g9 once."""
+    n, groups, rounds = 9, -(-f // 128), -(-k // 32)
+    rng = np.random.RandomState(k + f)
+    mask = rng.rand(n, k) < 0.3
+    written = np.zeros((n, k, 3 * f), dtype=np.int64)
+    g9_loads = np.zeros((n, groups), dtype=np.int64)
+    assert bm.dattr_tasks(n, k, f) == n * groups * rounds
+    for task in range(bm.dattr_tasks(n, k, f)):
+        rg, rnd = divmod(task, rounds)
+        row, g = divmod(rg, groups)
+        g9_loads[row, g] += 1
+        slots = range(32 * rnd, min(k, 32 * rnd + 32))
+        order = [s for s in slots if not mask[row, s]] + [
+            s for s in slots if mask[row, s]]
+        assert sorted(order) == list(slots)
+        for lane in range(32):
+            c = 128 * g + 4 * lane
+            if c >= f:
+                continue
+            for s in order:
+                for w in range(3):
+                    written[row, s, w * f + c:w * f + c + 4] += 1
+    assert (written == 1).all()
+    assert (g9_loads == rounds).all()

@@ -1,18 +1,14 @@
 """Rows 8-11 of the port on the grouped tier's column-partitioned K′ list
 (plain versions on the CPU) against the JAX package's grouped blocked
 TensorNet ops with a precise spec, their Pallas kernels in interpret mode:
-the four ops and both differentiable wrappers; and the grouped tuner's
-slot budgets against JAX's on the same positions."""
+the four ops and both differentiable wrappers (the grouped tuner's slot
+budgets: ``test_torch_column_slots.py``)."""
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from torch_parity import (ATOL, BLOCKED_QUANTITIES, RTOL, blocked_mp_case,
-                          blocked_system, one_torch_thread)
-from torchmdnet_tpu.ops import cell_blocks as jcb
-from torchmdnet_tpu_torch.ops import cell_blocks as tcb
-
+                          one_torch_thread)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -38,16 +34,3 @@ def test_grouped_blocked_contracts(case):
     assert (~mask).sum() > mask.sum()  # most K′ slots are empty
     assert not got["row9"][~mask].any() and not want["row9"][~mask].any()
     assert not got["cheb_dcoeffs"].any() and not want["cheb_dcoeffs"].any()
-
-
-@pytest.mark.parametrize("cutoff,cap", [(3.2, 8), (3.7, 16)])
-def test_tuned_column_slots_equal_jax(cutoff, cap):
-    pos, bd = blocked_system(seed=5)
-    want = jcb.tune_cell_block_spec(jnp.asarray(pos), jnp.asarray(bd),
-                                    cutoff, cap=cap, column_slots=True)
-    got = tcb.tune_cell_block_spec(pos, bd, cutoff, cap=cap,
-                                   column_slots=True)
-    assert got.col_slots == want.col_slots and len(got.col_slots) == 9
-    for key in ("nx", "ny", "nzf", "cap", "n_pad", "cut_bins"):
-        assert getattr(got, key) == getattr(want, key), key
-    assert tcb.CellBlockSpec(**want._asdict()).col_slots == want.col_slots

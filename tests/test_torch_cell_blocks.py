@@ -7,8 +7,11 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import one_torch_thread  # noqa: F401
 from torchmdnet_tpu.ops import cell_blocks as jcb
 from torchmdnet_tpu_torch.ops import cell_blocks as tcb
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _system(n=216, density=0.08, seed=0):

@@ -9,12 +9,15 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import one_torch_thread  # noqa: F401
 from torchmdnet_tpu.ops import pallas_cheb
 from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs, cheb_fit_matrix, cheb_nodes
 from torchmdnet_tpu_torch.ops.cheb_filter import (
     cheb_filter, cheb_filter_cuda, cheb_filter_dot, cheb_filter_dot_cuda,
     cheb_filter_dot_ref, cheb_filter_ref, cheb_project, cheb_project_ref,
     image_floats, launch_plan)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL = ATOL = 1e-4
 T, C, N, K = 32, 24, 16, 8

@@ -204,16 +204,30 @@ def test_project_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("e, t, c", [(66560, 128, 384), (296, 16, 24),
-                                     (1, 130, 8), (10 ** 7, 128, 384)])
+                                     (1, 130, 8), (10 ** 7, 128, 384),
+                                     (23 * 256 + 5, 128, 384), (0, 64, 8)])
 def test_project_grid_covers_every_slot(e, t, c):
-    """Row 6's chunks of 256-slot spans cover every slot once, about 264
-    blocks fill the card when there are slots enough, and no chunk holds
-    more spans than a block's shared memory."""
-    from torchmdnet_tpu_torch.ops.cheb_filter import project_chunks
+    """Row 6's chunks of 256-slot spans cover every slot once, each
+    chunk at least one span, in about two blocks an SM over the ⌈C/128⌉ ×
+    ⌈T/64⌉ output tiles (no more blocks than two an SM plus one chunk of
+    tiles, and every SM's two busy when there are spans enough); a block's
+    shared memory, with a window of 3,072 slots, fits a Hopper SM twice, and
+    the partial scratch is a few chunks of [T, C] whatever the slot
+    count (none with one chunk)."""
+    from torchmdnet_tpu_torch.ops.cheb_filter import (
+        project_chunks, project_plan)
 
-    per, chunks = project_chunks(e, t, c)
-    assert 1 <= per <= 16
-    assert (chunks - 1) * per * 256 < e <= chunks * per * 256
-    tiles = -(-c // 128) * -(-t // 128)
-    if e >= 264 * 256:
-        assert chunks * tiles >= 132
+    spans = -(-e // 256)
+    chunks = project_chunks(e, t, c)
+    assert [s for a, b in chunks for s in range(a, b)] == list(range(spans))
+    assert all(b > a for a, b in chunks)
+    tiles = -(-c // 128) * -(-t // 64)
+    plan = project_plan(e, t, c)
+    assert plan["grid"] == (-(-c // 128), -(-t // 64), len(chunks))
+    assert tiles * len(chunks) < 264 + tiles
+    if spans * tiles >= 264:
+        assert tiles * len(chunks) >= 264
+    assert 2 * (plan["smem"] + 1024) <= 233472
+    assert plan["partial_floats"] == (len(chunks) * t * c
+                                      if len(chunks) > 1 else 0)
+    assert plan["partial_floats"] <= -(-264 // tiles) * t * c

@@ -7,10 +7,13 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import one_torch_thread  # noqa: F401
 from torchmdnet_tpu.ops.coulomb import coulomb_cutoff_energy_w as jax_ccew
 from torchmdnet_tpu.ops.neighbors import brute_neighbor_matrix
 from torchmdnet_tpu_torch.ops import message_passing
 from torchmdnet_tpu_torch.ops.coulomb import coulomb_cutoff_energy_w
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL = ATOL = 1e-4
 FACTOR = 0.5 * 27.211386024367243 * 0.5291772105638411 / 12.0

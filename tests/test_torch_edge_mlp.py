@@ -10,11 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import one_torch_thread  # noqa: F401
 from torchmdnet_tpu.ops import pallas_kernels
 from torchmdnet_tpu.ops.pallas_kernels import fused_edge_mlp_pre
 from torchmdnet_tpu_torch.ops.edge_mlp import (
     edge_mlp_cuda, edge_mlp_pre, edge_mlp_pre_cuda, edge_mlp_pre_ref,
     edge_mlp_ref, fused_edge_mlp, launch_plan)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL = ATOL = 1e-4
 

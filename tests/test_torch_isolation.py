@@ -9,11 +9,13 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import SMALL_ARGS
+from torch_parity import SMALL_ARGS, one_torch_thread  # noqa: F401
 from torchmdnet_tpu_torch.md.integrators import make_md_step
 from torchmdnet_tpu_torch.models.model import create_model
 from torchmdnet_tpu_torch.ops.cell_blocks import make_cell_block_spec
 from torchmdnet_tpu_torch.ops.config import resolve_device, set_matmul_precision
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = Path(__file__).resolve().parent.parent
 # yaml and h5py too: the card's machine may have neither
@@ -22,8 +24,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torchmdnet_tpu", "yaml",
 
 
 def _port_files():
+    """The port, its card check and its phase probes (they run on the
+    card's machine too)."""
     files = sorted((ROOT / "torchmdnet_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    probes = sorted((ROOT / "tools").glob("torch_*_phases.py"))
+    return files + probes + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path):

@@ -7,11 +7,14 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import ATOL, RTOL, SMALL_ARGS, jax_and_port, lattice_system
+from torch_parity import (ATOL, RTOL, SMALL_ARGS, jax_and_port,
+                          lattice_system, one_torch_thread)
 from torchmdnet_tpu.md.integrators import make_md_step as jax_make_md_step
 from torchmdnet_tpu_torch.md.integrators import make_md_step
 from torchmdnet_tpu_torch.models.model import create_model
 from torchmdnet_tpu_torch.utils.jax_params import params_from_jax
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # the JAX reference runs its jnp chains here (numerically the Pallas ops'
 # reference chains) so the jitted MD chunk compiles quickly

@@ -6,9 +6,12 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import one_torch_thread  # noqa: F401
 from torchmdnet_tpu.ops import neighbors as jnb
 from torchmdnet_tpu_torch.ops import neighbors as tnb
 from torchmdnet_tpu_torch.ops.message_passing import reverse_slots
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _gas(n=120, L=14.0, seed=0):

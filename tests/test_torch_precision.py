@@ -8,11 +8,13 @@ float32 (JAX's ``"high"`` is bf16_3x, ~1e-6 relative; TF32 would be
 import pytest
 import torch
 
-from torch_parity import TENSORNET_ARGS
+from torch_parity import TENSORNET_ARGS, one_torch_thread  # noqa: F401
 from torchmdnet_tpu.models.model import create_model as jax_create_model
 from torchmdnet_tpu.ops import config as jax_config
 from torchmdnet_tpu_torch.models.model import create_model
 from torchmdnet_tpu_torch.ops import config
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NAMES = ("highest", "high", "default")
 

@@ -7,10 +7,13 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import one_torch_thread  # noqa: F401
 from torchmdnet_tpu.ops.pallas_embedding import fused_radial_embedding
 from torchmdnet_tpu_torch.ops.radial_embedding import (
     radial_embedding, radial_embedding_bwd_ref, radial_embedding_fwd_cuda,
     radial_embedding_ref)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL = ATOL = 1e-4
 NAMES = ("edge_attr", "C", "vx", "vy", "vz", "zw1", "zw2g", "emask_f",

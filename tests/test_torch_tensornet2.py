@@ -1,6 +1,8 @@
 """The port's TensorNet2 + ScalarPlusWeightedCoulomb potential against the
 JAX package with both Pallas kernels on (interpret mode), given the same
-weights through ``params_from_jax``."""
+weights through ``params_from_jax``, and a grouped spec building the
+blocked q-tier (the key mapping and the options the port does not cover:
+``test_torch_model_options.py``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -8,11 +10,12 @@ import pytest
 import torch
 
 from torch_parity import (ATOL, RTOL, SMALL_ARGS, jax_and_port, jax_apply,
-                          lattice_system, to_np)
+                          lattice_system, one_torch_thread, to_np)
 from torchmdnet_tpu_torch.models.model import create_model
 from torchmdnet_tpu_torch.ops.cell_blocks import make_cell_block_spec
-from torchmdnet_tpu_torch.utils.jax_params import (
-    flax_path_to_torch_key, params_from_jax)
+from torchmdnet_tpu_torch.utils.jax_params import params_from_jax
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")
@@ -54,31 +57,10 @@ def test_plain_branches_match_the_kernel_ops(system):
     np.testing.assert_allclose(to_np(f_p), to_np(f_t), rtol=1e-5, atol=1e-5)
 
 
-def test_key_mapping():
-    assert flax_path_to_torch_key(
-        ("representation_model", "layers_1", "linears_scalar_2", "kernel")
-    ) == "representation_model.layers.1.linears_scalar.2.weight"
-    assert flax_path_to_torch_key(
-        ("representation_model", "charge_predict_0", "q_norm", "scale")
-    ) == "representation_model.charge_predict_0.q_norm.weight"
-    assert flax_path_to_torch_key(
-        ("representation_model", "tensor_embedding", "emb", "embedding")
-    ) == "representation_model.tensor_embedding.emb.weight"
-
-
 # a grouped (col_slots) spec: the grouped q-tier is ported (its parity
 # with JAX: tests/test_torch_grouped_tensornet2.py, _exact_q_tensornet2.py)
 GROUPED_SPEC = make_cell_block_spec([20.0] * 3, 5.5, 64)._replace(
     col_slots=(8,) * 9)
-
-
-@pytest.mark.parametrize("key,value", [
-    ("atom_filter", 3), ("remat", True),
-    ("model", "equivariant-transformer"), ("prior_model", "ZBL"),
-    ("precision", 16)])
-def test_uncovered_options_raise(key, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model(dict(SMALL_ARGS, **{key: value}), device="cpu")
 
 
 @pytest.mark.parametrize("q_tab", [64, 0])

@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from torch_parity import (ATOL, RTOL, TENSORNET_ARGS, jax_and_port,
-                          lattice_system, to_np)
+                          lattice_system, one_torch_thread, to_np)
 from torchmdnet_tpu.md.integrators import make_md_step as jax_make_md_step
 from torchmdnet_tpu.ops.message_passing import (
     packed_neighbor_sum_sym as jax_pns_sym)
@@ -16,6 +16,9 @@ from torchmdnet_tpu_torch.md.integrators import make_md_step
 from torchmdnet_tpu_torch.ops.message_passing import packed_neighbor_sum_sym
 from torchmdnet_tpu_torch.ops.neighbors import (
     build_neighbor_matrix, neighbor_geometry)
+import pytest
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_packed_neighbor_sum_sym_matches_jax():

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import ATOL, RTOL
+from torch_parity import ATOL, RTOL, one_torch_thread  # noqa: F401
 from torchmdnet_tpu.ops import cell_blocks as jcb
 from torchmdnet_tpu.ops.pallas_coulomb import (
     make_coulomb_windows as jax_make_windows)
@@ -26,6 +26,8 @@ from torchmdnet_tpu_torch.ops.windowed_coulomb import (
     CoulombWindows, check_operands, make_coulomb_windows, rows_floats,
     wc_bwd_cuda, wc_fwd_cuda, wc_plan, wc_plan_error, window_partners,
     windowed_coulomb_energy)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, C = 400, 8
 RC, EPS, FACTOR = 4.0, 78.3, 7.199822

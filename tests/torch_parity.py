@@ -118,6 +118,82 @@ def _maybe(box):
     return None if box is None else jnp.asarray(box)
 
 
+# ---- TensorNet on the gather path, four variants: variant → (args, the
+# port op it must run through: module, attribute); the lattice and the open
+# molecule (``test_torch_tensornet.py``, ``_tensornet_tabulated.py``)
+TN_VARIANTS = {
+    "plain": ({}, None),
+    "pallas_edge_mlp": (dict(pallas_edge_mlp=True),
+                        ("edge_mlp", "edge_mlp_ref")),
+    "tabulated": (dict(tabulated_edge_mlp=128), ("cheb_filter", "filter_fwd")),
+    "pallas_embedding": (dict(pallas_embedding=True),
+                         ("radial_embedding", "radial_embedding_ref")),
+}
+TN_ROWS = 64  # the lattice's atoms; the open molecule is padded to them
+TN_OPEN_BOX = 100.0
+
+
+def tn_setup():
+    """The JAX weights, and both systems as the JAX reference sees them:
+    the open molecule padded with ghost rows (segment 1) to the lattice's
+    rows, in a box so large that no periodic image comes within the
+    cutoff, so that one compiled JAX function per variant serves both."""
+    z, pos, box = lattice_system()
+    zo, po, _ = open_molecule()
+    n_open = len(zo)
+    zp = np.concatenate([zo, np.ones(TN_ROWS - n_open, np.int32)])
+    ghost = 50.0 + np.random.RandomState(9).uniform(
+        0, 30, (TN_ROWS - n_open, 3))
+    pp = np.concatenate([po, ghost]).astype(np.float32)
+    segp = (np.arange(TN_ROWS) >= n_open).astype(np.int32)
+    systems = {
+        "lattice": ((z, pos, np.zeros(TN_ROWS, np.int32), box), (z, pos, box)),
+        "open": ((zp, pp, segp, np.eye(3, dtype=np.float32) * TN_OPEN_BOX),
+                 (zo, po, None)),
+    }
+    jpot = jax_create_model(TENSORNET_ARGS)
+    variables = jax.jit(lambda key, z_, p_, s_, b_: jpot.init(
+        key, z_, p_, s_, num_mols=1, box=b_))(
+        jax.random.PRNGKey(0), *map(jnp.asarray, systems["lattice"][0]))
+    return variables, flatten_params(variables["params"]), systems, {}
+
+
+def _tn_jax_reference(setup, variant, system):
+    variables, _, systems, fns = setup
+    if variant not in fns:
+        jpot = jax_create_model(dict(TENSORNET_ARGS, **TN_VARIANTS[variant][0]))
+        fns[variant] = jax.jit(lambda v, z_, p_, s_, b_: jpot.apply(
+            v, z_, p_, s_, num_mols=1, box=b_))
+    y, f = fns[variant](variables, *map(jnp.asarray, systems[system][0]))
+    return np.asarray(y), np.asarray(f)
+
+
+def tn_check_against_jax(setup, variant, system, monkeypatch):
+    """The port's TensorNet energy and forces against JAX's at rtol = atol
+    = 1e-4 on ``system``, through the op of the variant; the JAX ghost
+    rows feel no force."""
+    import importlib
+
+    _, flat, systems, _ = setup
+    extra, spy = TN_VARIANTS[variant]
+    calls = []
+    if spy is not None:  # the variant goes through its op
+        mod = importlib.import_module(f"torchmdnet_tpu_torch.ops.{spy[0]}")
+        fn = getattr(mod, spy[1])
+        monkeypatch.setattr(mod, spy[1], lambda *a: calls.append(1) or fn(*a))
+    y_j, f_j = _tn_jax_reference(setup, variant, system)
+    z, pos, box = systems[system][1]
+    pot = port_create_model(dict(TENSORNET_ARGS, **extra), device="cpu")
+    pot.module.load_state_dict(params_from_jax(flat), strict=True)
+    y_t, f_t = pot.apply(z, pos, None, num_mols=1, box=box)
+    assert y_t.shape == (1, 1) and f_t.shape == pos.shape
+    assert bool(calls) == (spy is not None)
+    np.testing.assert_allclose(to_np(y_t), y_j, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(to_np(f_t), f_j[:len(z)], rtol=RTOL,
+                               atol=ATOL)
+    assert not f_j[len(z):].any()  # the JAX ghost rows feel no force
+
+
 # ---- TensorNet's blocked message passing (rows 8-11): one small system
 # with the JAX blocked tests' geometry (200 atoms at 0.08 Å⁻³, a 3.2 Å
 # cutoff, 8-row blocks); the list at 3.2 + 0.5 Å, so that fm = (d < 3.2)

@@ -51,9 +51,16 @@
 //   nine 512-byte feature slices from L2 (the 14.5 MB of features stay
 //   there), 448 MB a call at dhfr (97 k valid slots x 4.6 KB).  No shared
 //   memory and no barrier: the L2 gathers are what is left.
-// - blocked_dattr_kernel (row 9): elementwise over (slot, 4 channels) with
-//   float4 loads and stores, the row's g9 and the neighbor's features gathered
-//   per slot, so the store stream is the whole cost.
+// - blocked_dattr_kernel (row 9): a warp a (sorted row, 128-channel group,
+//   32-slot round), each lane four channels of all nine irreps.  The lane
+//   loads its row's nine g9 quads once a round (the kernel it replaces, a
+//   thread a slot and 4 channels, read them again for every slot and
+//   recomputed the row and the address per thread), stores the round's
+//   dead slots' zeros first, then for each valid slot gathers the
+//   neighbour's nine feature quads from L2 and stores its three output
+//   quads.  Every store is a warp's 512 contiguous bytes, streaming; the
+//   output stream (1.08 GB at K′ = 224, 86% of it the zero rows of dead
+//   slots) is what bounds it.
 // - blocked_sum_cheb_kernel (row 10) and blocked_dd_cheb_kernel (row 11):
 //   the series product is the work, so it runs on the tensor cores in
 //   3xTF32 (tc_tile.cuh): per tile of 64 live slots each thread computes
@@ -195,34 +202,84 @@ blocked_sum_kernel(const long long* __restrict__ idx,
   }
 }
 
-// Row 9: one thread per (slot, 4 channels) of the [E, 3F] output.
-__global__ void __launch_bounds__(kThreads)
+// Row 9: one warp a (sorted row, 128-channel group, kDattrRounds 32-slot
+// rounds) task, kSumWarps tasks a block, a row's tasks in neighbouring
+// warps.  Lane l owns channels c = 128g + 4l … + 3: it loads the row's nine
+// g9 quads once into registers, then for each of its rounds reads the
+// round's 32 mask bytes and list entries, stores three zero quads for each
+// dead slot (no load to wait for), and for each valid slot, in slot order,
+// gathers the neighbour's nine feature quads (L2; the slot's neighbour row
+// broadcast by a shuffle) and stores its three output quads.  A warp's
+// store of one quad is 512 contiguous bytes; every store is streaming (the
+// output is read once, by the caller).  No shared memory, no barrier.
+// Rounds, not whole rows, make the tasks: 3,136 sorted rows would fill the
+// card's resident warps 1.2 times over, and the last partial wave would
+// cost a whole one.
+constexpr int kDattrRounds = 1;  // 32-slot rounds a task (0: its whole row)
+
+__global__ void __launch_bounds__(kSumThreads, 4)
 blocked_dattr_kernel(const long long* __restrict__ idx,
                      const unsigned char* __restrict__ mask,
                      const float* __restrict__ g9,
                      const float* __restrict__ feats, float* __restrict__ out,
-                     long long E, int K, int F) {
-  const int C3 = 3 * F, C9 = 9 * F, q = C3 / 4;
-  const long long total = E * q;
-  for (long long v = (long long)blockIdx.x * kThreads + threadIdx.x; v < total;
-       v += (long long)gridDim.x * kThreads) {
-    const long long e = v / q;
-    const int col = (int)(v - e * q) * 4;
-    float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (mask[e]) {
-      const int w = col / F, c = col - w * F;
-      const float* g = g9 + (e / K) * C9 + c;
-      const float* x = feats + idx[e] * C9 + c;
-      for (int dd = first_irrep(w); dd <= first_irrep(w) + 2 * w; ++dd) {
-        const float4 a = *reinterpret_cast<const float4*>(g + dd * F);
-        const float4 b = *reinterpret_cast<const float4*>(x + dd * F);
-        o.x = fmaf(a.x, b.x, o.x);
-        o.y = fmaf(a.y, b.y, o.y);
-        o.z = fmaf(a.z, b.z, o.z);
-        o.w = fmaf(a.w, b.w, o.w);
+                     int N, int K, int F) {
+  const int groups = (F + kTileN - 1) / kTileN, rounds = (K + 31) / 32;
+  const int per = kDattrRounds > 0 ? kDattrRounds : rounds;
+  const int parts = (rounds + per - 1) / per;  // tasks a (row, group)
+  const long long task =
+      (long long)blockIdx.x * kSumWarps + (threadIdx.x >> 5);
+  if (task >= (long long)N * groups * parts) return;
+  const long long rg = task / parts;  // row · groups + group
+  const int r0 = (int)(task - rg * parts) * per;
+  const int row = (int)(rg / groups), lane = threadIdx.x & 31;
+  const int c = (int)(rg - (long long)row * groups) * kTileN + 4 * lane;
+  const bool on = c < F;
+  const int C3 = 3 * F, C9 = 9 * F;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 g[9];
+#pragma unroll
+  for (int d = 0; d < 9; ++d)
+    g[d] = on ? __ldg(reinterpret_cast<const float4*>(g9 + (long long)row * C9 + d * F + c))
+              : zero;
+  for (int r = r0; r < min(rounds, r0 + per); ++r) {
+    const long long base = (long long)row * K + 32 * r;
+    const int n = min(32, K - 32 * r);
+    const bool valid = lane < n && mask[base + lane];
+    const long long j = valid ? idx[base + lane] : 0;
+    const unsigned bits = __ballot_sync(0xffffffffu, valid);
+    // the dead slots' zero rows first
+    unsigned dead = ~bits & (n == 32 ? 0xffffffffu : (1u << n) - 1u);
+    while (dead) {
+      const int b = __ffs(dead) - 1;
+      dead &= dead - 1;
+      if (on) {
+        float* dst = out + (base + b) * C3 + c;
+#pragma unroll
+        for (int w = 0; w < 3; ++w) __stcs(reinterpret_cast<float4*>(dst + w * F), zero);
       }
     }
-    *reinterpret_cast<float4*>(out + e * C3 + col) = o;
+    unsigned live = bits;
+    while (live) {
+      const int b = __ffs(live) - 1;
+      live &= live - 1;
+      const long long jb = __shfl_sync(0xffffffffu, j, b);
+      if (!on) continue;
+      const float* x = feats + jb * C9 + c;
+      float4 xs[9], o[3] = {zero, zero, zero};
+#pragma unroll
+      for (int d = 0; d < 9; ++d) xs[d] = __ldg(reinterpret_cast<const float4*>(x + d * F));
+#pragma unroll
+      for (int d = 0; d < 9; ++d) {
+        float4& y = o[d == 0 ? 0 : (d < 4 ? 1 : 2)];
+        y.x = fmaf(g[d].x, xs[d].x, y.x);
+        y.y = fmaf(g[d].y, xs[d].y, y.y);
+        y.z = fmaf(g[d].z, xs[d].z, y.z);
+        y.w = fmaf(g[d].w, xs[d].w, y.w);
+      }
+      float* dst = out + (base + b) * C3 + c;
+#pragma unroll
+      for (int w = 0; w < 3; ++w) __stcs(reinterpret_cast<float4*>(dst + w * F), o[w]);
+    }
   }
 }
 
@@ -528,16 +585,22 @@ int tmd_blocked_sum_cheb(const long long* idx, const float* d, const float* fm,
                      stream, idx, d, fm, image, feats, out, n, k, f, t, lo, hi);
 }
 
-// Row 9.  idx, mask [n, k]; g9, feats [n, 9f]; out [n, k, 3f].
+// Row 9.  idx, mask [n, k]; g9, feats [n, 9f]; out [n, k, 3f].  f a
+// multiple of 4.  Block b takes the (row, channel group, rounds) tasks
+// [4b, 4b + 4), task t = (row · ⌈f/128⌉ + group) · P + part, P the row's
+// ⌈⌈k/32⌉ / R⌉ parts of R = kDattrRounds 32-slot rounds.
 int tmd_blocked_dattr(const long long* idx, const unsigned char* mask,
                       const float* g9, const float* feats, float* out, int n,
                       int k, int f, void* stream) {
-  const long long e = (long long)n * k, work = e * (3 * f / 4);
-  if (work == 0) return cudaSuccess;
-  const long long blocks = (work + kThreads - 1) / kThreads;
-  const unsigned grid = (unsigned)(blocks < (1LL << 20) ? blocks : (1LL << 20));
-  blocked_dattr_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      idx, mask, g9, feats, out, e, k, f);
+  const int rounds = (k + 31) / 32;
+  const int per = kDattrRounds > 0 ? kDattrRounds : rounds;
+  const long long tasks = rounds == 0 ? 0
+      : (long long)n * ((f + kTileN - 1) / kTileN) * ((rounds + per - 1) / per);
+  const long long blocks = (tasks + kSumWarps - 1) / kSumWarps;
+  if (blocks == 0) return cudaSuccess;
+  blocked_dattr_kernel<<<(unsigned)blocks, kSumThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(idx, mask, g9,
+                                                              feats, out, n, k, f);
   return cudaGetLastError();
 }
 
@@ -556,15 +619,17 @@ int tmd_blocked_dd_cheb(const long long* idx, const float* d, const float* fm,
 // Floats of the image scratch rows 10 and 11 take at (t, c3 = 3f).
 int tmd_tc_image_floats(int t, int c3) { return tc_image_floats(t, c3); }
 
-// What the compiler and the launch give rows 8 (which = 8), 10 (10) and
-// 11 (11) at (k, f, t): out = registers a thread, local (spill) bytes a
+// What the compiler and the launch give rows 8 (which = 8), 9 (9), 10
+// (10) and 11 (11) at (k, f, t): out = registers a thread, local (spill) bytes a
 // thread, static and dynamic shared memory bytes a block, resident blocks
 // an SM.
 int tmd_blocked_mp_attributes(int which, int k, int f, int t, int* out) {
+  const bool warps = which == 8 || which == 9;  // a warp a row, no smem
   const void* kern = which == 8    ? (const void*)blocked_sum_kernel
+                     : which == 9  ? (const void*)blocked_dattr_kernel
                      : which == 10 ? (const void*)blocked_sum_cheb_kernel
                                    : (const void*)blocked_dd_cheb_kernel;
-  const size_t smem = which == 8    ? 0
+  const size_t smem = warps         ? 0
                       : which == 10 ? sum_cheb_smem(k, f)
                                     : dd_cheb_smem(k, f);
   cudaError_t err = cudaFuncSetAttribute(
@@ -575,7 +640,7 @@ int tmd_blocked_mp_attributes(int which, int k, int f, int t, int* out) {
   if (err != cudaSuccess) return err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kern, which == 8 ? kSumThreads : kTcThreads, smem);
+      &blocks, kern, warps ? kSumThreads : kTcThreads, smem);
   if (err != cudaSuccess) return err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;

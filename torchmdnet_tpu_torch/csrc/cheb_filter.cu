@@ -1,6 +1,6 @@
 // Chebyshev-tabulated edge filters for Hopper (sm_90a), float32-accurate:
-// kernels 5 and 7 form their series product on the tensor cores in 3xTF32
-// (csrc/tc_tile.cuh; never single-pass TF32), row 6 in fp32 FMA.
+// kernels 5 and 7 and row 6 form their products on the tensor cores in
+// 3xTF32 (csrc/tc_tile.cuh; never single-pass TF32).
 //
 // Replaces three Pallas TPU kernels of torchmdnet_tpu/ops/pallas_cheb.py:
 //   kernel 5  _filter_kernel     (:86, pallas_call :146, cheb_filter :197)
@@ -48,17 +48,30 @@
 //
 // Row 6 (the coefficient gradient; training only).  Bound at the training
 // batch of bench.py::bench_train (1,664 rows × K = 40, T = 128, C = 384,
-// 16,750 of the 66,560 slots with fm ≠ 0): 2·live·T·C = 1.65 GFLOP,
-// 0.025 ms at 67 TFLOP/s fp32, against reading d, fm and the live rows of
-// ct (26 MB, 0.008 ms): operations bound it.  The TPU kernel
-// runs its grid in order, adding every tile into one resident [T, C]
-// output; here blocks run in parallel, so each block owns a 128 × 128
-// output tile and a fixed chunk of slot spans, compacts the chunk's live
-// slots in slot order, and for each tile of 64 of them puts the weighted
-// basis fm·cos(j·θ) [64 × 128] and the ct rows [64 × 128] in shared memory
-// and adds their transposed product into an 8 × 8 register tile per
-// thread.  The per-chunk partials go to scratch and a second kernel sums
-// them in chunk order: deterministic, no atomics.
+// 16,750 of the 66,560 slots with fm ≠ 0): 2·live·T·C = 1.65 GFLOP, three
+// TF32 products in 3xTF32, ~0.010 ms, against reading d, fm and the live
+// rows of ct (26 MB, ~0.008 ms).  The TPU kernel runs its grid in order,
+// adding every tile into one resident [T, C] output; here blocks run in
+// parallel, so each block (project_tc_kernel) owns a 64 × 128 output tile
+// and a chunk of slot spans, about two blocks an SM in all (the most that
+// fit; the second hides the first's barrier and shared-memory latencies).  The slots are
+// the product's reduction dimension: a block compacts its chunk's fm ≠ 0
+// slots in slot order, and for every 16 of them stages their ct columns as
+// the B operand, split into hi/lo planes in the layout of a split series
+// (cp.async brings the rows three stages ahead; the threads transpose and
+// split them with conflict-free 16-byte stores), and builds the basis as
+// the A fragment in registers (fm·cos(j·θ), cos by tc_cos), as rows 5 and
+// 7 do; each stage's wgmma run while the next is staged.  The per-chunk
+// partials (chunks × T × C floats: 8.6 MB at the training shape, which
+// sits in L2; the kernel it replaces wrote 17 MB) are summed by a second
+// launch in chunk order, a thread four outputs: deterministic, no atomics.
+// One chunk writes the output directly.  Folding in the last block of
+// each tile would read the tile's 44 partials with one SM; the second
+// launch reads them with all of them.
+// Error: θ is acosf's, which may differ from the plain version's fp32 θ in
+// the last bit, and cos(j·θ) carries that ~j-fold (j ≤ T − 1): ~1.7e-5 of
+// max |out| against the plain version at T = 128, what two fp32 θ of the
+// same d give; the product's own error in 3xTF32 is ~1e-6.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -258,140 +271,290 @@ int launch(const float* d, const float* fm, const float* ser, const float* ct,
   return cudaGetLastError();
 }
 
-// Row 6.  Block (x, y, z) owns output columns [128x, 128x + 128), series
-// rows [128y, 128y + 128) and the slot spans [z·per, (z + 1)·per); thread
-// (ty, tx) of 16 × 16 owns rows 128y + ty + 16i and columns 128x + tx + 16j
-// (i, j < 8).  partial[z] gets the chunk's sum.
-__global__ void __launch_bounds__(kThreads)
-project_kernel(const float* __restrict__ d, const float* __restrict__ fm,
-               const float* __restrict__ ct, float* __restrict__ partial,
-               long long E, int T, int C, int per, float lo, float hi) {
+// Row 6.  Block (x, y, z) owns the output tile of series rows [64y, 64y +
+// 64) and columns [128x, 128x + 128) and chunk z of the ⌈E/256⌉ slot spans
+// of 256 slots cut into gridDim.z chunks, [⌊z·S/Z⌋, ⌊(z + 1)·S/Z⌋); partial[z]
+// (or out, with one chunk) gets the chunk's sum.  It walks its chunk in
+// windows of kProjectSlots: it compacts a window's fm ≠ 0 slots in slot
+// order with their θ and fm (each thread loads 12 flags and 12 d, all in
+// flight at once), then multiplies kProjectK of them a stage.
+// Warpgroup q owns the tile's columns [64q, 64q + 64) and runs apart from
+// the other (named barriers): cp.async brings the stage's ct rows into a
+// ring of kProjectRaw raw stages, kProjectRaw − 1 stages ahead; the threads
+// split a landed stage into hi/lo planes (K-major, 64-byte swizzle: the
+// layout tc_split gives a series, one plane pair per 16 slots) in one of
+// two plane buffers, build the A fragment of the basis fm·cos(j·θ) in
+// registers (cos by tc_cos) and issue its 6 wgmma per 16 slots; those run
+// while the next stage is split and its fragment built.  The sums stay on
+// the tensor cores: the error is θ's (above), not theirs.
+constexpr int kProjectPer = 12;                          // slots a thread compacts
+constexpr int kProjectSlots = kProjectPer * kTcThreads;  // slots a window
+constexpr int kProjectK = kTcK;                          // slots a stage
+constexpr int kProjectSub = kProjectK / kTcK;            // plane pairs a stage
+constexpr int kProjectRaw = 4;                           // raw ct stages a ring
+constexpr int kRawStage = kProjectK * kTcN;              // floats of a raw stage
+constexpr int kPlaneStage = kProjectSub * kTcStage;      // floats of a plane stage
+
+// cp.async of 16 bytes, or 16 zero bytes where !valid (src is not read).
+__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src,
+                                                 bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void wg_bar() {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (int)(threadIdx.x >> 7)) : "memory");
+}
+
+__global__ void __launch_bounds__(kTcThreads, 2)
+project_tc_kernel(const float* __restrict__ d, const float* __restrict__ fm,
+                  const float* __restrict__ ct, float* __restrict__ partial,
+                  long long E, int T, int C, float lo, float hi) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int ldb = kTileN + kPad;
-  float* sB = smem;                        // [64][128 + pad] fm·cos(j·θ)
-  float* sC = sB + kTileM * ldb;           // [64][128]       ct rows
-  float* sTheta = sC + kTileM * kTileN;    // [64]
-  float* sFm = sTheta + kTileM;            // [64]
-  int* sList = reinterpret_cast<int*>(sFm + kTileM);  // [per·kSpan]
-  int* sLive = sList + per * kSpan;                    // [kSpan]
-  int* sDead = sLive + kSpan;                          // [kSpan]
-  int* sCount = sDead + kSpan;                         // [2 * kWarps]
+  float* sW = smem + tc_region_offset(smem);        // [2] stages of planes
+  float* sRaw = sW + 2 * kPlaneStage;               // [kProjectRaw][K][128]
+  float* sTheta = sRaw + kProjectRaw * kRawStage;   // [window + 16]
+  float* sFm = sTheta + kProjectSlots + kProjectK;  // [window + 16]
+  int* sList = reinterpret_cast<int*>(sFm + kProjectSlots + kProjectK);
+  int* sWarp = sList + kProjectSlots + kProjectK;   // [kWarps]
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int c0 = blockIdx.x * kTileN, t0 = blockIdx.y * kTileN;
-  const long long base = (long long)blockIdx.z * per * kSpan;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = tid >> 7, tw = tid & 127;
+  const int c0 = blockIdx.x * kTcN, j0 = blockIdx.y * kTcM;
+  const long long spans = (E + kSpan - 1) / kSpan;
+  const long long z0 = blockIdx.z * spans / gridDim.z * kSpan;
+  const long long z1 = min(E, (blockIdx.z + 1) * spans / gridDim.z * kSpan);
+  // this thread's copies (raw rows cr + 8h, 4 columns), its plane column
+  // and slots, its basis rows
+  const int cc = tw & 15, cr = tw >> 4;
+  const int ccol = c0 + 64 * wg + 4 * cc;
+  const int n = tw & 63, kq = tw >> 6;
+  const int jr0 = j0 + tc_row(0), jr1 = jr0 + 8, t4 = tid & 3;
+  float* const half = sW + wg * 64 * kTcK;  // this warpgroup's columns
 
-  // the chunk's live slots, in slot order, as offsets from base
-  int total = 0;
-  for (int s = 0; s < per && base + (long long)s * kSpan < E; ++s) {
-    int ndead;
-    const int nlive = compact_span(fm, base + (long long)s * kSpan, E, sLive,
-                                   sDead, sCount, &ndead);
-    for (int i = tid; i < nlive; i += kThreads)
-      sList[total + i] = s * kSpan + sLive[i];
-    total += nlive;
-    __syncthreads();  // sLive is rewritten by the next span
-  }
-
-  float acc[8][8];
+  float acc[8][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+  uint32_t a0[kProjectSub][2][2][4] = {}, a1[kProjectSub][2][2][4] = {};
 
-  for (int q0 = 0; q0 < total; q0 += kTileM) {
-    const int rows = min(kTileM, total - q0);
-    __syncthreads();  // the previous tile's operands are consumed
-    if (tid < kTileM) {
-      float th = 0.0f, f = 0.0f;
-      if (tid < rows) {
-        const long long e = base + sList[q0 + tid];
-        th = cheb_theta(d[e], lo, hi);
-        f = fm[e];
+  for (long long w0 = z0; w0 < z1; w0 += kProjectSlots) {
+    // the window's live slots, in slot order, with θ and fm: thread t
+    // owns the slots w0 + 12t + [0, 12)
+    const long long sb = w0 + kProjectPer * tid;
+    const long long wend = min(z1, w0 + kProjectSlots);
+    float f[kProjectPer], dv[kProjectPer];
+    int cnt = 0;
+#pragma unroll
+    for (int i = 0; i < kProjectPer; ++i) {
+      f[i] = sb + i < wend ? fm[sb + i] : 0.0f;
+      dv[i] = sb + i < wend ? d[sb + i] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kProjectPer; ++i) cnt += f[i] != 0.0f ? 1 : 0;
+    int incl = cnt;  // inclusive warp scan of the counts
+#pragma unroll
+    for (int off = 1; off < 32; off *= 2) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane == 31) sWarp[warp] = incl;
+    __syncthreads();
+    int pos = incl - cnt, total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) pos += sWarp[w];
+      total += sWarp[w];
+    }
+#pragma unroll
+    for (int i = 0; i < kProjectPer; ++i) {
+      if (f[i] != 0.0f) {
+        sList[pos] = kProjectPer * tid + i;
+        sTheta[pos] = cheb_theta(dv[i], lo, hi);
+        sFm[pos] = f[i];
+        ++pos;
       }
-      sTheta[tid] = th;
-      sFm[tid] = f;
+    }
+    const int nk = (total + kProjectK - 1) / kProjectK;
+    if (tid < nk * kProjectK - total) {  // the last stage's pad: no weight
+      sTheta[total + tid] = 0.0f;
+      sFm[total + tid] = 0.0f;
     }
     __syncthreads();
-    // cosf with full range reduction: j·θ reaches (T − 1)π
-    for (int v = tid; v < kTileM * kTileN; v += kThreads) {
-      const int r = v / kTileN, jj = v % kTileN;
-      const int j = t0 + jj;
-      sB[r * ldb + jj] = j < T ? sFm[r] * cosf((float)j * sTheta[r]) : 0.0f;
-    }
-    for (int v = tid; v < kTileM * (kTileN / 4); v += kThreads) {
-      const int r = v / (kTileN / 4), col = (v % (kTileN / 4)) * 4;
-      float4 w = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (r < rows && c0 + col < C) {
-        const long long e = base + sList[q0 + r];
-        w = *reinterpret_cast<const float4*>(ct + e * C + c0 + col);
+
+    // raw stage kt of this warpgroup's columns: ct rows of slots K·kt + r
+    auto copy = [&](int kt) {
+      float* dst = sRaw + (kt % kProjectRaw) * kRawStage + 64 * wg + 4 * cc;
+#pragma unroll
+      for (int h = 0; h < kProjectK / 8; ++h) {
+        const int k = kt * kProjectK + cr + 8 * h;
+        const bool ok = ccol < C && k < total;
+        cp_async16_zfill(dst + (cr + 8 * h) * kTcN,
+                         ok ? ct + (w0 + sList[k]) * C + ccol : ct, ok);
       }
-      *reinterpret_cast<float4*>(sC + r * kTileN + col) = w;
+    };
+    // raw stage kt split into plane buffer kt & 1: element (column, slot k)
+    // at byte 64·column + 4k of a plane, its 16-byte chunk XORed with bits
+    // 7-8; a warp's 16-byte stores hit 32 distinct banks
+    auto split = [&](int kt) {
+      const float* src = sRaw + (kt % kProjectRaw) * kRawStage + 64 * wg + n;
+#pragma unroll
+      for (int u = 0; u < kProjectSub; ++u) {
+        float* buf = half + (kt & 1) * kPlaneStage + u * kTcStage;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t hi4[4], lo4[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            tf32_split(src[(kTcK * u + 8 * kq + 4 * h + i) * kTcN], hi4[i], lo4[i]);
+          int o = n * 64 + 16 * (2 * kq + h);
+          o ^= ((o >> 7) & 3) << 4;
+          *reinterpret_cast<uint4*>(buf + o / 4) = make_uint4(hi4[0], hi4[1], hi4[2], hi4[3]);
+          *reinterpret_cast<uint4*>(buf + kTcPlane + o / 4) =
+              make_uint4(lo4[0], lo4[1], lo4[2], lo4[3]);
+        }
+      }
+    };
+    // the basis fragment of stage kt: rows j, slots k = K·kt + 16u + 8s +
+    // t4 (+ 4)
+    auto basis = [&](int kt, uint32_t(&a)[kProjectSub][2][2][4]) {
+#pragma unroll
+      for (int u = 0; u < kProjectSub; ++u)
+#pragma unroll
+        for (int s2 = 0; s2 < 2; ++s2) {
+          const int k = kt * kProjectK + kTcK * u + 8 * s2 + t4;
+          const float th0 = sTheta[k], f0 = sFm[k];
+          const float th1 = sTheta[k + 4], f1 = sFm[k + 4];
+          tf32_split(jr0 < T ? f0 * tc_cos((float)jr0 * th0) : 0.0f, a[u][s2][0][0], a[u][s2][1][0]);
+          tf32_split(jr1 < T ? f0 * tc_cos((float)jr1 * th0) : 0.0f, a[u][s2][0][1], a[u][s2][1][1]);
+          tf32_split(jr0 < T ? f1 * tc_cos((float)jr0 * th1) : 0.0f, a[u][s2][0][2], a[u][s2][1][2]);
+          tf32_split(jr1 < T ? f1 * tc_cos((float)jr1 * th1) : 0.0f, a[u][s2][0][3], a[u][s2][1][3]);
+        }
+    };
+    // one stage: its raw rows landed, kProjectRaw − 1 stages ahead
+    // requested, split, fragment, then its wgmma issued behind the stage
+    // before's, which is waited for (its fragment prev and planes free
+    // again)
+    auto stage = [&](int kt, uint32_t(&a)[kProjectSub][2][2][4],
+                     uint32_t(&prev)[kProjectSub][2][2][4]) {
+      cp_async_wait<kProjectRaw - 2>();
+      wg_bar();  // raw stage kt landed; raw kt − 1 and planes kt & 1 free
+      if (kt + kProjectRaw - 1 < nk) copy(kt + kProjectRaw - 1);
+      cp_async_commit();
+      split(kt);
+      basis(kt, a);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wg_bar();  // the warpgroup's planes of stage kt are written
+      wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < kProjectSub; ++u) {
+        const float* buf = half + (kt & 1) * kPlaneStage + u * kTcStage;
+        const uint64_t dHi = tc_desc(buf), dLo = tc_desc(buf + kTcPlane);
+#pragma unroll
+        for (int s2 = 0; s2 < 2; ++s2) {
+          wgmma_tf32(acc, a[u][s2][1], dHi + 2 * s2);
+          wgmma_tf32(acc, a[u][s2][0], dLo + 2 * s2);
+          wgmma_tf32(acc, a[u][s2][0], dHi + 2 * s2);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+#pragma unroll
+      for (int u = 0; u < kProjectSub; ++u) tc_hold(prev[u]);
+    };
+#pragma unroll
+    for (int r = 0; r < kProjectRaw - 1; ++r) {
+      if (r < nk) copy(r);
+      cp_async_commit();
     }
-    __syncthreads();
-    for (int s = 0; s < rows; ++s) {
-      float a[8], b[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = sB[s * ldb + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = sC[s * kTileN + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int kt = 0; kt < nk; kt += 2) {
+      stage(kt, a0, a1);
+      if (kt + 1 < nk) stage(kt + 1, a1, a0);
     }
+    wgmma_wait<0>();
+    tc_hold(acc);
+#pragma unroll
+    for (int u = 0; u < kProjectSub; ++u) {
+      tc_hold(a0[u]);
+      tc_hold(a1[u]);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the window's arrays, ring and planes are free
   }
 
   float* out = partial + (long long)blockIdx.z * T * C;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int j = t0 + ty + 16 * i;
+  for (int h = 0; h < 2; ++h) {
+    const int j = j0 + tc_row(h);
     if (j >= T) continue;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int col = c0 + tx + 16 * jj;
-      if (col < C) out[(long long)j * C + col] = acc[i][jj];
+    for (int i = 0; i < 8; ++i) {
+      const int c = c0 + tc_col(i);
+      if (c < C)  // C is a multiple of 4: c + 1 < C too
+        *reinterpret_cast<float2*>(out + (long long)j * C + c) =
+            make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
     }
   }
 }
 
-// out[i] = Σ_z partial[z][i] in chunk order.
-__global__ void project_sum_kernel(const float* __restrict__ partial,
-                                   float* __restrict__ out, long long n,
+// out = Σ_z partial[z] in chunk order, four floats a thread, eight
+// chunks' loads in flight at a time.
+__global__ void project_sum_kernel(const float4* __restrict__ partial,
+                                   float4* __restrict__ out, long long n4,
                                    int chunks) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float acc = 0.0f;
-  for (int z = 0; z < chunks; ++z) acc += partial[(long long)z * n + i];
+  if (i >= n4) return;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int z0 = 0; z0 < chunks; z0 += 8) {
+    float4 p[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      p[u] = z0 + u < chunks ? partial[(long long)(z0 + u) * n4 + i]
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      acc.x += p[u].x; acc.y += p[u].y; acc.z += p[u].z; acc.w += p[u].w;
+    }
+  }
   out[i] = acc;
+}
+
+// Dynamic shared memory of a row 6 launch (ops/cheb_filter.py::
+// project_smem keeps the same sum): 1 KB to align the planes, two stages
+// of planes, the ring of raw ct stages, a window's θ, fm and slot offsets
+// (each with a stage of pad) and the warp counts.
+size_t project_smem() {
+  return 1024 +
+         sizeof(float) * (2 * kPlaneStage + kProjectRaw * kRawStage +
+                          2 * (kProjectSlots + kProjectK)) +
+         sizeof(int) * (kProjectSlots + kProjectK + kWarps);
 }
 
 int launch_project(const float* d, const float* fm, const float* ct,
                    float* partial, float* out, long long e, int t, int c,
-                   int per, float lo, float hi, void* stream) {
+                   int chunks, float lo, float hi, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long n = (long long)t * c;
-  const long long chunks = (e + (long long)per * kSpan - 1) / ((long long)per * kSpan);
-  if (chunks == 0) {
+  if (e == 0 || chunks < 1) {
     cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * n, s);
     return err != cudaSuccess ? err : cudaGetLastError();
   }
-  const size_t smem =
-      sizeof(float) * ((size_t)kTileM * (kTileN + kPad) + (size_t)kTileM * kTileN +
-                       2 * kTileM) +
-      sizeof(int) * ((size_t)per * kSpan + 2 * kSpan + 2 * kWarps);
+  const size_t smem = project_smem();
   cudaError_t err = cudaFuncSetAttribute(
-      project_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      project_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((c + kTileN - 1) / kTileN, (t + kTileN - 1) / kTileN,
-                  (unsigned)chunks);
-  project_kernel<<<grid, kThreads, smem, s>>>(d, fm, ct, partial, e, t, c, per,
-                                              lo, hi);
+  const dim3 grid((c + kTcN - 1) / kTcN, (t + kTcM - 1) / kTcM, (unsigned)chunks);
+  // one chunk: the block's sum is the output
+  project_tc_kernel<<<grid, kTcThreads, smem, s>>>(
+      d, fm, ct, chunks == 1 ? out : partial, e, t, c, lo, hi);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  project_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-      partial, out, n, (int)chunks);
+  if (err != cudaSuccess || chunks == 1) return err;
+  const long long n4 = n / 4;
+  project_sum_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, s>>>(
+      reinterpret_cast<const float4*>(partial), reinterpret_cast<float4*>(out),
+      n4, chunks);
   return cudaGetLastError();
 }
 
@@ -420,25 +583,27 @@ int tmd_cheb_filter_dot(const float* d, const float* fm, const float* dser,
   return launch<true>(d, fm, dser, ct, out, image, e, t, c, lo, hi, stream);
 }
 
-// Row 6.  d, fm [e]; ct [e, c]; partial [ceil(e / (256·per)), t, c]
-// scratch; out [t, c].  c a multiple of 4; per ≥ 1 spans of 256 slots per
-// chunk.
+// Row 6.  d, fm [e]; ct [e, c]; partial [chunks, t, c] scratch (unused
+// with one chunk); out [t, c].  c a multiple of 4; 1 ≤ chunks ≤ ⌈e/256⌉
+// (e = 0 writes zeros).
 int tmd_cheb_project(const float* d, const float* fm, const float* ct,
                      float* partial, float* out, long long e, int t, int c,
-                     int per, float lo, float hi, void* stream) {
-  return launch_project(d, fm, ct, partial, out, e, t, c, per, lo, hi, stream);
+                     int chunks, float lo, float hi, void* stream) {
+  return launch_project(d, fm, ct, partial, out, e, t, c, chunks, lo, hi,
+                        stream);
 }
 
 // Floats of the image scratch kernels 5 and 7 take at (t, c).
 int tmd_tc_image_floats(int t, int c) { return tc_image_floats(t, c); }
 
-// What the compiler and the launch give kernels 5 (which = 5) and 7 (7):
-// out = registers a thread, local (spill) bytes a thread, static and
-// dynamic shared memory bytes a block, resident blocks an SM.
+// What the compiler and the launch give kernels 5 (which = 5) and 7 (7)
+// and row 6 (6): out = registers a thread, local (spill) bytes a thread,
+// static and dynamic shared memory bytes a block, resident blocks an SM.
 int tmd_cheb_attributes(int which, int* out) {
-  const void* kern = which == 5 ? (const void*)cheb_tc_kernel<false>
-                                : (const void*)cheb_tc_kernel<true>;
-  const size_t smem = tc_smem(which != 5);
+  const void* kern = which == 5   ? (const void*)cheb_tc_kernel<false>
+                     : which == 7 ? (const void*)cheb_tc_kernel<true>
+                                  : (const void*)project_tc_kernel;
+  const size_t smem = which == 6 ? project_smem() : tc_smem(which != 5);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

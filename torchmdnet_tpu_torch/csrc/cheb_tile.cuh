@@ -1,7 +1,7 @@
 // What the Chebyshev kernels of csrc/cheb_filter.cu (rows 5-7) and
-// csrc/blocked_mp.cu (rows 8-11) share: the block and tile constants and
-// θ.  Their products live beside them: rows 5, 7, 10 and 11 on the tensor
-// cores (csrc/tc_tile.cuh), rows 6 and 8 in fp32 FMA.
+// csrc/blocked_mp.cu (rows 8-11) share: the block constants and θ.  Their
+// products live beside them: rows 5-7, 10 and 11 on the tensor cores
+// (csrc/tc_tile.cuh), rows 8 and 9 in fp32 FMA.
 
 #pragma once
 
@@ -9,11 +9,9 @@
 
 namespace {
 
-constexpr int kTileM = 64;     // live slots per tile
-constexpr int kTileN = 128;    // output columns per pass
+constexpr int kTileN = 128;    // channels a row 8 or 9 warp owns
 constexpr int kThreads = 256;  // threads of every block
 constexpr int kWarps = kThreads / 32;
-constexpr int kPad = 4;        // row padding of a staged tile in smem
 
 // θ = acos(clip(2(d − lo)/(hi − lo) − 1, −1, 1)), finite for any d: the
 // clip comes before acosf.

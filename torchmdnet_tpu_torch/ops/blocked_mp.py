@@ -41,11 +41,12 @@ that rounding.
 
 On CUDA tensors each op launches its kernel (``csrc/blocked_mp.cu``) or
 raises; on CPU tensors it runs the plain version beside it, a row-chunked
-gather chain.  Row 8 gives each warp one sorted row (and 128-channel
-group) and reads attr and the neighbours' features straight from memory;
-rows 10 and 11 give a block 4 sorted rows and compact their live slots,
-and form
-the series product on the tensor cores in 3xTF32 (``csrc/tc_tile.cuh``,
+gather chain.  Rows 8 and 9 give each warp one sorted row and 128-channel
+group (row 9: and 32 of its slots) and read the neighbours' features
+straight from memory (row 8 also attr; row 9 holds the row's g9 in
+registers and writes every slot, zeros on the invalid ones); rows 10 and
+11 give a block 4 sorted rows, compact their live slots, and form the
+series product on the tensor cores in 3xTF32 (``csrc/tc_tile.cuh``,
 float32-accurate; rows 8 and 9 are fp32 FMA), from a split copy of the
 series in a scratch the wrapper allocates (:func:`tc_image_floats`).
 :func:`launch_plan` holds the shared-memory sums the launches use.
@@ -73,7 +74,7 @@ SUM_CHEB = Kernel(SOURCE, "tmd_blocked_sum_cheb",
 DD_CHEB = Kernel(SOURCE, "tmd_blocked_dd_cheb",
                  [P] * 8 + [I32] * 4 + [F32] * 2)
 _ROWS = 4             # sorted rows a row 10 or 11 block owns (kTcRows)
-_SUM_TASKS = 4        # (row, 128-channel group) tasks a row 8 block owns
+_SUM_TASKS = 4        # warp tasks a row 8 or 9 block owns
 
 
 def sum_cheb_smem(k: int, f: int) -> int:
@@ -100,20 +101,28 @@ def sum_tasks(n: int, f: int) -> int:
     return n * -(-f // 128)
 
 
+def dattr_tasks(n: int, k: int, f: int) -> int:
+    """Row 9's warp tasks at ``n`` sorted rows of ``k`` slots and ``F =
+    f``: one per row, 128-channel group and 32-slot round, task ``t`` =
+    (row · ⌈F/128⌉ + group) · ⌈K/32⌉ + round."""
+    return sum_tasks(n, f) * -(-k // 32)
+
+
 def launch_plan(n: int, k: int, f: int, t: int) -> dict:
-    """Blocks and dynamic shared memory of rows 8, 10 and 11 at ``n``
-    sorted rows of ``k`` slots, ``F = f``, ``T = t``.  Row 8's block ``b``
-    owns the tasks ``[4b, 4b + 4)`` of :func:`sum_tasks` that exist (no
-    shared memory); a row 10 or 11 block ``b`` the sorted rows ``[4b, 4b
-    + 4)`` that exist."""
+    """Blocks and dynamic shared memory of rows 8-11 at ``n`` sorted rows
+    of ``k`` slots, ``F = f``, ``T = t``.  A row 8 (row 9) block ``b`` owns
+    the tasks ``[4b, 4b + 4)`` of :func:`sum_tasks` (:func:`dattr_tasks`)
+    that exist (no shared memory); a row 10 or 11 block ``b`` the sorted
+    rows ``[4b, 4b + 4)`` that exist."""
     blocks = -(-n // _ROWS)
     return {"blocked_mp_sum": (-(-sum_tasks(n, f) // _SUM_TASKS), 0),
+            "blocked_mp_dattr": (-(-dattr_tasks(n, k, f) // _SUM_TASKS), 0),
             "blocked_mp_sum_cheb": (blocks, sum_cheb_smem(k, f)),
             "blocked_mp_dd_cheb": (blocks, dd_cheb_smem(k, f))}
 
 
 def kernel_attributes(k: int, f: int, t: int) -> dict:
-    """What the compiler and the launch give rows 8, 10 and 11 at ``(k,
+    """What the compiler and the launch give rows 8-11 at ``(k,
     f, t)``: registers and local (spill) bytes a thread, static and
     dynamic shared memory a block, resident blocks an SM, and for rows 10
     and 11 the floats of their split-series scratch.  Builds the library;
@@ -126,14 +135,14 @@ def kernel_attributes(k: int, f: int, t: int) -> dict:
     lib.tmd_tc_image_floats.argtypes = [I32, I32]
     lib.tmd_tc_image_floats.restype = I32
     attrs = {}
-    for row, name in ((8, "blocked_mp_sum"), (10, "blocked_mp_sum_cheb"),
-                      (11, "blocked_mp_dd_cheb")):
+    for row, name in ((8, "blocked_mp_sum"), (9, "blocked_mp_dattr"),
+                      (10, "blocked_mp_sum_cheb"), (11, "blocked_mp_dd_cheb")):
         rc = fn(row, k, f, t, ctypes.cast(out, P))
         if rc != 0:
             raise RuntimeError(f"tmd_blocked_mp_attributes: CUDA error {rc}")
         attrs[name] = dict(zip(("registers", "local_bytes", "static_smem",
                                 "dynamic_smem", "blocks_per_sm"), out))
-        if row > 8:
+        if row > 9:
             attrs[name]["image_floats"] = lib.tmd_tc_image_floats(t, 3 * f)
     return attrs
 

@@ -35,7 +35,10 @@ tensors it runs its plain version, the θ form of the JAX jnp fallback.
 Kernels 5 and 7 form the series product on the tensor cores in 3xTF32
 (``csrc/tc_tile.cuh``, float32-accurate), from a split copy of the series
 in a scratch the wrapper allocates (:func:`image_floats`); each block owns
-a span of 256 slots (:func:`launch_plan`).  Row 6 is fp32 FMA.
+a span of 256 slots (:func:`launch_plan`).  Row 6 runs its product on the
+tensor cores in 3xTF32 too, the slots as the reduction: a block owns a 64
+× 128 output tile and a chunk of slots (:func:`project_chunks`), and a
+second launch sums the chunks' partials in order.
 """
 
 import ctypes
@@ -54,10 +57,12 @@ FILTER_DOT = Kernel(SOURCE, "tmd_cheb_filter_dot",
                     [P] * 6 + [I64, I32, I32, F32, F32])
 PROJECT = Kernel(SOURCE, "tmd_cheb_project",
                  [P] * 5 + [I64, I32, I32, I32, F32, F32])
-# row 6's grid: blocks wanted in flight (two 72 KB blocks on each of the
-# 132 SMs) and the most 256-slot spans one block compacts at once
-_PROJECT_BLOCKS, _PROJECT_MAX_SPANS = 264, 16
-_TC_SPAN = 256  # slots a kernel 5 or 7 block owns (kSpan)
+_TC_SPAN = 256  # slots a kernel 5 or 7 block owns (kSpan), a row 6 span
+_PROJECT_WINDOW = 3072  # slots a row 6 block compacts at once (kProjectSlots)
+# row 6 blocks wanted in flight an SM: two fit (shared memory, registers),
+# and an H100 ran two 13% faster than one (the second hides the first's
+# barrier and shared-memory latencies)
+_PROJECT_BLOCKS_PER_SM = 2
 
 
 def _basis(d, T, lo, hi):
@@ -105,10 +110,11 @@ def launch_plan(e: int) -> dict:
 
 
 def kernel_attributes(t: int, c: int) -> dict:
-    """What the compiler and the launch give kernels 5 and 7: registers
-    and local (spill) bytes a thread, static and dynamic shared memory a
-    block, resident blocks an SM, and the floats of their split-series
-    scratch at ``(t, c)``.  Builds the library; launches nothing."""
+    """What the compiler and the launch give kernels 5 and 7 and row 6:
+    registers and local (spill) bytes a thread, static and dynamic shared
+    memory a block, resident blocks an SM, and for kernels 5 and 7 the
+    floats of their split-series scratch at ``(t, c)``.  Builds the
+    library; launches nothing."""
     out = (ctypes.c_int * 5)()
     lib = SOURCE.library()
     fn = lib.tmd_cheb_attributes
@@ -117,13 +123,15 @@ def kernel_attributes(t: int, c: int) -> dict:
     lib.tmd_tc_image_floats.argtypes = [I32, I32]
     lib.tmd_tc_image_floats.restype = I32
     attrs = {}
-    for row, name in ((5, "cheb_filter"), (7, "cheb_filter_dot")):
+    for row, name in ((5, "cheb_filter"), (7, "cheb_filter_dot"),
+                      (6, "cheb_project")):
         rc = fn(row, ctypes.cast(out, P))
         if rc != 0:
             raise RuntimeError(f"tmd_cheb_attributes: CUDA error {rc}")
         attrs[name] = dict(zip(("registers", "local_bytes", "static_smem",
                                 "dynamic_smem", "blocks_per_sm"), out))
-        attrs[name]["image_floats"] = lib.tmd_tc_image_floats(t, c)
+        if row != 6:
+            attrs[name]["image_floats"] = lib.tmd_tc_image_floats(t, c)
     return attrs
 
 
@@ -183,29 +191,52 @@ def cheb_filter_dot_cuda(coeffs, d, fmask, ct, lo: float, hi: float):
     return filter_tc(coeffs, d, fmask, ct, lo, hi)
 
 
-def project_chunks(e: int, t: int, c: int):
-    """Row 6's grid along the slots: ``(spans per chunk, chunks)`` so that
-    about ``_PROJECT_BLOCKS`` blocks fill the card."""
-    spans = -(-e // 256)
-    tiles = -(-c // 128) * -(-t // 128)
-    per = min(max(1, -(-spans * tiles // _PROJECT_BLOCKS)), _PROJECT_MAX_SPANS)
-    return per, -(-spans // per)
+def project_smem() -> int:
+    """Dynamic shared memory of a row 6 launch: 1 KB to align the planes,
+    two stages of split ct planes (each 2 × 128 × 16 floats), a ring of 4
+    raw ct stages (16 × 128 floats each), a window's θ, fm and slot offsets
+    (3,072 slots, 12 a thread, each array with a 16-slot stage of pad) and
+    the 8 warp counts (the basis lives in registers)."""
+    window = _PROJECT_WINDOW + 16
+    return 1024 + 4 * (2 * 2 * 128 * 16 + 4 * 16 * 128 + 3 * window) + 4 * 8
+
+
+def project_chunks(e: int, t: int, c: int, sms: int = 132) -> list:
+    """Row 6's chunks along the slots: the ``[first, end)`` 256-slot spans
+    of each, the ⌈e/256⌉ spans cut evenly (chunk z from ⌊z·S/Z⌋) into
+    about two blocks an SM (the most that fit) over the ``⌈C/128⌉ ×
+    ⌈T/64⌉`` output tiles, at least one chunk, at most one a span (none
+    without slots); a block walks its chunk 3,072 slots at a time, as the
+    kernel cuts it."""
+    spans = -(-e // _TC_SPAN)
+    tiles = -(-c // 128) * -(-t // 64)
+    z = min(spans, max(1, -(-_PROJECT_BLOCKS_PER_SM * sms // tiles)))
+    return [(i * spans // z, (i + 1) * spans // z) for i in range(z)]
+
+
+def project_plan(e: int, t: int, c: int, sms: int = 132) -> dict:
+    """Row 6's launch at ``e`` slots: the grid ``(⌈C/128⌉, ⌈T/64⌉,
+    chunks)``, dynamic shared memory, and the floats of the partial
+    scratch (none with one chunk: the block writes the output)."""
+    chunks = len(project_chunks(e, t, c, sms))
+    return {"grid": (-(-c // 128), -(-t // 64), chunks),
+            "smem": project_smem(),
+            "partial_floats": chunks * t * c if chunks > 1 else 0}
 
 
 def cheb_project_cuda(d, fmask, ct, T: int, lo: float, hi: float):
     """Row 6 on CUDA tensors: returns ``[T, C]``."""
     c = ct.shape[-1]
-    per, chunks = project_chunks(d.numel(), T, c)
-    # the weighted basis and ct tiles, θ and fm, the chunk's live slots, a
-    # span's live and dead slots and the warp counts
-    smem = 4 * (64 * 132 + 64 * 128 + 128) + 4 * (per * 256 + 2 * 256 + 16)
-    dev = _check("cheb_project", dict(d=d, fmask=fmask, ct=ct), T, c, smem)
-    partial = torch.empty((max(chunks, 1), T, c), dtype=torch.float32,
+    dev = _check("cheb_project", dict(d=d, fmask=fmask, ct=ct), T, c,
+                 project_smem())
+    plan = project_plan(d.numel(), T, c, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    partial = torch.empty(max(plan["partial_floats"], 1), dtype=torch.float32,
                           device=dev)
     out = torch.empty((T, c), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         PROJECT(ptr(d), ptr(fmask), ptr(ct), ptr(partial), ptr(out),
-                d.numel(), T, c, per, lo, hi)
+                d.numel(), T, c, plan["grid"][2], lo, hi)
     return out
 
 
