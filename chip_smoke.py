@@ -80,6 +80,22 @@ epochs on 384 synthetic QM9-scale molecules in batches of 64 and
 ``Trainer.test``, with its ``metrics.csv`` columns and its checkpoints
 checked and reloaded on the card.
 
+It also holds the edge geometry's position gather (phase ``pair_deltas``,
+after the kernels): ∂pos through ``gather_pair_deltas`` (a row sum minus
+a reverse gather) against plain indexing (an atomic scatter) on the
+lattice's K=96 and grouped K′=320 sorted lists, held to 1e-5 of max
+|plain|, and the charge equilibration's per-molecule gather through
+``index_select`` against plain indexing, held to 1e-4, with the device
+time of each backward; and it drives the rest
+of the port's entry points: the priors (``priors``: the dhfr tabulated
+model with ZBL, D2 and Atomref, and the training batch's model with the
+Coulomb prior on seeded partial charges, each against the same model
+and weights on the CPU, with ms per evaluation with and without them)
+and the adaptive MD (``md_adaptive``: a dhfr grouped spec whose densest
+column is packed past its budget re-specs, its forces against the gather
+path, a timed 25-step chunk; then ``run_md`` for 25 steps on the dhfr
+brute path).
+
 Before the kernels phase, ``tc_attributes`` gives the tensor-core kernels
 (rows 1, 2, 3, 5, 7, 10, 11 and kernels A-D) as compiled: registers, spill bytes,
 shared memory and blocks an SM; the kernels phase also holds rows 5 and 7
@@ -103,6 +119,7 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -149,6 +166,12 @@ WC_TOL = 1e-5
 # on an H100 read 3.3e-6 and 2.5e-6; the limit leaves 30x room for the
 # reordered sums and stays 10x inside the 1e-3 the series is held to.
 BLOCKED_VS_GATHER_TOL = 1e-4
+# ∂pos through gather_pair_deltas (the reverse gather) against plain
+# indexing (its atomic scatter), relative to max |plain|: the same fp32
+# sums of a row's ~96 slots in another order (2.2e-7 on an H100).  The
+# charge equilibration's gather sums 27,024 atoms a molecule in two
+# orders and is held to TOL (5.9e-6 and 7.0e-6 on an H100)
+PAIR_TOL = 1e-5
 
 N_ATOMS, K, F, R, Q_DIM = 25088, 96, 128, 32, 16
 COULOMB_RC, SKIN, CAP, Q_TAB, C_CH = 10.0, 1.0, 16, 64, 48
@@ -697,9 +720,67 @@ def blocked_inputs(pos, L, cap, k, f, t, c, model_rc, coulomb_rc, seed,
              b3=randn(3 * f, scale=0.1), grow=randn(n, 9 * f),
              rbf=(expnorm(d) * nbr.mask[..., None]).contiguous(),
              w1a=randn(R, f, scale=R ** -0.5))
+    q["rev"] = nbr.rev_slot
     w = dict(pos_s=pos_s, b_s=randn(n, c, scale=0.1),
-             qw=torch.ones(c, device=dev), ct=am.float(), cwin=cwin)
+             qw=torch.ones(c, device=dev), ct=am.float(), cwin=cwin, box=box)
     return spec, wspec, q, w
+
+
+def pair_deltas_row(peak, pos_s, box, q):
+    """The position gather's backward on a sorted-space list: ∂pos through
+    ``gather_pair_deltas`` (a row sum minus a reverse gather) against
+    plain indexing (an atomic scatter) on a seeded cotangent that is 0 on
+    invalid slots, as ``neighbor_geometry`` leaves it; the device time of
+    each backward and the bound (ct, idx, rev_slot and mask read once,
+    ∂pos written once)."""
+    from torchmdnet_tpu_torch.ops.message_passing import gather_pair_deltas
+
+    idx, rev, mask = q["idx"], q["rev"], q["mask"]
+    gen = torch.Generator(device=pos_s.device).manual_seed(5)
+    ct = (torch.randn(idx.shape + (3,), generator=gen, device=pos_s.device)
+          * mask[..., None])
+    p = pos_s.detach().requires_grad_(True)
+    d_gather = gather_pair_deltas(p, idx, rev, mask)
+    d_plain = p[:, None, :] - p[idx]
+
+    def backward(d):
+        return lambda: torch.autograd.grad(d, p, ct, retain_graph=True)[0]
+
+    got, want = backward(d_gather)(), backward(d_plain)()
+    err, rel = rel_err(got, want)
+    nb = nbytes(ct, idx, rev, mask, got)
+    b_ms, b_by = bound(2 * ct.numel(), nb, peak)
+    return dict(rows=idx.shape[0], k=idx.shape[1],
+                valid_slots=int(mask.sum()), max_abs_err=err,
+                max_rel_err=rel, device_ms=device_ms(backward(d_gather)),
+                plain_device_ms=device_ms(backward(d_plain)),
+                bound_ms=b_ms, bound_by=b_by, gbytes=nb / 1e9)
+
+
+def charge_gather_row(peak, batch):
+    """The backward of TensorNet2's charge equilibration's per-molecule
+    gather (``ChargePredict.qeq``: ``[num_mols + 1, q_dim]`` sums back to
+    the atoms, three times an evaluation, twice each): ``index_select``
+    (an ``index_add``) against plain indexing (a sorted ``index_put``
+    that sums a molecule's atoms one after another), on the sorted rows'
+    molecules (ghosts in molecule 1) at q_dim = 16."""
+    gen = torch.Generator(device=batch.device).manual_seed(6)
+    u = torch.randn((2, Q_DIM), generator=gen,
+                    device=batch.device).requires_grad_(True)
+    ct = torch.randn((batch.shape[0], Q_DIM), generator=gen,
+                     device=batch.device)
+    sel, plain = u.index_select(0, batch), u[batch]
+
+    def backward(x):
+        return lambda: torch.autograd.grad(x, u, ct, retain_graph=True)[0]
+
+    err, rel = rel_err(backward(sel)(), backward(plain)())
+    nb = nbytes(ct, batch, u)
+    b_ms, b_by = bound(ct.numel(), nb, peak)
+    return dict(rows=batch.shape[0], q_dim=Q_DIM, max_abs_err=err,
+                max_rel_err=rel, device_ms=device_ms(backward(sel)),
+                plain_device_ms=device_ms(backward(plain)),
+                bound_ms=b_ms, bound_by=b_by)
 
 
 Q_ARGS = ("d", "cw", "mask", "idx", "urow", "ucol", "xwin")
@@ -1459,6 +1540,7 @@ def phase_kernels(peak, system, dhfr, seg, specs):
     calls = q_calls(q)
     calls.update(wc_calls(wv, COULOMB_RC + SKIN))
     kernel_rows(rows, peak, calls, work, q["mask"])
+    pairs = {"k96": pair_deltas_row(peak, wv["pos_s"], wv["box"], q)}
     cand, inside, window_rows, staged = work["pairs"]
     geometry.update({"n_pad": spec.n_pad, "blocks": spec.n_blocks,
                 "nx": spec.nx, "nzf": spec.nzf, "stencil_s": wspec.s,
@@ -1470,16 +1552,25 @@ def phase_kernels(peak, system, dhfr, seg, specs):
                 "wc_staged_gbytes": staged / 1e9})
     del q, wv
     torch.cuda.empty_cache()
-    spec, _, q, _ = blocked_inputs(pos, L, CAP, K, F, Q_TAB, C_CH, 4.5 + SKIN,
-                                   COULOMB_RC + SKIN, 78, grouped=True)
+    spec, _, q, wv = blocked_inputs(pos, L, CAP, K, F, Q_TAB, C_CH,
+                                    4.5 + SKIN, COULOMB_RC + SKIN, 78,
+                                    grouped=True)
     kernel_rows(rows, peak, q_calls(q, "_grouped"),
                 q_work(q, F, Q_TAB, "_grouped"), q["mask"])
+    pairs["grouped"] = pair_deltas_row(peak, wv["pos_s"], wv["box"], q)
+    pairs["charge_gather"] = charge_gather_row(peak, (wv["ct"] == 0).long())
+    emit({"phase": "pair_deltas", "tolerance": PAIR_TOL,
+          "charge_gather_tolerance": TOL, "cases": pairs})
+    for name, row in pairs.items():
+        tol = TOL if name == "charge_gather" else PAIR_TOL
+        check(row["max_rel_err"] <= tol,
+              f"pair_deltas {name}: {row['max_rel_err']:.3g} of max |plain|")
     geometry["grouped"] = {
         "n_pad": spec.n_pad, "k": q["idx"].shape[1],
         "col_slots": spec.col_slots, "valid_slots": int(q["mask"].sum()),
         "live_slots": int((q["cw"] != 0).sum()),
         "max_per_group": group_counts(spec, q["mask"])}
-    del q
+    del q, wv
     torch.cuda.empty_cache()
 
     # kernels 4, 5 and 7 on the dhfr system's real brute K=64 list
@@ -2844,6 +2935,223 @@ def phase_md_dhfr_blocked(pot, dhfr, seg, spec, path):
     return row["steps"], launches
 
 
+# ---------------------------------------------------------------- priors
+EV = 1.602176634e-19  # J: the priors' energies in eV
+# the dhfr system's types are atomic numbers already (0: ghost)
+ELEMENTS = tuple(range(9))
+PRIOR_UNITS = dict(distance_scale=1e-10, energy_scale=EV)
+# ZBL at 4 Å (K=64) and D2 at 10 Å (K=512) leave room at dhfr's density
+# (0.1 atoms/Å³: ~27 and ~420 neighbors); Atomref a seeded table
+DHFR_PRIORS = [
+    dict(cutoff_distance=4.0, max_num_neighbors=64, atomic_number=ELEMENTS,
+         **PRIOR_UNITS),
+    dict(cutoff_distance=10.0, max_num_neighbors=512,
+         atomic_number=ELEMENTS, **PRIOR_UNITS),
+    dict(initial_atomref=np.random.RandomState(17).uniform(
+        -5.0, 0.0, (len(ELEMENTS), 1)).astype(np.float32))]
+
+
+def wall_ms(fn, reps=5):
+    """Median wall ms of ``fn()`` over ``reps`` calls after one."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def against_cpu(pot, args, run_card, run_cpu):
+    """Energy and forces of ``pot`` on the card against the same model
+    and weights on the CPU: (relative energy error, forces' max abs error
+    / max |F|, energy)."""
+    from torchmdnet_tpu_torch.models.model import create_model
+
+    cpu = create_model(args, device="cpu", seed=0)
+    cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                pot.module.state_dict().items()})
+    y, f = run_card(pot)
+    y_c, f_c = run_cpu(cpu)
+    check(bool(torch.isfinite(y).all() and torch.isfinite(f).all()),
+          "priors: non-finite energy or forces")
+    e_err = abs(float(y.sum()) - float(y_c.sum())) / max(
+        float(y_c.abs().sum()), 1e-30)
+    return e_err, rel_err(f.cpu(), f_c)[1], float(y.sum())
+
+
+def phase_priors(dhfr, seg, pots, evaluate, pos):
+    """The priors through ``create_model`` on the card: the dhfr system's
+    tabulated TensorNet with ZBL, D2 and Atomref (each pair prior's own
+    brute list per evaluation, its flags checked), and the training
+    batch's TensorNet with the Coulomb prior on seeded partial charges
+    (``extra_args``); energies and forces against the same model and
+    weights on the CPU, and ms per evaluation with and without them."""
+    from torchmdnet_tpu_torch.models.model import create_model
+    from torchmdnet_tpu_torch.priors.base import prior_pairs
+
+    z, _, _, box, _ = dhfr
+    dev = torch.device("cuda")
+    args = dhfr_args(prior_model=["ZBL", "D2", "Atomref"],
+                     prior_args=DHFR_PRIORS)
+    pot = create_model(args, device=dev, seed=0)
+    pot.module.load_state_dict(pots["tabulated"].module.state_dict())
+    st, bt = torch.as_tensor(seg, device=dev), torch.as_tensor(box, device=dev)
+    lists = {}
+    for name, prior in zip(("zbl", "d2"), pot.module.prior_model):
+        nbr, _ = prior_pairs(pos, st, bt, 1, cutoff=prior.cutoff_distance,
+                             k_max=prior.max_num_neighbors)
+        lists[name] = {"k": prior.max_num_neighbors,
+                       "cutoff": prior.cutoff_distance,
+                       "overflow": bool(nbr.overflow),
+                       "max_neighbors": int(nbr.num_neighbors.max())}
+        check(not lists[name]["overflow"], f"priors: {name} list overflow")
+    e_err, f_rel, energy = against_cpu(
+        pot, args, lambda m: evaluate(m, pos),
+        lambda m: m.apply(z, pos.cpu(), seg, num_mols=1, box=box))
+    y0, _ = evaluate(pots["tabulated"], pos)
+    row = {"phase": "priors", "tolerance": TOL, "dhfr": {
+        "priors": args["prior_model"], "lists": lists, "energy": energy,
+        "energy_without": float(y0), "energy_rel_err_vs_cpu": e_err,
+        "force_rel_err_vs_cpu": f_rel,
+        "ms_per_eval": bench_chain_ms(evaluate, pot, pos),
+        "ms_per_eval_without": bench_chain_ms(evaluate, pots["tabulated"],
+                                              pos)}}
+    del pot
+    torch.cuda.empty_cache()
+
+    batch = train_batch()
+    rng = np.random.RandomState(23)
+    q = rng.uniform(-0.5, 0.5, TRAIN_ROWS).astype(np.float32)
+    bcpu = batch["batch"].cpu().numpy()
+    for m in range(TRAIN_MOLS):  # neutral molecules, uncharged ghosts
+        q[bcpu == m] -= q[bcpu == m].mean()
+    q[bcpu == TRAIN_MOLS] = 0.0
+    extra = {"partial_charges": torch.as_tensor(q, device=dev)}
+    cargs = train_args(prior_model="Coulomb", prior_args=dict(
+        max_num_neighbors=32, lower_switch_distance=0.1,
+        upper_switch_distance=0.4, **PRIOR_UNITS))
+    cpot = create_model(cargs, device=dev, seed=0)
+    kw = dict(num_mols=TRAIN_MOLS)
+    bc = {k: v.cpu() for k, v in batch.items()}
+
+    def run(m, b, ex):
+        return lambda: m.apply(b["z"], b["pos"], b["batch"], **kw,
+                               extra_args=ex)
+
+    e_err_c, f_rel_c, energy_c = against_cpu(
+        cpot, cargs, lambda m: run(m, batch, extra)(),
+        lambda m: run(m, bc, {"partial_charges": torch.as_tensor(q)})())
+    plain = create_model(train_args(), device=dev, seed=0)
+    row["train_coulomb"] = {
+        "mols": TRAIN_MOLS, "rows": TRAIN_ROWS, "energy": energy_c,
+        "energy_rel_err_vs_cpu": e_err_c, "force_rel_err_vs_cpu": f_rel_c,
+        "ms_per_eval": wall_ms(run(cpot, batch, extra)),
+        "ms_per_eval_without": wall_ms(run(plain, batch, None))}
+    emit(row)
+    for name in ("dhfr", "train_coulomb"):
+        r = row[name]
+        check(r["energy_rel_err_vs_cpu"] <= TOL
+              and r["force_rel_err_vs_cpu"] <= TOL,
+              f"priors {name}: card vs CPU {r['energy_rel_err_vs_cpu']:.3g}"
+              f" / {r['force_rel_err_vs_cpu']:.3g}")
+    check(abs(row["dhfr"]["energy"] - row["dhfr"]["energy_without"]) > 1.0,
+          "priors: ZBL, D2 and Atomref add no energy")
+
+
+def column_spike(pos, n_real, L, spec, m=16, seed=0):
+    """``m`` real atoms (the farthest from it) moved into a 1.0-2.2 Å
+    shell around the real atom nearest the middle of xy-column (0, 0),
+    each new place ≥ 0.9 Å from every atom: that column's own stencil
+    group then holds more neighbors than its tuned budget."""
+    rng = np.random.RandomState(seed)
+    real = pos[:n_real]
+    mid = np.array([0.5 * L / spec.nx, 0.5 * L / spec.ny, 0.5 * L])
+    c = int(np.argmin(np.linalg.norm(real - mid, axis=1)))
+    d = np.linalg.norm((real - real[c] + L / 2) % L - L / 2, axis=1)
+    moved = np.argsort(d)[-m:]
+    keep = np.delete(real, moved, axis=0)
+    pts = []
+    while len(pts) < m:
+        v = rng.uniform(-2.2, 2.2, 3)
+        x = real[c] + v
+        near = np.concatenate([keep] + [np.array(pts).reshape(-1, 3)])
+        gap = np.linalg.norm((near - x + L / 2) % L - L / 2, axis=1)
+        if 1.0 < np.linalg.norm(v) < 2.2 and np.sort(gap)[1] > 0.9:
+            pts.append(x)
+    out = pos.copy()
+    out[moved] = np.array(pts) % L
+    return out
+
+
+def phase_md_adaptive(pots, dhfr, seg, spec):
+    """``make_adaptive_md_step`` on the dhfr grouped MD spec (per-column
+    budgets tuned on the system as it is), started from a configuration
+    whose densest column busts its budget: the re-spec fires (warning),
+    the state carries no sticky overflow, the forces match the gather
+    path's, and one 25-step chunk is timed; then ``run_md`` on the dhfr
+    brute path (K=128 at 4.5 + 1 Å) for 25 steps."""
+    from torchmdnet_tpu_torch.md.integrators import (
+        make_adaptive_md_step, make_md_step, run_md)
+    from torchmdnet_tpu_torch.models.model import create_model
+
+    z, pos, masses, box, L = dhfr
+    spiked = column_spike(pos, DHFR_ATOMS, L, spec)
+    kw = dict(dt=0.05, num_mols=1, box=box, rebuild_every=25, skin=SKIN,
+              temperature=300.0, k_max=DHFR_MD_K)
+    pot = pots["tabulated"].with_spec(spec)
+    init, chunk, _ = make_adaptive_md_step(pot, z, seg, masses,
+                                           cell_block_spec=spec, **kw)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        st = init(spiked, seed=1)
+    torch.cuda.synchronize()
+    respec_s = time.perf_counter() - t0
+    msgs = [str(w.message) for w in rec]
+    init_g, _, _ = make_md_step(pots["tabulated"], z, seg, masses,
+                                neighbor_strategy="brute", **kw)
+    sg = init_g(spiked, seed=1)
+    f_abs, f_rel = rel_err(st.force, sg.force)
+    (st, counts) = counted_run(lambda: chunk(st))
+    t0 = time.perf_counter()
+    st = chunk(st)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 25
+    ok = not bool(st.overflow) and bool(torch.isfinite(st.pos).all())
+    new = chunk.current["spec"]
+
+    pot128 = create_model(dhfr_args(max_num_neighbors=DHFR_MD_K),
+                          device="cuda", seed=0)
+    pot128.module.load_state_dict(pots["tabulated"].module.state_dict())
+    t0 = time.perf_counter()
+    sr = run_md(pot128, z, pos, masses, n_steps=25, dt=0.05, batch=seg,
+                box=box, temperature=300.0, rebuild_every=25, skin=SKIN)
+    run_s = time.perf_counter() - t0
+    run_ok = (not bool(sr.overflow) and bool(torch.isfinite(sr.pos).all())
+              and sr.step == 25)
+    emit({"phase": "md_adaptive", "col_slots": spec.col_slots,
+          "col_slots_after": None if new is None else new.col_slots,
+          "warnings": msgs, "respec_and_init_s": respec_s,
+          "force_max_abs_diff_vs_gather": f_abs,
+          "force_rel_diff_vs_gather": f_rel,
+          "tolerance": BLOCKED_VS_GATHER_TOL, "ms_per_step": ms,
+          "steps": st.step, "overflow": bool(st.overflow),
+          "launches": {k: v for k, v in counts.items() if v},
+          "run_md": {"steps": sr.step, "overflow": bool(sr.overflow),
+                     "wall_s": run_s, "finite": run_ok}})
+    check(any("re-spec'd col_slots" in m for m in msgs),
+          f"md_adaptive: no re-spec ({msgs})")
+    check(new is not None and new.col_slots != spec.col_slots,
+          "md_adaptive: the spec did not grow")
+    check(f_rel <= BLOCKED_VS_GATHER_TOL,
+          f"md_adaptive: forces vs gather {f_rel:.3g} of max |F|")
+    check(ok, "md_adaptive: overflow or non-finite state after the chunk")
+    check(run_ok, "run_md: overflow or non-finite state")
+
+
 # ---------------------------------------------------------------- training
 def train_args(**extra):
     """``bench.py::bench_train``'s model (``:392-402``): TensorNet 2 x 128,
@@ -3142,6 +3450,8 @@ def main():
     phase_profile("dhfr_blocked_exact", lambda: ev_x(pot_x, dpos))
     del blocked, pot_b, ev_b, pot_x, ev_x, gather
     torch.cuda.empty_cache()
+    phase_priors(dhfr, seg, pots, evaluate, dpos)
+    torch.cuda.empty_cache()
     by_path = {"gather": (g_steps, g_launch), "blocked": (b_steps, b_launch),
                **q_paths}
     for variant, path in (("tabulated", "dhfr"), ("exact", "dhfr_exact")):
@@ -3156,6 +3466,8 @@ def main():
         by_path[path] = phase_md_dhfr_blocked(pot, dhfr, seg, spec_md, path)
         del pot
         torch.cuda.empty_cache()
+    phase_md_adaptive(pots, dhfr, seg, spec_md)
+    torch.cuda.empty_cache()
     by_path["train"] = phase_train()
     phase_trainer()
     launches = {k: by_path[path][1][k] for k, (_, _, path) in KERNELS.items()}

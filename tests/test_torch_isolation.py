@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from torch_parity import SMALL_ARGS, one_torch_thread  # noqa: F401
-from torchmdnet_tpu_torch.md.integrators import make_md_step
+from torchmdnet_tpu_torch.md.integrators import (
+    make_adaptive_md_step, make_md_step, run_md)
 from torchmdnet_tpu_torch.models.model import create_model
 from torchmdnet_tpu_torch.ops.cell_blocks import make_cell_block_spec
 from torchmdnet_tpu_torch.ops.config import resolve_device, set_matmul_precision
@@ -70,6 +71,22 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
                               box=np.eye(3, dtype=np.float32) * 12.0)
     pos = np.random.RandomState(0).uniform(0, 12, (8, 3))
     assert init(pos).pos.device.type == "cpu"
+    box = np.eye(3, dtype=np.float32) * 12.0
+    st = run_md(pot, z, pos, np.ones(8), n_steps=1, dt=0.5, box=box,
+                rebuild_every=1)
+    assert st.pos.device.type == "cpu"
+    # the priors through create_model, and the adaptive blocked MD
+    priors = dict(SMALL_ARGS, prior_model=["ZBL", "Atomref"],
+                  prior_args=[{"atomic_number": list(range(10))},
+                              {"max_z": 10}])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_model(priors)
+    assert create_model(priors, device="cpu").device == torch.device("cpu")
+    spec = make_cell_block_spec([12.0] * 3, 5.5, 8, cap=8)
+    pot = create_model(dict(SMALL_ARGS, cell_block_spec=spec), device="cpu")
+    init, _, _ = make_adaptive_md_step(pot, z, np.zeros(8), np.ones(8),
+                                       dt=0.5, box=box, cell_block_spec=spec)
+    assert init(pos).force.device.type == "cpu"
 
 
 def test_blocked_md_needs_cuda_unless_cpu_is_asked(monkeypatch):

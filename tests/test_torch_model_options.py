@@ -28,7 +28,7 @@ def test_key_mapping():
 
 @pytest.mark.parametrize("key,value", [
     ("atom_filter", 3), ("remat", True),
-    ("model", "equivariant-transformer"), ("prior_model", "ZBL"),
+    ("model", "equivariant-transformer"), ("output_model", "DipoleMoment"),
     ("precision", 16)])
 def test_uncovered_options_raise(key, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -47,6 +47,24 @@ TENSORNET_ARGS = dict(
     atom_filter=-1, remat=False)
 
 
+# the priors' arguments in the parity tests (``test_torch_priors.py``,
+# ``test_torch_prior_args.py``): energies in eV, atom types 1-4 as H/C/N/O
+EV = 1.602176634e-19  # J: energies in eV
+ELEMENTS = (0, 1, 6, 7, 8)  # atom type → atomic number; type 0 is a ghost
+UNITS = dict(distance_scale=1e-10, energy_scale=EV)
+PRIOR_ARGS = {
+    "Atomref": dict(max_z=5, initial_atomref=np.array(
+        [0.0, -13.6, -1029.8, -1484.7, -2041.3], np.float32)),
+    "LearnableAtomref": dict(max_z=5),
+    "ZBL": dict(cutoff_distance=4.0, max_num_neighbors=16,
+                atomic_number=ELEMENTS, **UNITS),
+    "Coulomb": dict(lower_switch_distance=0.1, upper_switch_distance=0.4,
+                    max_num_neighbors=16, **UNITS),
+    "D2": dict(cutoff_distance=10.0, max_num_neighbors=16,
+               atomic_number=ELEMENTS, **UNITS),
+}
+
+
 def lattice_system(n_side=4, spacing=2.6, seed=0):
     """``n_side³`` atoms on a jittered cubic lattice in a periodic box
     (mixed H/C/N/O), as numpy arrays: ``(z, pos, box)``."""

@@ -1,8 +1,9 @@
 """DataModule (counterpart of ``torchmdnet_tpu/data/datamodule.py``,
 reference ``torchmdnet/data.py:18-176``) for a dataset given in memory:
 splits with ``splits.npz``, cached padded loaders and the (deprecated)
-``standardize`` mean/std.  Datasets named in the hyperparameters, and
-``standardize`` with the Atomref prior, are not ported yet."""
+``standardize`` mean/std, with the atomref energies taken out under the
+Atomref prior.  Datasets named in the hyperparameters are not ported
+yet."""
 
 import os
 import warnings
@@ -46,6 +47,12 @@ class DataModule:
             self._standardize()
 
     @property
+    def atomref(self):
+        if hasattr(self.dataset, "get_atomref"):
+            return self.dataset.get_atomref()
+        return None
+
+    @property
     def mean(self):
         return self._mean
 
@@ -74,12 +81,11 @@ class DataModule:
         return self._loader(self.test_dataset, "test")
 
     def _standardize(self):
-        """Mean and standard deviation of the train energies (reference
-        ``data.py:146-176``)."""
-        if self.hparams.get("prior_model") == "Atomref":
-            raise NotImplementedError(
-                "standardize with the Atomref prior is not ported yet "
-                "(ROADMAP Queue 1 item 14, 'priors/')")
+        """Mean and standard deviation of the train energies, less the
+        atomref energies under the Atomref prior (reference
+        ``data.py:146-176``, JAX ``:128-160``)."""
+        atomref = (self.atomref if self.hparams.get("prior_model") == "Atomref"
+                   else None)
         ys = []
         for i in self.idx_train:
             sample = self.dataset[int(i)]
@@ -89,7 +95,11 @@ class DataModule:
                     "and standard deviation. Maybe the dataset only contains "
                     "forces.")
                 return
-            ys.append(float(np.asarray(sample["y"]).reshape(())))
+            y = float(np.asarray(sample["y"]).reshape(()))
+            if atomref is not None:
+                y -= float(np.asarray(atomref).reshape(-1)[
+                    np.asarray(sample["z"]).reshape(-1)].sum())
+            ys.append(y)
         ys = np.asarray(ys)
         self._mean = float(ys.mean())
         self._std = float(ys.std(ddof=1))

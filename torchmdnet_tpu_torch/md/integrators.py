@@ -25,20 +25,27 @@ dual-list embedding on the same grid (``enbr_*``, ``:282-289``,
 it from the ``init_state`` positions at the skin-padded Coulomb cutoff)
 replaces the Coulomb list with stencil windows over the same sort
 (kernels C and D); without it the Coulomb list is built in sorted space.
-K overflow stays sticky.
+K overflow stays sticky, but for the grouped list: its per-column
+budgets are part of the spec, so its overflow is transient
+(``blk_overflow``, JAX ``:418-428``) and folded into the sticky flag
+after the rebuild (``_fold_transient``, ``:501-505``), unless
+:func:`make_adaptive_md_step` recovers from it first.  :func:`run_md`
+is the one-call entry point.
 
 Units: Å, eV, amu, fs.  ``ACC_FACTOR`` converts (eV/Å)/amu → Å/fs².
 """
 
 import math
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from torchmdnet_tpu_torch.ops.cell_blocks import (
-    CellBlockSpec, StencilWindowSpec, permute_rows,
-    plan_cell_blocks_and_windows, tune_stencil_window_spec)
+    CellBlockSpec, StencilWindowSpec, lane_quantum, permute_rows,
+    plan_cell_blocks_and_windows, tune_cell_block_spec,
+    tune_stencil_window_spec)
 from torchmdnet_tpu_torch.ops.neighbors import (
     NeighborMatrix, build_neighbor_matrix, pick_cell_grid)
 from torchmdnet_tpu_torch.ops.windowed_coulomb import (
@@ -78,6 +85,9 @@ class MDState(NamedTuple):
     enbr_idx: Optional[torch.Tensor] = None
     enbr_mask: Optional[torch.Tensor] = None
     enbr_rev: Optional[torch.Tensor] = None
+    # grouped blocked path: the column-partitioned list's overflow of this
+    # rebuild, not yet folded into ``overflow``
+    blk_overflow: Optional[torch.Tensor] = None
 
 
 def maxwell_boltzmann_velocities(generator, masses, temperature, like):
@@ -253,9 +263,15 @@ def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
         batchs = torch.where(am_s, batch_perm, num_mols)
         nbr = build_neighbor_matrix(pos_s, batchs, atom_mask=am_s,
                                     **nbr_kwargs)
+        # the grouped list's overflow is a spec parameter (per-column
+        # budgets), so it stays transient; any other K overflow is sticky
+        if spec.col_slots is not None:
+            sticky, blk = st.overflow, nbr.overflow
+        else:
+            sticky, blk = st.overflow | nbr.overflow, None
         st = st._replace(
             nbr_idx=nbr.idx, nbr_mask=nbr.mask, nbr_rev=nbr.rev_slot,
-            overflow=st.overflow | nbr.overflow, perm=perm,
+            overflow=sticky, blk_overflow=blk, perm=perm,
             inv_perm=blocks.inv_perm, mask_rows=am_s,
             zs=torch.where(am_s, z[perm], 0), batchs=batchs)
         if emb_kwargs is not None:
@@ -288,13 +304,20 @@ def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
                              overflow=st.overflow | cnbr.overflow)
         return st
 
-    def chunk(st: MDState) -> MDState:
-        st = rebuild(st)
+    def steps(st: MDState) -> MDState:
         for _ in range(rebuild_every):
             st = vv_step(st)
         return st
 
-    def init_state(pos, vel=None, seed: int = 0) -> MDState:
+    def folded_rebuild(st: MDState) -> MDState:
+        return _fold_transient(rebuild(st))
+
+    def chunk(st: MDState) -> MDState:
+        return steps(folded_rebuild(st))
+
+    def init_raw(pos, vel=None, seed: int = 0) -> MDState:
+        """The first rebuild's state, its transient flag not yet folded and
+        no force yet (the adaptive wrapper checks the flag first)."""
         pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         if vel is None:
@@ -306,11 +329,151 @@ def make_md_step(potential, z, batch, masses, *, dt: float, num_mols: int = 1,
         if use_cwin and wspec["spec"] is None:
             wspec["spec"] = tune_stencil_window_spec(
                 pos, bd, spec, float(coulomb_rc) + skin)
-        st = rebuild(st)
+        return rebuild(st)
+
+    def with_force(st: MDState) -> MDState:
         e, f = energy_forces(st.pos, st)
         return st._replace(force=f, energy=e)
 
-    # one rebuild, and one energy+forces evaluation on a state's lists
-    chunk.rebuild = rebuild
+    def init_state(pos, vel=None, seed: int = 0) -> MDState:
+        return with_force(_fold_transient(init_raw(pos, vel, seed)))
+
+    # one rebuild (its transient flag folded), and one energy+forces
+    # evaluation on a state's lists
+    chunk.rebuild = folded_rebuild
     chunk.energy_forces = energy_forces
+    # the pieces the adaptive wrapper composes
+    chunk.raw_rebuild = rebuild
+    chunk.steps = steps
+    chunk.init_raw = init_raw
+    chunk.with_force = with_force
     return init_state, chunk, energy
+
+
+def _fold_transient(st: MDState) -> MDState:
+    if st.blk_overflow is None:
+        return st
+    return st._replace(overflow=st.overflow | st.blk_overflow)
+
+
+def make_adaptive_md_step(potential, z, batch, masses, *, cell_block_spec,
+                          max_respecs: int = 4, **kw):
+    """Blocked MD that recovers from a transient overflow (JAX
+    ``:553-706``): :func:`make_md_step` with ``cell_block_spec``, whose
+    grouped list's overflow is checked on the host at every rebuild.  When
+    it fires (a density fluctuation puts more neighbors in one stencil
+    column than the budget tuned at t=0), the spec's ``col_slots`` are
+    re-tuned on the live geometry (grown by a lane quantum each where the
+    tune finds the old ones enough), the potential is rebuilt on the new
+    spec with the same weights, the rebuild re-runs from the state's
+    original-order variables, and a warning says so.  After
+    ``max_respecs`` re-specs it warns and runs the exact gather path for
+    the rest of the run (the JAX package's documented behaviour, not a
+    device fallback).  K overflow of any other list stays sticky.
+
+    The port has no run, window or Coulomb-window budgets
+    (``ops/cell_blocks.py``), so an ungrouped spec never overflows here
+    and the JAX wrapper's window re-tune (``_recwin``) has nothing to do.
+    ``kw`` are :func:`make_md_step`'s options; ``box`` is required."""
+    if kw.get("box") is None:
+        raise ValueError("make_adaptive_md_step requires an orthogonal box")
+    rep = potential.module.representation_model
+    cutoff_pad = float(rep.cutoff_upper) + float(kw.get("skin", 1.0))
+    bd = _box_diag(torch.as_tensor(kw["box"]))
+    cur = {"respecs": 0}
+
+    def build(spec):
+        pot = potential
+        if spec is not cell_block_spec:
+            # the spec is baked into the model: rebuild it, same weights
+            pot = potential.with_spec(spec)
+        _, cur["chunk"], cur["energy"] = make_md_step(
+            pot, z, batch, masses, cell_block_spec=spec, **kw)
+        cur["spec"] = spec
+
+    build(cell_block_spec)
+
+    def fresh(st: MDState) -> MDState:
+        """Original-order dynamical variables only; the new closures'
+        rebuild derives the rest."""
+        return MDState(st.pos, st.vel, st.force, st.energy, None, None, None,
+                       st.generator, st.step, st.overflow)
+
+    def respec(st: MDState) -> MDState:
+        while True:
+            old = cur["spec"]
+            if cur["respecs"] >= max_respecs:
+                warnings.warn(
+                    "blocked MD: overflow persists after "
+                    f"{max_respecs} respecs; falling back to the exact "
+                    "gather path")
+                build(None)
+                return cur["chunk"].raw_rebuild(fresh(st))
+            cur["respecs"] += 1
+            try:
+                new = tune_cell_block_spec(
+                    st.pos, bd, cutoff_pad, cap=old.cap, rlh=old.rlh,
+                    precise=old.precise, column_slots=True)
+            except ValueError:
+                cur["respecs"] = max_respecs
+                continue
+            if all(a <= b for a, b in zip(new.col_slots, old.col_slots)):
+                # the live tune says the old budgets suffice: grow them,
+                # so that every pass makes progress
+                q = lane_quantum(old.cap)
+                new = old._replace(
+                    col_slots=tuple(c + q for c in old.col_slots))
+            warnings.warn(
+                f"blocked MD: column-budget overflow at step {st.step}; "
+                f"re-spec'd col_slots {old.col_slots} -> {new.col_slots} "
+                "(rebuild)")
+            build(new)
+            nxt = cur["chunk"].raw_rebuild(fresh(st))
+            if not bool(nxt.blk_overflow):
+                return nxt
+
+    def ensure(st: MDState, before: MDState) -> MDState:
+        if st.blk_overflow is not None and bool(st.blk_overflow):
+            st = respec(before)
+        return _fold_transient(st)
+
+    def chunk(st: MDState) -> MDState:
+        nxt = ensure(cur["chunk"].raw_rebuild(st), st)
+        return cur["chunk"].steps(nxt)
+
+    def init_state(pos, vel=None, seed: int = 0) -> MDState:
+        st = cur["chunk"].init_raw(pos, vel, seed)
+        st = ensure(st, st)
+        return cur["chunk"].with_force(st)
+
+    def energy(pos, st: MDState):
+        return cur["energy"](pos, st)
+
+    chunk.current = cur
+    return init_state, chunk, energy
+
+
+def run_md(potential, z, pos, masses, *, n_steps: int, dt: float = 1.0,
+           batch=None, num_mols: int = 1, box=None, q=None,
+           temperature: Optional[float] = None, gamma: float = 0.01,
+           rebuild_every: int = 25, skin: float = 1.0, seed: int = 0,
+           neighbor_strategy: str = "brute", cells_per_dim=None,
+           cell_block_spec=None) -> MDState:
+    """Run ``max(n_steps // rebuild_every, 1)`` chunks of MD on the
+    potential's device from ``pos`` (JAX ``:709-736``) and return the final
+    :class:`MDState`; check ``state.overflow``.  ``num_mols`` must cover
+    every real segment of ``batch`` (entries equal to ``num_mols`` are
+    ghost atoms)."""
+    if batch is None:
+        batch = np.zeros(len(z), np.int64)
+    init_state, chunk, _ = make_md_step(
+        potential, z, batch, masses, dt=dt, num_mols=num_mols, box=box, q=q,
+        rebuild_every=rebuild_every, skin=skin, temperature=temperature,
+        gamma=gamma, neighbor_strategy=neighbor_strategy,
+        cells_per_dim=cells_per_dim, cell_block_spec=cell_block_spec)
+    state = init_state(pos, seed=seed)
+    for _ in range(max(n_steps // rebuild_every, 1)):
+        state = chunk(state)
+    if state.pos.is_cuda:
+        torch.cuda.synchronize(state.pos.device)
+    return state

@@ -1,17 +1,22 @@
 """Model composition: ``TorchMDNet``, ``Potential`` and ``create_model``.
 
 Counterpart of ``torchmdnet_tpu/models/model.py`` (``TorchMDNet``
-``:26-111``, ``Potential``, ``create_model``) for ``model="tensornet2"``
-with the ``Scalar`` or ``ScalarPlusWeightedCoulomb`` head and for
-``model="tensornet"`` with the ``Scalar`` head.  Forces are
+``:26-111``, ``Potential``, ``create_prior_models``, ``create_model``) for
+``model="tensornet2"`` with the ``Scalar`` or
+``ScalarPlusWeightedCoulomb`` head and for ``model="tensornet"`` with the
+``Scalar`` head, each with any of the priors (``priors/``).  Forces are
 ``−∂Σy/∂pos`` from ``torch.autograd.grad``.  ``create_model`` takes the
 JAX package's args dict as it is and raises ``NotImplementedError`` on
 what this port does not cover yet, naming the ROADMAP item.
 """
 
+import copy
+
+import numpy as np
 import torch
 from torch import nn
 
+from torchmdnet_tpu_torch import priors as priors_pkg
 from torchmdnet_tpu_torch.models.common import reset_parameters
 from torchmdnet_tpu_torch.models.output_modules import (
     Scalar, ScalarPlusWeightedCoulomb)
@@ -22,26 +27,31 @@ from torchmdnet_tpu_torch.ops.config import resolve_device, set_matmul_precision
 
 
 class TorchMDNet(nn.Module):
-    """representation → output.pre_reduce → ×std → reduce → +mean
-    (reference ``model.py:530-631``); returns ``y [num_mols, 1]``."""
+    """representation → output.pre_reduce → ×std → priors' pre_reduce →
+    reduce → +mean → priors' post_reduce (reference ``model.py:530-631``,
+    JAX ``:103-110``); returns ``y [num_mols, 1]``."""
 
-    def __init__(self, representation_model, output_model, mean=0.0, std=1.0):
+    def __init__(self, representation_model, output_model, prior_models=(),
+                 mean=0.0, std=1.0):
         super().__init__()
         self.representation_model = representation_model
         self.output_model = output_model
+        # upstream's attribute name: keys ``prior_model.<i>.…``
+        self.prior_model = nn.ModuleList(prior_models)
         self.mean = float(mean)
         self.std = float(std)
 
     def forward(self, z, pos, batch, *, num_mols: int, box=None, q=None,
-                nbr=None, coulomb_nbr=None, blocked=False, coulomb_win=None,
-                nbr_emb=None):
+                extra_args=None, nbr=None, coulomb_nbr=None, blocked=False,
+                coulomb_win=None, nbr_emb=None):
         """``blocked``: the rows are in a cell-blocked sort
         (``ops/cell_blocks.py``) and the model was built with a
         ``cell_block_spec``, so the interactions run the blocked tier (the
         q-tier on TensorNet2, rows 8-11 on TensorNet);
         ``coulomb_win``: the windows of the windowed Coulomb head;
         ``nbr_emb`` (TensorNet2 on a grouped spec): the compact list of the
-        dual-list embedding."""
+        dual-list embedding; ``extra_args``: what the priors read (the
+        Coulomb prior's ``partial_charges``)."""
         atom_mask = batch < num_mols
         rep_kwargs = {} if nbr_emb is None else {"nbr_emb": nbr_emb}
         x, _ = self.representation_model(z, pos, batch, box=box, q=q,
@@ -51,8 +61,13 @@ class TorchMDNet(nn.Module):
         x = self.output_model.pre_reduce(x, z, pos, batch, box=box,
                                          num_mols=num_mols, nbr=coulomb_nbr,
                                          win=coulomb_win)
-        y = self.output_model.reduce(x * self.std, batch, num_mols)
-        return y + self.mean
+        x = x * self.std
+        for prior in self.prior_model:
+            x = prior.pre_reduce(x, z, pos, batch, extra_args, num_mols)
+        y = self.output_model.reduce(x, batch, num_mols) + self.mean
+        for prior in self.prior_model:
+            y = prior.post_reduce(y, z, pos, batch, box, extra_args, num_mols)
+        return y
 
 
 class Potential:
@@ -60,10 +75,22 @@ class Potential:
     ``device``.  Inputs may be tensors or arrays; they are moved there."""
 
     def __init__(self, module: TorchMDNet, device: torch.device,
-                 derivative: bool = True):
+                 derivative: bool = True, hparams=None):
         self.module = module
         self.device = device
         self.derivative = derivative
+        self.hparams = dict(hparams or {})
+
+    def with_spec(self, spec) -> "Potential":
+        """The same model and weights on another ``cell_block_spec`` (None:
+        the gather path); the spec is baked into the model, so it is
+        rebuilt from ``hparams`` as the JAX package's adaptive MD does."""
+        m = self.module
+        pot = create_model(dict(self.hparams, cell_block_spec=spec),
+                           prior_models=copy.deepcopy(list(m.prior_model)),
+                           mean=m.mean, std=m.std, device=self.device)
+        pot.module.load_state_dict(m.state_dict())
+        return pot
 
     def _inputs(self, z, pos, batch, box):
         dev = self.device
@@ -77,17 +104,19 @@ class Potential:
         return z, pos, batch, box
 
     def energy(self, z, pos, batch=None, *, num_mols: int = 1, box=None,
-               q=None, nbr=None, coulomb_nbr=None, blocked=False,
-               coulomb_win=None, nbr_emb=None):
+               q=None, extra_args=None, nbr=None, coulomb_nbr=None,
+               blocked=False, coulomb_win=None, nbr_emb=None):
         """Per-molecule energies ``y [num_mols, 1]``."""
         z, pos, batch, box = self._inputs(z, pos, batch, box)
         return self.module(z, pos, batch, num_mols=num_mols, box=box, q=q,
-                           nbr=nbr, coulomb_nbr=coulomb_nbr, blocked=blocked,
+                           extra_args=extra_args, nbr=nbr,
+                           coulomb_nbr=coulomb_nbr, blocked=blocked,
                            coulomb_win=coulomb_win, nbr_emb=nbr_emb)
 
     def apply(self, z, pos, batch=None, *, num_mols: int = 1, box=None,
-              q=None, nbr=None, coulomb_nbr=None, blocked=False,
-              coulomb_win=None, nbr_emb=None, create_graph=False):
+              q=None, extra_args=None, nbr=None, coulomb_nbr=None,
+              blocked=False, coulomb_win=None, nbr_emb=None,
+              create_graph=False):
         """``(y, −∂Σy/∂pos)``; the second item is None unless the model was
         built with ``derivative``.
 
@@ -96,8 +125,8 @@ class Potential:
         — so that a loss on them reaches the parameters (the reference's
         force training, JAX ``jax.grad`` inside the loss)."""
         z, pos, batch, box = self._inputs(z, pos, batch, box)
-        kw = dict(num_mols=num_mols, box=box, q=q, nbr=nbr,
-                  coulomb_nbr=coulomb_nbr, blocked=blocked,
+        kw = dict(num_mols=num_mols, box=box, q=q, extra_args=extra_args,
+                  nbr=nbr, coulomb_nbr=coulomb_nbr, blocked=blocked,
                   coulomb_win=coulomb_win, nbr_emb=nbr_emb)
         if not self.derivative:
             with torch.set_grad_enabled(create_graph):
@@ -126,8 +155,6 @@ def _check_supported(args: dict) -> None:
                         "tensornet", "Queue 1, 'Remaining heads and wrappers'")
     if args.get("remat"):
         _not_ported("remat=True", "Queue 1 item 17, 'Training: remat'")
-    if args.get("prior_model"):
-        _not_ported("prior_model", "Queue 1, 'priors/'")
     if args.get("precision", 32) != 32:
         _not_ported(f"precision={args['precision']}",
                     "Queue 1 item 17, 'Training: precision=16'")
@@ -139,9 +166,63 @@ def _check_supported(args: dict) -> None:
                     "Queue 1, 'Remaining heads and wrappers'")
 
 
-def create_model(args: dict, device=None, seed: int = 0) -> Potential:
+def create_prior_models(args: dict, dataset=None) -> tuple:
+    """The priors of ``args["prior_model"]``: a name, a list of names, or
+    dicts of name → arguments, with ``args["prior_args"]`` in place of
+    those arguments when given (reference ``model.py:377-448``, JAX
+    ``:166-214``).  A ``dataset`` supplies the element map, the unit
+    scales and the atomref table the arguments leave out."""
+    if not args.get("prior_model"):
+        return ()
+    prior_model = args["prior_model"]
+    if not isinstance(prior_model, (list, tuple)):
+        prior_model = [prior_model]
+    names, prior_args = [], []
+    for prior in prior_model:
+        if isinstance(prior, dict):
+            for key, value in prior.items():
+                names.append(key)
+                prior_args.append(value or {})
+        else:
+            names.append(prior)
+            prior_args.append({})
+    if args.get("prior_args") is not None:
+        prior_args = args["prior_args"]
+        if not isinstance(prior_args, (list, tuple)):
+            prior_args = [prior_args]
+    out = []
+    for name, arg in zip(names, prior_args):
+        if name not in priors_pkg.PRIOR_CLASSES:
+            raise ValueError(f"Unknown prior model {name}. Available: "
+                             f"{', '.join(priors_pkg.__all__)}")
+        arg = dict(arg)
+        if dataset is not None:
+            # priors take element maps and unit scales from the dataset
+            # (reference scripts/train.py:198-199, zbl.py:45-50)
+            if name in ("ZBL", "Coulomb", "D2"):
+                arg.setdefault("distance_scale", float(dataset.distance_scale))
+                arg.setdefault("energy_scale", float(dataset.energy_scale))
+            if name in ("ZBL", "D2") and "atomic_number" not in arg:
+                arg["atomic_number"] = tuple(
+                    int(v) for v in np.asarray(dataset.atomic_number).tolist())
+            if name in ("Atomref", "LearnableAtomref"):
+                atomref = getattr(dataset, "get_atomref", lambda: None)()
+                if atomref is not None:
+                    arg.setdefault("initial_atomref", np.asarray(atomref))
+                else:
+                    arg.setdefault("max_z", 100)
+        out.append(priors_pkg.PRIOR_CLASSES[name](**arg))
+    return tuple(out)
+
+
+def create_model(args: dict, prior_models=None, mean=None, std=None,
+                 device=None, seed: int = 0) -> Potential:
     """Build a :class:`Potential` from a reference-compatible args dict
-    (reference ``model.py:21-164``).
+    (reference ``model.py:21-164``, JAX ``:301-375``).
+
+    ``prior_models`` defaults to :func:`create_prior_models` of ``args``;
+    ``mean`` and ``std`` (a dataset's, ``DataModule.mean``/``std``) shift
+    and scale the prediction, 0 and 1 when not given.
 
     Weights are drawn from a ``torch.Generator`` seeded with ``seed`` and
     frozen (``requires_grad=False``), as inference and MD want them;
@@ -211,8 +292,13 @@ def create_model(args: dict, device=None, seed: int = 0) -> Potential:
     else:
         # reference quirk (issue #343): Scalar's MLP depth is pinned to 0
         head = Scalar(num_hidden_layers=0, **head_kwargs)
-    module = TorchMDNet(rep, head)
+    if args.get("prior_model") and prior_models is None:
+        prior_models = create_prior_models(args)
+    module = TorchMDNet(rep, head, prior_models=tuple(prior_models or ()),
+                        mean=0.0 if mean is None else mean,
+                        std=1.0 if std is None else std)
     reset_parameters(module, torch.Generator().manual_seed(int(seed)))
     module.requires_grad_(False)
     return Potential(module.to(device), device,
-                     derivative=bool(args.get("derivative", False)))
+                     derivative=bool(args.get("derivative", False)),
+                     hparams=args)

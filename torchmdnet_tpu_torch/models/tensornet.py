@@ -92,7 +92,7 @@ def edge_message_passing(attr3f, irr: Irreps, nbr: NeighborMatrix,
                                       nbr.rev_slot, nbr.mask)
     else:
         msg = packed_neighbor_sum_asym(attr3f, attr_rev, pack9(irr), nbr.idx,
-                                       nbr.mask)
+                                       nbr.rev_slot, nbr.mask)
     return split9(msg, n, f)
 
 

@@ -56,12 +56,16 @@ class ChargePredict(nn.Module):
 
     @staticmethod
     def qeq(old_charges, f, batch, Q_atom, num_mols: int):
-        """new = q + f²/(Σ_mol f² + ε)·(Q − Σ_mol q)."""
+        """new = q + f²/(Σ_mol f² + ε)·(Q − Σ_mol q).  The per-molecule
+        sums go back to the atoms through ``index_select``, whose
+        backward is an ``index_add``: plain indexing transposes to a
+        sorted ``index_put`` that sums a molecule's atoms, all duplicates
+        of one index, one after another."""
         f_u = f * f
         F_u = segment_sum(f_u, batch, num_mols + 1) + 1.0e-6
         Q_u = segment_sum(old_charges, batch, num_mols + 1)
-        dQ = Q_atom[:, None] - Q_u[batch]
-        return old_charges + f_u / F_u[batch] * dQ
+        dQ = Q_atom[:, None] - Q_u.index_select(0, batch)
+        return old_charges + f_u / F_u.index_select(0, batch) * dQ
 
     def forward(self, X: Irreps, batch, Q_atom, num_mols: int):
         # feature (I, ‖A‖², ‖S‖²): the raw I, unlike the readout's 3I²
@@ -147,9 +151,12 @@ class Interaction2(nn.Module):
                 u_j, nbr.idx, rev_slot, nbr.mask)
             attr = self._mlp_tail(pre1, cw)
             # Reverse-edge weights (same MLP, q_i and q_j swapped) for the
-            # scatter-free backward of the asymmetric neighbor sum, which
-            # gives them a zero cotangent: computed without a graph.
-            with torch.no_grad():
+            # scatter-free backward of the asymmetric neighbor sum.  Their
+            # first-order cotangent is zero; the second order (force
+            # training) reaches the weights through them, so they keep a
+            # graph only when the weights take gradients.
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and w1.requires_grad):
                 pre1_rev = base + u_j[:, None, :] + gather_nodes(
                     u_i, nbr.idx, rev_slot, nbr.mask)
                 attr_rev = self._mlp_tail(pre1_rev, cw)

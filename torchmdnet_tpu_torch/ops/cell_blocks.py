@@ -175,8 +175,14 @@ def tune_column_slots(spec: CellBlockSpec, idx, mask, pos_s,
             + (cy[:, None] + dy) % spec.ny)
     eq = scol[blk][:, None, :] == col_s[idx][:, :, None]   # [n_pad, K, 9]
     maxima = (eq & mask[:, :, None]).sum(dim=1).max(dim=0).values.tolist()
-    lane_q = max(128 // math.gcd(spec.cap, 128), 1)
+    lane_q = lane_quantum(spec.cap)
     return tuple(int(math.ceil((m + 2) / lane_q)) * lane_q for m in maxima)
+
+
+def lane_quantum(cap: int) -> int:
+    """The step of a column budget: ``cap·budget`` stays a multiple of 128
+    (:func:`tune_column_slots`)."""
+    return max(128 // math.gcd(cap, 128), 1)
 
 
 def tune_stencil_window_spec(pos, box_diag, spec: CellBlockSpec,

@@ -14,11 +14,19 @@ Force training differentiates through the backward of the symmetric sum
 (the force pass) once more, so its backward is built from the
 differentiable ops below, as in JAX (``:248-573``): the sum itself, the
 weight gradient ``_PnsDattr`` and, for the latter's own backward, the
-general sum with its scatter-free ``_PnsBwdPair``.
+general sum with its scatter-free ``_PnsBwdPair``.  The asymmetric sum
+of TensorNet2 is built the same way.  The reverse gather itself
+(:func:`gather_rev`) is self-adjoint, so its backward is the same gather
+at every order, and the position gather of the edge geometry
+(:func:`gather_pair_deltas`) transposes onto it too.
+
+Every transpose here is exact on a symmetric edge set.  After a K
+overflow a row keeps only its first ``K`` neighbors, the map is no longer
+an involution, and the transposes differ from the true ones exactly as
+the JAX package's do.
 """
 
 import torch
-from torch.autograd.function import once_differentiable
 
 # Transient budget of one row chunk of an [N, K, width] gathered block.
 CHUNK_BUDGET_BYTES = 512 * 1024 * 1024
@@ -48,9 +56,48 @@ def reverse_slots(idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, out, 0)
 
 
+class _GatherRev(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, idx, rev_slot, mask):
+        ctx.save_for_backward(idx, rev_slot, mask)
+        return torch.where(mask[..., None], g[idx, rev_slot], 0.0)
+
+    @staticmethod
+    def backward(ctx, ct):
+        idx, rev_slot, mask = ctx.saved_tensors
+        return _GatherRev.apply(ct, idx, rev_slot, mask), None, None, None
+
+
 def gather_rev(g, idx, rev_slot, mask):
-    """Masked reverse gather ``g[idx[n,k], rev_slot[n,k]]`` (self-adjoint)."""
-    return torch.where(mask[..., None], g[idx, rev_slot], 0.0)
+    """Masked reverse gather ``g[idx[n,k], rev_slot[n,k]]`` (JAX ``:51-68``).
+    The slot map is an involution on the valid slots, so the op is its own
+    transpose: its backward is this gather again, at every order (plain
+    indexing would transpose to an ``index_put`` scatter)."""
+    return _GatherRev.apply(g, idx, rev_slot, mask)
+
+
+class _GatherPairDeltas(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pos, idx, rev_slot, mask):
+        ctx.save_for_backward(idx, rev_slot, mask)
+        return pos[:, None, :] - pos[idx]
+
+    @staticmethod
+    def backward(ctx, ct):
+        idx, rev_slot, mask = ctx.saved_tensors
+        # invalid slots must not reach dpos through the reverse gather
+        ct = torch.where(mask[..., None], ct, 0.0)
+        dpos = ct.sum(dim=1) - gather_rev(ct, idx, rev_slot, mask).sum(dim=1)
+        return dpos, None, None, None
+
+
+def gather_pair_deltas(pos, idx, rev_slot, mask):
+    """``delta[i,k] = pos[i] - pos[idx[i,k]]`` with a scatter-free backward
+    (JAX ``:71-101``): ``dpos[j] = Σ_k ct[j,k] − Σ_k ct[idx[j,k],
+    rev_slot[j,k]]`` over the valid slots, built from :func:`gather_rev`,
+    so it is differentiable again (force training).  The default transpose
+    of ``pos[idx]`` is an atomic scatter with duplicate indices."""
+    return _GatherPairDeltas.apply(pos, idx, rev_slot, mask)
 
 
 class _GatherNodes(torch.autograd.Function):
@@ -110,29 +157,35 @@ def _pns_dattr(g9, feats9, idx, mask):
 
 class _PackedNeighborSumAsym(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, attr3f, attr_rev, feats9, idx, mask):
-        ctx.save_for_backward(attr_rev, feats9, idx, mask)
+    def forward(ctx, attr3f, attr_rev, feats9, idx, rev_slot, mask):
+        ctx.save_for_backward(attr_rev, feats9, idx, rev_slot, mask)
         return _pns_impl(attr3f, feats9, idx)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
-        attr_rev, feats9, idx, mask = ctx.saved_tensors
+        attr_rev, feats9, idx, rev_slot, mask = ctx.saved_tensors
         g = g.contiguous()
-        dattr = _pns_dattr(g, feats9, idx, mask) if ctx.needs_input_grad[0] else None
-        dfeats = _pns_impl(attr_rev, g, idx) if ctx.needs_input_grad[2] else None
-        return dattr, None, dfeats, None, None
+        dattr = dfeats = None
+        if ctx.needs_input_grad[0]:
+            dattr = _PnsDattr.apply(g, feats9, idx, rev_slot, mask)
+        if ctx.needs_input_grad[2]:
+            dfeats = packed_neighbor_sum(attr_rev, g, idx, rev_slot, mask)
+        # attr_rev: a zero first-order cotangent, as in JAX (the output does
+        # not depend on it); it reaches the second order through dfeats
+        return dattr, None, dfeats, None, None, None
 
 
-def packed_neighbor_sum_asym(attr3f, attr_rev, feats9, idx, mask):
+def packed_neighbor_sum_asym(attr3f, attr_rev, feats9, idx, rev_slot, mask):
     """Packed neighbor sum for direction-dependent edge weights whose
     reverse-edge weights ``attr_rev[j,k] = attr3f[idx[j,k], rev_slot[j,k]]``
-    the caller recomputes (the swapped-argument edge MLP).  The backward
-    needs row gathers only: ``∂attr = fold9(g ⊙ feats9[idx])`` and
-    ``∂feats9 = packed_sum(attr_rev, g)``; ``attr_rev`` gets a zero
+    the caller recomputes (the swapped-argument edge MLP; JAX
+    ``:576-631``).  The backward needs row gathers only: ``∂attr =
+    fold9(g ⊙ feats9[idx])`` and ``∂feats9 = packed_sum(attr_rev, g)``,
+    both differentiable again (force training); ``attr_rev`` gets a zero
     first-order cotangent.  Saves ``attr_rev`` and ``feats9`` only; the
     gathered blocks are rebuilt per chunk in the backward."""
-    return _PackedNeighborSumAsym.apply(attr3f, attr_rev, feats9, idx, mask)
+    return _PackedNeighborSumAsym.apply(attr3f, attr_rev, feats9, idx,
+                                        rev_slot, mask)
 
 
 class _PnsDattr(torch.autograd.Function):

@@ -20,7 +20,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from torchmdnet_tpu_torch.ops.message_passing import reverse_slots
+from torchmdnet_tpu_torch.ops.message_passing import (
+    gather_pair_deltas, reverse_slots)
 
 # Elements of the [rows, candidates] work arrays built at once; bounds the
 # build's transient memory at large N.
@@ -261,8 +262,18 @@ def build_neighbor_matrix(pos, batch=None, *, strategy: str = "brute",
 def neighbor_geometry(pos, nbr: NeighborMatrix, box=None, batch=None):
     """Differentiable ``(delta, dist)`` from positions and a fixed index set:
     ``delta[i,k] = pos[i] - pos[idx[i,k]]`` (minimum image), both zero on
-    padded slots, with no NaN gradient at ``d = 0``."""
-    delta = pos[:, None, :] - pos[nbr.idx]
+    padded slots, with no NaN gradient at ``d = 0``.
+
+    With ``nbr.rev_slot`` (every list build here fills it) the position gather
+    is :func:`~torchmdnet_tpu_torch.ops.message_passing.gather_pair_deltas`,
+    whose backward is a reverse gather instead of an atomic scatter (JAX
+    ``:533-539``); without it, plain indexing.  That transpose is exact on
+    a symmetric edge set: after a K overflow the forces differ from the
+    indexing's exactly as the JAX package's do."""
+    if nbr.rev_slot is not None:
+        delta = gather_pair_deltas(pos, nbr.idx, nbr.rev_slot, nbr.mask)
+    else:
+        delta = pos[:, None, :] - pos[nbr.idx]
     if box is not None:
         if box.dim() == 3:
             if batch is None:

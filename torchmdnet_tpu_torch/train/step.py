@@ -91,11 +91,12 @@ def compute_losses(potential, batch, num_mols: int,
 
     ``batch`` keys: z [N], pos [N, 3], batch [N] (ghost atoms in segment
     ``num_mols``), mol_mask [B], and optionally y [B, 1], neg_dy [N, 3],
-    q [B], box.  ``create_graph`` keeps the graph of the forces (for a
-    gradient in the parameters)."""
+    q [B], box, extra_args (what the priors read).  ``create_graph`` keeps
+    the graph of the forces (for a gradient in the parameters)."""
     y, neg_dy = potential.apply(
         batch["z"], batch["pos"], batch["batch"], num_mols=num_mols,
-        box=batch.get("box"), q=batch.get("q"), create_graph=create_graph)
+        box=batch.get("box"), q=batch.get("q"),
+        extra_args=batch.get("extra_args"), create_graph=create_graph)
     loss_y, loss_neg_dy = batch_losses(loss_fn_name, y, neg_dy, batch,
                                        num_mols)
     return loss_y, loss_neg_dy, (y, neg_dy)

@@ -226,7 +226,8 @@ class Trainer:
         try:
             y, neg_dy = self.potential.apply(
                 db["z"], db["pos"], db["batch"], num_mols=num_mols,
-                box=db.get("box"), q=db.get("q"))
+                box=db.get("box"), q=db.get("q"),
+                extra_args=db.get("extra_args"))
         finally:
             module.requires_grad_(True)
         return {name: tuple(v.detach() for v in batch_losses(

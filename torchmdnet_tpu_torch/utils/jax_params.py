@@ -6,7 +6,9 @@ torchmd-net names, as ``torchmdnet_tpu/utils/torch_ckpt.py::
 _flax_path_to_torch_key`` (``:212``) writes them: a trailing ``_<int>``
 becomes a list index (``layers_0`` → ``layers.0``) except on names whose
 suffix is literal (``charge_predict_0``), ``kernel`` becomes a transposed
-``weight``, and ``embedding``/``scale`` become ``weight``.  This is a copy
+``weight``, ``embedding``/``scale`` become ``weight``, and a trainable
+Atomref's table (``prior_models_<i>/atomref``) becomes
+``prior_model.<i>.atomref.weight`` (``torch_ckpt.py:135-136``, ``:234-239``).  This is a copy
 of that mapping, not an import of the JAX package.
 """
 
@@ -31,8 +33,13 @@ def flax_path_to_torch_key(path) -> str:
         else:
             tokens.append(tok)
     leaf = path[-1]
-    tokens.append("weight" if leaf in ("kernel", "embedding", "scale")
-                  else leaf)
+    if leaf == "atomref":
+        tokens += ["atomref", "weight"]
+    else:
+        tokens.append("weight" if leaf in ("kernel", "embedding", "scale")
+                      else leaf)
+    if tokens[0] == "prior_models":
+        tokens[0] = "prior_model"
     return ".".join(tokens)
 
 
