@@ -94,7 +94,16 @@ and weights on the CPU, with ms per evaluation with and without them)
 and the adaptive MD (``md_adaptive``: a dhfr grouped spec whose densest
 column is packed past its budget re-specs, its forces against the gather
 path, a timed 25-step chunk; then ``run_md`` for 25 steps on the dhfr
-brute path).
+brute path); and serving (``serve``, last): the AceFF recipe
+(``examples/TensorNet2-AceFF.yaml``: TensorNet2 2 x 128 with the
+all-to-all Coulomb head) written by ``save_checkpoint`` and read by
+``load_model(..., pallas_embedding=True, pallas_edge_mlp=True)`` (kernels
+1, 2 and 3), energies and forces of 16 and of 128 seeded molecules
+against the plain versions on the CPU and against the writing potential,
+with ms per evaluation, peak memory, profiles of both batches (their
+device ms) and of the 128 batch's all-to-all term; the old AceFF layout of the same
+weights, a zip of 3 checkpoints as an ``Ensemble``, and TensorNet 2 x 128
+with the ``DipoleMoment`` head and with ``atom_filter``, card against CPU.
 
 Before the kernels phase, ``tc_attributes`` gives the tensor-core kernels
 (rows 1, 2, 3, 5, 7, 10, 11 and kernels A-D) as compiled: registers, spill bytes,
@@ -2329,7 +2338,7 @@ def phase_energy(system):
 
 def phase_profile(name, run):
     """Device time by kernel over one energy+forces evaluation, and the
-    device's idle share of the (profiled) wall time."""
+    device's idle share of the (profiled) wall time; returns the row."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2358,11 +2367,13 @@ def phase_profile(name, run):
         groups[group] = groups.get(group, 0.0) + dev_ms(e)
     (OUT_DIR / f"profile_{name}.txt").write_text("\n".join(
         f"{dev_ms(e):12.3f} ms {e.count:6d} calls  {e.key}" for e in kernels))
-    emit({"phase": f"profile_{name}", "wall_ms": wall_ms,
-          "device_ms": total, "idle_share": max(0.0, 1 - total / wall_ms),
-          "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-          "top": [{"name": e.key[:80], "ms": dev_ms(e), "calls": e.count}
-                  for e in kernels[:12]]})
+    row = {"phase": f"profile_{name}", "wall_ms": wall_ms,
+           "device_ms": total, "idle_share": max(0.0, 1 - total / wall_ms),
+           "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+           "top": [{"name": e.key[:80], "ms": dev_ms(e), "calls": e.count}
+                   for e in kernels[:12]]}
+    emit(row)
+    return row
 
 
 PROFILE_GROUPS = (
@@ -3396,6 +3407,275 @@ def phase_trainer():
     pot.module.requires_grad_(False)
 
 
+# ---------------------------------------------------------------- serve
+# examples/TensorNet2-AceFF.yaml, copied (the port imports no yaml): the
+# AceFF recipe at full width, TensorNet2 2 x 128 with the all-to-all
+# Coulomb head (coulomb_cutoff: null)
+ACEFF_ARGS = dict(
+    activation="silu", atom_filter=-1, batch_size=16, charge=True,
+    cutoff_lower=0.0, cutoff_upper=4.5, dataset="Ace",
+    dataset_arg={"paths": "~/data/aceff_h5"}, dataset_root="~/data",
+    derivative=True, early_stopping_patience=40, embedding_dimension=128,
+    equivariance_invariance_group="O(3)", y_weight=1.0, neg_dy_weight=10.0,
+    inference_batch_size=16, log_dir="logs/", lr=0.0003, lr_factor=0.8,
+    lr_min=1.0e-07, lr_patience=10, lr_warmup_steps=1000,
+    max_num_neighbors=64, max_z=128, model="tensornet2", num_epochs=1000,
+    num_layers=2, num_rbf=32, output_model="ScalarPlusWeightedCoulomb",
+    q_dim=16, q_weights=[[1.0] * 16] * 3, coulomb_cutoff=None, precision=32,
+    rbf_type="expnorm", reduce_op="add", save_interval=5, seed=1,
+    standardize=False, test_size=0.01, train_size=0.9, trainable_rbf=False,
+    val_size=0.05, weight_decay=0.0, static_shapes=True)
+# load_model's overrides: kernels 1, 2 and 3 on the path
+SERVE_KWARGS = dict(derivative=True, pallas_embedding=True,
+                    pallas_edge_mlp=True)
+SERVE_KERNELS = ("radial_embedding_fwd", "radial_embedding_bwd",
+                 "edge_mlp_pre")
+# the recipe's inference_batch_size, and a batch of about 7,600 atoms
+SERVE_BATCHES = (16, 128)
+# elements of drug-like molecules and their shares
+SERVE_Z = (1, 6, 7, 8, 9, 16, 17)
+SERVE_P = (0.46, 0.32, 0.08, 0.09, 0.02, 0.02, 0.01)
+SERVE_OLD_TOL = 1e-6  # old-format against new-format energies, relative
+
+
+def serve_molecule(rng, n):
+    """``n`` atoms grown as a branched chain: each new atom 1.0-1.6 Å from
+    one of the last four and at least 1.2 Å from every other (a 0.9 Å
+    floor packs up to ~67 atoms within 4.5 Å, past the recipe's K = 64;
+    drug-like molecules hold ~30-45)."""
+    pos = np.zeros((n, 3))
+    for i in range(1, n):
+        while True:
+            v = rng.randn(3)
+            p = pos[max(0, i - 1 - rng.randint(4))] + v / np.linalg.norm(
+                v) * rng.uniform(1.0, 1.6)
+            if np.min(np.linalg.norm(pos[:i] - p, axis=1)) >= 1.2:
+                break
+        pos[i] = p
+    return pos - pos.mean(0)
+
+
+def serve_batch(n_mols, seed):
+    """``n_mols`` seeded molecules of 24-96 atoms, Z from ``SERVE_Z``,
+    total charges from {−1, 0, 1}, 40 Å apart on a grid: ``(z, pos,
+    batch, q, the most neighbors an atom has within the cutoff, self
+    included)``."""
+    rng = np.random.RandomState(seed)
+    side = int(math.ceil(n_mols ** (1 / 3)))
+    zs, ps, bs = [], [], []
+    most = 0
+    for m in range(n_mols):
+        p = serve_molecule(rng, rng.randint(24, 97))
+        d = np.linalg.norm(p[:, None] - p[None], axis=-1)
+        most = max(most, int((d < ACEFF_ARGS["cutoff_upper"]).sum(1).max()))
+        cell = np.array([m % side, m // side % side, m // side ** 2])
+        ps.append(p + 40.0 * cell)
+        zs.append(rng.choice(SERVE_Z, len(p), p=SERVE_P))
+        bs.append(np.full(len(p), m))
+    q = rng.randint(-1, 2, n_mols).astype(np.float32)
+    return (np.concatenate(zs).astype(np.int64),
+            np.concatenate(ps).astype(np.float32),
+            np.concatenate(bs).astype(np.int64), q, most)
+
+
+def old_format(path, old_path):
+    """The checkpoint at ``path`` in the old AceFF layout, marked with
+    ``check_errors``: the inverse of ``remix_linear`` on the embedding's
+    ``linears_scalar.1``."""
+    ckpt = torch.load(path, weights_only=False)
+    sd = ckpt["state_dict"]
+    key = "model.representation_model.tensor_embedding.linears_scalar.1"
+    w, b = sd[key + ".weight"], sd[key + ".bias"]
+    a = w.shape[0]
+    sd[key + ".weight"] = w.reshape(3, a // 3, -1).transpose(0, 1).reshape(
+        w.shape).contiguous()
+    sd[key + ".bias"] = b.reshape(3, a // 3).T.reshape(a).contiguous()
+    ckpt["hyper_parameters"]["check_errors"] = True
+    torch.save(ckpt, old_path)
+    return old_path
+
+
+def serve_inputs(batch, device):
+    """``(z, pos, batch, q)`` of a serve batch as tensors on ``device``
+    (inputs already on the card: a host copy inside the timed call would
+    wait for the stream)."""
+    return tuple(torch.as_tensor(a, device=device) for a in batch[:4])
+
+
+def serve_run(pot, inputs):
+    """One evaluation of ``pot`` (a potential or an ensemble)."""
+    z, pos, seg, q = inputs
+    return lambda: pot.apply(z, pos, seg, num_mols=len(q), q=q)
+
+
+def serve_energy_only(pot, args, batch):
+    """Energies of ``pot`` on the card against the same model and weights
+    on the CPU (a head without forces): (relative error, energies)."""
+    from torchmdnet_tpu_torch.models.model import create_model
+
+    cpu = create_model(args, device="cpu", seed=0)
+    cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                pot.module.state_dict().items()})
+    y, f = serve_run(pot, serve_inputs(batch, pot.device))()
+    y_c, _ = serve_run(cpu, serve_inputs(batch, "cpu"))()
+    check(f is None and bool(torch.isfinite(y).all()),
+          "serve: non-finite energies")
+    return rel_err(y.cpu(), y_c)[1], y
+
+
+def phase_serve():
+    """Serving the AceFF recipe from a checkpoint: a seeded TensorNet2
+    with the all-to-all Coulomb head written by ``save_checkpoint``, read
+    by ``load_model(path, device="cuda", derivative=True,
+    pallas_embedding=True, pallas_edge_mlp=True)``; energies and forces
+    of a batch of 16 molecules (the recipe's ``inference_batch_size``)
+    and of 128 (~7,600 atoms), each against the plain versions on the
+    CPU, ms per evaluation, peak memory, a profile of each (its device
+    ms) and one of the 128 batch's all-to-all Coulomb term alone; the old
+    AceFF layout of the same weights; a 3-checkpoint ensemble from a zip;
+    TensorNet 2 x 128 with the ``DipoleMoment`` head, and with
+    ``atom_filter=1``, card against CPU."""
+    from torchmdnet_tpu_torch.models.model import (
+        Ensemble, create_model, load_model)
+    from torchmdnet_tpu_torch.models.output_modules import (
+        all_to_all_coulomb)
+    from torchmdnet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    out = OUT_DIR / "serve"
+    out.mkdir(parents=True, exist_ok=True)
+    dev = torch.device("cuda")
+    flags = dict(ACEFF_ARGS, pallas_embedding=True, pallas_edge_mlp=True)
+    paths = []
+    for seed in range(3):
+        writer = create_model(flags, device=dev, seed=seed)
+        paths.append(save_checkpoint(out / f"aceff_{seed}.ckpt", writer,
+                                     hparams=ACEFF_ARGS))
+        if seed == 0:
+            first = writer
+        else:
+            del writer
+    pot = load_model(paths[0], device="cuda", **SERVE_KWARGS)
+    loaded, written = pot.module.state_dict(), first.module.state_dict()
+    weights_diff = max(float((loaded[k] - written[k]).abs().max())
+                       for k in written)
+    check(loaded.keys() == written.keys() and weights_diff == 0.0
+          and pot.module.mean == first.module.mean
+          and pot.module.std == first.module.std,
+          f"serve: the loaded weights differ by {weights_diff}")
+    batches = {n: serve_batch(n, seed=31 + n) for n in SERVE_BATCHES}
+
+    checks = []  # (condition, message), checked after the row is printed
+    row = {"phase": "serve", "tolerance": TOL, "args": {
+        k: ACEFF_ARGS[k] for k in ("model", "embedding_dimension",
+                                   "num_layers", "num_rbf", "cutoff_upper",
+                                   "max_num_neighbors", "q_dim",
+                                   "coulomb_cutoff", "output_model")},
+        "overrides": SERVE_KWARGS, "weights_max_abs_diff": weights_diff}
+    old = load_model(old_format(paths[0], out / "aceff_old.ckpt"),
+                     device="cuda", **SERVE_KWARGS)
+    ens = load_model(zip_checkpoints(out, paths), device="cuda",
+                     return_std=True, **SERVE_KWARGS)
+    check(isinstance(ens, Ensemble) and len(ens.members) == 3,
+          "serve: the zip did not load as a 3-member ensemble")
+    for n, b in batches.items():
+        most = b[4]
+        check(most <= ACEFF_ARGS["max_num_neighbors"],
+              f"serve: {most} neighbors overflow K")
+        t, tc = serve_inputs(b, dev), serve_inputs(b, "cpu")
+        before = launch_counts()
+        y, f = serve_run(pot, t)()
+        check_launched(SERVE_KERNELS, before)
+        y_w, f_w = serve_run(first, t)()
+        e_err, f_rel, energy = against_cpu(pot, pot.hparams,
+                                           lambda m: serve_run(m, t)(),
+                                           lambda m: serve_run(m, tc)())
+        y_o, _ = serve_run(old, t)()
+        ys = serve_run(ens, t)()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r = {"mols": n, "atoms": len(b[0]), "max_neighbors": most,
+             "energy": energy, "energy_rel_err_vs_cpu": e_err,
+             "force_rel_err_vs_cpu": f_rel,
+             "vs_writer": [rel_err(y, y_w)[1], rel_err(f, f_w)[1]],
+             "old_format_energy_rel_err": rel_err(y_o, y)[1],
+             "ensemble_std_energy_max": float(ys[2].max()),
+             "ensemble_std_energy_min": float(ys[2].min()),
+             "time_ms": time_ms(serve_run(pot, t), reps=5),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "ensemble_ms": time_ms(serve_run(ens, t), reps=3)}
+        # an evaluation issues thousands of launches, more than the
+        # launch queue holds behind device_ms's spin kernel: its device
+        # time is the profile's sum of kernel times
+        prof = phase_profile(f"serve_{n}", serve_run(pot, t))
+        r["device_ms"], r["idle_share"] = prof["device_ms"], prof["idle_share"]
+        check(r["device_ms"] > 0, f"serve {n}: the profile saw no device time")
+        row[f"batch_{n}"] = r
+        checks += [
+            (e_err <= TOL and f_rel <= TOL,
+             f"serve {n}: card vs CPU {e_err:.3g} / {f_rel:.3g}"),
+            (max(r["vs_writer"]) <= 1e-6, f"serve {n}: the loaded potential "
+             f"differs from the writing one {r['vs_writer']}"),
+            (r["old_format_energy_rel_err"] <= SERVE_OLD_TOL,
+             f"serve {n}: old format {r['old_format_energy_rel_err']:.3g}"),
+            (all(bool(torch.isfinite(v).all()) for v in ys)
+             and bool((ys[2] > 0).all()) and bool((ys[3] > 0).any()),
+             f"serve {n}: ensemble stds not finite and positive")]
+    del first, old, ens
+    torch.cuda.empty_cache()
+
+    # the 128 batch's all-to-all Coulomb term alone (forward and
+    # backward, at the batch's geometry)
+    mols = SERVE_BATCHES[-1]
+    _, pos_t, seg_t, _ = serve_inputs(batches[mols], dev)
+    charges = torch.randn(len(pos_t), 3 * ACEFF_ARGS["q_dim"], device=dev,
+                          generator=torch.Generator(dev).manual_seed(3))
+    qw = pot.module.output_model.qweights
+
+    def coulomb():
+        p = pos_t.detach().requires_grad_(True)
+        c = charges.detach().requires_grad_(True)
+        e = all_to_all_coulomb(p, seg_t, c, qw, mols,
+                               pot.module.output_model.FACTOR)
+        torch.autograd.grad(e.sum(), (p, c))
+
+    phase_profile(f"serve_{mols}_all_to_all", coulomb)
+    big = row[f"batch_{mols}"]
+    big["all_to_all_device_ms"] = device_ms(coulomb, reps=5)
+    big["all_to_all_share"] = big["all_to_all_device_ms"] / big["device_ms"]
+    del pot
+    torch.cuda.empty_cache()
+
+    # TensorNet 2 x 128 with the DipoleMoment head, and with atom_filter
+    b = batches[SERVE_BATCHES[0]]
+    for name, extra in (("tensornet_dipole",
+                         dict(output_model="DipoleMoment")),
+                        ("tensornet_atom_filter",
+                         dict(output_model="Scalar", atom_filter=1))):
+        args = dict(flags, model="tensornet", derivative=False, **extra)
+        tn = create_model(args, device=dev, seed=4)
+        err, y = serve_energy_only(tn, args, b)
+        row[name] = {"energy_rel_err_vs_cpu": err,
+                     "energy_sum": float(y.sum())}
+        checks.append((err <= TOL, f"serve {name}: card vs CPU {err:.3g}"))
+        del tn
+    emit(row)
+    for p in list(paths) + [out / "aceff_old.ckpt", out / "aceff.zip"]:
+        os.remove(p)
+    for cond, what in checks:
+        check(cond, what)
+
+
+def zip_checkpoints(out, paths):
+    """``out/aceff.zip`` holding the checkpoints ``paths``."""
+    import zipfile
+
+    path = out / "aceff.zip"
+    with zipfile.ZipFile(path, "w") as zf:
+        for p in paths:
+            zf.write(p, os.path.basename(p))
+    return path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3470,6 +3750,7 @@ def main():
     torch.cuda.empty_cache()
     by_path["train"] = phase_train()
     phase_trainer()
+    phase_serve()
     launches = {k: by_path[path][1][k] for k, (_, _, path) in KERNELS.items()}
     emit({"phase": "launches", "md_steps": {p: s for p, (s, _) in
                                             by_path.items()},

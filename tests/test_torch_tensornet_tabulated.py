@@ -25,9 +25,7 @@ def test_energy_and_forces_match_jax(setup, variant, system, monkeypatch):
     tn_check_against_jax(setup, variant, system, monkeypatch)
 
 
-@pytest.mark.parametrize("key,value", [
-    ("precision", 16), ("output_model", "ScalarPlusWeightedCoulomb"),
-    ("remat", True)])
+@pytest.mark.parametrize("key,value", [("precision", 16), ("remat", True)])
 def test_uncovered_options_raise(key, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model(dict(TENSORNET_ARGS, **{key: value}), device="cpu")

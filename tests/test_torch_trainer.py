@@ -248,8 +248,7 @@ def test_prefetch_matches_sync(tmp_path):
     assert rows["sync"] == rows["prefetch"]
 
 
-@pytest.mark.parametrize("option", [dict(ngpus=2), dict(load_weights="x"),
-                                    dict(wandb_use=True)])
+@pytest.mark.parametrize("option", [dict(ngpus=2), dict(wandb_use=True)])
 def test_unported_options_raise(option, tmp_path):
     hp = _hparams(tmp_path, **option)
     pot = create_model(hp, device="cpu")

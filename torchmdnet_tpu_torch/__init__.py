@@ -6,6 +6,9 @@ hand-written kernels live in ``csrc/*.cu`` and are built with ``nvcc`` on
 first use (``ops/kernels.py``).
 """
 
-from torchmdnet_tpu_torch.models.model import Potential, create_model
+from torchmdnet_tpu_torch.models.model import (
+    Ensemble, Potential, create_model, load_ensemble, load_model)
+from torchmdnet_tpu_torch.utils.checkpoint import save_checkpoint
 
-__all__ = ["Potential", "create_model"]
+__all__ = ["Ensemble", "Potential", "create_model", "load_ensemble",
+           "load_model", "save_checkpoint"]

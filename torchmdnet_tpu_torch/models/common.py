@@ -105,37 +105,93 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
             m.reset_parameters(generator)
 
 
+def _initial(values, default):
+    """A checkpoint's frozen buffer ``values`` (any array-like) in the
+    shape of the ``default`` buffer; ``default`` when None."""
+    if values is None:
+        return default
+    t = torch.as_tensor(values, dtype=torch.float32).detach().cpu().clone()
+    if t.numel() != default.numel():
+        raise ValueError(f"a frozen rbf buffer of {t.numel()} values where "
+                         f"the model has {default.numel()}")
+    return t.reshape(default.shape)
+
+
 class ExpNormalSmearing(nn.Module):
     """Expnorm radial basis (reference ``models/utils.py:356-407``).  Not
     trainable: means and betas are fixed buffers outside the state dict,
-    as in the JAX package, which has no parameters for them."""
+    as in the JAX package, which has no parameters for them.
+    ``initial_values``: ``(means, betas)`` from a checkpoint (JAX's
+    ``rbf_initial``), in place of the PhysNet defaults."""
 
     def __init__(self, cutoff_lower=0.0, cutoff_upper=5.0, num_rbf=50,
-                 trainable=False):
+                 trainable=False, initial_values=None):
         super().__init__()
-        if trainable:
-            raise NotImplementedError(
-                "trainable_rbf (trainable smearing) is not ported yet "
-                "(ROADMAP Queue 1 item 17, 'Training: trainable_rbf')")
+        _refuse_trainable(trainable)
         self.cutoff_lower = cutoff_lower
         self.cutoff_upper = cutoff_upper
         self.alpha = 5.0 / (cutoff_upper - cutoff_lower)
         means, betas = rbf_ops.expnorm_initial_params(cutoff_lower,
                                                       cutoff_upper, num_rbf)
+        if initial_values is not None:
+            means = _initial(initial_values[0], means)
+            betas = _initial(initial_values[1], betas)
         self.register_buffer("means", means, persistent=False)
         self.register_buffer("betas", betas, persistent=False)
+
+    def values(self):
+        """The buffers, in the order ``initial_values`` takes them."""
+        return self.means, self.betas
 
     def forward(self, dist):
         return rbf_ops.expnorm_rbf(dist, self.means, self.betas, self.alpha,
                                    self.cutoff_upper, self.cutoff_lower)
 
 
-def make_rbf(rbf_type, cutoff_lower, cutoff_upper, num_rbf, trainable):
-    if rbf_type != "expnorm":
+class GaussianSmearing(nn.Module):
+    """Gaussian radial basis (reference ``models/utils.py:316-353``, JAX
+    ``models/common.py:262-290``); offsets and coefficient are fixed
+    buffers outside the state dict.  ``initial_values``: ``(offset,
+    coeff)`` from a checkpoint."""
+
+    def __init__(self, cutoff_lower=0.0, cutoff_upper=5.0, num_rbf=50,
+                 trainable=False, initial_values=None):
+        super().__init__()
+        _refuse_trainable(trainable)
+        self.cutoff_lower = cutoff_lower
+        self.cutoff_upper = cutoff_upper
+        offset, coeff = rbf_ops.gauss_initial_params(cutoff_lower,
+                                                     cutoff_upper, num_rbf)
+        if initial_values is not None:
+            offset = _initial(initial_values[0], offset)
+            coeff = _initial(initial_values[1], coeff)
+        self.register_buffer("offset", offset, persistent=False)
+        self.register_buffer("coeff", coeff, persistent=False)
+
+    def values(self):
+        return self.offset, self.coeff
+
+    def forward(self, dist):
+        return rbf_ops.gauss_rbf(dist, self.offset, self.coeff)
+
+
+def _refuse_trainable(trainable):
+    if trainable:
         raise NotImplementedError(
-            f"rbf_type={rbf_type!r}: only 'expnorm' is ported (ROADMAP "
-            "Queue 1, 'models/common.py')")
-    return ExpNormalSmearing(cutoff_lower, cutoff_upper, num_rbf, trainable)
+            "trainable_rbf (trainable smearing) is not ported yet "
+            "(ROADMAP Queue 1 item 17, 'Training: trainable_rbf')")
+
+
+RBF_CLASSES = {"gauss": GaussianSmearing, "expnorm": ExpNormalSmearing}
+
+
+def make_rbf(rbf_type, cutoff_lower, cutoff_upper, num_rbf, trainable,
+             initial_values=None):
+    if rbf_type not in RBF_CLASSES:
+        raise ValueError(f'Unknown RBF type "{rbf_type}". Choose from '
+                         f'{", ".join(RBF_CLASSES)}.')
+    return RBF_CLASSES[rbf_type](cutoff_lower, cutoff_upper, num_rbf,
+                                 trainable, initial_values)
 
 
 class MLP(nn.Module):
@@ -154,3 +210,41 @@ class MLP(nn.Module):
 
     def forward(self, x):
         return self.layers(x)
+
+
+class GatedEquivariantBlock(nn.Module):
+    """Gated equivariant block of Schütt et al. 2021 (reference
+    ``models/utils.py:583-655``, JAX ``models/common.py:337-381``); keys
+    ``vec1_proj``, ``vec2_proj``, ``update_net.layers.N`` as upstream
+    writes them after its PR#314.  ``x [N, H]``, ``v [N, 3, H]`` →
+    ``(x [N, O], v [N, 3, O])``.  The norm of ``vec1`` has a zero-safe
+    gradient (a double ``where``, as in JAX)."""
+
+    def __init__(self, hidden_channels, out_channels,
+                 intermediate_channels=None, activation="silu",
+                 scalar_activation=False):
+        super().__init__()
+        self.out_channels = out_channels
+        inter = intermediate_channels or hidden_channels
+        self.vec1_proj = Linear(hidden_channels, hidden_channels, bias=False,
+                                init="xavier_zeros")
+        self.vec2_proj = Linear(hidden_channels, out_channels, bias=False,
+                                init="xavier_zeros")
+        self.update_net = MLP(2 * hidden_channels, out_channels * 2, inter,
+                              activation)
+        self.act = get_activation(activation) if scalar_activation else None
+
+    def forward(self, x, v):
+        vec1_buffer = self.vec1_proj(v)
+        sq = (vec1_buffer * vec1_buffer).sum(dim=-2)
+        nonzero_row = (vec1_buffer != 0).reshape(
+            vec1_buffer.shape[0], -1).any(dim=1)
+        keep = (sq > 0) & nonzero_row[:, None]
+        vec1 = torch.where(keep, torch.sqrt(torch.where(keep, sq, 1.0)), 0.0)
+        vec2 = self.vec2_proj(v)
+        x = self.update_net(torch.cat([x, vec1], dim=-1))
+        x, vgate = torch.split(x, self.out_channels, dim=-1)
+        v = vgate[:, None, :] * vec2
+        if self.act is not None:
+            x = self.act(x)
+        return x, v

@@ -1,16 +1,22 @@
-"""Model composition: ``TorchMDNet``, ``Potential`` and ``create_model``.
+"""Model composition: ``TorchMDNet``, ``Potential``, ``create_model``,
+checkpoint loading and ensembles.
 
 Counterpart of ``torchmdnet_tpu/models/model.py`` (``TorchMDNet``
-``:26-111``, ``Potential``, ``create_prior_models``, ``create_model``) for
-``model="tensornet2"`` with the ``Scalar`` or
-``ScalarPlusWeightedCoulomb`` head and for ``model="tensornet"`` with the
-``Scalar`` head, each with any of the priors (``priors/``).  Forces are
-``−∂Σy/∂pos`` from ``torch.autograd.grad``.  ``create_model`` takes the
-JAX package's args dict as it is and raises ``NotImplementedError`` on
-what this port does not cover yet, naming the ROADMAP item.
+``:26-111``, ``Potential``, ``create_prior_models``, ``create_model``,
+``load_model``, ``Ensemble``, ``load_ensemble``) for ``model="tensornet2"``
+and ``model="tensornet"`` with every head of ``OUTPUT_MODULES`` that needs
+no vector features, each with any of the priors (``priors/``) and
+``atom_filter``.  Forces are ``−∂Σy/∂pos`` from ``torch.autograd.grad``.
+``create_model`` takes the JAX package's args dict as it is and raises
+``NotImplementedError`` on what this port does not cover yet, naming the
+ROADMAP item.
 """
 
 import copy
+import glob
+import os
+import tempfile
+import zipfile
 
 import numpy as np
 import torch
@@ -18,8 +24,7 @@ from torch import nn
 
 from torchmdnet_tpu_torch import priors as priors_pkg
 from torchmdnet_tpu_torch.models.common import reset_parameters
-from torchmdnet_tpu_torch.models.output_modules import (
-    Scalar, ScalarPlusWeightedCoulomb)
+from torchmdnet_tpu_torch.models.output_modules import OUTPUT_MODULES
 from torchmdnet_tpu_torch.models.tensornet import TensorNet
 from torchmdnet_tpu_torch.models.tensornet2 import TensorNet2
 from torchmdnet_tpu_torch.ops.cell_blocks import CellBlockSpec
@@ -27,12 +32,19 @@ from torchmdnet_tpu_torch.ops.config import resolve_device, set_matmul_precision
 
 
 class TorchMDNet(nn.Module):
-    """representation → output.pre_reduce → ×std → priors' pre_reduce →
-    reduce → +mean → priors' post_reduce (reference ``model.py:530-631``,
-    JAX ``:103-110``); returns ``y [num_mols, 1]``."""
+    """representation → atom filter → output.pre_reduce → ×std → priors'
+    pre_reduce → reduce → +mean → output.post_reduce → priors' post_reduce
+    (reference ``model.py:530-631``, JAX ``:76-110``); returns
+    ``y [num_mols, out]``.
+
+    ``atom_filter`` > -1 drops the atoms with ``Z ≤ atom_filter`` after the
+    representation (reference ``wrappers.py:33-67``): as in JAX, their
+    features are zeroed rather than their rows removed.  ``mean`` and
+    ``std`` are plain floats, outside the state dict; a checkpoint carries
+    them as ``model.mean``/``model.std`` (``utils/checkpoint.py``)."""
 
     def __init__(self, representation_model, output_model, prior_models=(),
-                 mean=0.0, std=1.0):
+                 mean=0.0, std=1.0, atom_filter=-1):
         super().__init__()
         self.representation_model = representation_model
         self.output_model = output_model
@@ -40,6 +52,7 @@ class TorchMDNet(nn.Module):
         self.prior_model = nn.ModuleList(prior_models)
         self.mean = float(mean)
         self.std = float(std)
+        self.atom_filter = int(atom_filter)
 
     def forward(self, z, pos, batch, *, num_mols: int, box=None, q=None,
                 extra_args=None, nbr=None, coulomb_nbr=None, blocked=False,
@@ -54,17 +67,23 @@ class TorchMDNet(nn.Module):
         Coulomb prior's ``partial_charges``)."""
         atom_mask = batch < num_mols
         rep_kwargs = {} if nbr_emb is None else {"nbr_emb": nbr_emb}
-        x, _ = self.representation_model(z, pos, batch, box=box, q=q,
+        x, v = self.representation_model(z, pos, batch, box=box, q=q,
                                           atom_mask=atom_mask, nbr=nbr,
                                           num_mols=num_mols, blocked=blocked,
                                           **rep_kwargs)
-        x = self.output_model.pre_reduce(x, z, pos, batch, box=box,
+        if self.atom_filter > -1:
+            keep = (z > self.atom_filter)[:, None].to(x.dtype)
+            x = x * keep
+            if v is not None:
+                v = v * keep[:, :, None]
+        x = self.output_model.pre_reduce(x, v, z, pos, batch, box=box,
                                          num_mols=num_mols, nbr=coulomb_nbr,
                                          win=coulomb_win)
         x = x * self.std
         for prior in self.prior_model:
             x = prior.pre_reduce(x, z, pos, batch, extra_args, num_mols)
         y = self.output_model.reduce(x, batch, num_mols) + self.mean
+        y = self.output_model.post_reduce(y)
         for prior in self.prior_model:
             y = prior.post_reduce(y, z, pos, batch, box, extra_args, num_mols)
         return y
@@ -88,7 +107,9 @@ class Potential:
         m = self.module
         pot = create_model(dict(self.hparams, cell_block_spec=spec),
                            prior_models=copy.deepcopy(list(m.prior_model)),
-                           mean=m.mean, std=m.std, device=self.device)
+                           mean=m.mean, std=m.std, device=self.device,
+                           rbf_initial=m.representation_model
+                           .distance_expansion.values())
         pot.module.load_state_dict(m.state_dict())
         return pot
 
@@ -149,31 +170,19 @@ def _check_supported(args: dict) -> None:
     model = args["model"]
     if model not in ("tensornet", "tensornet2"):
         _not_ported(f"model={model!r}", "Queue 1, 'torchmd_et, _t, _gn'")
-    if model == "tensornet":
-        if args.get("output_model", "Scalar") != "Scalar":
-            _not_ported(f"output_model={args['output_model']!r} on "
-                        "tensornet", "Queue 1, 'Remaining heads and wrappers'")
     if args.get("remat"):
         _not_ported("remat=True", "Queue 1 item 17, 'Training: remat'")
     if args.get("precision", 32) != 32:
         _not_ported(f"precision={args['precision']}",
                     "Queue 1 item 17, 'Training: precision=16'")
-    if args.get("atom_filter", -1) > -1:
-        _not_ported("atom_filter", "Queue 1, 'Remaining heads and wrappers'")
-    if args.get("output_model", "Scalar") not in (
-            "Scalar", "ScalarPlusWeightedCoulomb"):
-        _not_ported(f"output_model={args['output_model']!r}",
-                    "Queue 1, 'Remaining heads and wrappers'")
 
 
-def create_prior_models(args: dict, dataset=None) -> tuple:
-    """The priors of ``args["prior_model"]``: a name, a list of names, or
-    dicts of name → arguments, with ``args["prior_args"]`` in place of
-    those arguments when given (reference ``model.py:377-448``, JAX
-    ``:166-214``).  A ``dataset`` supplies the element map, the unit
-    scales and the atomref table the arguments leave out."""
+def prior_specs(args: dict) -> list:
+    """``[(name, arguments), …]`` of ``args["prior_model"]``: a name, a
+    list of names, or dicts of name → arguments, with
+    ``args["prior_args"]`` in place of those arguments when given."""
     if not args.get("prior_model"):
-        return ()
+        return []
     prior_model = args["prior_model"]
     if not isinstance(prior_model, (list, tuple)):
         prior_model = [prior_model]
@@ -190,8 +199,17 @@ def create_prior_models(args: dict, dataset=None) -> tuple:
         prior_args = args["prior_args"]
         if not isinstance(prior_args, (list, tuple)):
             prior_args = [prior_args]
+    return list(zip(names, prior_args))
+
+
+def create_prior_models(args: dict, dataset=None) -> tuple:
+    """The priors of ``args["prior_model"]``: a name, a list of names, or
+    dicts of name → arguments, with ``args["prior_args"]`` in place of
+    those arguments when given (reference ``model.py:377-448``, JAX
+    ``:166-214``).  A ``dataset`` supplies the element map, the unit
+    scales and the atomref table the arguments leave out."""
     out = []
-    for name, arg in zip(names, prior_args):
+    for name, arg in prior_specs(args):
         if name not in priors_pkg.PRIOR_CLASSES:
             raise ValueError(f"Unknown prior model {name}. Available: "
                              f"{', '.join(priors_pkg.__all__)}")
@@ -216,13 +234,16 @@ def create_prior_models(args: dict, dataset=None) -> tuple:
 
 
 def create_model(args: dict, prior_models=None, mean=None, std=None,
-                 device=None, seed: int = 0) -> Potential:
+                 device=None, seed: int = 0, rbf_initial=None) -> Potential:
     """Build a :class:`Potential` from a reference-compatible args dict
     (reference ``model.py:21-164``, JAX ``:301-375``).
 
     ``prior_models`` defaults to :func:`create_prior_models` of ``args``;
     ``mean`` and ``std`` (a dataset's, ``DataModule.mean``/``std``) shift
-    and scale the prediction, 0 and 1 when not given.
+    and scale the prediction, 0 and 1 when not given.  A head with
+    ``allow_prior_model = False`` (the dipole and spatial-extent heads)
+    drops the priors, as JAX does.  ``rbf_initial``: the frozen rbf
+    buffers of a checkpoint (``load_model`` passes them).
 
     Weights are drawn from a ``torch.Generator`` seeded with ``seed`` and
     frozen (``requires_grad=False``), as inference and MD want them;
@@ -240,6 +261,24 @@ def create_model(args: dict, prior_models=None, mean=None, std=None,
     if args.get("matmul_precision"):
         set_matmul_precision(args["matmul_precision"])
     output_model = args.get("output_model", "Scalar")
+    if output_model not in OUTPUT_MODULES:
+        raise ValueError(f"Unknown output model {output_model!r}. Choose "
+                         f"from {', '.join(OUTPUT_MODULES)}.")
+    head_cls = OUTPUT_MODULES[output_model]
+    if head_cls.needs_vectors:
+        # JAX builds it and fails at the first evaluation (v is None)
+        raise ValueError(
+            f"output_model={output_model!r} reads vector features, which "
+            f"model={args['model']!r} does not produce: it needs an "
+            "equivariant representation (ROADMAP Queue 1 [16], "
+            "'torchmd_et, _t, _gn')")
+    if output_model == "ScalarPlusWeightedCoulomb" and (
+            args["model"] != "tensornet2"):
+        raise ValueError("ScalarPlusWeightedCoulomb reads the per-layer "
+                         "charges that only model='tensornet2' appends")
+    atom_filter = int(args.get("atom_filter", -1))
+    if args.get("derivative", False) and atom_filter > -1:
+        raise ValueError("Derivative and atom filter can't be used together")
     F = args["embedding_dimension"]
     cpd = args.get("cells_per_dim")
     shared = dict(
@@ -248,6 +287,7 @@ def create_model(args: dict, prior_models=None, mean=None, std=None,
         num_rbf=args["num_rbf"],
         rbf_type=args["rbf_type"],
         trainable_rbf=args["trainable_rbf"],
+        rbf_initial=rbf_initial,
         activation=args["activation"],
         cutoff_lower=float(args["cutoff_lower"]),
         cutoff_upper=float(args["cutoff_upper"]),
@@ -273,7 +313,7 @@ def create_model(args: dict, prior_models=None, mean=None, std=None,
                        reduce_op=args.get("reduce_op", "sum"))
     if output_model == "ScalarPlusWeightedCoulomb":
         ccpd = args.get("coulomb_cells_per_dim")
-        head = ScalarPlusWeightedCoulomb(
+        head = head_cls(
             num_hidden_layers=args.get("output_mlp_num_layers", 0),
             q_dim=args.get("q_dim", 0),
             num_interaction_layers=args["num_layers"],
@@ -290,15 +330,88 @@ def create_model(args: dict, prior_models=None, mean=None, std=None,
                                       or 64),
             **head_kwargs)
     else:
-        # reference quirk (issue #343): Scalar's MLP depth is pinned to 0
-        head = Scalar(num_hidden_layers=0, **head_kwargs)
+        # reference quirk (upstream create_model): the head's MLP depth is 0
+        head = head_cls(num_hidden_layers=0, **head_kwargs)
     if args.get("prior_model") and prior_models is None:
         prior_models = create_prior_models(args)
+    if not head.allow_prior_model:
+        prior_models = ()
     module = TorchMDNet(rep, head, prior_models=tuple(prior_models or ()),
                         mean=0.0 if mean is None else mean,
-                        std=1.0 if std is None else std)
+                        std=1.0 if std is None else std,
+                        atom_filter=atom_filter)
     reset_parameters(module, torch.Generator().manual_seed(int(seed)))
     module.requires_grad_(False)
     return Potential(module.to(device), device,
                      derivative=bool(args.get("derivative", False)),
                      hparams=args)
+
+
+def load_model(filepath, args=None, device=None, return_std=False,
+               **kwargs):
+    """A :class:`Potential` from a reference Lightning ``.ckpt`` (upstream
+    torchmd-net's, the JAX package's ``save_torch_checkpoint``'s or this
+    port's), or an :class:`Ensemble` from a list of them or a ``.zip``
+    (reference ``model.py:167-374``, JAX ``:380-395``).
+
+    ``kwargs`` override the checkpoint's hyperparameters (for example
+    ``derivative=True, pallas_embedding=True, pallas_edge_mlp=True``);
+    ``compatibility_load`` forces or skips the old AceFF layout remap;
+    ``remove_ref_energy=False`` re-enables a delta-learning Atomref.
+    ``device`` defaults to CUDA and raises when CUDA is absent.  The file
+    is unpickled (its hyperparameters are Python objects): load trusted
+    files only.  See ``utils/checkpoint.py::load_checkpoint_as_potential``.
+    """
+    if isinstance(filepath, (list, tuple)) or str(filepath).endswith(".zip"):
+        return load_ensemble(filepath, args=args, device=device,
+                             return_std=return_std, **kwargs)
+    from torchmdnet_tpu_torch.utils.checkpoint import (
+        load_checkpoint_as_potential)
+    return load_checkpoint_as_potential(filepath, args=args, device=device,
+                                        **kwargs)
+
+
+class Ensemble:
+    """The mean of several potentials' predictions, and with
+    ``return_std`` their ``ddof = 1`` standard deviation (reference
+    ``model.py:634-681``, JAX ``:398-423``); with one member the std is
+    NaN, as in both."""
+
+    def __init__(self, members, return_std=False):
+        self.members = list(members)
+        self.return_std = return_std
+
+    def apply(self, z, pos, batch=None, **kw):
+        """``(y_mean, f_mean)``, or ``(y_mean, f_mean, y_std, f_std)``;
+        the forces are None when the members have no ``derivative``."""
+        ys, fs = zip(*(pot.apply(z, pos, batch, **kw)
+                       for pot in self.members))
+        y = torch.stack(ys)
+        y_mean, y_std = y.mean(dim=0), y.std(dim=0, correction=1)
+        f_mean = f_std = None
+        if fs[0] is not None:
+            f = torch.stack(fs)
+            f_mean, f_std = f.mean(dim=0), f.std(dim=0, correction=1)
+        if self.return_std:
+            return y_mean, f_mean, y_std, f_std
+        return y_mean, f_mean
+
+
+def load_ensemble(filepath, args=None, device=None, return_std=False,
+                  **kwargs):
+    """An :class:`Ensemble` of a list of checkpoints or of every ``*.ckpt``
+    in a ``.zip`` (reference ``model.py:167-205``, JAX ``:426-445``)."""
+    if isinstance(filepath, (list, tuple)):
+        return Ensemble([load_model(p, args=args, device=device, **kwargs)
+                         for p in filepath], return_std=return_std)
+    if str(filepath).endswith(".zip"):
+        with tempfile.TemporaryDirectory() as tmpdir:
+            with zipfile.ZipFile(filepath, "r") as zf:
+                zf.extractall(tmpdir)
+            paths = sorted(glob.glob(os.path.join(tmpdir, "*.ckpt")))
+            if not paths:
+                raise ValueError("No checkpoint files found in zip file.")
+            members = [load_model(p, args=args, device=device, **kwargs)
+                       for p in paths]
+        return Ensemble(members, return_std=return_std)
+    raise ValueError("Invalid filepath for ensemble.")

@@ -301,7 +301,9 @@ class Interaction(nn.Module):
 class TensorNet(nn.Module):
     """Representation model (reference ``tensornet.py:149-402``); returns
     ``(x [N, F], None)``.  ``forward(..., blocked=True)`` needs the model
-    built with a ``cell_block_spec`` and the rows in its sort."""
+    built with a ``cell_block_spec`` and the rows in its sort.
+    ``rbf_initial``: a checkpoint's frozen rbf buffers (JAX's
+    ``rbf_initial``), in place of the defaults."""
 
     def __init__(self, hidden_channels=128, num_layers=2, num_rbf=32,
                  rbf_type="expnorm", trainable_rbf=False, activation="silu",
@@ -310,7 +312,7 @@ class TensorNet(nn.Module):
                  neighbor_strategy="brute", cells_per_dim=None,
                  cell_capacity=64, pallas_edge_mlp=False,
                  tabulated_edge_mlp=0, pallas_embedding=False,
-                 cell_block_spec=None):
+                 cell_block_spec=None, rbf_initial=None):
         super().__init__()
         if equivariance_invariance_group not in ("O(3)", "SO(3)"):
             raise ValueError(f'Unknown group "{equivariance_invariance_group}". '
@@ -327,7 +329,7 @@ class TensorNet(nn.Module):
         self.act = get_activation(activation)
         self.distance_expansion = make_rbf(rbf_type, cutoff_lower,
                                            cutoff_upper, num_rbf,
-                                           trainable_rbf)
+                                           trainable_rbf, rbf_initial)
         self.tensor_embedding = TensorEmbedding(
             F, num_rbf, activation, cutoff_lower, cutoff_upper, max_z,
             pallas_embedding=pallas_embedding)

@@ -168,7 +168,9 @@ class Interaction2(nn.Module):
 class TensorNet2(nn.Module):
     """Representation model with charge equilibration (reference
     ``tensornet2.py:159-462``).  Returns ``(x, None)``; with
-    ``output_charges`` the per-layer charges are appended to ``x``."""
+    ``output_charges`` the per-layer charges are appended to ``x``.
+    ``rbf_initial``: a checkpoint's frozen rbf buffers (JAX's
+    ``rbf_initial``), in place of the defaults."""
 
     def __init__(self, hidden_channels=128, q_dim=16, num_layers=2,
                  num_rbf=32, rbf_type="expnorm", trainable_rbf=False,
@@ -177,7 +179,8 @@ class TensorNet2(nn.Module):
                  equivariance_invariance_group="O(3)", output_charges=False,
                  neighbor_strategy="brute", cells_per_dim=None,
                  cell_capacity=64, pallas_edge_mlp=False,
-                 pallas_embedding=False, cell_block_spec=None, q_tab=64):
+                 pallas_embedding=False, cell_block_spec=None, q_tab=64,
+                 rbf_initial=None):
         super().__init__()
         if equivariance_invariance_group not in ("O(3)", "SO(3)"):
             raise ValueError(f'Unknown group "{equivariance_invariance_group}". '
@@ -195,7 +198,7 @@ class TensorNet2(nn.Module):
         self.act = get_activation(activation)
         self.distance_expansion = make_rbf(rbf_type, cutoff_lower,
                                            cutoff_upper, num_rbf,
-                                           trainable_rbf)
+                                           trainable_rbf, rbf_initial)
         self.tensor_embedding = TensorEmbedding(
             F, num_rbf, activation, cutoff_lower, cutoff_upper, max_z,
             pallas_embedding=pallas_embedding)

@@ -22,6 +22,15 @@ depends on d alone:
     ∂pos_m = Σ_k G'(d)·v̂·pd·(ct_m + ct_j),   pd = Σ_c w_c b_mc b_jc
     ∂b_m   = ct_m·(w ⊙ S1_m) + w ⊙ S2_m,     S1 = Σ_k G·b_j, S2 = Σ_k G·ct_j·b_j
     ∂w_c   = Σ_m ct_m · b_mc · S1_mc
+
+:func:`coulomb_cutoff_energy` is the general two-operand form
+(``Σ_c a_ic b_jc``, JAX ``coulomb_cutoff_energy`` ``:94-186``), which the
+JAX package exports and no head calls; its backward is ``_cce_bwd``'s
+(``:144-185``), gathers only as well: one gathered block
+``[pos | b | ct·a]`` a chunk,
+
+    ∂pos_m = Σ_k G'(d)·v̂·(ct_m·Σ_c a_mc b_jc + Σ_c b_mc (ct·a)_jc)
+    ∂a_m   = ct_m·Σ_k G·b_j,     ∂b_m = Σ_k G·(ct·a)_j
 """
 
 import torch
@@ -145,3 +154,65 @@ def coulomb_cutoff_energy_w(pos, w, b, idx, mask, rc: float, eps: float,
         batch = torch.zeros(pos.shape[0], dtype=torch.long, device=pos.device)
     return _CoulombW.apply(pos, w, b, idx, mask, float(rc), float(eps),
                            float(factor), box, batch)
+
+
+class _CoulombAB(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pos, a, b, idx, mask, rc, eps, factor, box, batch):
+        ctx.save_for_backward(pos, a, b, idx, mask)
+        ctx.consts = (rc, eps, factor, box, batch)
+        n, k = idx.shape
+        c = b.shape[-1]
+        src = torch.cat([pos, b], dim=1)
+        out = pos.new_empty(n)
+        chunk = row_chunk(n, k, 3 + c)
+        for s in range(0, n, chunk):
+            e = min(n, s + chunk)
+            sj = src[idx[s:e]]
+            _, safe_d, valid = _chunk_geometry(
+                pos[s:e], sj[..., :3], mask[s:e], _box_rows(box, batch, s, e), rc)
+            g = torch.where(valid, g_kernel(safe_d, rc, eps, factor), 0.0)
+            pd = (a[s:e, None, :] * sj[..., 3:]).sum(-1)
+            out[s:e] = (g * pd).sum(1)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        pos, a, b, idx, mask = ctx.saved_tensors
+        rc, eps, factor, box, batch = ctx.consts
+        n, k = idx.shape
+        c = b.shape[-1]
+        src = torch.cat([pos, b, ct[:, None] * a], dim=1)
+        dpos = torch.empty_like(pos)
+        da = torch.empty_like(a)
+        db = torch.empty_like(b)
+        chunk = row_chunk(n, k, 3 + 2 * c)
+        for s in range(0, n, chunk):
+            e = min(n, s + chunk)
+            sj = src[idx[s:e]]
+            delta, safe_d, valid = _chunk_geometry(
+                pos[s:e], sj[..., :3], mask[s:e], _box_rows(box, batch, s, e), rc)
+            bj = sj[..., 3:3 + c]
+            ctaj = sj[..., 3 + c:]
+            g, gp = g_and_grad(safe_d, rc, eps, factor)
+            g = torch.where(valid, g, 0.0)
+            gp = torch.where(valid, gp, 0.0)
+            pd = (a[s:e, None, :] * bj).sum(-1)
+            pd2 = (b[s:e, None, :] * ctaj).sum(-1)
+            da[s:e] = ((ct[s:e, None] * g)[..., None] * bj).sum(1)
+            db[s:e] = (g[..., None] * ctaj).sum(1)
+            sc = gp * (ct[s:e, None] * pd + pd2) / safe_d
+            dpos[s:e] = (sc[..., None] * delta).sum(1)
+        return dpos, da, db, None, None, None, None, None, None, None
+
+
+def coulomb_cutoff_energy(pos, a, b, idx, mask, rc: float, eps: float,
+                          factor: float, box=None, batch=None):
+    """Per-atom energies ``E_i = Σ_k m·G(d)·Σ_c a_ic b_jc`` → [N] (JAX
+    ``ops/coulomb.py:94``).  Its backward assumes what the head's lists
+    give: a symmetric edge set, each pair in both rows."""
+    if box is not None and box.dim() == 3 and batch is None:
+        batch = torch.zeros(pos.shape[0], dtype=torch.long, device=pos.device)
+    return _CoulombAB.apply(pos, a, b, idx, mask, float(rc), float(eps),
+                            float(factor), box, batch)

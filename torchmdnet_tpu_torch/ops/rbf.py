@@ -1,7 +1,8 @@
 """Radial basis expansion and cutoff function.
 
-Counterpart of ``torchmdnet_tpu/ops/rbf.py`` (expnorm smearing and the
-cosine cutoff; reference ``torchmdnet/models/utils.py:356-407, 500-528``).
+Counterpart of ``torchmdnet_tpu/ops/rbf.py`` (Gaussian and expnorm
+smearing and the cosine cutoff; reference ``torchmdnet/models/utils.py:
+316-407, 500-528``).
 """
 
 import math
@@ -20,6 +21,23 @@ def cosine_cutoff(dist, cutoff_upper: float, cutoff_lower: float = 0.0):
         return c * (dist < cutoff_upper) * (dist > cutoff_lower)
     c = 0.5 * (torch.cos(dist * (math.pi / cutoff_upper)) + 1.0)
     return c * (dist < cutoff_upper)
+
+
+def gauss_rbf(dist, offset, coeff):
+    """Gaussian smearing ``exp(coeff · (d − offset)²)``; ``dist [...]`` →
+    ``[..., R]`` (``offset [R]``, ``coeff`` a scalar or ``[R]``)."""
+    d = dist[..., None] - offset
+    return torch.exp(coeff * d * d)
+
+
+def gauss_initial_params(cutoff_lower, cutoff_upper, num_rbf):
+    """Offsets evenly spaced over the cutoff range and
+    ``coeff = −0.5 / Δ²`` (reference ``models/utils.py:330-340``),
+    float32."""
+    offset = np.linspace(cutoff_lower, cutoff_upper, num_rbf,
+                         dtype=np.float32)
+    coeff = np.float32(-0.5) / (offset[1] - offset[0]) ** 2
+    return torch.from_numpy(offset), torch.tensor(coeff, dtype=torch.float32)
 
 
 def expnorm_rbf(dist, means, betas, alpha: float, cutoff_upper: float,

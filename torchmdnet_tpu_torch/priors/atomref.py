@@ -45,6 +45,10 @@ class Atomref(BasePrior):
             raise ValueError(
                 "Can't instantiate Atomref prior, all arguments are None.")
         table = torch.from_numpy(np.array(table, copy=True))
+        # the table it started from (upstream's ``initial_atomref``
+        # buffer; a checkpoint carries it)
+        self.register_buffer("initial_atomref", table.clone(),
+                             persistent=False)
         if self.trainable:
             self.atomref = _Table(table)
         else:

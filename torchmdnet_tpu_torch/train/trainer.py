@@ -11,15 +11,18 @@ trainer.py``; reference ``torchmdnet/module.py``, ``scripts/train.py:
   LR warmup inside the step, EarlyStopping;
 * ``metrics.csv`` (an existing one is kept under a timestamped name);
 * checkpoints ``epoch=…-<monitor>=….ckpt`` (the best ten kept) and
-  ``best.ckpt``, each ``{"state_dict": <upstream keys>, "hyper_parameters":
-  hp}`` written with ``torch.save`` (the reference's Lightning layout:
-  keys prefixed with ``model.``), beside a ``.native`` sidecar with the
-  optimizer state, step and base LR.
+  ``best.ckpt``, each the whole model in the reference's Lightning layout
+  (``utils/checkpoint.py::save_checkpoint``: the ``model.``-prefixed
+  state dict, the buffers upstream keeps, ``model.mean``/``model.std``
+  and the hyperparameters), beside a ``.native`` sidecar with the
+  optimizer state, step and base LR;
+* ``load_weights``: a checkpoint's weights, after the compat remaps,
+  loaded into the model before the optimizer state is made (JAX
+  ``trainer.py:242-255``).
 
 Everything runs on the potential's device (CUDA unless it was built with
 ``device="cpu"``).  Not ported yet: data parallelism (``ngpus > 1``,
-ROADMAP Queue 1 item 19), ``load_weights`` (item 15), the W&B and
-TensorBoard loggers.
+ROADMAP Queue 1 item 19), the W&B and TensorBoard loggers.
 """
 
 import csv
@@ -32,11 +35,12 @@ from typing import Optional
 
 import torch
 
-from torchmdnet_tpu_torch.models.model import _not_ported
+from torchmdnet_tpu_torch.models.model import _not_ported, prior_specs
 from torchmdnet_tpu_torch.train.step import (
     TrainState, batch_losses, create_train_state, make_train_step)
-
-CKPT_PREFIX = "model."  # the reference LNNP holds the model as ``model``
+from torchmdnet_tpu_torch.utils.checkpoint import (
+    CKPT_PREFIX, RBF_BUFFERS, apply_reference_compat, is_skipped,
+    load_weights, read_torch_checkpoint, save_checkpoint)
 
 
 def prefetch_to_device(iterator, size=2):
@@ -150,10 +154,23 @@ class EarlyStopping:
 def read_checkpoint(path):
     """``(state dict with the port's keys, hyperparameters)`` of a
     checkpoint this trainer wrote; the state dict loads into
-    ``create_model(hp, ...).module`` with ``strict=True``."""
+    ``create_model(hp, ...).module`` with ``strict=True``.  The buffers
+    outside the port's state dict are left out: the skipped ones (the
+    priors' tables, ``model.mean``/``model.std``), the rbf buffers and a
+    non-trainable Atomref's table.  ``models/model.py::load_model`` reads
+    the whole model, those included."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = {k[len(CKPT_PREFIX):]: v for k, v in ckpt["state_dict"].items()}
-    return sd, ckpt["hyper_parameters"]
+    hp = ckpt["hyper_parameters"]
+    tables = {f"prior_model.{i}.atomref.weight"
+              for i, (name, arg) in enumerate(prior_specs(hp))
+              if name == "Atomref" and not (arg or {}).get("trainable")}
+    sd = {}
+    for k, v in ckpt["state_dict"].items():
+        k = k[len(CKPT_PREFIX):]
+        if not (is_skipped(k) or k in tables
+                or k.rsplit(".", 1)[-1] in RBF_BUFFERS):
+            sd[k] = v
+    return sd, hp
 
 
 class Trainer:
@@ -162,9 +179,6 @@ class Trainer:
         if int(hp.get("ngpus", 1) or 1) != 1:
             _not_ported("ngpus != 1 (data parallelism)",
                         "Queue 1 item 19, 'Multi-GPU'")
-        if hp.get("load_weights"):
-            _not_ported("load_weights", "Queue 1 item 15, 'Remaining heads "
-                        "and wrappers'")
         for key in ("wandb_use", "tensorboard_use"):
             if hp.get(key):
                 _not_ported(key, "Queue 1 item 17, 'Training: loggers'")
@@ -189,6 +203,10 @@ class Trainer:
     # -- setup -------------------------------------------------------------
     def _init_state(self):
         hp = self.hp
+        if hp.get("load_weights"):
+            hparams, sd = read_torch_checkpoint(hp["load_weights"])
+            load_weights(self.potential.module,
+                         apply_reference_compat(sd, hp, hparams, {}))
         self.state = create_train_state(
             self.potential, lr=hp["lr"],
             weight_decay=hp.get("weight_decay", 0.0))
@@ -335,9 +353,7 @@ class Trainer:
             path = os.path.join(
                 self.log_dir,
                 f"epoch={epoch}-{self.monitor}={monitor_val:.6f}.ckpt")
-        sd = {CKPT_PREFIX + k: v.detach().cpu()
-              for k, v in self.state.module.state_dict().items()}
-        torch.save({"state_dict": sd, "hyper_parameters": self.hp}, path)
+        save_checkpoint(path, self.potential, hparams=self.hp)
         # the sidecar: what an exact resume needs besides the weights
         torch.save({"optimizer": self.state.optimizer.state_dict(),
                     "step": self.state.step, "base_lr": self.state.base_lr,
