@@ -3203,91 +3203,134 @@ def train_batch():
     return {k: torch.as_tensor(v, device=dev) for k, v in out.items()}
 
 
-def loss_and_grads(pot, batch):
-    """The train step's loss (y and neg_dy MSE, weights 1) and its
-    gradient in every weight, without an update."""
+def loss_and_grads(pot, batch, num_mols=None, neg_dy_weight=1.0):
+    """The train step's loss (y and neg_dy MSE, the y weight 1) and its
+    gradient in every weight, without an update (``num_mols``: the
+    training batch's, ``TRAIN_MOLS``, when None)."""
     from torchmdnet_tpu_torch.train.step import compute_losses
 
     params = list(pot.module.parameters())
-    ly, ln, _ = compute_losses(pot, batch, TRAIN_MOLS, create_graph=True)
-    grads = torch.autograd.grad(ly + ln, params, allow_unused=True)
+    ly, ln, _ = compute_losses(pot, batch, num_mols or TRAIN_MOLS,
+                               create_graph=True)
+    loss = ly + neg_dy_weight * ln
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
-    return float((ly + ln).detach()), grads
+    return float(loss.detach()), grads
+
+
+def grads_against(pot, plain, batch, plain_ops=False, **kw):
+    """One step's loss and weight gradients of ``pot`` (kernels) against
+    ``plain`` (the same weights, the plain chains; with ``plain_ops`` its
+    q-tier, Coulomb, Chebyshev and blocked ops routed to their plain
+    versions, ``plain_versions``): the loss's relative error, the worst
+    weight's error relative to its gradient's max |·|, and that weight's
+    name."""
+    names = [n for n, _ in pot.module.named_parameters()]
+    for m in (pot, plain):
+        m.module.requires_grad_(True)
+    loss_k, g_k = loss_and_grads(pot, batch, **kw)
+    with plain_versions() if plain_ops else contextlib.nullcontext():
+        loss_p, g_p = loss_and_grads(plain, batch, **kw)
+    errs = {n: rel_err(a, b)[1] for n, a, b in zip(names, g_k, g_p)}
+    worst = max(errs, key=errs.get)
+    plain.module.requires_grad_(False)
+    return dict(loss=loss_k, loss_plain=loss_p,
+                loss_rel_err=abs(loss_k - loss_p) / abs(loss_p),
+                grad_rel_err=errs[worst], worst_param=worst)
+
+
+def train_timed(pot, batch, num_mols, lr, steps, **step_kw):
+    """Two warm-up steps and ``steps`` timed AdamW steps of ``pot`` on
+    ``batch``: ``(row, launches over the timed steps, the train state,
+    the step)``."""
+    from torchmdnet_tpu_torch.train.step import (
+        create_train_state, make_train_step)
+
+    state = create_train_state(pot, lr=lr)
+    step = make_train_step(pot, num_mols=num_mols, **step_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    losses = []
+    for _ in range(2):  # warm-up
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+
+    def timed():
+        nonlocal state
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        return times
+
+    times, counts = counted_run(timed)
+    ms = statistics.median(times)
+    row = dict(ms_per_step=ms, ms_per_step_all=times,
+               mol_per_s=num_mols / (ms / 1e3), loss_first=losses[0],
+               loss_last=losses[-1],
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               # the steps' own peak above what was resident before them
+               step_peak_gb=(torch.cuda.max_memory_allocated()
+                             - resident) / 1e9,
+               launches_per_step={k: v / steps
+                                  for k, v in counts.items() if v})
+    return row, counts, state, step
 
 
 def phase_train():
-    """``bench.py::bench_train``'s step on the card, tabulated (rows 5, 6
-    and 7 in the forward, the force pass and the parameter gradient) and
-    exact (no kernel), from the same random weights: one step's loss and
-    gradients with the kernels against the plain versions (tabulated),
-    then two warm-up steps and 20 timed AdamW steps on the fixed batch
-    (the loss must fall), with launches, ms per step, mol/s, peak memory
-    and a profiled step."""
+    """``bench.py::bench_train``'s step on the card in three tiers from the
+    same random weights: tabulated (rows 5, 6 and 7 in the forward, the
+    force pass and the parameter gradient), exact (no kernel) and
+    exact_fused (kernels 1, 2 and 4: ``pallas_embedding`` and
+    ``pallas_edge_mlp``, the force pass through kernel 2 and the second
+    order through the plain double vjps).  One step's loss and gradients
+    with the kernels against the plain versions (tabulated) and against
+    the exact tier's plain chain (exact_fused); then in each tier two
+    warm-up steps and 20 timed AdamW steps on the fixed batch (the loss
+    must fall), with launches, ms per step, mol/s, peak memory and a
+    profiled step."""
     from torchmdnet_tpu_torch.models.model import create_model
-    from torchmdnet_tpu_torch.train.step import (
-        create_train_state, make_train_step)
 
     batch = train_batch()
     dev = torch.device("cuda")
     pots = {"tabulated": create_model(train_args(), device=dev, seed=0)}
     pots["exact"] = create_model(train_args(tabulated_edge_mlp=0),
                                  device=dev, seed=0)
-    pots["exact"].module.load_state_dict(pots["tabulated"].module.state_dict())
+    pots["exact_fused"] = create_model(
+        train_args(tabulated_edge_mlp=0, pallas_embedding=True,
+                   pallas_edge_mlp=True), device=dev, seed=0)
+    for name in ("exact", "exact_fused"):
+        pots[name].module.load_state_dict(
+            pots["tabulated"].module.state_dict())
     row = {"phase": "train", "mols": TRAIN_MOLS, "atoms_per_mol": TRAIN_APM,
            "rows": TRAIN_ROWS, "k": TRAIN_K, "t": TRAIN_T, "lr": TRAIN_LR,
            "steps_timed": TRAIN_STEPS, "tolerance": TOL}
+    compared = {"tabulated": grads_against(pots["tabulated"],
+                                           pots["tabulated"], batch,
+                                           plain_ops=True),
+                "exact_fused": grads_against(pots["exact_fused"],
+                                             pots["exact"], batch)}
     launches = {}
     for name, pot in pots.items():
-        state = create_train_state(pot, lr=TRAIN_LR)
-        r = {}
-        if name == "tabulated":
-            names = [n for n, _ in pot.module.named_parameters()]
-            loss_k, g_k = loss_and_grads(pot, batch)
-            with plain_versions():
-                loss_p, g_p = loss_and_grads(pot, batch)
-            errs = {n: rel_err(a, b)[1] for n, a, b in zip(names, g_k, g_p)}
-            worst = max(errs, key=errs.get)
-            r.update(loss=loss_k, loss_plain=loss_p,
-                     loss_rel_err=abs(loss_k - loss_p) / abs(loss_p),
-                     grad_rel_err=errs[worst], worst_param=worst)
-            del g_k, g_p
-        step = make_train_step(pot, num_mols=TRAIN_MOLS)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        losses = []
-        for _ in range(2):  # warm-up
-            state, m = step(state, batch)
-            losses.append(float(m["loss"]))
-
-        def timed():
-            nonlocal state
-            times = []
-            for _ in range(TRAIN_STEPS):
-                t0 = time.perf_counter()
-                state, m = step(state, batch)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-                losses.append(float(m["loss"]))
-            return times
-
-        times, counts = counted_run(timed)
-        ms = statistics.median(times)
-        r.update(ms_per_step=ms, ms_per_step_all=times,
-                 mol_per_s=TRAIN_MOLS / (ms / 1e3), loss_first=losses[0],
-                 loss_last=losses[-1],
-                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-                 launches_per_step={k: v / TRAIN_STEPS
-                                    for k, v in counts.items() if v})
+        r = dict(compared.get(name, {}))
+        t, counts, state, step = train_timed(pot, batch, TRAIN_MOLS,
+                                             TRAIN_LR, TRAIN_STEPS)
+        r.update(t)
         row[name] = r
         launches[name] = counts
         phase_profile(f"train_{name}", lambda: step(state, batch))
         pot.module.requires_grad_(False)
+        del state, step
     emit(row)
-    tab = row["tabulated"]
-    check(tab["loss_rel_err"] <= TOL and tab["grad_rel_err"] <= TOL,
-          f"train: kernels vs plain loss {tab['loss_rel_err']:.3g}, "
-          f"gradient {tab['grad_rel_err']:.3g} ({tab['worst_param']})")
+    for name, r in compared.items():
+        check(r["loss_rel_err"] <= TOL and r["grad_rel_err"] <= TOL,
+              f"train {name}: kernels vs plain loss {r['loss_rel_err']:.3g}"
+              f", gradient {r['grad_rel_err']:.3g} ({r['worst_param']})")
     for name in pots:
         r = row[name]
         check(all(math.isfinite(x) for x in (r["loss_first"],
@@ -3298,7 +3341,17 @@ def phase_train():
               f"{TRAIN_STEPS + 2} steps")
     check(not any(launches["exact"].values()),
           "train exact: a kernel ran on the plain path")
+    fused = launches["exact_fused"]
+    for k in EXACT_FUSED_KERNELS:
+        check(fused[k] >= TRAIN_STEPS,
+              f"train exact_fused: {k} launched {fused[k]} times in "
+              f"{TRAIN_STEPS} steps")
     return TRAIN_STEPS, launches["tabulated"]
+
+
+# the exact_fused train tier's kernels: 1, 2 and 4
+EXACT_FUSED_KERNELS = ("radial_embedding_fwd", "radial_embedding_bwd",
+                       "edge_mlp")
 
 
 class SyntheticMolecules:
@@ -3502,6 +3555,30 @@ def serve_inputs(batch, device):
     return tuple(torch.as_tensor(a, device=device) for a in batch[:4])
 
 
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms, for evaluations that must agree
+    bitwise: on the card ``index_add`` (the segment sums, the backward of
+    ``index_select``) otherwise adds with atomics in any order, which
+    moves energies and forces by up to ~1e-6 of their max from one run to
+    the next.  An op without a deterministic form warns (the warnings are
+    returned in the list yielded); uninitialised memory is left as is."""
+    import torch.utils.deterministic as det
+
+    mode = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    fill = det.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(mode, warn_only=warn_only)
+        det.fill_uninitialized_memory = fill
+
+
 def serve_run(pot, inputs):
     """One evaluation of ``pot`` (a potential or an ensemble)."""
     z, pos, seg, q = inputs
@@ -3585,19 +3662,26 @@ def phase_serve():
         before = launch_counts()
         y, f = serve_run(pot, t)()
         check_launched(SERVE_KERNELS, before)
-        y_w, f_w = serve_run(first, t)()
+        # the loaded, written and old-format potentials evaluated without
+        # the atomics' run-to-run spread (``run_to_run``: that spread)
+        with deterministic() as caught:
+            y_d, f_d = serve_run(pot, t)()
+            y_w, f_w = serve_run(first, t)()
+            y_o, _ = serve_run(old, t)()
         e_err, f_rel, energy = against_cpu(pot, pot.hparams,
                                            lambda m: serve_run(m, t)(),
                                            lambda m: serve_run(m, tc)())
-        y_o, _ = serve_run(old, t)()
         ys = serve_run(ens, t)()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         r = {"mols": n, "atoms": len(b[0]), "max_neighbors": most,
              "energy": energy, "energy_rel_err_vs_cpu": e_err,
              "force_rel_err_vs_cpu": f_rel,
-             "vs_writer": [rel_err(y, y_w)[1], rel_err(f, f_w)[1]],
-             "old_format_energy_rel_err": rel_err(y_o, y)[1],
+             "vs_writer": [rel_err(y_d, y_w)[1], rel_err(f_d, f_w)[1]],
+             "old_format_energy_rel_err": rel_err(y_o, y_d)[1],
+             "run_to_run": [rel_err(y, y_d)[1], rel_err(f, f_d)[1]],
+             "nondeterministic_ops": sorted({str(w.message)[:120]
+                                             for w in caught}),
              "ensemble_std_energy_max": float(ys[2].max()),
              "ensemble_std_energy_min": float(ys[2].min()),
              "time_ms": time_ms(serve_run(pot, t), reps=5),
@@ -3663,6 +3747,163 @@ def phase_serve():
         os.remove(p)
     for cond, what in checks:
         check(cond, what)
+
+
+# ---------------------------------------------------------------- train_aceff
+# the AceFF recipe trained on the card: batches of its batch_size (16) of
+# phase_serve's molecules, AdamW at its lr with its force weight, no
+# warm-up (its 1,000 warm-up steps would hold the LR near 0 here)
+ACEFF_TRAIN_STEPS = 20
+ACEFF_TRAIN_KERNELS = SERVE_KERNELS  # kernels 1, 2 and 3
+ACEFF_RELOAD_TOL = 1e-5
+
+
+class AceMolecules:
+    """``phase_serve``'s seeded molecules (24-96 atoms, total charges −1/0/1)
+    with a random energy and random forces: a dataset of numpy dicts."""
+
+    def __init__(self, n, seed):
+        rng = np.random.RandomState(seed)
+        self.samples = []
+        for _ in range(n):
+            pos = serve_molecule(rng, rng.randint(24, 97))
+            k = len(pos)
+            self.samples.append(dict(
+                z=rng.choice(SERVE_Z, k, p=SERVE_P).astype(np.int64),
+                pos=pos.astype(np.float32), q=float(rng.randint(-1, 2)),
+                y=rng.randn(1, 1), neg_dy=rng.randn(k, 3).astype(np.float32)))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx):
+        return dict(self.samples[int(idx)])
+
+
+def aceff_train_batch(n_mols, seed):
+    """A batch of ``n_mols`` of ``serve_batch``'s molecules on the card with
+    their charges, random energies and random forces (no ghost rows)."""
+    z, pos, seg, q, most = serve_batch(n_mols, seed)
+    check(most <= ACEFF_ARGS["max_num_neighbors"],
+          f"train_aceff: {most} neighbors overflow K")
+    rng = np.random.RandomState(seed + 1)
+    out = dict(z=z, pos=pos, batch=seg, q=q,
+               y=rng.randn(n_mols, 1).astype(np.float32),
+               neg_dy=rng.randn(len(z), 3).astype(np.float32),
+               mol_mask=np.ones(n_mols, bool))
+    return {k: torch.as_tensor(v, device="cuda") for k, v in out.items()}
+
+
+def phase_train_aceff():
+    """The AceFF recipe (``ACEFF_ARGS``: TensorNet2 2 x 128, K = 64, q_dim
+    16, the all-to-all Coulomb head, ``charge: true``) trained on the card
+    with kernels 1-3 (``SERVE_KWARGS``' flags): on a batch of 16 seeded
+    molecules (~860 atoms) with charges and random targets, one step's
+    loss (y weight 1, ``neg_dy_weight`` 10) and every weight gradient
+    against the same weights with both flags off (the plain chains) to
+    1e-4 of each gradient's max |·|; two warm-up and 20 timed AdamW steps
+    at lr 3e-4 (the loss must fall; kernels 1, 2 and 3 launched in every
+    step), ms per step, mol/s, peak memory and a profiled step; then
+    ``Trainer.fit`` for one epoch (64 train and 16 val molecules) and the
+    last checkpoint through ``load_model`` into a served evaluation equal
+    to the trained module's (1e-5 relative).  The same recipe with
+    ``remat=True`` from the same weights: its loss and gradients against
+    the step without remat (1e-4), and its own timed steps (ms, device
+    ms, the steps' peak memory above the resident state, launches per
+    step: kernels 1 and 3 run twice, in the forward and in the
+    recompute; the neighbour sum once)."""
+    from torchmdnet_tpu_torch.data.datamodule import DataModule
+    from torchmdnet_tpu_torch.models.model import create_model, load_model
+    from torchmdnet_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda")
+    n_mols, lr = ACEFF_ARGS["batch_size"], ACEFF_ARGS["lr"]
+    neg_dy_w = ACEFF_ARGS["neg_dy_weight"]
+    flags = dict(ACEFF_ARGS, **SERVE_KWARGS)
+    pot = create_model(flags, device=dev, seed=5)
+    plain = create_model(dict(flags, pallas_embedding=False,
+                              pallas_edge_mlp=False), device=dev, seed=5)
+    plain.module.load_state_dict(pot.module.state_dict())
+    batch = aceff_train_batch(n_mols, seed=61)
+    row = {"phase": "train_aceff", "mols": n_mols,
+           "atoms": int(batch["z"].shape[0]), "lr": lr,
+           "neg_dy_weight": neg_dy_w, "steps_timed": ACEFF_TRAIN_STEPS,
+           "tolerance": TOL, **grads_against(pot, plain, batch,
+                                             num_mols=n_mols,
+                                             neg_dy_weight=neg_dy_w)}
+    del plain
+    rpot = create_model(dict(flags, remat=True), device=dev, seed=5)
+    rpot.module.load_state_dict(pot.module.state_dict())
+    remat = {k: v for k, v in grads_against(
+        rpot, pot, batch, num_mols=n_mols, neg_dy_weight=neg_dy_w).items()
+        if k in ("loss_rel_err", "grad_rel_err", "worst_param")}
+    pot.module.requires_grad_(True)
+    torch.cuda.empty_cache()
+    t, counts, state, step = train_timed(
+        pot, batch, n_mols, lr, ACEFF_TRAIN_STEPS, neg_dy_weight=neg_dy_w)
+    row.update(t)
+    prof = phase_profile("train_aceff", lambda: step(state, batch))
+    row["device_ms"], row["idle_share"] = prof["device_ms"], prof["idle_share"]
+    del state, step
+    pot.module.requires_grad_(False)
+    torch.cuda.empty_cache()
+    t, _, state, step = train_timed(
+        rpot, batch, n_mols, lr, ACEFF_TRAIN_STEPS, neg_dy_weight=neg_dy_w)
+    prof = phase_profile("train_aceff_remat", lambda: step(state, batch))
+    remat.update({k: t[k] for k in ("ms_per_step", "mol_per_s", "peak_mem_gb",
+                                    "step_peak_gb", "launches_per_step",
+                                    "loss_first", "loss_last")},
+                 device_ms=prof["device_ms"], idle_share=prof["idle_share"])
+    row["remat"] = remat
+    del state, step, rpot
+    torch.cuda.empty_cache()
+
+    # Trainer.fit, one epoch, and its checkpoint served
+    log_dir = OUT_DIR / "train_aceff"
+    hp = dict(flags, num_epochs=1, lr_warmup_steps=0, save_interval=1,
+              train_size=64, val_size=16, test_size=0, log_dir=str(log_dir),
+              train_loss="mse_loss", splits=None, num_workers=0)
+    tpot = create_model(hp, device=dev, seed=6)
+    trainer = Trainer(tpot, hp, DataModule(hp, dataset=AceMolecules(80, 71)))
+    trainer.dm.setup("fit")
+    t0 = time.perf_counter()
+    _, fit_counts = counted_run(trainer.fit)
+    torch.cuda.synchronize()
+    row["fit_s"] = time.perf_counter() - t0
+    ckpts = sorted(n for n in os.listdir(log_dir)
+                   if n.startswith("epoch=") and n.endswith(".ckpt"))
+    check(len(ckpts) == 1, f"train_aceff: checkpoints {ckpts}")
+    served = load_model(log_dir / ckpts[0], device="cuda", **SERVE_KWARGS)
+    tpot.module.requires_grad_(False)
+    b = serve_inputs(serve_batch(n_mols, seed=81), dev)
+    y_s, f_s = serve_run(served, b)()
+    y_t, f_t = serve_run(tpot, b)()
+    row.update(fit_launches={k: v for k, v in fit_counts.items() if v},
+               checkpoint=ckpts[0],
+               served_vs_trained=[rel_err(y_s, y_t)[1], rel_err(f_s, f_t)[1]])
+    emit(row)
+    for name in os.listdir(log_dir):
+        if name.endswith(".ckpt") or name.endswith(".native"):
+            os.remove(log_dir / name)
+    check(row["loss_rel_err"] <= TOL and row["grad_rel_err"] <= TOL,
+          f"train_aceff: kernels vs plain loss {row['loss_rel_err']:.3g}, "
+          f"gradient {row['grad_rel_err']:.3g} ({row['worst_param']})")
+    check(remat["loss_rel_err"] <= TOL and remat["grad_rel_err"] <= TOL,
+          f"train_aceff: remat vs no remat loss {remat['loss_rel_err']:.3g}, "
+          f"gradient {remat['grad_rel_err']:.3g} ({remat['worst_param']})")
+    for r in (row, remat):
+        check(math.isfinite(r["loss_first"]) and math.isfinite(r["loss_last"])
+              and r["loss_last"] < r["loss_first"],
+              f"train_aceff: the loss did not fall ({r['loss_first']:.4g} → "
+              f"{r['loss_last']:.4g})")
+    for k in ACEFF_TRAIN_KERNELS:
+        check(counts[k] >= ACEFF_TRAIN_STEPS,
+              f"train_aceff: {k} launched {counts[k]} times in "
+              f"{ACEFF_TRAIN_STEPS} steps")
+        check(fit_counts[k] > 0, f"train_aceff: {k} not launched by fit")
+    check(max(row["served_vs_trained"]) <= ACEFF_RELOAD_TOL,
+          f"train_aceff: the served checkpoint differs from the trained "
+          f"module {row['served_vs_trained']}")
 
 
 def zip_checkpoints(out, paths):
@@ -3751,6 +3992,8 @@ def main():
     by_path["train"] = phase_train()
     phase_trainer()
     phase_serve()
+    torch.cuda.empty_cache()
+    phase_train_aceff()
     launches = {k: by_path[path][1][k] for k, (_, _, path) in KERNELS.items()}
     emit({"phase": "launches", "md_steps": {p: s for p, (s, _) in
                                             by_path.items()},

@@ -77,11 +77,41 @@ def test_backward_matches_pallas_kernel():
 
 
 def test_backward_is_first_order_only():
-    leaves = [torch.from_numpy(a).requires_grad_(True) for a in _inputs()]
+    """The embedding's second order (the name is the old contract's: the
+    backward was first-order only, and a force loss's gradient in the
+    weights silently lost its terms).  The op's backward is now kernel 2
+    as an op of its own whose backward is the plain double vjp, as JAX's
+    ``_bwd_op`` (``pallas_embedding.py:304-332``): its cotangents of the
+    ten inputs and of ``g``, for random cotangents of the nine first-order
+    outputs, match ``jax.vjp`` of the jnp first order at 1e-4; and the
+    mask's first-order cotangent stays zero."""
+    x = _inputs(seed=3)
+    rng = np.random.RandomState(4)
+    g = rng.randn(32, 9 * 16).astype(np.float32)
+    firsts = [i for i in range(10) if i != 7]
+    cts = [rng.randn(*x[i].shape).astype(np.float32) for i in firsts]
+
+    def first_order(*a):
+        _, vjp = jax.vjp(_jax_fused, *a[:10])
+        return [vjp(a[10])[i] for i in firsts]
+
+    _, vjp2 = jax.vjp(first_order, *map(jnp.asarray, x), jnp.asarray(g))
+    want = vjp2([jnp.asarray(c) for c in cts])
+
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in x]
+    gt = torch.from_numpy(g).requires_grad_(True)
     out = radial_embedding(*leaves)
-    (g,) = torch.autograd.grad(out.sum(), leaves[0], create_graph=True)
-    with pytest.raises(RuntimeError):
-        g.sum().backward()
+    got1 = torch.autograd.grad(out, leaves, gt, create_graph=True)
+    assert not got1[7].any()
+    got = torch.autograd.grad([got1[i] for i in firsts], leaves + [gt],
+                              [torch.from_numpy(c) for c in cts],
+                              allow_unused=True)
+    for i, name in enumerate(NAMES + ("g",)):
+        w = np.asarray(want[i])
+        t = np.zeros_like(w) if got[i] is None else got[i].numpy()
+        np.testing.assert_allclose(t, w, rtol=RTOL, atol=ATOL *
+                                   max(1.0, float(np.abs(w).max())),
+                                   err_msg=name)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

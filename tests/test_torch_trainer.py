@@ -8,6 +8,8 @@ trainer's columns and checkpoints that reload with ``strict=True``."""
 
 import csv
 import os
+import sys
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -249,11 +251,64 @@ def test_prefetch_matches_sync(tmp_path):
 
 
 @pytest.mark.parametrize("option", [dict(ngpus=2), dict(wandb_use=True)])
-def test_unported_options_raise(option, tmp_path):
-    hp = _hparams(tmp_path, **option)
-    pot = create_model(hp, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(pot, hp, DataModule(hp, dataset=DummyDataset(20)))
+def test_unported_options_raise(option, tmp_path, monkeypatch):
+    """Data parallelism raises naming its ROADMAP item.  ``wandb_use``,
+    which raised so until the loggers were ported, works as the JAX
+    trainer's (``trainer.py:160-178``), whether or not ``wandb`` is
+    installed: without the package (an import that fails) a warning and
+    no logger; with it (a stand-in module recording its calls) ``init``
+    with the run's project and name, one extra logger, and each epoch's
+    row reaching ``wandb.log``."""
+    hp = _hparams(tmp_path, num_epochs=1, tabulated_edge_mlp=0, **option)
+    pot = create_model(hp, device="cpu", seed=0)
+    if "ngpus" in option:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Trainer(pot, hp, DataModule(hp, dataset=DummyDataset(20)))
+        return
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    with pytest.warns(UserWarning, match="wandb is not installed"):
+        tr = Trainer(pot, hp, DataModule(hp, dataset=DummyDataset(20)))
+    assert tr.extra_loggers == []
+    inits, rows = [], []
+    stand_in = types.ModuleType("wandb")
+    stand_in.init = lambda **kw: inits.append(kw)
+    stand_in.log = rows.append
+    monkeypatch.setitem(sys.modules, "wandb", stand_in)
+    tr = Trainer(pot, dict(hp, wandb_project="p", wandb_name="n"),
+                 DataModule(hp, dataset=DummyDataset(20)))
+    assert len(tr.extra_loggers) == 1
+    assert [(i["project"], i["name"], i["id"]) for i in inits] == [
+        ("p", "n", None)]
+    tr.dm.setup("fit")
+    tr.fit()
+    assert rows and all("train_total_mse_loss" in r for r in rows)
+    assert any("val_total_mse_loss" in r for r in rows)
+
+
+def test_tensorboard_logger(tmp_path):
+    """``tensorboard_use``: one event file in the log directory holding
+    each epoch row's numbers as scalars (JAX ``trainer.py:179-200``);
+    where the package is missing, a warning and no logger."""
+    hp = _hparams(tmp_path, tensorboard_use=True, num_epochs=1,
+                  tabulated_edge_mlp=0)
+    pot = create_model(hp, device="cpu", seed=0)
+    try:
+        from torch.utils.tensorboard import SummaryWriter  # noqa: F401
+    except ImportError:
+        with pytest.warns(UserWarning, match="tensorboard is not installed"):
+            Trainer(pot, hp, DataModule(hp, dataset=DummyDataset(20)))
+        return
+    tr = Trainer(pot, hp, DataModule(hp, dataset=DummyDataset(20)))
+    tr.dm.setup("fit")
+    tr.fit()
+    events = [f for f in os.listdir(tmp_path) if "tfevents" in f]
+    assert len(events) == 1
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator)
+    acc = EventAccumulator(str(tmp_path / events[0]))
+    acc.Reload()
+    assert "train_total_mse_loss" in acc.Tags()["scalars"]
+    assert "val_total_mse_loss" in acc.Tags()["scalars"]
 
 
 def _val_losses(tmp_path, ibs, package):

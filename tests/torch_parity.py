@@ -768,10 +768,12 @@ TRAIN_HP = {
 }
 
 
-def train_batch(seed=0):
+def train_batch(seed=0, q=None):
     """``bench.py:404-419``'s batch, small: molecules of 6-9 H/C/N/O atoms
     at uniform positions in a 5 Å cube, 12 Å apart, ghost rows (segment
-    ``TRAIN_MOLS``) after them; random y and neg_dy (0 on ghosts)."""
+    ``TRAIN_MOLS``) after them; random y and neg_dy (0 on ghosts); with
+    ``q`` the molecules' total charges (``batch["q"]``, what TensorNet2
+    with ``charge: true`` trains on)."""
     rng = np.random.RandomState(seed)
     z = np.zeros(TRAIN_ROWS, np.int32)
     seg = np.full(TRAIN_ROWS, TRAIN_MOLS, np.int32)
@@ -783,11 +785,14 @@ def train_batch(seed=0):
         seg[o:o + n] = m
         o += n
     pos[o:] = rng.uniform(-2.0, 2.0, (TRAIN_ROWS - o, 3)) + 50.0
-    return dict(z=z, pos=pos, batch=seg,
-                y=rng.randn(TRAIN_MOLS, 1).astype(np.float32),
-                neg_dy=(rng.randn(TRAIN_ROWS, 3)
-                        * (seg < TRAIN_MOLS)[:, None]).astype(np.float32),
-                mol_mask=np.ones(TRAIN_MOLS, bool))
+    out = dict(z=z, pos=pos, batch=seg,
+               y=rng.randn(TRAIN_MOLS, 1).astype(np.float32),
+               neg_dy=(rng.randn(TRAIN_ROWS, 3)
+                       * (seg < TRAIN_MOLS)[:, None]).astype(np.float32),
+               mol_mask=np.ones(TRAIN_MOLS, bool))
+    if q is not None:
+        out["q"] = np.asarray(q, np.float32)
+    return out
 
 
 def train_steps_jax(args, hp, batch):
@@ -920,11 +925,12 @@ def check_train_grads(want, got, group):
         assert err <= 1e-4 * scale, (key, err, scale)
 
 
-def check_ghost_rows_inert(args, flat):
+def check_ghost_rows_inert(args, flat, q=None):
     """Ghost rows (segment ``TRAIN_MOLS``) move neither the losses nor the
     weight gradients: new ghost positions, species and neg_dy targets
-    give the same step."""
-    batch = train_batch()
+    give the same step (``q``: the molecules' charges, as
+    :func:`train_batch`)."""
+    batch = train_batch(q=q)
     other = dict(batch)
     rng = np.random.RandomState(11)
     ghost = batch["batch"] == TRAIN_MOLS

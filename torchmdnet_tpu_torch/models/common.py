@@ -56,13 +56,25 @@ class Activation(nn.Module):
 class Linear(nn.Linear):
     """``nn.Linear`` whose initialisation follows the JAX package:
     ``init="torch"`` gives U(±1/√fan_in) weight and bias;
-    ``init="xavier_zeros"`` a xavier-uniform weight and zero bias."""
+    ``init="xavier_zeros"`` a xavier-uniform weight and zero bias.
+
+    It computes in ``compute_dtype`` (bfloat16 under ``precision=16``,
+    :func:`set_compute_dtype`) or else in the input's dtype, the weights
+    cast to it and kept in their own, as JAX's ``Linear(dtype=…)`` does
+    (``models/common.py:83-92``)."""
+
+    compute_dtype = None
 
     def __init__(self, in_features, out_features, bias=True, init="torch"):
         if init not in ("torch", "xavier_zeros"):
             raise ValueError(init)
         self.init = init
         super().__init__(in_features, out_features, bias=bias)
+
+    def forward(self, x):
+        dt = self.compute_dtype or x.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F_.linear(x.to(dt), self.weight.to(dt), bias)
 
     def reset_parameters(self, generator=None):
         fan_in, fan_out = self.in_features, self.out_features
@@ -80,13 +92,25 @@ class Linear(nn.Linear):
 
 
 class Embedding(nn.Embedding):
+    """N(0, 1) embedding; its rows come out in ``compute_dtype`` when set
+    (JAX ``Embedding(dtype=…)``)."""
+
+    compute_dtype = None
+
     def reset_parameters(self, generator=None):
         with torch.no_grad():
             self.weight.normal_(generator=generator)
 
+    def forward(self, idx):
+        out = super().forward(idx)
+        return out if self.compute_dtype is None else out.to(
+            self.compute_dtype)
+
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm with the torch epsilon (1e-5); keys ``weight``/``bias``."""
+    """LayerNorm with the torch epsilon (1e-5); keys ``weight``/``bias``.
+    It normalises in at least float32 and returns the input's dtype (JAX
+    ``LayerNorm``, ``models/common.py:148-152``)."""
 
     def __init__(self, dim):
         super().__init__(dim, eps=1e-5)
@@ -94,6 +118,28 @@ class LayerNorm(nn.LayerNorm):
     def reset_parameters(self, generator=None):
         nn.init.ones_(self.weight)
         nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        dt = torch.promote_types(x.dtype, torch.float32)
+        y = F_.layer_norm(x.to(dt), self.normalized_shape,
+                          self.weight.to(dt), self.bias.to(dt), self.eps)
+        return y.to(x.dtype)
+
+
+def set_compute_dtype(module: nn.Module, dtype, skip=()) -> None:
+    """Give every layer under ``module`` that has a ``compute_dtype``
+    (:class:`Linear`, :class:`Embedding`, TensorNet's ``PairLinear``; but
+    those under a module of a type in ``skip``) the compute dtype
+    ``dtype``: JAX's ``dtype=`` of a representation model, which its
+    charge heads do not take."""
+    def visit(m):
+        if isinstance(m, skip):
+            return
+        if hasattr(type(m), "compute_dtype"):
+            m.compute_dtype = dtype
+        for child in m.children():
+            visit(child)
+    visit(module)
 
 
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
@@ -118,16 +164,17 @@ def _initial(values, default):
 
 
 class ExpNormalSmearing(nn.Module):
-    """Expnorm radial basis (reference ``models/utils.py:356-407``).  Not
-    trainable: means and betas are fixed buffers outside the state dict,
-    as in the JAX package, which has no parameters for them.
+    """Expnorm radial basis (reference ``models/utils.py:356-407``).  With
+    ``trainable`` the means and betas are parameters under upstream's
+    names (``distance_expansion.means``/``.betas``, JAX's params of the
+    same names); otherwise fixed buffers outside the state dict, as in
+    the JAX package, which then has no parameters for them.
     ``initial_values``: ``(means, betas)`` from a checkpoint (JAX's
     ``rbf_initial``), in place of the PhysNet defaults."""
 
     def __init__(self, cutoff_lower=0.0, cutoff_upper=5.0, num_rbf=50,
                  trainable=False, initial_values=None):
         super().__init__()
-        _refuse_trainable(trainable)
         self.cutoff_lower = cutoff_lower
         self.cutoff_upper = cutoff_upper
         self.alpha = 5.0 / (cutoff_upper - cutoff_lower)
@@ -136,11 +183,11 @@ class ExpNormalSmearing(nn.Module):
         if initial_values is not None:
             means = _initial(initial_values[0], means)
             betas = _initial(initial_values[1], betas)
-        self.register_buffer("means", means, persistent=False)
-        self.register_buffer("betas", betas, persistent=False)
+        _register(self, trainable, means=means, betas=betas)
 
     def values(self):
-        """The buffers, in the order ``initial_values`` takes them."""
+        """The buffers (or parameters), in the order ``initial_values``
+        takes them."""
         return self.means, self.betas
 
     def forward(self, dist):
@@ -150,14 +197,14 @@ class ExpNormalSmearing(nn.Module):
 
 class GaussianSmearing(nn.Module):
     """Gaussian radial basis (reference ``models/utils.py:316-353``, JAX
-    ``models/common.py:262-290``); offsets and coefficient are fixed
-    buffers outside the state dict.  ``initial_values``: ``(offset,
-    coeff)`` from a checkpoint."""
+    ``models/common.py:262-290``); the offsets and the (scalar)
+    coefficient are parameters ``offset``/``coeff`` with ``trainable``,
+    else fixed buffers outside the state dict.  ``initial_values``:
+    ``(offset, coeff)`` from a checkpoint."""
 
     def __init__(self, cutoff_lower=0.0, cutoff_upper=5.0, num_rbf=50,
                  trainable=False, initial_values=None):
         super().__init__()
-        _refuse_trainable(trainable)
         self.cutoff_lower = cutoff_lower
         self.cutoff_upper = cutoff_upper
         offset, coeff = rbf_ops.gauss_initial_params(cutoff_lower,
@@ -165,8 +212,7 @@ class GaussianSmearing(nn.Module):
         if initial_values is not None:
             offset = _initial(initial_values[0], offset)
             coeff = _initial(initial_values[1], coeff)
-        self.register_buffer("offset", offset, persistent=False)
-        self.register_buffer("coeff", coeff, persistent=False)
+        _register(self, trainable, offset=offset, coeff=coeff)
 
     def values(self):
         return self.offset, self.coeff
@@ -175,11 +221,14 @@ class GaussianSmearing(nn.Module):
         return rbf_ops.gauss_rbf(dist, self.offset, self.coeff)
 
 
-def _refuse_trainable(trainable):
-    if trainable:
-        raise NotImplementedError(
-            "trainable_rbf (trainable smearing) is not ported yet "
-            "(ROADMAP Queue 1 item 17, 'Training: trainable_rbf')")
+def _register(module, trainable, **tensors):
+    """The smearing's tensors as parameters (``trainable``) or as
+    non-persistent buffers."""
+    for name, t in tensors.items():
+        if trainable:
+            module.register_parameter(name, nn.Parameter(t))
+        else:
+            module.register_buffer(name, t, persistent=False)
 
 
 RBF_CLASSES = {"gauss": GaussianSmearing, "expnorm": ExpNormalSmearing}

@@ -71,6 +71,12 @@ class TorchMDNet(nn.Module):
                                           atom_mask=atom_mask, nbr=nbr,
                                           num_mols=num_mols, blocked=blocked,
                                           **rep_kwargs)
+        # the head (output MLP, priors, reductions) runs in ≥ float32 when
+        # the representation computes in bfloat16 (JAX :77-82)
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        if v is not None and v.dtype == torch.bfloat16:
+            v = v.float()
         if self.atom_filter > -1:
             keep = (z > self.atom_filter)[:, None].to(x.dtype)
             x = x * keep
@@ -94,11 +100,15 @@ class Potential:
     ``device``.  Inputs may be tensors or arrays; they are moved there."""
 
     def __init__(self, module: TorchMDNet, device: torch.device,
-                 derivative: bool = True, hparams=None):
+                 derivative: bool = True, hparams=None,
+                 dtype=torch.float32):
         self.module = module
         self.device = device
         self.derivative = derivative
         self.hparams = dict(hparams or {})
+        # the dtype positions and boxes come in as (float64 under
+        # precision=64)
+        self.dtype = dtype
 
     def with_spec(self, spec) -> "Potential":
         """The same model and weights on another ``cell_block_spec`` (None:
@@ -116,12 +126,12 @@ class Potential:
     def _inputs(self, z, pos, batch, box):
         dev = self.device
         z = torch.as_tensor(z, device=dev).long()
-        pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+        pos = torch.as_tensor(pos, dtype=self.dtype, device=dev)
         if batch is None:
             batch = torch.zeros(z.shape[0], dtype=torch.long, device=dev)
         batch = torch.as_tensor(batch, device=dev).long()
         if box is not None:
-            box = torch.as_tensor(box, dtype=torch.float32, device=dev)
+            box = torch.as_tensor(box, dtype=self.dtype, device=dev)
         return z, pos, batch, box
 
     def energy(self, z, pos, batch=None, *, num_mols: int = 1, box=None,
@@ -170,11 +180,9 @@ def _check_supported(args: dict) -> None:
     model = args["model"]
     if model not in ("tensornet", "tensornet2"):
         _not_ported(f"model={model!r}", "Queue 1, 'torchmd_et, _t, _gn'")
-    if args.get("remat"):
-        _not_ported("remat=True", "Queue 1 item 17, 'Training: remat'")
-    if args.get("precision", 32) != 32:
-        _not_ported(f"precision={args['precision']}",
-                    "Queue 1 item 17, 'Training: precision=16'")
+    if int(args.get("precision", 32)) not in (16, 32, 64):
+        raise ValueError(f"precision={args['precision']}: choose 16, 32 "
+                         "or 64")
 
 
 def prior_specs(args: dict) -> list:
@@ -253,6 +261,17 @@ def create_model(args: dict, prior_models=None, mean=None, std=None,
     ``args["matmul_precision"]``, when given, sets the global float32
     matmul precision (``ops/config.py``), as the JAX package does; without
     it the setting stays as it was (full float32 unless changed).
+
+    ``args["precision"]`` (JAX ``models/model.py:220-223``): 32, the
+    default; 64 computes in float64 (the weights and the inputs:
+    ``Potential`` takes positions as float64, as upstream's Lightning
+    precision 64 and JAX's x64 mode keep the input dtype); 16 computes the
+    representation's layers in bfloat16 with float32 weights, layer by
+    layer as JAX's ``Linear(dtype=bfloat16)`` does (no autocast).  The
+    kernels take float32 only, so under 16 or 64 the fused branches take
+    the plain chain, where JAX's do.  ``args["remat"]``: selective
+    recomputation of the representation's layers in the backward
+    (``models/tensornet.py::remat_call``).
     """
     device = resolve_device(device)
     args = dict(args)
@@ -276,6 +295,7 @@ def create_model(args: dict, prior_models=None, mean=None, std=None,
             args["model"] != "tensornet2"):
         raise ValueError("ScalarPlusWeightedCoulomb reads the per-layer "
                          "charges that only model='tensornet2' appends")
+    precision = int(args.get("precision", 32))
     atom_filter = int(args.get("atom_filter", -1))
     if args.get("derivative", False) and atom_filter > -1:
         raise ValueError("Derivative and atom filter can't be used together")
@@ -298,7 +318,9 @@ def create_model(args: dict, prior_models=None, mean=None, std=None,
         cells_per_dim=tuple(int(c) for c in cpd) if cpd else None,
         cell_capacity=int(args.get("cell_capacity", 64)),
         pallas_edge_mlp=bool(args.get("pallas_edge_mlp", False)),
-        pallas_embedding=bool(args.get("pallas_embedding", False)))
+        pallas_embedding=bool(args.get("pallas_embedding", False)),
+        remat=bool(args.get("remat", False)),
+        dtype=torch.bfloat16 if precision == 16 else None)
     spec = None if spec is None else CellBlockSpec(**spec._asdict())
     if args["model"] == "tensornet":
         rep = TensorNet(
@@ -342,9 +364,10 @@ def create_model(args: dict, prior_models=None, mean=None, std=None,
                         atom_filter=atom_filter)
     reset_parameters(module, torch.Generator().manual_seed(int(seed)))
     module.requires_grad_(False)
-    return Potential(module.to(device), device,
+    dtype = torch.float64 if precision == 64 else torch.float32
+    return Potential(module.to(device=device, dtype=dtype), device,
                      derivative=bool(args.get("derivative", False)),
-                     hparams=args)
+                     hparams=args, dtype=dtype)
 
 
 def load_model(filepath, args=None, device=None, return_std=False,

@@ -16,13 +16,28 @@ blocked tier (``ops/blocked_mp.py``, rows 8-11): with tabulated filters
 the series is evaluated inside the sum (rows 10, 11) and the ``[N, K,
 3F]`` edge weights never reach memory; otherwise the weights go to rows 8
 and 9.
+
+``dtype`` (``precision=16``: bfloat16) is the compute dtype of the
+layers (JAX's ``dtype=``, the weights stay float32).  The kernels take
+float32 only, and the fused branches give way to the plain chains where
+JAX's do: the embedding's under another compute dtype or float64 inputs
+(``tensornet.py:246-247``), kernel 4 wherever the rbf is not float32
+(``:351-355``; under ``precision=16`` the rbf stays float32, so it
+runs).  ``remat`` recomputes each layer's edge pipeline in the
+backward and keeps its neighbour-sum output, so the sum is not run again
+(:func:`remat_call`).
 """
 
+import contextlib
+
 import torch
+import torch.nn.functional as F_
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from torchmdnet_tpu_torch.models.common import (
-    Embedding, LayerNorm, Linear, get_activation, make_rbf)
+    Embedding, LayerNorm, Linear, get_activation, make_rbf,
+    set_compute_dtype)
 from torchmdnet_tpu_torch.ops import rbf as rbf_ops
 from torchmdnet_tpu_torch.ops.blocked_mp import (
     blocked_neighbor_sum_asym, blocked_neighbor_sum_sym,
@@ -30,6 +45,7 @@ from torchmdnet_tpu_torch.ops.blocked_mp import (
 from torchmdnet_tpu_torch.ops.cheb import cheb_fit_matrix, cheb_nodes
 from torchmdnet_tpu_torch.ops.cheb_filter import cheb_filter
 from torchmdnet_tpu_torch.ops.edge_mlp import fused_edge_mlp
+from torchmdnet_tpu_torch.ops.kernels import kernel_dtype, remat_recompute
 from torchmdnet_tpu_torch.ops.message_passing import (
     gather_nodes, packed_neighbor_sum_asym, packed_neighbor_sum_sym,
     reverse_slots)
@@ -40,6 +56,30 @@ from torchmdnet_tpu_torch.ops.radial_embedding import (
 from torchmdnet_tpu_torch.ops.tensor_algebra import (
     Irreps, compose_tensor, decompose_tensor, irreps_norm3,
     tensor_frobenius_norm2, tensor_matmul_o3, tensor_matmul_so3)
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, under ``remat`` (and grad mode) as a non-reentrant
+    ``torch.utils.checkpoint``: what ``fn`` saves for the backward is
+    recomputed there, its output kept.  The layers call it on their
+    message (edge pipeline and neighbour sum) and on their update, so the
+    sum's ``[N, 9F]`` output is what stays between them, as JAX's
+    selective policy ``save_only_these_names("pns_out")`` keeps it
+    (``models/tensornet.py:563-570``, ``tensornet2.py:404-411``).  The
+    recompute runs under ``ops/kernels.py::remat_recompute``, where the
+    neighbour sum skips its work: the edge pipeline (kernels 1-4) runs
+    twice a step, the sum once, as in JAX.  It works under the force
+    pass's ``create_graph``."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=_remat_contexts)
+    return fn(*args)
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), remat_recompute()
+
 
 def linear_irreps(irr: Irreps, linears) -> Irreps:
     """Three bias-free channel-mixing linears, one per irrep part."""
@@ -103,7 +143,7 @@ def interaction_update(X: Irreps, Y: Irreps, M: Irreps, linears, group,
     layer's ``linears_tensor[3:]``), and ``X + dX + dX²``.  ``qfac [N]``
     (TensorNet's ``1 + 0.1·q``) scales the O(3) product and ``dX²``."""
     Yf, Mf = compose_tensor(Y), compose_tensor(M)
-    q4 = None if qfac is None else qfac[:, None, None, None]
+    q4 = None if qfac is None else qfac.to(Yf.dtype)[:, None, None, None]
     if group == "O(3)":
         Cf = tensor_matmul_o3(Yf, Mf)
         if q4 is not None:
@@ -155,6 +195,8 @@ class PairLinear(nn.Linear):
     level: returns ``(Z·W₁ᵀ + b, Z·W₂ᵀ)`` — a 64× saving over applying it
     on the edge axis."""
 
+    compute_dtype = None
+
     def __init__(self, features):
         super().__init__(2 * features, features)
 
@@ -166,8 +208,10 @@ class PairLinear(nn.Linear):
 
     def forward(self, Z):
         f = Z.shape[-1]
-        zw1 = Z @ self.weight[:, :f].t() + self.bias
-        zw2 = Z @ self.weight[:, f:].t()
+        dt = self.compute_dtype or Z.dtype
+        Z, w = Z.to(dt), self.weight.to(dt)
+        zw1 = Z @ w[:, :f].t() + self.bias.to(dt)
+        zw2 = Z @ w[:, f:].t()
         return zw1, zw2
 
 
@@ -176,10 +220,11 @@ class TensorEmbedding(nn.Module):
 
     def __init__(self, hidden_channels, num_rbf, activation="silu",
                  cutoff_lower=0.0, cutoff_upper=4.5, max_z=128,
-                 pallas_embedding=False):
+                 pallas_embedding=False, remat=False):
         super().__init__()
         F = hidden_channels
         self.hidden_channels = F
+        self.remat = remat
         self.cutoff_lower = cutoff_lower
         self.cutoff_upper = cutoff_upper
         self.act = get_activation(activation)
@@ -195,9 +240,9 @@ class TensorEmbedding(nn.Module):
         self.linears_tensor = nn.ModuleList(
             [Linear(F, F, bias=False) for _ in range(3)])
 
-    def forward(self, z, nbr: NeighborMatrix, edge_weight, edge_vec_norm,
-                edge_attr, rev_slot):
-        F = self.hidden_channels
+    def radial(self, z, nbr: NeighborMatrix, edge_weight, edge_vec_norm,
+               edge_attr, rev_slot):
+        """The ``[N, 9F]`` radial embedding ``(I, A×3, S×5)``."""
         idx, emask = nbr.idx, nbr.mask
         zw1, zw2 = self.emb2(self.emb(z))
         zw2g = gather_nodes(zw2, idx, rev_slot, emask)
@@ -206,23 +251,34 @@ class TensorEmbedding(nn.Module):
         ball = torch.cat([p.bias for p in projs])
         C = rbf_ops.cosine_cutoff(edge_weight, self.cutoff_upper,
                                   self.cutoff_lower)
+        dtype = self.emb.compute_dtype or edge_attr.dtype
         em = emask.to(edge_attr.dtype)
         v = edge_vec_norm
-        args = (edge_attr.contiguous(), C.contiguous(), v[..., 0].contiguous(),
-                v[..., 1].contiguous(), v[..., 2].contiguous(),
-                zw1.contiguous(), zw2g.contiguous(), em, kall, ball)
-        # kernels 1/2: the dp/cz/w chain stays on chip, only [N, 9F] is
-        # written; otherwise the plain chain under autograd
-        embed = radial_embedding if self.fused else radial_embedding_ref
-        out9 = embed(*args)
-        X = split9(out9, z.shape[0], F)
+        args = (edge_attr.to(dtype).contiguous(), C.contiguous(),
+                v[..., 0].contiguous(), v[..., 1].contiguous(),
+                v[..., 2].contiguous(), zw1.contiguous(), zw2g.contiguous(),
+                em, kall.to(dtype), ball.to(dtype))
+        # kernels 1/2 (float32 only, JAX :243-248): the dp/cz/w chain stays
+        # on chip, only [N, 9F] is written; otherwise the plain chain under
+        # autograd
+        fused = self.fused and kernel_dtype(dtype)
+        return (radial_embedding if fused else radial_embedding_ref)(*args)
 
+    def update(self, out9):
+        F = self.hidden_channels
+        X = split9(out9, out9.shape[0], F)
         norm = self.init_norm(tensor_frobenius_norm2(X))
         norm = self.act(self.linears_scalar[0](norm))
         norm = self.act(self.linears_scalar[1](norm)).reshape(-1, 3, F)
         X = linear_irreps(X, self.linears_tensor)
         return Irreps(X.I * norm[:, 0, :], X.A * norm[:, 1, None, :],
                       X.S * norm[:, 2, None, :])
+
+    def forward(self, z, nbr: NeighborMatrix, edge_weight, edge_vec_norm,
+                edge_attr, rev_slot):
+        out9 = remat_call(self.remat, self.radial, z, nbr, edge_weight,
+                          edge_vec_norm, edge_attr, rev_slot)
+        return remat_call(self.remat, self.update, out9)
 
 
 class Interaction(nn.Module):
@@ -241,9 +297,10 @@ class Interaction(nn.Module):
     def __init__(self, hidden_channels, num_rbf, activation="silu",
                  cutoff_lower=0.0, cutoff_upper=4.5,
                  equivariance_invariance_group="O(3)", pallas_edge_mlp=False,
-                 tabulated_edge_mlp=0):
+                 tabulated_edge_mlp=0, remat=False):
         super().__init__()
         F = hidden_channels
+        self.remat = remat
         self.cutoff_lower = cutoff_lower
         self.cutoff_upper = cutoff_upper
         self.group = equivariance_invariance_group
@@ -266,18 +323,27 @@ class Interaction(nn.Module):
             dk, node_attr = tab
             Ck = rbf_ops.cosine_cutoff(dk, self.cutoff_upper,
                                        self.cutoff_lower)
-            coeffs = cheb_fit_matrix(dk.shape[0], device=dk.device) @ (
-                self._mlp(node_attr) * Ck[:, None])
+            # the node MLP in the rbf's dtype, whatever the compute dtype
+            # (JAX's Linear without dtype=, :370-372)
+            h = node_attr
+            for lin in self.linears_scalar:
+                h = self.act(F_.linear(h, lin.weight.to(h.dtype),
+                                       lin.bias.to(h.dtype)))
+            coeffs = cheb_fit_matrix(dk.shape[0], dtype=h.dtype,
+                                     device=dk.device) @ (h * Ck[:, None])
             fm = ((edge_weight < self.cutoff_upper) & nbr.mask).to(
                 edge_weight.dtype)
-            if blocked:
+            compute = self.linears_scalar[0].compute_dtype
+            if blocked and compute is None:
                 return ("cheb", coeffs, edge_weight, fm, 0.0,
                         self.cutoff_upper)
-            return cheb_filter(coeffs, edge_weight, fm, 0.0,
+            attr = cheb_filter(coeffs, edge_weight, fm, 0.0,
                                self.cutoff_upper)
+            return attr if compute is None else attr.to(compute)
         cw = rbf_ops.cosine_cutoff(edge_weight, self.cutoff_upper,
                                    self.cutoff_lower) * nbr.mask
-        if self.fused and edge_attr.dtype == torch.float32:
+        # kernel 4 wherever the rbf is float32, as JAX's (:351-355)
+        if self.fused and kernel_dtype(edge_attr.dtype):
             l1, l2, l3 = self.linears_scalar
             return fused_edge_mlp(
                 edge_attr.contiguous(), cw.contiguous(),
@@ -286,16 +352,27 @@ class Interaction(nn.Module):
                 l3.weight.t().contiguous(), l3.bias)
         return self._mlp(edge_attr) * cw[..., None]
 
-    def forward(self, X: Irreps, nbr: NeighborMatrix, edge_weight, edge_attr,
-                q_atom, tab=None, blocked=False):
+    def message(self, Y: Irreps, nbr: NeighborMatrix, edge_weight, edge_attr,
+                tab=None, blocked=False):
+        """The neighbour sum ``[N, 9F]`` of the layer's edge weights and
+        the normalised, mixed features ``Y``."""
         attr = self.edge_weights(nbr, edge_weight, edge_attr, tab, blocked)
-        X = divide_irreps(X, tensor_frobenius_norm2(X) + 1.0)
-        Y = linear_irreps(X, self.linears_tensor[:3])
         # the weights depend on the edge distance only: symmetric under
         # edge reversal, so the sum's backward is the sum itself
-        M = edge_message_passing(attr, Y, nbr, blocked=blocked)
-        return interaction_update(X, Y, M, self.linears_tensor[3:],
-                                  self.group, qfac=1.0 + 0.1 * q_atom)
+        return pack9(edge_message_passing(attr, Y, nbr, blocked=blocked))
+
+    def update(self, X: Irreps, Y: Irreps, msg9, q_atom):
+        return interaction_update(X, Y, split9(msg9, *Y.I.shape),
+                                  self.linears_tensor[3:], self.group,
+                                  qfac=1.0 + 0.1 * q_atom)
+
+    def forward(self, X: Irreps, nbr: NeighborMatrix, edge_weight, edge_attr,
+                q_atom, tab=None, blocked=False):
+        X = divide_irreps(X, tensor_frobenius_norm2(X) + 1.0)
+        Y = linear_irreps(X, self.linears_tensor[:3])
+        msg9 = remat_call(self.remat, self.message, Y, nbr, edge_weight,
+                          edge_attr, tab, blocked)
+        return remat_call(self.remat, self.update, X, Y, msg9, q_atom)
 
 
 class TensorNet(nn.Module):
@@ -312,7 +389,8 @@ class TensorNet(nn.Module):
                  neighbor_strategy="brute", cells_per_dim=None,
                  cell_capacity=64, pallas_edge_mlp=False,
                  tabulated_edge_mlp=0, pallas_embedding=False,
-                 cell_block_spec=None, rbf_initial=None):
+                 cell_block_spec=None, rbf_initial=None, remat=False,
+                 dtype=None):
         super().__init__()
         if equivariance_invariance_group not in ("O(3)", "SO(3)"):
             raise ValueError(f'Unknown group "{equivariance_invariance_group}". '
@@ -332,15 +410,16 @@ class TensorNet(nn.Module):
                                            trainable_rbf, rbf_initial)
         self.tensor_embedding = TensorEmbedding(
             F, num_rbf, activation, cutoff_lower, cutoff_upper, max_z,
-            pallas_embedding=pallas_embedding)
+            pallas_embedding=pallas_embedding, remat=remat)
         self.layers = nn.ModuleList([
             Interaction(F, num_rbf, activation, cutoff_lower, cutoff_upper,
                         equivariance_invariance_group,
                         pallas_edge_mlp=pallas_edge_mlp,
-                        tabulated_edge_mlp=tabulated_edge_mlp)
+                        tabulated_edge_mlp=tabulated_edge_mlp, remat=remat)
             for _ in range(num_layers)])
         self.out_norm = LayerNorm(3 * F)
         self.linear = Linear(3 * F, F)
+        set_compute_dtype(self, dtype)
 
     build_neighbors = build_neighbors
 

@@ -20,22 +20,29 @@ reverse reach memory.  On a grouped spec (``col_slots``) the forward
 takes ``nbr_emb``, a compact K list for the embedding, while the
 interactions ride the column-partitioned K′ list through the tabulated
 q-tier (the dual-list mode, ``tensornet2.py:358-373``).
+
+``dtype`` and ``remat`` as in ``models/tensornet.py``: under a compute
+dtype other than float32 (``precision=16``) or float64 inputs kernel 3
+gives way to the plain chain, as JAX's does (``tensornet2.py:224-225``),
+and so does the q-tier (``:151-152``); the charge heads take no compute
+dtype (they compute in their input's, as in JAX).
 """
 
 import torch
 from torch import nn
 
 from torchmdnet_tpu_torch.models.common import (
-    MLP, LayerNorm, Linear, get_activation, make_rbf)
+    MLP, LayerNorm, Linear, get_activation, make_rbf, set_compute_dtype)
 from torchmdnet_tpu_torch.models.tensornet import (
     TensorEmbedding, atom_charges, build_neighbors, divide_irreps,
-    edge_message_passing, interaction_update, linear_irreps, pack9, split9,
-    unit_vectors)
+    edge_message_passing, interaction_update, linear_irreps, pack9,
+    remat_call, split9, unit_vectors)
 from torchmdnet_tpu_torch.ops import rbf as rbf_ops
 from torchmdnet_tpu_torch.ops.blocked_q import (
     blocked_neighbor_sum_asym_q, blocked_neighbor_sum_asym_q_tab)
 from torchmdnet_tpu_torch.ops.cheb import cheb_fit_matrix, cheb_nodes
 from torchmdnet_tpu_torch.ops.edge_mlp import edge_mlp_pre
+from torchmdnet_tpu_torch.ops.kernels import kernel_dtype
 from torchmdnet_tpu_torch.ops.message_passing import gather_nodes, reverse_slots
 from torchmdnet_tpu_torch.ops.neighbors import NeighborMatrix, neighbor_geometry
 from torchmdnet_tpu_torch.ops.segment import segment_sum
@@ -82,9 +89,10 @@ class Interaction2(nn.Module):
     def __init__(self, hidden_channels, num_rbf, q_dim, activation="silu",
                  cutoff_lower=0.0, cutoff_upper=4.5,
                  equivariance_invariance_group="O(3)", pallas_edge_mlp=False,
-                 cell_block_spec=None):
+                 cell_block_spec=None, remat=False):
         super().__init__()
         F = hidden_channels
+        self.remat = remat
         self.num_rbf = num_rbf
         self.cutoff_lower = cutoff_lower
         self.cutoff_upper = cutoff_upper
@@ -100,27 +108,32 @@ class Interaction2(nn.Module):
 
     def _mlp_tail(self, pre1, cw):
         l2, l3 = self.linears_scalar[1], self.linears_scalar[2]
-        if self.fused:
+        if self.fused and kernel_dtype(pre1.dtype):
             return edge_mlp_pre(pre1, cw, l2.weight.t().contiguous(), l2.bias,
                                 l3.weight.t().contiguous(), l3.bias)
         h = self.act(l3(self.act(l2(self.act(pre1)))))
         return h * cw[..., None]
 
-    def forward(self, X: Irreps, charges, nbr: NeighborMatrix, edge_weight,
+    def message(self, Y: Irreps, charges, nbr: NeighborMatrix, edge_weight,
                 edge_attr, rev_slot, blocked=False, rbf_nodes=None):
+        """The neighbour sum ``[N, 9F]`` of the layer's edge weights (or
+        the q-tier's) and the normalised, mixed features ``Y``."""
         R, Q = self.num_rbf, charges.shape[-1]
         C = rbf_ops.cosine_cutoff(edge_weight, self.cutoff_upper,
                                   self.cutoff_lower)
+        l1 = self.linears_scalar[0]
+        # the compute dtype (JAX's cdt, :130-132)
+        cdt = l1.compute_dtype or (edge_weight if edge_attr is None
+                                   else edge_attr).dtype
         # Charge-fold of the first edge linear:
         # W1·[rbf; q_i; q_j] = rbf·W1a + (q·W1b + b1)[i] + (q·W1c)[j]
-        w1 = self.linears_scalar[0].weight.t()
-        u_i = charges @ w1[R:R + Q] + self.linears_scalar[0].bias
-        u_j = charges @ w1[R + Q:]
+        w1 = l1.weight.t().to(cdt)
+        qc = charges.to(cdt)
+        u_i = qc @ w1[R:R + Q] + l1.bias.to(cdt)
+        u_j = qc @ w1[R + Q:]
         cw = C * nbr.mask.to(C.dtype)
-        X = divide_irreps(X, tensor_frobenius_norm2(X) + 1.0)
-        Y = linear_irreps(X, self.linears_tensor[:3])
-        q_path = (blocked and self.q_tier
-                  and edge_weight.dtype == torch.float32)
+        q_path = (blocked and self.q_tier and l1.compute_dtype is None
+                  and kernel_dtype(edge_weight.dtype))
         if edge_attr is None and not (q_path and rbf_nodes is not None):
             raise ValueError("edge_attr=None (the dual-list mode) needs the "
                              "θ-tabulated blocked q-tier")
@@ -144,25 +157,34 @@ class Interaction2(nn.Module):
                 msg9 = blocked_neighbor_sum_asym_q(
                     edge_attr, cw, u_i, u_j, pack9(Y), nbr.mask, nbr.idx,
                     rev_slot, w1[:R], w2, l2.bias, w3, l3.bias)
-            M = split9(msg9, n, f)
-        else:
-            base = edge_attr @ w1[:R]
-            pre1 = base + u_i[:, None, :] + gather_nodes(
-                u_j, nbr.idx, rev_slot, nbr.mask)
-            attr = self._mlp_tail(pre1, cw)
-            # Reverse-edge weights (same MLP, q_i and q_j swapped) for the
-            # scatter-free backward of the asymmetric neighbor sum.  Their
-            # first-order cotangent is zero; the second order (force
-            # training) reaches the weights through them, so they keep a
-            # graph only when the weights take gradients.
-            with torch.set_grad_enabled(torch.is_grad_enabled()
-                                        and w1.requires_grad):
-                pre1_rev = base + u_j[:, None, :] + gather_nodes(
-                    u_i, nbr.idx, rev_slot, nbr.mask)
-                attr_rev = self._mlp_tail(pre1_rev, cw)
-            M = edge_message_passing(attr, Y, nbr, attr_rev)
-        return interaction_update(X, Y, M, self.linears_tensor[3:],
-                                  self.group)
+            return msg9
+        base = edge_attr.to(cdt) @ w1[:R]
+        pre1 = base + u_i[:, None, :] + gather_nodes(
+            u_j, nbr.idx, rev_slot, nbr.mask)
+        attr = self._mlp_tail(pre1, cw)
+        # Reverse-edge weights (same MLP, q_i and q_j swapped) for the
+        # scatter-free backward of the asymmetric neighbor sum.  Their
+        # first-order cotangent is zero; the second order (force training)
+        # reaches the weights through them, so they keep a graph only when
+        # the weights take gradients.
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and w1.requires_grad):
+            pre1_rev = base + u_j[:, None, :] + gather_nodes(
+                u_i, nbr.idx, rev_slot, nbr.mask)
+            attr_rev = self._mlp_tail(pre1_rev, cw)
+        return pack9(edge_message_passing(attr, Y, nbr, attr_rev))
+
+    def update(self, X: Irreps, Y: Irreps, msg9):
+        return interaction_update(X, Y, split9(msg9, *Y.I.shape),
+                                  self.linears_tensor[3:], self.group)
+
+    def forward(self, X: Irreps, charges, nbr: NeighborMatrix, edge_weight,
+                edge_attr, rev_slot, blocked=False, rbf_nodes=None):
+        X = divide_irreps(X, tensor_frobenius_norm2(X) + 1.0)
+        Y = linear_irreps(X, self.linears_tensor[:3])
+        msg9 = remat_call(self.remat, self.message, Y, charges, nbr,
+                          edge_weight, edge_attr, rev_slot, blocked, rbf_nodes)
+        return remat_call(self.remat, self.update, X, Y, msg9)
 
 
 class TensorNet2(nn.Module):
@@ -180,7 +202,7 @@ class TensorNet2(nn.Module):
                  neighbor_strategy="brute", cells_per_dim=None,
                  cell_capacity=64, pallas_edge_mlp=False,
                  pallas_embedding=False, cell_block_spec=None, q_tab=64,
-                 rbf_initial=None):
+                 rbf_initial=None, remat=False, dtype=None):
         super().__init__()
         if equivariance_invariance_group not in ("O(3)", "SO(3)"):
             raise ValueError(f'Unknown group "{equivariance_invariance_group}". '
@@ -201,18 +223,19 @@ class TensorNet2(nn.Module):
                                            trainable_rbf, rbf_initial)
         self.tensor_embedding = TensorEmbedding(
             F, num_rbf, activation, cutoff_lower, cutoff_upper, max_z,
-            pallas_embedding=pallas_embedding)
+            pallas_embedding=pallas_embedding, remat=remat)
         self.charge_predict_0 = ChargePredict(F, activation, q_dim)
         self.layers = nn.ModuleList([
             Interaction2(F, num_rbf, q_dim, activation, cutoff_lower,
                          cutoff_upper, equivariance_invariance_group,
                          pallas_edge_mlp=pallas_edge_mlp,
-                         cell_block_spec=cell_block_spec)
+                         cell_block_spec=cell_block_spec, remat=remat)
             for _ in range(num_layers)])
         self.charge_predicts = nn.ModuleList(
             [ChargePredict(F, activation, q_dim) for _ in range(num_layers)])
         self.out_norm = LayerNorm(3 * F)
         self.linear = Linear(3 * F, F)
+        set_compute_dtype(self, dtype, skip=(ChargePredict,))
 
     build_neighbors = build_neighbors
 

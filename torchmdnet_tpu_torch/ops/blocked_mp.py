@@ -55,13 +55,13 @@ series in a scratch the wrapper allocates (:func:`tc_image_floats`).
 import ctypes
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs
 from torchmdnet_tpu_torch.ops.cheb_filter import (
     cheb_filter_dot_ref, cheb_filter_ref)
 from torchmdnet_tpu_torch.ops.kernels import (
-    F32, I32, P, CudaSource, Kernel, ptr)
+    F32, I32, P, CudaSource, Kernel, first_order_only, neighbour_sum_out,
+    ptr)
 from torchmdnet_tpu_torch.ops.message_passing import _pns_dattr, row_chunk
 from torchmdnet_tpu_torch.ops.tc_tile import REGION, SMEM_LIMIT
 from torchmdnet_tpu_torch.ops.tc_tile import image_floats as tc_image_floats
@@ -333,10 +333,11 @@ class _BlockedSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, attr3f, attr_rev, feats9, idx, mask):
         ctx.save_for_backward(attr_rev, feats9, idx, mask)
-        return neighbor_sum(attr3f, feats9, idx, mask)
+        return neighbour_sum_out(
+            lambda: neighbor_sum(attr3f, feats9, idx, mask), feats9)
 
     @staticmethod
-    @once_differentiable
+    @first_order_only("the blocked neighbour sum (rows 8-9)")
     def backward(ctx, g):
         attr_rev, feats9, idx, mask = ctx.saved_tensors
         g = g.contiguous()
@@ -367,10 +368,11 @@ class _BlockedSumCheb(torch.autograd.Function):
     def forward(ctx, coeffs, d, fm, feats9, idx, lo, hi):
         ctx.save_for_backward(coeffs, d, fm, feats9, idx)
         ctx.lo, ctx.hi = lo, hi
-        return neighbor_sum_cheb(coeffs, d, fm, feats9, idx, lo, hi)
+        return neighbour_sum_out(lambda: neighbor_sum_cheb(
+            coeffs, d, fm, feats9, idx, lo, hi), feats9)
 
     @staticmethod
-    @once_differentiable
+    @first_order_only("the blocked Chebyshev neighbour sum (rows 10-11)")
     def backward(ctx, g):
         coeffs, d, fm, feats9, idx = ctx.saved_tensors
         lo, hi = ctx.lo, ctx.hi

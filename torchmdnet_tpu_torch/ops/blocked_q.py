@@ -51,11 +51,11 @@ import ctypes
 
 import torch
 import torch.nn.functional as F_
-from torch.autograd.function import once_differentiable
 
 from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs, cheb_theta, cos_basis
 from torchmdnet_tpu_torch.ops.kernels import (
-    F32, I32, I64, P, CudaSource, Kernel, null_or_ptr, ptr)
+    F32, I32, I64, P, CudaSource, Kernel, first_order_only, neighbour_sum_out,
+    null_or_ptr, ptr)
 from torchmdnet_tpu_torch.ops.message_passing import row_chunk
 from torchmdnet_tpu_torch.ops.tc_tile import H100_SMS, REGION
 from torchmdnet_tpu_torch.ops.tc_tile import image_floats as tc_image_floats
@@ -455,11 +455,12 @@ class _BlockedQTab(torch.autograd.Function):
         ctx.save_for_backward(d, cwfm, u_i, u_j, feats9, mask, idx, coeffs,
                               w2, b2, w3, b3)
         ctx.lo, ctx.hi = lo, hi
-        return q_fwd(d, cwfm, mask, idx, u_i, u_j, feats9, coeffs, w2, b2,
-                     w3, b3, lo, hi)
+        return neighbour_sum_out(lambda: q_fwd(
+            d, cwfm, mask, idx, u_i, u_j, feats9, coeffs, w2, b2, w3, b3, lo,
+            hi), feats9)
 
     @staticmethod
-    @once_differentiable
+    @first_order_only("the blocked q-tier (kernels A and B)")
     def backward(ctx, g):
         d, cwfm, u_i, u_j, feats9, mask, idx, coeffs, w2, b2, w3, b3 = \
             ctx.saved_tensors
@@ -483,11 +484,12 @@ class _BlockedQ(torch.autograd.Function):
                 b2, w3, b3):
         ctx.save_for_backward(edge_attr, cwfm, u_i, u_j, feats9, mask, idx,
                               w1a, w2, b2, w3, b3)
-        return q_fwd_rbf(edge_attr, cwfm, mask, idx, u_i, u_j, feats9, w1a,
-                         w2, b2, w3, b3)
+        return neighbour_sum_out(lambda: q_fwd_rbf(
+            edge_attr, cwfm, mask, idx, u_i, u_j, feats9, w1a, w2, b2, w3,
+            b3), feats9)
 
     @staticmethod
-    @once_differentiable
+    @first_order_only("the exact-base q-tier (kernels A and B)")
     def backward(ctx, g):
         (edge_attr, cwfm, u_i, u_j, feats9, mask, idx, w1a, w2, b2, w3,
          b3) = ctx.saved_tensors

@@ -31,10 +31,16 @@ JAX package exports and no head calls; its backward is ``_cce_bwd``'s
 
     ∂pos_m = Σ_k G'(d)·v̂·(ct_m·Σ_c a_mc b_jc + Σ_c b_mc (ct·a)_jc)
     ∂a_m   = ct_m·Σ_k G·b_j,     ∂b_m = Σ_k G·(ct·a)_j
+
+Both backwards are plain PyTorch on the saved inputs and the cotangent
+(:func:`coulomb_w_vjp`, :func:`coulomb_ab_vjp`), so under
+``create_graph`` autograd differentiates them once more, as JAX
+differentiates ``_ccew_bwd``/``_cce_bwd``: a force loss's gradient
+reaches the charges' weights.  G′ is the analytic derivative of G
+(:func:`g_and_grad`), differentiable in turn.
 """
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from torchmdnet_tpu_torch.ops.message_passing import row_chunk
 from torchmdnet_tpu_torch.ops.neighbors import wrap_deltas
@@ -91,57 +97,67 @@ def _box_rows(box, batch, s, e):
     return box[batch[s:e]][:, None]
 
 
+def _energy(pos, a, b, idx, mask, rc, eps, factor, box, batch):
+    """``E_i = Σ_k m·G(d)·Σ_c a_ic b_jc`` over row chunks, no graph."""
+    n, k = idx.shape
+    c = b.shape[-1]
+    src = torch.cat([pos, b], dim=1)
+    out = pos.new_empty(n)
+    chunk = row_chunk(n, k, 3 + c)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        sj = src[idx[s:e]]
+        _, safe_d, valid = _chunk_geometry(
+            pos[s:e], sj[..., :3], mask[s:e], _box_rows(box, batch, s, e), rc)
+        g = torch.where(valid, g_kernel(safe_d, rc, eps, factor), 0.0)
+        pd = (a[s:e, None, :] * sj[..., 3:]).sum(-1)
+        out[s:e] = (g * pd).sum(1)
+    return out
+
+
+def coulomb_w_vjp(pos, w, b, ct, idx, mask, rc, eps, factor, box, batch):
+    """``(∂pos, ∂w, ∂b)`` of :func:`coulomb_cutoff_energy_w` for the
+    cotangent ``ct [N]`` (``_ccew_bwd``), over row chunks; differentiable
+    (a graph when grad mode is on)."""
+    n, k = idx.shape
+    c = b.shape[-1]
+    src = torch.cat([pos, b, ct[:, None]], dim=1)
+    wb = w[None, :] * b
+    dpos, s1, s2 = [], [], []
+    chunk = row_chunk(n, k, 4 + c)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        sj = src[idx[s:e]]
+        delta, safe_d, valid = _chunk_geometry(
+            pos[s:e], sj[..., :3], mask[s:e], _box_rows(box, batch, s, e), rc)
+        bj = sj[..., 3:3 + c]
+        ctj = sj[..., 3 + c]
+        g, gp = g_and_grad(safe_d, rc, eps, factor)
+        g = torch.where(valid, g, 0.0)
+        gp = torch.where(valid, gp, 0.0)
+        pd = (wb[s:e, None, :] * bj).sum(-1)
+        sc = gp * pd * (ct[s:e, None] + ctj) / safe_d
+        dpos.append((sc[..., None] * delta).sum(1))
+        s1.append((g[..., None] * bj).sum(1))
+        s2.append(((g * ctj)[..., None] * bj).sum(1))
+    s1, s2 = torch.cat(s1), torch.cat(s2)
+    db = ct[:, None] * (w[None, :] * s1) + w[None, :] * s2
+    dw = (ct[:, None] * b * s1).sum(0)
+    return torch.cat(dpos), dw, db
+
+
 class _CoulombW(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pos, w, b, idx, mask, rc, eps, factor, box, batch):
         ctx.save_for_backward(pos, w, b, idx, mask)
         ctx.consts = (rc, eps, factor, box, batch)
-        n, k = idx.shape
-        c = b.shape[-1]
-        src = torch.cat([pos, b], dim=1)
-        a = w[None, :] * b
-        out = pos.new_empty(n)
-        chunk = row_chunk(n, k, 3 + c)
-        for s in range(0, n, chunk):
-            e = min(n, s + chunk)
-            sj = src[idx[s:e]]
-            _, safe_d, valid = _chunk_geometry(
-                pos[s:e], sj[..., :3], mask[s:e], _box_rows(box, batch, s, e), rc)
-            g = torch.where(valid, g_kernel(safe_d, rc, eps, factor), 0.0)
-            pd = (a[s:e, None, :] * sj[..., 3:]).sum(-1)
-            out[s:e] = (g * pd).sum(1)
-        return out
+        return _energy(pos, w[None, :] * b, b, idx, mask, rc, eps, factor,
+                       box, batch)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, ct):
         pos, w, b, idx, mask = ctx.saved_tensors
-        rc, eps, factor, box, batch = ctx.consts
-        n, k = idx.shape
-        c = b.shape[-1]
-        src = torch.cat([pos, b, ct[:, None]], dim=1)
-        wb = w[None, :] * b
-        dpos = torch.empty_like(pos)
-        s1 = torch.empty_like(b)
-        s2 = torch.empty_like(b)
-        chunk = row_chunk(n, k, 4 + c)
-        for s in range(0, n, chunk):
-            e = min(n, s + chunk)
-            sj = src[idx[s:e]]
-            delta, safe_d, valid = _chunk_geometry(
-                pos[s:e], sj[..., :3], mask[s:e], _box_rows(box, batch, s, e), rc)
-            bj = sj[..., 3:3 + c]
-            ctj = sj[..., 3 + c]
-            g, gp = g_and_grad(safe_d, rc, eps, factor)
-            g = torch.where(valid, g, 0.0)
-            gp = torch.where(valid, gp, 0.0)
-            pd = (wb[s:e, None, :] * bj).sum(-1)
-            sc = gp * pd * (ct[s:e, None] + ctj) / safe_d
-            dpos[s:e] = (sc[..., None] * delta).sum(1)
-            s1[s:e] = (g[..., None] * bj).sum(1)
-            s2[s:e] = ((g * ctj)[..., None] * bj).sum(1)
-        db = ct[:, None] * (w[None, :] * s1) + w[None, :] * s2
-        dw = (ct[:, None] * b * s1).sum(0)
+        dpos, dw, db = coulomb_w_vjp(pos, w, b, ct, idx, mask, *ctx.consts)
         return dpos, dw, db, None, None, None, None, None, None, None
 
 
@@ -156,54 +172,45 @@ def coulomb_cutoff_energy_w(pos, w, b, idx, mask, rc: float, eps: float,
                            float(factor), box, batch)
 
 
+def coulomb_ab_vjp(pos, a, b, ct, idx, mask, rc, eps, factor, box, batch):
+    """``(∂pos, ∂a, ∂b)`` of :func:`coulomb_cutoff_energy` for the
+    cotangent ``ct [N]`` (``_cce_bwd``), over row chunks; differentiable
+    (a graph when grad mode is on)."""
+    n, k = idx.shape
+    c = b.shape[-1]
+    src = torch.cat([pos, b, ct[:, None] * a], dim=1)
+    dpos, da, db = [], [], []
+    chunk = row_chunk(n, k, 3 + 2 * c)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        sj = src[idx[s:e]]
+        delta, safe_d, valid = _chunk_geometry(
+            pos[s:e], sj[..., :3], mask[s:e], _box_rows(box, batch, s, e), rc)
+        bj = sj[..., 3:3 + c]
+        ctaj = sj[..., 3 + c:]
+        g, gp = g_and_grad(safe_d, rc, eps, factor)
+        g = torch.where(valid, g, 0.0)
+        gp = torch.where(valid, gp, 0.0)
+        pd = (a[s:e, None, :] * bj).sum(-1)
+        pd2 = (b[s:e, None, :] * ctaj).sum(-1)
+        da.append(((ct[s:e, None] * g)[..., None] * bj).sum(1))
+        db.append((g[..., None] * ctaj).sum(1))
+        sc = gp * (ct[s:e, None] * pd + pd2) / safe_d
+        dpos.append((sc[..., None] * delta).sum(1))
+    return torch.cat(dpos), torch.cat(da), torch.cat(db)
+
+
 class _CoulombAB(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pos, a, b, idx, mask, rc, eps, factor, box, batch):
         ctx.save_for_backward(pos, a, b, idx, mask)
         ctx.consts = (rc, eps, factor, box, batch)
-        n, k = idx.shape
-        c = b.shape[-1]
-        src = torch.cat([pos, b], dim=1)
-        out = pos.new_empty(n)
-        chunk = row_chunk(n, k, 3 + c)
-        for s in range(0, n, chunk):
-            e = min(n, s + chunk)
-            sj = src[idx[s:e]]
-            _, safe_d, valid = _chunk_geometry(
-                pos[s:e], sj[..., :3], mask[s:e], _box_rows(box, batch, s, e), rc)
-            g = torch.where(valid, g_kernel(safe_d, rc, eps, factor), 0.0)
-            pd = (a[s:e, None, :] * sj[..., 3:]).sum(-1)
-            out[s:e] = (g * pd).sum(1)
-        return out
+        return _energy(pos, a, b, idx, mask, rc, eps, factor, box, batch)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, ct):
         pos, a, b, idx, mask = ctx.saved_tensors
-        rc, eps, factor, box, batch = ctx.consts
-        n, k = idx.shape
-        c = b.shape[-1]
-        src = torch.cat([pos, b, ct[:, None] * a], dim=1)
-        dpos = torch.empty_like(pos)
-        da = torch.empty_like(a)
-        db = torch.empty_like(b)
-        chunk = row_chunk(n, k, 3 + 2 * c)
-        for s in range(0, n, chunk):
-            e = min(n, s + chunk)
-            sj = src[idx[s:e]]
-            delta, safe_d, valid = _chunk_geometry(
-                pos[s:e], sj[..., :3], mask[s:e], _box_rows(box, batch, s, e), rc)
-            bj = sj[..., 3:3 + c]
-            ctaj = sj[..., 3 + c:]
-            g, gp = g_and_grad(safe_d, rc, eps, factor)
-            g = torch.where(valid, g, 0.0)
-            gp = torch.where(valid, gp, 0.0)
-            pd = (a[s:e, None, :] * bj).sum(-1)
-            pd2 = (b[s:e, None, :] * ctaj).sum(-1)
-            da[s:e] = ((ct[s:e, None] * g)[..., None] * bj).sum(1)
-            db[s:e] = (g[..., None] * ctaj).sum(1)
-            sc = gp * (ct[s:e, None] * pd + pd2) / safe_d
-            dpos[s:e] = (sc[..., None] * delta).sum(1)
+        dpos, da, db = coulomb_ab_vjp(pos, a, b, ct, idx, mask, *ctx.consts)
         return dpos, da, db, None, None, None, None, None, None, None
 
 

@@ -29,10 +29,22 @@ Where the tiles do not fit a block (kernel 3 above F = 256, kernel 4 also
 where its x tile would pass the block's shared memory, :func:`chain_wide`)
 they go to a second device-memory scratch, one region for each resident
 block.  Every width that is a positive multiple of 4 launches
-(:func:`pre_plan_error`, :func:`fused_plan_error`).  The backward
-recomputes through the plain chain over row chunks, as the JAX
+(:func:`pre_plan_error`, :func:`fused_plan_error`).
+
+The backward recomputes through the plain chain, as the JAX
 ``_bwd``/``_bwd_pre`` (``:118``, ``:237``) do (the JAX package has no
-backward kernel for these ops); it is first-order only.
+backward kernel for these ops).  A first-order call (MD, a force pass
+without ``create_graph``) runs it over detached row chunks.  Under
+``create_graph`` (grad mode on inside the backward: force training) it
+builds a graph instead, the plain chain on the saved inputs and
+``torch.autograd.grad(..., create_graph=True)``, as JAX differentiates
+``jax.vjp(edge_mlp_jnp, ...)`` again, so the second order reaches the
+weights.  That graph is unchunked: it holds ~24F floats a slot (the
+chain's activations and those of its vjp), ~12 KB at F = 128.  At the
+AceFF training batch (16 molecules, ~860 atoms, K = 64) that is ~0.7 GB a
+call, four calls a TensorNet2 evaluation (two layers, each edge and
+reverse-edge weights); at the north star's 25,088 atoms and K = 96 it
+would be ~30 GB a call.
 """
 
 import bisect
@@ -40,7 +52,6 @@ import ctypes
 
 import torch
 import torch.nn.functional as F_
-from torch.autograd.function import once_differentiable
 
 from torchmdnet_tpu_torch.ops.kernels import (
     I32, I64, P, CudaSource, Kernel, check_cuda_args, null_or_ptr, ptr)
@@ -294,8 +305,15 @@ def edge_mlp_pre_cuda(pre1, cw, w2, b2, w3, b3):
 
 def _recompute_vjp(ref, inputs, needs, g, width):
     """Cotangents of ``ref(*inputs)`` (two row inputs ``[N, K, …]``, ``[N,
-    K]``, then weights) by autograd over row chunks; ``width`` bounds the
-    live ``[rows, K, ·]`` floats of the recompute per slot."""
+    K]``, then weights).  With grad mode on (under ``create_graph``) by
+    autograd through the plain chain on the saved inputs, keeping the
+    graph; otherwise by autograd over detached row chunks, where ``width``
+    bounds the live ``[rows, K, ·]`` floats of the recompute per slot."""
+    if torch.is_grad_enabled():
+        leaves = [x for x, w in zip(inputs, needs) if w]
+        got = iter(torch.autograd.grad(ref(*inputs), leaves, g,
+                                       create_graph=True))
+        return tuple(next(got) if w else None for w in needs)
     n, k = inputs[1].shape
     rows, weights = inputs[:2], inputs[2:]
     grads = [torch.empty_like(x) if w else None for x, w in zip(rows, needs)]
@@ -330,7 +348,6 @@ class _EdgeMlp(torch.autograd.Function):
         return edge_mlp_ref(*inputs)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         inputs = ctx.saved_tensors
         f = inputs[2].shape[-1]
@@ -355,7 +372,6 @@ class _EdgeMlpPre(torch.autograd.Function):
         return edge_mlp_pre_ref(pre1, cw, w2, b2, w3, b3)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         inputs = ctx.saved_tensors
         # live [rows, K, ·] tensors of the recompute: ~ F + 2F·3 + 3F·4 wide

@@ -13,10 +13,12 @@ non-zero code and counts successful launches.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -149,3 +151,73 @@ def ptr(t: torch.Tensor):
 
 def null_or_ptr(t):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+SECOND_ORDER_MISSING = (
+    "a second derivative through {} (force training) is not ported yet "
+    "(ROADMAP Queue 1 item 17, 'Training, the rest': the blocked ops' "
+    "second order)")
+
+
+def first_order_only(what: str, message: str = SECOND_ORDER_MISSING):
+    """Decorator of an ``autograd.Function.backward`` that is not
+    differentiable again (its cotangents come from kernels that have no
+    derivative).  It runs the backward without a graph, as
+    ``once_differentiable`` does, but where that would hang an error node
+    on the outputs (which ``torch.autograd.grad`` to a weight prunes,
+    dropping the higher-order terms without a word), it raises
+    ``NotImplementedError`` (``message`` naming ``what``) as soon as the
+    backward runs under ``create_graph`` with a saved input or the
+    incoming cotangent taking a gradient.  A call without ``create_graph``
+    (MD, a force pass) is unaffected."""
+    def wrap(backward):
+        @functools.wraps(backward)
+        def first_order(ctx, *grads):
+            if torch.is_grad_enabled() and any(
+                    t is not None and t.requires_grad
+                    for t in ctx.saved_tensors + grads):
+                raise NotImplementedError(message.format(what))
+            with torch.no_grad():
+                return backward(ctx, *grads)
+        return first_order
+    return wrap
+
+
+def kernel_dtype(dtype) -> bool:
+    """Whether the kernels take operands of ``dtype`` (float32 only).  The
+    models' fused branches ask it and take the plain chains otherwise, as
+    JAX's do."""
+    return dtype == torch.float32
+
+
+class remat_recompute:
+    """The context of a remat region's recompute in the backward
+    (``models/tensornet.py::remat_call``): the neighbour sums in it skip
+    their work (:func:`neighbour_sum_out`).  Re-entrant: a region that
+    the force pass's second backward unpacks again is recomputed again
+    under the same context object."""
+
+    _state = threading.local()
+
+    def __enter__(self):
+        self._outer = getattr(self._state, "on", False)
+        self._state.on = True
+
+    def __exit__(self, *exc):
+        self._state.on = self._outer
+
+    @classmethod
+    def active(cls) -> bool:
+        return getattr(cls._state, "on", False)
+
+
+def neighbour_sum_out(compute, feats9):
+    """A neighbour sum's ``[N, 9F]`` output: ``compute()``, or zeros and no
+    launch in a remat recompute.  There the region's output, which the
+    forward kept, is the sum's; nothing in the region reads the sum's
+    value after it, and its backward needs only its saved inputs.  So the
+    sum runs once a step with remat as without, as JAX's policy
+    ``save_only_these_names("pns_out")`` keeps its output."""
+    if remat_recompute.active():
+        return torch.zeros_like(feats9)
+    return compute()

@@ -28,6 +28,8 @@ the JAX package's do.
 
 import torch
 
+from torchmdnet_tpu_torch.ops.kernels import neighbour_sum_out
+
 # Transient budget of one row chunk of an [N, K, width] gathered block.
 CHUNK_BUDGET_BYTES = 512 * 1024 * 1024
 
@@ -159,7 +161,8 @@ class _PackedNeighborSumAsym(torch.autograd.Function):
     @staticmethod
     def forward(ctx, attr3f, attr_rev, feats9, idx, rev_slot, mask):
         ctx.save_for_backward(attr_rev, feats9, idx, rev_slot, mask)
-        return _pns_impl(attr3f, feats9, idx)
+        return neighbour_sum_out(lambda: _pns_impl(attr3f, feats9, idx),
+                                 feats9)
 
     @staticmethod
     def backward(ctx, g):
@@ -263,7 +266,8 @@ class _PackedNeighborSumSym(torch.autograd.Function):
     @staticmethod
     def forward(ctx, attr3f, feats9, idx, rev_slot, mask):
         ctx.save_for_backward(attr3f, feats9, idx, rev_slot, mask)
-        return _pns_impl(attr3f, feats9, idx)
+        return neighbour_sum_out(lambda: _pns_impl(attr3f, feats9, idx),
+                                 feats9)
 
     @staticmethod
     def backward(ctx, g):

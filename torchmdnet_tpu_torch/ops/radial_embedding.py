@@ -10,8 +10,13 @@ On a CUDA tensor the forward and the backward are the hand-written kernels
 of ``csrc/radial_embedding.cu`` or raise; on a CPU tensor they are the
 plain PyTorch chain :func:`radial_embedding_ref` and its autograd.  The
 backward gives the mask a zero cotangent, as the TPU kernel does
-(``pallas_embedding.py:301``).  It is first-order only: a second
-derivative through it raises.
+(``pallas_embedding.py:301``).  The backward is an op of its own,
+``_RadialEmbeddingBwd`` (JAX ``_bwd_op``, ``:304-332``): its forward is
+kernel 2 (or :func:`radial_embedding_bwd_ref` on the CPU) and its backward
+the double vjp of the plain chain (:func:`radial_embedding_double_vjp`),
+so a force loss's gradient in the weights (training) runs kernel 2 in the
+force pass and plain PyTorch in the second order, as JAX runs jnp there.
+A third derivative raises.
 
 Both kernels run their products (``ea·kall``, and in the backward the
 cotangent ``dd·kallᵀ`` and, for ``dkall``, ``eaᵀ·dd``) on the tensor
@@ -29,10 +34,10 @@ every rbf width and every F that is a positive multiple of 4 launches
 import ctypes
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from torchmdnet_tpu_torch.ops.kernels import (
-    I32, I64, P, CudaSource, Kernel, check_cuda_args, null_or_ptr, ptr)
+    I32, I64, P, CudaSource, Kernel, check_cuda_args, first_order_only,
+    null_or_ptr, ptr)
 from torchmdnet_tpu_torch.ops.message_passing import row_chunk
 from torchmdnet_tpu_torch.ops.tc_tile import H100_SMS, SMEM_LIMIT
 
@@ -328,6 +333,84 @@ def radial_embedding_bwd_cuda(inputs, g, want_dz: bool, want_dk: bool,
     return dea, dC, dvx, dvy, dvz, dzw1, dzw2g, dkall, dball
 
 
+def radial_embedding_double_vjp(inputs, g, first, cts, needs):
+    """The second order of the embedding: the cotangents of the inputs and
+    of ``g`` given the cotangents ``cts`` of the first-order outputs
+    ``first`` (their input indices, 7 (the mask) left out), by autograd
+    through autograd of :func:`radial_embedding_ref` over row chunks (JAX
+    ``_bwd_op_bwd``'s ``jax.vjp`` of the jnp first order, ``:320-328``).
+    ``needs``: which of the ten inputs and ``g`` want one.  Returns eleven
+    items, None where not wanted."""
+    n, k, _ = inputs[0].shape
+    f = inputs[5].shape[-1]
+    rows, weights = list(inputs[:8]) + [g], inputs[8:]
+    want = list(needs[:8]) + [needs[10]] + list(needs[8:10])
+    grads = [torch.zeros_like(x) if w else None
+             for x, w in zip(rows + list(weights), want)]
+    used = [(i, ct) for i, ct in zip(first, cts) if ct is not None]
+    chunk = row_chunk(n, k, 24 * f)
+    for s in range(0, n if used else 0, chunk):
+        e = min(n, s + chunk)
+        with torch.enable_grad():
+            args = [x[s:e].detach().requires_grad_() for x in rows]
+            args += [x.detach().requires_grad_() for x in weights]
+            out = radial_embedding_ref(*args[:8], *args[9:])
+            outs = torch.autograd.grad(out, [args[i + (i > 7)]
+                                             for i, _ in used],
+                                       args[8], create_graph=True)
+            outs_ct = [ct[s:e] if i < 8 else ct for i, ct in used]
+            leaves = [a for a, w in zip(args, want) if w]
+            got = iter(torch.autograd.grad(outs, leaves, outs_ct,
+                                           allow_unused=True)
+                       if leaves else [])
+        for i, w in enumerate(want):
+            if not w:
+                continue
+            x = next(got)
+            if x is None:
+                continue
+            if i < 9:
+                grads[i][s:e] = x
+            else:
+                grads[i] += x
+    grads = grads[:8] + grads[9:] + [grads[8]]
+    return tuple(grads)
+
+
+class _RadialEmbeddingBwd(torch.autograd.Function):
+    """The embedding's first-order cotangents ``first`` (input indices)
+    of ``g`` as an op: kernel 2 on CUDA tensors (its dz form where zw1 or
+    zw2g is among them, its dk form where kall or ball is), the plain
+    backward on the CPU; differentiable once more."""
+
+    @staticmethod
+    def forward(ctx, first, g, *inputs):
+        ctx.save_for_backward(*inputs, g)
+        ctx.first = first
+        # an output no loss reads gets None, not zeros to differentiate
+        ctx.set_materialize_grads(False)
+        if g.is_cuda:
+            out = radial_embedding_bwd_cuda(
+                inputs, g, want_dz=5 in first or 6 in first,
+                want_dk=8 in first or 9 in first)
+        else:
+            out = radial_embedding_bwd_ref(
+                inputs, g, [i in first for i in range(10)])
+        out = list(out[:7]) + [None] + list(out[7:])
+        return tuple(out[i] for i in first)
+
+    @staticmethod
+    @first_order_only("the radial embedding", "a third derivative through "
+                      "{} is not ported (its second order is the plain "
+                      "double vjp)")
+    def backward(ctx, *cts):
+        *inputs, g = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:] + ctx.needs_input_grad[1:2]
+        grads = radial_embedding_double_vjp(inputs, g, ctx.first, cts,
+                                            needs)
+        return (None, grads[10]) + grads[:10]
+
+
 class _RadialEmbedding(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *inputs):
@@ -337,21 +420,17 @@ class _RadialEmbedding(torch.autograd.Function):
         return radial_embedding_ref(*inputs)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         inputs = ctx.saved_tensors
         needs = ctx.needs_input_grad
-        g = g.contiguous()
-        if g.is_cuda:
-            out = radial_embedding_bwd_cuda(
-                inputs, g, want_dz=needs[5] or needs[6],
-                want_dk=needs[8] or needs[9])
-        else:
-            out = radial_embedding_bwd_ref(inputs, g, needs)
-        # zero mask cotangent (the TPU kernel's contract, :301)
-        dem = torch.zeros_like(inputs[7]) if needs[7] else None
-        grads = list(out[:7]) + [dem] + list(out[7:])
-        return tuple(x if w else None for x, w in zip(grads, needs))
+        first = tuple(i for i in range(10) if needs[i] and i != 7)
+        out = iter(_RadialEmbeddingBwd.apply(first, g.contiguous(), *inputs)
+                   if first else ())
+        grads = [next(out) if i in first else None for i in range(10)]
+        if needs[7]:
+            # zero mask cotangent (the TPU kernel's contract, :301)
+            grads[7] = torch.zeros_like(inputs[7])
+        return tuple(grads)
 
 
 def radial_embedding(edge_attr, C, vx, vy, vz, zw1, zw2g, emask_f, kall, ball):

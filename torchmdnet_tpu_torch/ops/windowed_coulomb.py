@@ -31,12 +31,11 @@ import ctypes
 from typing import NamedTuple
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from torchmdnet_tpu_torch.ops.cell_blocks import StencilWindows
 from torchmdnet_tpu_torch.ops.coulomb import _rf_constants, g_and_grad
 from torchmdnet_tpu_torch.ops.kernels import (
-    F32, I32, I64, P, CudaSource, Kernel, ptr)
+    F32, I32, I64, P, CudaSource, Kernel, first_order_only, ptr)
 from torchmdnet_tpu_torch.ops.tc_tile import SMEM_LIMIT
 
 SOURCE = CudaSource("windowed_coulomb.cu")
@@ -337,7 +336,7 @@ class _WindowedCoulomb(torch.autograd.Function):
         return (qw[None, :] * b_s * phi).sum(-1) * rv
 
     @staticmethod
-    @once_differentiable
+    @first_order_only("the windowed Coulomb (kernels C and D)")
     def backward(ctx, ct):
         pos_s, qw, b_s, phi = ctx.saved_tensors
         rv = ctx.cwin.row_valid.to(phi.dtype)

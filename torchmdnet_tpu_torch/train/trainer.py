@@ -9,7 +9,10 @@ trainer.py``; reference ``torchmdnet/module.py``, ``scripts/train.py:
   test pass;
 * ReduceLROnPlateau on the monitored metric (torch's mode-min semantics),
   LR warmup inside the step, EarlyStopping;
-* ``metrics.csv`` (an existing one is kept under a timestamped name);
+* ``metrics.csv`` (an existing one is kept under a timestamped name),
+  and with ``wandb_use``/``tensorboard_use`` the W&B and TensorBoard
+  loggers (JAX ``trainer.py:157-200``), imported when asked for, with a
+  warning and nothing else where the package is missing;
 * checkpoints ``epoch=…-<monitor>=….ckpt`` (the best ten kept) and
   ``best.ckpt``, each the whole model in the reference's Lightning layout
   (``utils/checkpoint.py::save_checkpoint``: the ``model.``-prefixed
@@ -21,8 +24,8 @@ trainer.py``; reference ``torchmdnet/module.py``, ``scripts/train.py:
   ``trainer.py:242-255``).
 
 Everything runs on the potential's device (CUDA unless it was built with
-``device="cpu"``).  Not ported yet: data parallelism (``ngpus > 1``,
-ROADMAP Queue 1 item 19), the W&B and TensorBoard loggers.
+``device="cpu"``), batches in the potential's dtype.  Not ported yet:
+data parallelism (``ngpus > 1``, ROADMAP Queue 1 item 19).
 """
 
 import csv
@@ -30,6 +33,7 @@ import os
 import queue
 import threading
 import time
+import warnings
 from collections import defaultdict
 from typing import Optional
 
@@ -91,6 +95,45 @@ class CSVLogger:
             if write_header:
                 writer.writeheader()
             writer.writerow(metrics)
+
+
+def extra_loggers(hp: dict, log_dir) -> list:
+    """The opt-in loggers of ``hp`` as callables on a metrics row (JAX
+    ``trainer.py:157-200``, reference ``scripts/train.py:229-246``): W&B
+    (``wandb_use``; project, name and resume id from ``hp``) and
+    TensorBoard (``tensorboard_use``: each number of a row a scalar at
+    the row's epoch, in ``log_dir``).  Each package is imported here; a
+    missing one gives a warning and no logger."""
+    out = []
+    if hp.get("wandb_use"):
+        try:
+            import wandb
+        except ImportError:
+            warnings.warn("wandb_use=True but wandb is not installed")
+        else:
+            resume = hp.get("wandb_resume_from_id")
+            wandb.init(project=hp.get("wandb_project", "training_"),
+                       name=hp.get("wandb_name", "training"), id=resume,
+                       resume="must" if resume else None, config=hp)
+            out.append(wandb.log)
+    if hp.get("tensorboard_use"):
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            warnings.warn(
+                "tensorboard_use=True but tensorboard is not installed")
+        else:
+            writer = SummaryWriter(log_dir)
+
+            def tb_log(row):
+                step = int(row.get("epoch", 0))
+                for key, value in row.items():
+                    if isinstance(value, (int, float)):
+                        writer.add_scalar(key, value, step)
+                writer.flush()
+
+            out.append(tb_log)
+    return out
 
 
 class ReduceLROnPlateau:
@@ -156,11 +199,14 @@ def read_checkpoint(path):
     checkpoint this trainer wrote; the state dict loads into
     ``create_model(hp, ...).module`` with ``strict=True``.  The buffers
     outside the port's state dict are left out: the skipped ones (the
-    priors' tables, ``model.mean``/``model.std``), the rbf buffers and a
+    priors' tables, ``model.mean``/``model.std``), the frozen rbf buffers
+    (with ``trainable_rbf`` they are parameters and stay) and a
     non-trainable Atomref's table.  ``models/model.py::load_model`` reads
     the whole model, those included."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     hp = ckpt["hyper_parameters"]
+    # trainable rbf tensors are parameters of the state dict
+    rbf = () if hp.get("trainable_rbf") else RBF_BUFFERS
     tables = {f"prior_model.{i}.atomref.weight"
               for i, (name, arg) in enumerate(prior_specs(hp))
               if name == "Atomref" and not (arg or {}).get("trainable")}
@@ -168,7 +214,7 @@ def read_checkpoint(path):
     for k, v in ckpt["state_dict"].items():
         k = k[len(CKPT_PREFIX):]
         if not (is_skipped(k) or k in tables
-                or k.rsplit(".", 1)[-1] in RBF_BUFFERS):
+                or k.rsplit(".", 1)[-1] in rbf):
             sd[k] = v
     return sd, hp
 
@@ -179,15 +225,13 @@ class Trainer:
         if int(hp.get("ngpus", 1) or 1) != 1:
             _not_ported("ngpus != 1 (data parallelism)",
                         "Queue 1 item 19, 'Multi-GPU'")
-        for key in ("wandb_use", "tensorboard_use"):
-            if hp.get(key):
-                _not_ported(key, "Queue 1 item 17, 'Training: loggers'")
         self.potential = potential
         self.device = potential.device
         self.hp = hp
         self.dm = datamodule
         self.log_dir = hp.get("log_dir", "logs")
         self.logger = CSVLogger(self.log_dir)
+        self.extra_loggers = extra_loggers(hp, self.log_dir)
         self.plateau = ReduceLROnPlateau(factor=hp.get("lr_factor", 0.8),
                                          patience=hp.get("lr_patience", 10),
                                          min_lr=hp.get("lr_min", 1e-6))
@@ -229,7 +273,8 @@ class Trainer:
             elif key == "mol_mask":
                 out[key] = torch.as_tensor(v, device=dev)
             else:
-                out[key] = torch.as_tensor(v, dtype=torch.float32, device=dev)
+                out[key] = torch.as_tensor(v, dtype=self.potential.dtype,
+                                           device=dev)
         return out
 
     def _eval(self, db, names):
@@ -302,6 +347,8 @@ class Trainer:
             if test_interval > 0 and epoch > 0 and epoch % test_interval == 0:
                 row.update(self._test_metrics(self.dm.test_dataloader()))
             self.logger.log(row)
+            for log in self.extra_loggers:
+                log(row)
 
             monitor_val = row.get(self.monitor, row.get(
                 f"val_total_{self.train_loss}",
