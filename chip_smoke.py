@@ -104,6 +104,17 @@ with ms per evaluation, peak memory, profiles of both batches (their
 device ms) and of the 128 batch's all-to-all term; the old AceFF layout of the same
 weights, a zip of 3 checkpoints as an ``Ensemble``, and TensorNet 2 x 128
 with the ``DipoleMoment`` head and with ``atom_filter``, card against CPU.
+After the AceFF training (``train_aceff``) come the models with no
+kernel, in plain PyTorch: the Equivariant Transformer's recipes
+(``et_serve``: ``examples/ET-SPICE.yaml``, ET 5 x 128 at 10 Å and K=128,
+through ``save_checkpoint`` and ``load_model`` on 16 seeded SPICE-like
+molecules, energies and forces against float64 on the card, ms, peak and
+a profile, ``profile_et_spice``; then ``examples/ET-QM9.yaml``, ET 8 x
+256 with the Atomref prior, on 128 QM9-sized molecules; ``et_train``:
+``examples/ET-MD17.yaml`` trained on batches of 8 aspirin-shaped
+molecules, its gradients against float64, timed steps, ``Trainer.fit``
+and its checkpoint served; ``et_md``: ``run_md`` on one such molecule at
+300 K), and TorchMD-T and TorchMD-GN at upstream's defaults (``t_gn``).
 
 Before the kernels phase, ``tc_attributes`` gives the tensor-core kernels
 (rows 1, 2, 3, 5, 7, 10, 11 and kernels A-D) as compiled: registers, spill bytes,
@@ -120,6 +131,7 @@ the checkout, or to the directory named by ``SMOKE_LOG_DIR``.
 """
 
 import contextlib
+import copy
 import json
 import math
 import os
@@ -3203,8 +3215,9 @@ def train_batch():
     return {k: torch.as_tensor(v, device=dev) for k, v in out.items()}
 
 
-def loss_and_grads(pot, batch, num_mols=None, neg_dy_weight=1.0):
-    """The train step's loss (y and neg_dy MSE, the y weight 1) and its
+def loss_and_grads(pot, batch, num_mols=None, neg_dy_weight=1.0,
+                   y_weight=1.0):
+    """The train step's loss (y and neg_dy MSE, weighted) and its
     gradient in every weight, without an update (``num_mols``: the
     training batch's, ``TRAIN_MOLS``, when None)."""
     from torchmdnet_tpu_torch.train.step import compute_losses
@@ -3212,7 +3225,7 @@ def loss_and_grads(pot, batch, num_mols=None, neg_dy_weight=1.0):
     params = list(pot.module.parameters())
     ly, ln, _ = compute_losses(pot, batch, num_mols or TRAIN_MOLS,
                                create_graph=True)
-    loss = ly + neg_dy_weight * ln
+    loss = y_weight * ly + neg_dy_weight * ln
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
@@ -3508,27 +3521,41 @@ def serve_molecule(rng, n):
     return pos - pos.mean(0)
 
 
-def serve_batch(n_mols, seed):
-    """``n_mols`` seeded molecules of 24-96 atoms, Z from ``SERVE_Z``,
-    total charges from {−1, 0, 1}, 40 Å apart on a grid: ``(z, pos,
-    batch, q, the most neighbors an atom has within the cutoff, self
-    included)``."""
+def molecule_batch(n_mols, seed, sizes, draw_z, cutoff):
+    """``n_mols`` seeded ``serve_molecule``s of ``sizes[0]`` to
+    ``sizes[1] − 1`` atoms, Z from ``draw_z(rng, n)``, 40 Å apart on a
+    grid: ``(z, pos, batch, the generator, the most neighbors an atom has
+    within ``cutoff``, self included)``."""
     rng = np.random.RandomState(seed)
     side = int(math.ceil(n_mols ** (1 / 3)))
     zs, ps, bs = [], [], []
     most = 0
     for m in range(n_mols):
-        p = serve_molecule(rng, rng.randint(24, 97))
+        p = serve_molecule(rng, rng.randint(*sizes))
         d = np.linalg.norm(p[:, None] - p[None], axis=-1)
-        most = max(most, int((d < ACEFF_ARGS["cutoff_upper"]).sum(1).max()))
+        most = max(most, int((d < cutoff).sum(1).max()))
         cell = np.array([m % side, m // side % side, m // side ** 2])
         ps.append(p + 40.0 * cell)
-        zs.append(rng.choice(SERVE_Z, len(p), p=SERVE_P))
+        zs.append(draw_z(rng, len(p)))
         bs.append(np.full(len(p), m))
-    q = rng.randint(-1, 2, n_mols).astype(np.float32)
     return (np.concatenate(zs).astype(np.int64),
             np.concatenate(ps).astype(np.float32),
-            np.concatenate(bs).astype(np.int64), q, most)
+            np.concatenate(bs).astype(np.int64), rng, most)
+
+
+def spice_z(rng, n):
+    return rng.choice(SERVE_Z, n, p=SERVE_P)
+
+
+def serve_batch(n_mols, seed):
+    """``n_mols`` seeded molecules of 24-96 atoms, Z from ``SERVE_Z``,
+    total charges from {−1, 0, 1}, 40 Å apart on a grid: ``(z, pos,
+    batch, q, the most neighbors an atom has within the cutoff, self
+    included)``."""
+    z, pos, batch, rng, most = molecule_batch(
+        n_mols, seed, (24, 97), spice_z, ACEFF_ARGS["cutoff_upper"])
+    q = rng.randint(-1, 2, n_mols).astype(np.float32)
+    return z, pos, batch, q, most
 
 
 def old_format(path, old_path):
@@ -3906,6 +3933,395 @@ def phase_train_aceff():
           f"module {row['served_vs_trained']}")
 
 
+# ---------------------------------------------------------------- et
+# examples/ET-SPICE.yaml, ET-QM9.yaml and ET-MD17.yaml, copied (the port
+# imports no yaml; tests/test_torch_recipe_args.py holds each copy, and
+# ACEFF_ARGS, against its file)
+ET_SPICE_ARGS = dict(
+    activation="silu", atom_filter=-1, attn_activation="silu",
+    batch_size=16, charge=False, cutoff_lower=0.0, cutoff_upper=10.0,
+    dataset="SPICE", dataset_arg={"version": "1.1.4"},
+    dataset_root="data", derivative=True, distance_influence="both",
+    early_stopping_patience=50, ema_alpha_neg_dy=1.0, ema_alpha_y=1.0,
+    embedding_dimension=128, inference_batch_size=16, log_dir="logs/",
+    lr=0.0001, lr_factor=0.5, lr_min=1e-07, lr_patience=5,
+    lr_warmup_steps=1000, max_num_neighbors=128, max_z=100,
+    model="equivariant-transformer", neg_dy_weight=0.5,
+    neighbor_embedding=True, ngpus=-1, num_epochs=500, num_heads=8,
+    num_layers=5, num_nodes=1, num_rbf=64, num_workers=4,
+    output_model="Scalar", precision=32, rbf_type="expnorm",
+    redirect=False, reduce_op="add", save_interval=10, seed=1, spin=False,
+    standardize=False, test_interval=10, test_size=None, train_size=0.8,
+    trainable_rbf=False, val_size=0.1, vector_cutoff=True,
+    weight_decay=0.0, y_weight=0.5)
+ET_QM9_ARGS = dict(
+    activation="silu", atom_filter=-1, attn_activation="silu",
+    batch_size=128, charge=False, cutoff_lower=0.0, cutoff_upper=5.0,
+    dataset="QM9", dataset_arg={"label": "energy_U0"},
+    dataset_root="~/data", derivative=False, distance_influence="both",
+    early_stopping_patience=150, ema_alpha_neg_dy=1.0, ema_alpha_y=1.0,
+    embedding_dimension=256, inference_batch_size=128, log_dir="logs/",
+    lr=0.0004, lr_factor=0.8, lr_min=1e-07, lr_patience=15,
+    lr_warmup_steps=10000, max_num_neighbors=64, max_z=100,
+    model="equivariant-transformer", neg_dy_weight=1.0,
+    neighbor_embedding=True, ngpus=-1, num_epochs=3000, num_heads=8,
+    num_layers=8, num_nodes=1, num_rbf=64, num_workers=4,
+    output_model="Scalar", precision=32, prior_model="Atomref",
+    rbf_type="expnorm", redirect=False, reduce_op="add", save_interval=10,
+    seed=1, spin=False, standardize=False, test_interval=10,
+    test_size=None, train_size=110000, trainable_rbf=False,
+    val_size=10000, vector_cutoff=True, weight_decay=0.0, y_weight=1.0)
+ET_MD17_ARGS = dict(
+    activation="silu", attn_activation="silu", atom_filter=-1,
+    batch_size=8, cutoff_lower=0.0, cutoff_upper=5.0, dataset="MD17",
+    dataset_arg={"molecules": "aspirin"}, dataset_root="~/data",
+    derivative=True, distance_influence="both",
+    early_stopping_patience=300, ema_alpha_neg_dy=1.0, ema_alpha_y=0.05,
+    embedding_dimension=128, y_weight=0.2, neg_dy_weight=0.8,
+    inference_batch_size=64, log_dir="logs/", lr=0.001, lr_factor=0.8,
+    lr_min=1e-07, lr_patience=30, lr_warmup_steps=1000,
+    max_num_neighbors=32, max_z=100, model="equivariant-transformer",
+    neighbor_embedding=True, num_epochs=3000, num_heads=8, num_layers=6,
+    num_rbf=32, output_model="Scalar", precision=32, rbf_type="expnorm",
+    reduce_op="add", save_interval=10, seed=1, standardize=True,
+    test_interval=10, test_size=None, train_size=950, trainable_rbf=False,
+    val_size=50, weight_decay=0.0, vector_cutoff=True)
+# TorchMD-T and TorchMD-GN at upstream's defaults (their constructors'):
+# no recipe in the repo, the models being deprecated upstream
+T_GN_ARGS = dict(
+    embedding_dimension=128, num_layers=6, num_rbf=50, rbf_type="expnorm",
+    trainable_rbf=True, activation="silu", attn_activation="silu",
+    neighbor_embedding=True, num_heads=8, distance_influence="both",
+    cutoff_lower=0.0, cutoff_upper=5.0, max_z=100, max_num_neighbors=32,
+    aggr="add", derivative=True, output_model="Scalar", reduce_op="add",
+    precision=32, atom_filter=-1, prior_model=None)
+# QM9's elements (H, C, N, O, F) and rough shares; its molecules hold
+# up to 29 atoms
+QM9_Z = (1, 6, 7, 8, 9)
+QM9_P = (0.51, 0.35, 0.055, 0.08, 0.005)
+ASPIRIN_Z = (6,) * 9 + (1,) * 8 + (8,) * 4  # C9H8O4, 21 atoms
+F64_TOL = 1e-4  # float32 against float64 on the card: energies, forces
+F64_GRAD_TOL = 1e-3  # the same for a force loss's weight gradients
+ET_TRAIN_STEPS = 10
+ET_MD_STEPS = 100
+
+
+def qm9_z(rng, n):
+    return rng.choice(QM9_Z, n, p=QM9_P)
+
+
+def aspirin_z(rng, n):
+    return rng.permutation(np.asarray(ASPIRIN_Z[:n]))
+
+
+def card_inputs(batch):
+    """``(z, pos, batch)`` of a ``molecule_batch`` on the card."""
+    return tuple(torch.as_tensor(a, device="cuda") for a in batch[:3])
+
+
+def against_float64(pot, inputs, num_mols):
+    """The float32 potential's energies (and forces) against the same
+    weights in float64 on the card: relative errors ``[energy, forces]``
+    (forces None without ``derivative``)."""
+    from torchmdnet_tpu_torch.models.model import create_model
+
+    p64 = create_model(dict(pot.hparams, precision=64), device="cuda",
+                       mean=pot.module.mean, std=pot.module.std,
+                       prior_models=copy.deepcopy(list(pot.module
+                                                       .prior_model)))
+    p64.module.load_state_dict(pot.module.state_dict())
+    z, pos, seg = inputs
+    y, f = pot.apply(z, pos, seg, num_mols=num_mols)
+    y64, f64 = p64.apply(z, pos.double(), seg, num_mols=num_mols)
+    del p64
+    return [rel_err(y.double(), y64)[1],
+            None if f is None else rel_err(f.double(), f64)[1]]
+
+
+def timed_evaluation(pot, inputs, num_mols, reps=5):
+    """ms per evaluation (CUDA events) and the peak GB it holds."""
+    z, pos, seg = inputs
+    run = lambda: pot.apply(z, pos, seg, num_mols=num_mols)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(run, reps=reps)
+    return run, {"time_ms": ms,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_et_serve():
+    """The ET-SPICE recipe (ET 5 x 128, 8 heads, 64 expnorm rbf, 10 Å,
+    K = 128, ``vector_cutoff``, forces, the EquivariantScalar head)
+    written by ``save_checkpoint`` and read by ``load_model`` on the
+    card, on its ``inference_batch_size`` (16) of seeded SPICE-like
+    molecules (24-96 atoms, H to Cl): energies and forces, no row past K,
+    the forces against the same weights in float64, ms per evaluation,
+    peak memory, and a profile (phase ``profile_et_spice``: device ms,
+    idle share, kernel groups).  Then the ET-QM9 recipe (ET 8 x 256, 64
+    rbf, 5 Å, K = 64, the Atomref prior with a seeded table, energies
+    only) the same way on its batch of 128 QM9-sized molecules (10-29
+    atoms)."""
+    from torchmdnet_tpu_torch.models.model import create_model, load_model
+    from torchmdnet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    out = OUT_DIR / "et_serve"
+    out.mkdir(parents=True, exist_ok=True)
+    row = {"phase": "et_serve", "tolerance_vs_float64": F64_TOL}
+    checks = []
+    table = np.random.RandomState(5).uniform(-1.0, 0.0, 100) * 1e3
+    recipes = (
+        ("et_spice", ET_SPICE_ARGS, ET_SPICE_ARGS, (24, 97), spice_z, 91),
+        # a trained file carries its prior's arguments (upstream's
+        # train.py writes them); the table comes from the state dict
+        ("et_qm9", dict(ET_QM9_ARGS, prior_args=[{"initial_atomref":
+                                                   table.tolist()}]),
+         dict(ET_QM9_ARGS, prior_args=[{"max_z": 100}]), (10, 30), qm9_z,
+         93))
+    for name, args, hparams, sizes, draw_z, seed in recipes:
+        n = args["inference_batch_size"]
+        writer = create_model(args, device="cuda", seed=seed)
+        path = save_checkpoint(out / f"{name}.ckpt", writer, hparams=hparams)
+        pot = load_model(path, device="cuda")
+        loaded, written = pot.module.state_dict(), writer.module.state_dict()
+        weights_diff = max(float((loaded[k] - written[k]).abs().max())
+                           for k in written)
+        check(loaded.keys() == written.keys() and weights_diff == 0.0,
+              f"et_serve {name}: the loaded weights differ by {weights_diff}")
+        b = molecule_batch(n, seed, sizes, draw_z, args["cutoff_upper"])
+        most = b[4]
+        check(most <= args["max_num_neighbors"],
+              f"et_serve {name}: {most} neighbors overflow K")
+        inputs = card_inputs(b)
+        y, f = pot.apply(*inputs, num_mols=n)
+        y_w, _ = writer.apply(*inputs, num_mols=n)
+        del writer
+        errs = against_float64(pot, inputs, n)
+        run, r = timed_evaluation(pot, inputs, n)
+        r.update(mols=n, atoms=len(b[0]), max_neighbors=most,
+                 energy_sum=float(y.sum()),
+                 vs_writer_energy=rel_err(y, y_w)[1],
+                 vs_float64=errs,
+                 finite=bool(torch.isfinite(y).all()) and (
+                     f is None or bool(torch.isfinite(f).all())))
+        if name == "et_spice":
+            prof = phase_profile("et_spice", run)
+            r["device_ms"], r["idle_share"] = (prof["device_ms"],
+                                               prof["idle_share"])
+            checks.append((r["device_ms"] > 0,
+                           "et_serve: the profile saw no device time"))
+        row[name] = r
+        checks += [
+            (r["finite"] and y.shape == (n, 1)
+             and (f is None) == (not args["derivative"]),
+             f"et_serve {name}: non-finite or misshapen outputs"),
+            (r["vs_writer_energy"] <= 1e-5,
+             f"et_serve {name}: the loaded potential differs from the "
+             f"writing one ({r['vs_writer_energy']:.3g})"),
+            (all(e <= F64_TOL for e in errs if e is not None),
+             f"et_serve {name}: float32 vs float64 {errs}")]
+        del pot, run
+        os.remove(path)
+        torch.cuda.empty_cache()
+    emit(row)
+    for cond, what in checks:
+        check(cond, what)
+
+
+class AspirinMolecules:
+    """Seeded aspirin-shaped molecules (``serve_molecule`` geometry, the
+    21 atoms of C9H8O4) with a random energy and random forces: a dataset
+    of numpy dicts."""
+
+    def __init__(self, n, seed):
+        rng = np.random.RandomState(seed)
+        self.samples = []
+        for _ in range(n):
+            pos = serve_molecule(rng, len(ASPIRIN_Z))
+            self.samples.append(dict(
+                z=aspirin_z(rng, len(ASPIRIN_Z)).astype(np.int64),
+                pos=pos.astype(np.float32), y=rng.randn(1, 1),
+                neg_dy=rng.randn(len(pos), 3).astype(np.float32)))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx):
+        return dict(self.samples[int(idx)])
+
+
+def phase_et_train():
+    """The ET-MD17 recipe (ET 6 x 128, 32 rbf, 5 Å, K = 32,
+    ``standardize``, y weight 0.2, neg_dy weight 0.8, the y EMA 0.05,
+    AdamW at 1e-3 after its 1,000-step linear warm-up, so at 1e-6 to
+    1.2e-5 in these steps) trained on the card on batches of 8 seeded
+    aspirin-shaped molecules with random targets: one step's loss and
+    weight gradients against the same weights in float64 on the card,
+    two warm-up and ``ET_TRAIN_STEPS`` timed ``make_train_step`` steps
+    (ms, mol/s, peak, the loss must fall), a profiled step (device ms,
+    idle share); then ``Trainer.fit`` for one epoch (64 train and 16 val
+    molecules) and its checkpoint through ``load_model`` into a served
+    evaluation equal to the trained module's (1e-5).  Returns the served
+    potential (phase ``et_md`` runs it)."""
+    from torchmdnet_tpu_torch.data.datamodule import DataModule
+    from torchmdnet_tpu_torch.models.model import create_model, load_model
+    from torchmdnet_tpu_torch.train.trainer import Trainer
+
+    args = ET_MD17_ARGS
+    n_mols, lr = args["batch_size"], args["lr"]
+    step_kw = {k: args[k] for k in ("y_weight", "neg_dy_weight",
+                                    "ema_alpha_y", "ema_alpha_neg_dy",
+                                    "lr_warmup_steps")}
+    log_dir = OUT_DIR / "et_train"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    hp = dict(args, num_epochs=1, save_interval=1,
+              train_size=64, val_size=16, test_size=0, log_dir=str(log_dir),
+              train_loss="mse_loss", splits=None, num_workers=0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)  # standardize
+        dm = DataModule(hp, dataset=AspirinMolecules(80, 71))
+        dm.setup("fit")
+    stats = dict(mean=dm.mean, std=dm.std)
+    pot = create_model(hp, device="cuda", seed=14, **stats)
+    p64 = create_model(dict(hp, precision=64), device="cuda", seed=14,
+                       **stats)
+    p64.module.load_state_dict(pot.module.state_dict())
+    b = molecule_batch(n_mols, 61, (21, 22), aspirin_z, args["cutoff_upper"])
+    check(b[4] <= args["max_num_neighbors"],
+          f"et_train: {b[4]} neighbors overflow K")
+    rng = np.random.RandomState(62)
+    batch = dict(z=b[0], pos=b[1], batch=b[2],
+                 y=rng.randn(n_mols, 1).astype(np.float32),
+                 neg_dy=rng.randn(len(b[0]), 3).astype(np.float32),
+                 mol_mask=np.ones(n_mols, bool))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    row = {"phase": "et_train", "mols": n_mols, "atoms": len(b[0]),
+           "lr": lr, **step_kw, "mean": dm.mean, "std": dm.std,
+           "steps_timed": ET_TRAIN_STEPS,
+           "tolerance_vs_float64": [F64_TOL, F64_GRAD_TOL],
+           "vs_float64": grads_against(pot, p64, batch, num_mols=n_mols,
+                                       y_weight=args["y_weight"],
+                                       neg_dy_weight=args["neg_dy_weight"])}
+    del p64
+    torch.cuda.empty_cache()
+    t, _, state, step = train_timed(pot, batch, n_mols, lr, ET_TRAIN_STEPS,
+                                    **step_kw)
+    row.update(t)
+    prof = phase_profile("et_train", lambda: step(state, batch))
+    row["device_ms"], row["idle_share"] = prof["device_ms"], prof["idle_share"]
+    del state, step, pot
+    torch.cuda.empty_cache()
+
+    tpot = create_model(hp, device="cuda", seed=15, **stats)
+    trainer = Trainer(tpot, hp, dm)
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    row["fit_s"] = time.perf_counter() - t0
+    ckpts = sorted(n for n in os.listdir(log_dir)
+                   if n.startswith("epoch=") and n.endswith(".ckpt"))
+    check(len(ckpts) == 1, f"et_train: checkpoints {ckpts}")
+    served = load_model(log_dir / ckpts[0], device="cuda")
+    tpot.module.requires_grad_(False)
+    inputs = card_inputs(molecule_batch(args["inference_batch_size"], 81,
+                                        (21, 22), aspirin_z,
+                                        args["cutoff_upper"]))
+    n = args["inference_batch_size"]
+    y_s, f_s = served.apply(*inputs, num_mols=n)
+    y_t, f_t = tpot.apply(*inputs, num_mols=n)
+    row.update(checkpoint=ckpts[0],
+               served_mean_std=[served.module.mean, served.module.std],
+               served_vs_trained=[rel_err(y_s, y_t)[1], rel_err(f_s, f_t)[1]])
+    emit(row)
+    for name in os.listdir(log_dir):
+        if name.endswith(".ckpt") or name.endswith(".native"):
+            os.remove(log_dir / name)
+    v64 = row["vs_float64"]
+    check(v64["loss_rel_err"] <= F64_TOL and v64["grad_rel_err"]
+          <= F64_GRAD_TOL, f"et_train: float32 vs float64 loss "
+          f"{v64['loss_rel_err']:.3g}, gradient {v64['grad_rel_err']:.3g} "
+          f"({v64['worst_param']})")
+    check(math.isfinite(row["loss_first"]) and math.isfinite(row["loss_last"])
+          and row["loss_last"] < row["loss_first"],
+          f"et_train: the loss did not fall ({row['loss_first']:.4g} → "
+          f"{row['loss_last']:.4g})")
+    # the file keeps them as float32 scalars
+    check(all(math.isclose(a, b, rel_tol=1e-6) for a, b in zip(
+        row["served_mean_std"], (dm.mean, dm.std))),
+          "et_train: the checkpoint lost the mean and std")
+    check(max(row["served_vs_trained"]) <= ACEFF_RELOAD_TOL,
+          f"et_train: the served checkpoint differs from the trained "
+          f"module {row['served_vs_trained']}")
+    return served
+
+
+def phase_et_md(pot):
+    """``run_md`` with the ET-MD17 model (``phase_et_train``'s served
+    checkpoint) on one seeded aspirin-shaped molecule: Langevin at 300 K,
+    0.5 fs, lists rebuilt every 25 steps with a 1 Å skin; a 25-step
+    warm-up run, then ``ET_MD_STEPS`` timed steps: ms per step, K
+    overflow, the final kinetic temperature and energy."""
+    from torchmdnet_tpu_torch.md.integrators import (
+        KB_EV, kinetic_energy, run_md)
+    from torchmdnet_tpu_torch.utils.periodic_table import ATOMIC_MASSES
+
+    z, pos, _, _, _ = molecule_batch(1, 83, (21, 22), aspirin_z,
+                                     ET_MD17_ARGS["cutoff_upper"])
+    masses = ATOMIC_MASSES[z]
+    kw = dict(dt=0.5, temperature=300.0, rebuild_every=25, skin=1.0)
+    run_md(pot, z, pos, masses, n_steps=25, seed=1, **kw)
+    t0 = time.perf_counter()
+    st = run_md(pot, z, pos, masses, n_steps=ET_MD_STEPS, seed=2, **kw)
+    ms = (time.perf_counter() - t0) * 1e3 / ET_MD_STEPS
+    m = torch.as_tensor(masses, dtype=torch.float32, device="cuda")
+    temp_k = float(2.0 * kinetic_energy(st.vel, m) / (3 * len(z) * KB_EV))
+    ok = (not bool(st.overflow) and bool(torch.isfinite(st.pos).all())
+          and bool(torch.isfinite(st.energy).all()))
+    emit({"phase": "et_md", "atoms": len(z), "steps": st.step,
+          "rebuild_every": kw["rebuild_every"], "dt_fs": kw["dt"],
+          "ms_per_step": ms, "overflow": bool(st.overflow),
+          "kinetic_temperature_k": temp_k,
+          "energy_final": float(st.energy.sum()), "finite": ok})
+    check(st.step == ET_MD_STEPS and ok,
+          "et_md: overflow or non-finite state")
+
+
+def phase_t_gn():
+    """TorchMD-T and TorchMD-GN at upstream's defaults (``T_GN_ARGS``: 6
+    x 128, 50 rbf, 5 Å, K = 32, 8 heads; GN with 128 filters and
+    ``aggr="add"``), seeded weights: one energy+forces evaluation each on
+    16 QM9-sized molecules (10-29 atoms, so that K = 32 holds; the
+    SPICE-like batch reaches 56 neighbors at 5 Å), against the same
+    weights in float64, ms per evaluation and peak memory."""
+    from torchmdnet_tpu_torch.models.model import create_model
+
+    n = 16
+    b = molecule_batch(n, 95, (10, 30), qm9_z, T_GN_ARGS["cutoff_upper"])
+    check(b[4] <= T_GN_ARGS["max_num_neighbors"],
+          f"t_gn: {b[4]} neighbors overflow K")
+    inputs = card_inputs(b)
+    row = {"phase": "t_gn", "mols": n, "atoms": len(b[0]),
+           "max_neighbors": b[4], "tolerance_vs_float64": F64_TOL}
+    for model in ("transformer", "graph-network"):
+        pot = create_model(dict(T_GN_ARGS, model=model), device="cuda",
+                           seed=16)
+        y, f = pot.apply(*inputs, num_mols=n)
+        _, r = timed_evaluation(pot, inputs, n)
+        r.update(vs_float64=against_float64(pot, inputs, n),
+                 energy_sum=float(y.sum()),
+                 finite=bool(torch.isfinite(y).all()
+                             and torch.isfinite(f).all()))
+        row[model] = r
+        del pot
+        torch.cuda.empty_cache()
+    emit(row)
+    for model in ("transformer", "graph-network"):
+        r = row[model]
+        check(r["finite"] and max(r["vs_float64"]) <= F64_TOL,
+              f"t_gn {model}: non-finite, or float32 vs float64 "
+              f"{r['vs_float64']}")
+
+
 def zip_checkpoints(out, paths):
     """``out/aceff.zip`` holding the checkpoints ``paths``."""
     import zipfile
@@ -3994,6 +4410,11 @@ def main():
     phase_serve()
     torch.cuda.empty_cache()
     phase_train_aceff()
+    torch.cuda.empty_cache()
+    phase_et_serve()
+    phase_et_md(phase_et_train())
+    torch.cuda.empty_cache()
+    phase_t_gn()
     launches = {k: by_path[path][1][k] for k, (_, _, path) in KERNELS.items()}
     emit({"phase": "launches", "md_steps": {p: s for p, (s, _) in
                                             by_path.items()},

@@ -16,8 +16,11 @@ plain chains (the kernels take float32), so here the fused branches are
 opened to float64, whose plain versions the ops run on the CPU, and each
 case checks that its op's second order ran.  ``gradgradcheck`` holds
 each op's second order on its own.  The same check holds ``remat`` and
-``trainable_rbf``; and the blocked ops, which stay first order, must
-raise under ``create_graph`` rather than drop terms.
+``trainable_rbf``, and the Equivariant Transformer, TorchMD-T and
+TorchMD-GN (plain PyTorch ops, whose second order is autograd's: a
+``once_differentiable`` on ET's attention fails its case); and the
+blocked ops, which stay first order, must raise under ``create_graph``
+rather than drop terms.
 """
 
 import collections
@@ -59,6 +62,9 @@ TN2 = dict(
     output_model="ScalarPlusWeightedCoulomb", q_weights=[[1.0] * 4] * 2,
     coulomb_cutoff=None, pallas_embedding=False, pallas_edge_mlp=False)
 TN = dict(TN2, model="tensornet", output_model="Scalar")
+# the attention models and the graph network: plain PyTorch ops only
+ATTN = dict(TN, attn_activation="silu", num_heads=4, neighbor_embedding=True,
+            distance_influence="both", vector_cutoff=True, aggr="add")
 # the ops whose second order each case must run: the embedding's
 # (kernels 1-2), the edge MLPs' (kernel 3 in TensorNet2, kernel 4 in
 # TensorNet) and the list Coulomb's
@@ -77,6 +83,11 @@ CASES = {
     "tensornet-trainable_rbf_gauss": (dict(TN, trainable_rbf=True,
                                            rbf_type="gauss",
                                            pallas_edge_mlp=True), [MLP]),
+    "equivariant-transformer": (dict(ATTN, model="equivariant-transformer"),
+                                []),
+    "transformer": (dict(ATTN, model="transformer",
+                         distance_influence="keys"), []),
+    "graph-network-max": (dict(ATTN, model="graph-network", aggr="max"), []),
 }
 
 
@@ -152,6 +163,32 @@ def test_force_loss_gradient_matches_central_differences(case, op_calls):
     assert {op for op, n in op_calls.items() if n} == set(ops)
     assert abs(numeric) > 1e-3
     assert abs(analytic - numeric) <= REL * abs(numeric), (analytic, numeric)
+
+
+def test_graph_network_max_on_an_isolated_atom_is_finite():
+    """TorchMD-GN with ``aggr="max"``: an atom with no neighbour takes 0
+    from the max over its empty row (−inf on every slot); the force loss,
+    its weight gradient (the second order) and the forces stay finite, and
+    that atom feels no force."""
+    batch = _batch()
+    batch["z"] = torch.cat([batch["z"], torch.tensor([8])])
+    batch["pos"] = torch.cat([batch["pos"], torch.tensor(
+        [[40.0, 0.0, 0.0]], dtype=torch.float64)])
+    batch["batch"] = torch.zeros(13, dtype=torch.long)
+    batch["neg_dy"] = torch.cat([batch["neg_dy"],
+                                 torch.ones(1, 3, dtype=torch.float64)])
+    pot = create_model(dict(ATTN, model="graph-network", aggr="max"),
+                       device="cpu", seed=7)
+    pot.module.requires_grad_(True)
+    params = list(pot.module.parameters())
+    loss = _force_loss(pot, batch)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    assert torch.isfinite(loss)
+    assert all(bool(torch.isfinite(g).all()) for g in grads if g is not None)
+    assert sum(float(g.abs().sum()) for g in grads if g is not None) > 0
+    _, forces = pot.apply(batch["z"], batch["pos"], batch["batch"])
+    assert bool(torch.isfinite(forces).all())
+    assert not forces[12].any()
 
 
 def _op_operands():

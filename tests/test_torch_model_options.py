@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (SMALL_ARGS, TENSORNET_ARGS, jax_and_port,
+from torch_parity import (ET_ARGS, GN_ARGS, SMALL_ARGS, T_ARGS,
+                          TENSORNET_ARGS, attn_system, jax_and_port,
                           one_torch_thread, open_molecule)
 from torchmdnet_tpu_torch.models.model import create_model, load_model
 from torchmdnet_tpu_torch.ops.cell_blocks import make_cell_block_spec
@@ -38,14 +39,22 @@ def test_key_mapping():
     ("remat", True), ("model", "equivariant-transformer"),
     ("precision", 16)])
 def test_uncovered_options_raise(key, value):
-    """An option the port does not cover raises ``NotImplementedError``
-    naming its ROADMAP item; ``remat`` and ``precision=16``, which raised
-    so before they were ported (Queue 1 [17]), build, with their
-    recomputation and their bfloat16 layers."""
+    """Options that raised ``NotImplementedError`` before they were
+    ported build: ``remat`` and ``precision=16`` (Queue 1 [17]), with
+    their recomputation and their bfloat16 layers, and
+    ``model="equivariant-transformer"`` ([16]) from TensorNet2's args,
+    with JAX's name for the head (``EquivariantScalar`` for
+    "ScalarPlusWeightedCoulomb" does not exist, so the head is "Scalar")
+    and without reading ``equivariance_invariance_group``."""
     args = dict(SMALL_ARGS, **{key: value})
     if key == "model":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_model(args, device="cpu")
+        args.update(ET_ARGS, output_model="Scalar")
+        del args["equivariance_invariance_group"]
+        pot = create_model(args, device="cpu")
+        assert type(pot.module.representation_model).__name__ == "TorchMD_ET"
+        assert type(pot.module.output_model).__name__ == "EquivariantScalar"
+        with pytest.raises(ValueError, match="Unknown architecture"):
+            create_model(dict(args, model="painn"), device="cpu")
         return
     rep = create_model(args, device="cpu").module.representation_model
     if key == "remat":
@@ -71,7 +80,19 @@ def test_uncovered_options_raise(key, value):
     (dict(TENSORNET_ARGS, output_model="ScalarPlusWeightedCoulomb"),
      "charges"),
     (dict(SMALL_ARGS, output_model="Dipole"), "Unknown output model"),
-    (dict(SMALL_ARGS, rbf_type="bessel"), "Unknown RBF type")])
+    (dict(SMALL_ARGS, rbf_type="bessel"), "Unknown RBF type"),
+    # on ET the head is the Equivariant one of its name, and there is no
+    # EquivariantScalarPlusWeightedCoulomb (JAX: KeyError) nor a head
+    # named twice
+    (dict(ET_ARGS, output_model="ScalarPlusWeightedCoulomb"),
+     "Unknown output model 'EquivariantScalarPlusWeightedCoulomb'"),
+    (dict(ET_ARGS, output_model="EquivariantScalar"),
+     "Unknown output model"),
+    (dict(T_ARGS, output_model="EquivariantScalar"), "equivariant"),
+    (dict(GN_ARGS, output_model="EquivariantVectorOutput"), "equivariant"),
+    (dict(ET_ARGS, distance_influence="queries"), "distance_influence"),
+    (dict(T_ARGS, distance_influence="queries"), "distance_influence"),
+    (dict(GN_ARGS, aggr="min"), "aggr")])
 def test_options_refused_with_value_error(args, match):
     with pytest.raises(ValueError, match=match):
         create_model(args, device="cpu")
@@ -218,3 +239,59 @@ def test_trainable_rbf_round_trips(tmp_path, rbf_type, names):
     for k in keys:
         np.testing.assert_array_equal(back.module.state_dict()[k].numpy(),
                                       sd[k].numpy())
+
+
+@pytest.mark.parametrize("args", [ET_ARGS, T_ARGS, GN_ARGS],
+                         ids=["et", "t", "gn"])
+def test_attention_models_have_no_blocked_tier(args):
+    """ET, T and GN take the ``blocked`` keyword ``TorchMDNet`` passes and
+    refuse it when true (none has a cell-blocked tier)."""
+    z, pos, batch, m = attn_system()
+    pot = create_model(args, device="cpu")
+    with pytest.raises(ValueError, match="no blocked tier"):
+        pot.apply(z, pos, batch, num_mols=m, blocked=True)
+
+
+def test_et_precision_16_matches_jax_bfloat16():
+    """The Equivariant Transformer's ``precision=16`` against JAX's
+    bfloat16 forward, on its features: the energy is a sum that cancels,
+    and JAX's own bfloat16 energies are 1-16% from its float32 ones here,
+    so the energy cannot tell one bfloat16 rounding from another.
+    The features ``x`` of the port's bfloat16 layers are within 0.25% of
+    JAX's on average (a bfloat16 ulp is 0.39%), the float32 model's with
+    the same weights at least twice as far; ``vec`` likewise, within
+    0.6%."""
+    from torch_parity import attn_jax, attn_port
+
+    z, pos, batch, m = system = attn_system()
+    args = dict(ET_ARGS, precision=16, derivative=False)
+    flat, _, _ = attn_jax(args, system)
+    tree = {}
+    for name, value in flat.items():
+        *path, leaf = name.split("/")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = jnp.asarray(value)
+    from torchmdnet_tpu.models.model import create_model as jax_create_model
+
+    rep = jax_create_model(args).module.representation_model
+    want = jax.jit(lambda p: rep.apply(
+        {"params": p}, jnp.asarray(z), jnp.asarray(pos), jnp.asarray(batch),
+        atom_mask=jnp.asarray(batch < m)))(tree["representation_model"])
+    want = [np.asarray(w.astype(jnp.float32)) for w in want]
+    errs = {}
+    for precision in (16, 32):
+        pot, _, _ = attn_port(dict(args, precision=precision), flat, system)
+        got = pot.module.representation_model(
+            torch.from_numpy(z).long(), torch.from_numpy(pos),
+            torch.from_numpy(batch).long(),
+            atom_mask=torch.from_numpy(batch < m))
+        if precision == 16:
+            assert got[0].dtype == torch.bfloat16
+        errs[precision] = [float(np.abs(g.float().numpy() - w).mean()
+                                 / np.abs(w).mean())
+                           for g, w in zip(got, want)]
+    assert errs[16][0] <= 0.0025 and errs[16][1] <= 0.006, errs
+    assert errs[32][0] >= 2 * errs[16][0], errs
+    assert errs[32][1] >= 1.2 * errs[16][1], errs

@@ -952,3 +952,88 @@ def check_ghost_rows_inert(args, flat, q=None):
     for key, value in sd_a.items():
         np.testing.assert_allclose(sd_b[key], value, rtol=RTOL, atol=ATOL,
                                    err_msg=key)
+
+
+# ---- the attention models and the graph network (ET, T, GN) at a small
+# width: 2 layers x 32, 4 heads, 16 rbf, 4.5 Å, K = 16; ET with
+# vector_cutoff as the ET recipes set it
+ATTN_ARGS = dict(
+    embedding_dimension=32, num_layers=2, num_rbf=16, rbf_type="expnorm",
+    trainable_rbf=False, activation="silu", cutoff_lower=0.0,
+    cutoff_upper=4.5, max_z=100, max_num_neighbors=16, derivative=True,
+    prior_model=None, output_model="Scalar", reduce_op="sum",
+    precision=32, atom_filter=-1, attn_activation="silu", num_heads=4,
+    distance_influence="both", neighbor_embedding=True, vector_cutoff=True,
+    aggr="add")
+ET_ARGS = dict(ATTN_ARGS, model="equivariant-transformer")
+T_ARGS = dict(ATTN_ARGS, model="transformer")
+GN_ARGS = dict(ATTN_ARGS, model="graph-network")
+
+
+def attn_system():
+    """Three molecules, of 12 and 9 atoms and one atom that no other
+    reaches, and two ghost rows (segment 3): ``(z, pos, batch,
+    num_mols)``, numpy.  No atom has more than 12 neighbors, so K = 16
+    holds."""
+    (za, pa, _), (zb, pb, _) = open_molecule(12, seed=3), open_molecule(
+        9, seed=4)
+    pos = np.concatenate([pa, pb + 20.0, [[40.0, 0.0, 0.0]],
+                          [[60.0, 0.0, 0.0], [60.0, 0.0, 1.5]]])
+    z = np.concatenate([za, zb, [8, 1, 1]])
+    batch = np.repeat([0, 1, 2, 3], [12, 9, 1, 2])
+    return (z.astype(np.int32), pos.astype(np.float32),
+            batch.astype(np.int32), 3)
+
+
+def attn_jax(args, system, seed=0, box=None):
+    """The JAX model of ``args`` on ``system`` (jitted init and
+    energy+forces, in the periodic ``box`` if given): ``(flat params, y,
+    forces)`` as numpy."""
+    z, pos, batch, m = system
+    jpot = jax_create_model(args)
+    if args.get("precision") == 64:  # under jax.enable_x64
+        pos = pos.astype(np.float64)
+    z, pos, batch = (jnp.asarray(a) for a in (z, pos, batch))
+    box = _maybe(box)
+    variables = jax.jit(lambda key: jpot.init(key, z, pos, batch,
+                                              num_mols=m, box=box))(
+        jax.random.PRNGKey(seed))
+    y, f = jax.jit(lambda v, p: jpot.apply(v, z, p, batch, num_mols=m,
+                                           box=box))(variables, pos)
+    return flatten_params(variables["params"]), np.asarray(y), np.asarray(f)
+
+
+def attn_port(args, flat, system, box=None):
+    """The port's model of ``args`` with the JAX weights ``flat`` and its
+    ``(y, forces)`` on ``system`` as numpy."""
+    z, pos, batch, m = system
+    pot = port_create_model(args, device="cpu")
+    pot.module.load_state_dict(params_from_jax(flat), strict=True)
+    y, f = pot.apply(z, pos, batch, num_mols=m, box=box)
+    return pot, to_np(y), to_np(f)
+
+
+def close_to_scale(got, want, tol=RTOL):
+    """``got`` within rtol = ``tol`` and atol = ``tol`` · max(1, max
+    |want|) of ``want``: float32 sums of terms ~100 round at ~1e-5, so
+    the absolute part scales with the largest value, as
+    ``test_torch_load_model.py::_close`` does."""
+    scale = max(float(np.abs(want).max()), 1.0)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol * scale)
+
+
+def attn_check(args, seed=0, tol=RTOL, system=None, box=None):
+    """The port's energies and forces against JAX's on ``system``
+    (:func:`attn_system` when None; in ``box`` if given) with the same
+    weights, to ``tol`` (1e-4) by :func:`close_to_scale`; the ghost rows
+    feel no force.  Returns the port's potential and forces."""
+    system = attn_system() if system is None else system
+    flat, y_j, f_j = attn_jax(args, system, seed, box)
+    pot, y_t, f_t = attn_port(args, flat, system, box)
+    assert y_t.dtype == y_j.dtype and f_t.dtype == f_j.dtype
+    assert y_t.shape == y_j.shape and f_t.shape == f_j.shape
+    close_to_scale(y_t, y_j, tol)
+    close_to_scale(f_t, f_j, tol)
+    assert not f_t[system[2] == system[3]].any()
+    assert np.abs(f_t).max() > 10 * ATOL  # not vacuous
+    return pot, f_t

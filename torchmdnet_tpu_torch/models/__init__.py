@@ -1,1 +1,9 @@
-"""Models of the port (TensorNet2 with the Coulomb head)."""
+"""Models of the port: every representation of the JAX package and its
+heads."""
+__all_models__ = [
+    "graph-network",
+    "transformer",
+    "equivariant-transformer",
+    "tensornet",
+    "tensornet2",
+]

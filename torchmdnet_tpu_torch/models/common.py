@@ -126,6 +126,38 @@ class LayerNorm(nn.LayerNorm):
         return y.to(x.dtype)
 
 
+class GLU(nn.Module):
+    """Gated linear unit ``W(x) * activation(V(x))`` (reference ``GLU``,
+    ``models/utils.py:410-437``, JAX ``models/common.py:181-193``);
+    submodules ``W`` and ``V``, torch-default initialisation."""
+
+    def __init__(self, in_channels, hidden_channels, activation=torch.sigmoid):
+        super().__init__()
+        self.W = Linear(in_channels, hidden_channels)
+        self.V = Linear(in_channels, hidden_channels)
+        self.activation = activation
+
+    def forward(self, x):
+        return self.W(x) * self.activation(self.V(x))
+
+
+class SwiGLU(nn.Module):
+    """GLU gated by Swish, ``v · sigmoid(β v)`` (reference ``SwiGLU``,
+    ``models/utils.py:476-499``, JAX ``models/common.py:196-208``); wraps
+    a ``glu`` submodule."""
+
+    def __init__(self, in_channels, hidden_features, beta=1.0):
+        super().__init__()
+        self.beta = float(beta)
+        self.glu = GLU(in_channels, hidden_features, activation=self._swish)
+
+    def _swish(self, v):
+        return v * torch.sigmoid(self.beta * v)
+
+    def forward(self, x):
+        return self.glu(x)
+
+
 def set_compute_dtype(module: nn.Module, dtype, skip=()) -> None:
     """Give every layer under ``module`` that has a ``compute_dtype``
     (:class:`Linear`, :class:`Embedding`, TensorNet's ``PairLinear``; but

@@ -3,13 +3,11 @@ checkpoint loading and ensembles.
 
 Counterpart of ``torchmdnet_tpu/models/model.py`` (``TorchMDNet``
 ``:26-111``, ``Potential``, ``create_prior_models``, ``create_model``,
-``load_model``, ``Ensemble``, ``load_ensemble``) for ``model="tensornet2"``
-and ``model="tensornet"`` with every head of ``OUTPUT_MODULES`` that needs
-no vector features, each with any of the priors (``priors/``) and
+``load_model``, ``Ensemble``, ``load_ensemble``) for every representation
+of the JAX package (``REPRESENTATIONS``) with every head of
+``OUTPUT_MODULES``, each with any of the priors (``priors/``) and
 ``atom_filter``.  Forces are ``−∂Σy/∂pos`` from ``torch.autograd.grad``.
-``create_model`` takes the JAX package's args dict as it is and raises
-``NotImplementedError`` on what this port does not cover yet, naming the
-ROADMAP item.
+``create_model`` takes the JAX package's args dict as it is.
 """
 
 import copy
@@ -27,6 +25,9 @@ from torchmdnet_tpu_torch.models.common import reset_parameters
 from torchmdnet_tpu_torch.models.output_modules import OUTPUT_MODULES
 from torchmdnet_tpu_torch.models.tensornet import TensorNet
 from torchmdnet_tpu_torch.models.tensornet2 import TensorNet2
+from torchmdnet_tpu_torch.models.torchmd_et import TorchMD_ET
+from torchmdnet_tpu_torch.models.torchmd_gn import TorchMD_GN
+from torchmdnet_tpu_torch.models.torchmd_t import TorchMD_T
 from torchmdnet_tpu_torch.ops.cell_blocks import CellBlockSpec
 from torchmdnet_tpu_torch.ops.config import resolve_device, set_matmul_precision
 
@@ -176,10 +177,13 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+REPRESENTATIONS = ("tensornet", "tensornet2", "equivariant-transformer",
+                   "transformer", "graph-network")
+
+
 def _check_supported(args: dict) -> None:
-    model = args["model"]
-    if model not in ("tensornet", "tensornet2"):
-        _not_ported(f"model={model!r}", "Queue 1, 'torchmd_et, _t, _gn'")
+    if args["model"] not in REPRESENTATIONS:
+        raise ValueError(f"Unknown architecture: {args['model']}")
     if int(args.get("precision", 32)) not in (16, 32, 64):
         raise ValueError(f"precision={args['precision']}: choose 16, 32 "
                          "or 64")
@@ -241,6 +245,62 @@ def create_prior_models(args: dict, dataset=None) -> tuple:
     return tuple(out)
 
 
+def _make_representation(args: dict, output_model: str, rbf_initial,
+                         dtype):
+    """The representation model of ``args["model"]`` with JAX
+    ``_make_representation``'s arguments (``models/model.py:218-298``)."""
+    model = args["model"]
+    cpd = args.get("cells_per_dim")
+    shared = dict(
+        hidden_channels=args["embedding_dimension"],
+        num_layers=args["num_layers"],
+        num_rbf=args["num_rbf"],
+        rbf_type=args["rbf_type"],
+        trainable_rbf=args["trainable_rbf"],
+        rbf_initial=rbf_initial,
+        activation=args["activation"],
+        cutoff_lower=float(args["cutoff_lower"]),
+        cutoff_upper=float(args["cutoff_upper"]),
+        max_num_neighbors=args["max_num_neighbors"],
+        max_z=args["max_z"],
+        neighbor_strategy=args.get("neighbor_strategy", "brute"),
+        cells_per_dim=tuple(int(c) for c in cpd) if cpd else None,
+        cell_capacity=int(args.get("cell_capacity", 64)),
+        dtype=dtype)
+    if model in ("tensornet", "tensornet2"):
+        spec = args.get("cell_block_spec")
+        shared.update(
+            equivariance_invariance_group=args[
+                "equivariance_invariance_group"],
+            pallas_edge_mlp=bool(args.get("pallas_edge_mlp", False)),
+            pallas_embedding=bool(args.get("pallas_embedding", False)),
+            remat=bool(args.get("remat", False)),
+            cell_block_spec=(None if spec is None
+                             else CellBlockSpec(**spec._asdict())))
+    if model == "tensornet":
+        return TensorNet(
+            tabulated_edge_mlp=int(args.get("tabulated_edge_mlp", 0)),
+            **shared)
+    if model == "tensornet2":
+        return TensorNet2(
+            q_dim=args.get("q_dim", 0),
+            output_charges="Coul" in output_model,
+            q_tab=int(args.get("q_tab", 64)), **shared)
+    if model == "graph-network":
+        return TorchMD_GN(num_filters=args["embedding_dimension"],
+                          aggr=args["aggr"],
+                          neighbor_embedding=args["neighbor_embedding"],
+                          **shared)
+    attention = dict(attn_activation=args["attn_activation"],
+                     num_heads=args["num_heads"],
+                     distance_influence=args["distance_influence"],
+                     neighbor_embedding=args["neighbor_embedding"])
+    if model == "transformer":
+        return TorchMD_T(**attention, **shared)
+    return TorchMD_ET(vector_cutoff=bool(args.get("vector_cutoff", False)),
+                      **attention, **shared)
+
+
 def create_model(args: dict, prior_models=None, mean=None, std=None,
                  device=None, seed: int = 0, rbf_initial=None) -> Potential:
     """Build a :class:`Potential` from a reference-compatible args dict
@@ -271,28 +331,33 @@ def create_model(args: dict, prior_models=None, mean=None, std=None,
     kernels take float32 only, so under 16 or 64 the fused branches take
     the plain chain, where JAX's do.  ``args["remat"]``: selective
     recomputation of the representation's layers in the backward
-    (``models/tensornet.py::remat_call``).
+    (``models/tensornet.py::remat_call``; TensorNet and TensorNet2 only,
+    as in JAX, which also reads ``equivariance_invariance_group``, the
+    kernels' flags and ``cell_block_spec`` for those two alone).
     """
     device = resolve_device(device)
     args = dict(args)
     _check_supported(args)
-    spec = args.get("cell_block_spec")
     if args.get("matmul_precision"):
         set_matmul_precision(args["matmul_precision"])
+    model = args["model"]
     output_model = args.get("output_model", "Scalar")
-    if output_model not in OUTPUT_MODULES:
-        raise ValueError(f"Unknown output model {output_model!r}. Choose "
+    # JAX's naming rule (models/model.py:329-331): on the equivariant
+    # representation every head is the Equivariant one of that name
+    head_name = ("Equivariant" + output_model
+                 if model == "equivariant-transformer" else output_model)
+    if head_name not in OUTPUT_MODULES:
+        raise ValueError(f"Unknown output model {head_name!r}. Choose "
                          f"from {', '.join(OUTPUT_MODULES)}.")
-    head_cls = OUTPUT_MODULES[output_model]
-    if head_cls.needs_vectors:
+    head_cls = OUTPUT_MODULES[head_name]
+    if head_cls.needs_vectors and model != "equivariant-transformer":
         # JAX builds it and fails at the first evaluation (v is None)
         raise ValueError(
             f"output_model={output_model!r} reads vector features, which "
-            f"model={args['model']!r} does not produce: it needs an "
-            "equivariant representation (ROADMAP Queue 1 [16], "
-            "'torchmd_et, _t, _gn')")
-    if output_model == "ScalarPlusWeightedCoulomb" and (
-            args["model"] != "tensornet2"):
+            f"model={model!r} does not produce: on the equivariant "
+            "representation (model='equivariant-transformer') every head "
+            "reads them, named without the 'Equivariant' prefix")
+    if head_name == "ScalarPlusWeightedCoulomb" and model != "tensornet2":
         raise ValueError("ScalarPlusWeightedCoulomb reads the per-layer "
                          "charges that only model='tensornet2' appends")
     precision = int(args.get("precision", 32))
@@ -300,40 +365,12 @@ def create_model(args: dict, prior_models=None, mean=None, std=None,
     if args.get("derivative", False) and atom_filter > -1:
         raise ValueError("Derivative and atom filter can't be used together")
     F = args["embedding_dimension"]
-    cpd = args.get("cells_per_dim")
-    shared = dict(
-        hidden_channels=F,
-        num_layers=args["num_layers"],
-        num_rbf=args["num_rbf"],
-        rbf_type=args["rbf_type"],
-        trainable_rbf=args["trainable_rbf"],
-        rbf_initial=rbf_initial,
-        activation=args["activation"],
-        cutoff_lower=float(args["cutoff_lower"]),
-        cutoff_upper=float(args["cutoff_upper"]),
-        max_num_neighbors=args["max_num_neighbors"],
-        max_z=args["max_z"],
-        equivariance_invariance_group=args["equivariance_invariance_group"],
-        neighbor_strategy=args.get("neighbor_strategy", "brute"),
-        cells_per_dim=tuple(int(c) for c in cpd) if cpd else None,
-        cell_capacity=int(args.get("cell_capacity", 64)),
-        pallas_edge_mlp=bool(args.get("pallas_edge_mlp", False)),
-        pallas_embedding=bool(args.get("pallas_embedding", False)),
-        remat=bool(args.get("remat", False)),
-        dtype=torch.bfloat16 if precision == 16 else None)
-    spec = None if spec is None else CellBlockSpec(**spec._asdict())
-    if args["model"] == "tensornet":
-        rep = TensorNet(
-            tabulated_edge_mlp=int(args.get("tabulated_edge_mlp", 0)),
-            cell_block_spec=spec, **shared)
-    else:
-        rep = TensorNet2(
-            q_dim=args.get("q_dim", 0),
-            output_charges="Coul" in output_model, cell_block_spec=spec,
-            q_tab=int(args.get("q_tab", 64)), **shared)
+    rep = _make_representation(args, output_model, rbf_initial,
+                               dtype=torch.bfloat16 if precision == 16
+                               else None)
     head_kwargs = dict(hidden_channels=F, activation=args["activation"],
                        reduce_op=args.get("reduce_op", "sum"))
-    if output_model == "ScalarPlusWeightedCoulomb":
+    if head_name == "ScalarPlusWeightedCoulomb":
         ccpd = args.get("coulomb_cells_per_dim")
         head = head_cls(
             num_hidden_layers=args.get("output_mlp_num_layers", 0),

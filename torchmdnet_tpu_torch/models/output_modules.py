@@ -5,9 +5,10 @@ windowed and all-to-all paths of ``ScalarPlusWeightedCoulomb``.
 
 Ghost (padding) atoms sit in the extra segment ``num_mols`` and are
 dropped by :func:`reduce_atoms`.  The ``Equivariant*`` heads read the
-representation's vector features ``v [N, 3, F]``, which neither
-TensorNet nor TensorNet2 produces: ``create_model`` builds them for an
-equivariant representation only (ROADMAP Queue 1 [16]).
+representation's vector features ``v [N, 3, F]``, which only the
+Equivariant Transformer produces: ``create_model`` builds them on it,
+and on it alone, by JAX's naming rule (``output_model="Scalar"`` →
+``EquivariantScalar``).
 """
 
 import math

@@ -12,6 +12,8 @@ reference loader (``torchmdnet/models/model.py:208-374``) have run:
   ``output_network.layers.{0,2}``);
 * the JAX package's literal block names of the equivariant heads
   (``output_network_0.`` → ``output_network.0.``);
+* TorchMD-GN's second copy of its filter network (``interactions.<i>.
+  conv.net.<j>`` → ``interactions.<i>.mlp.<j>``);
 * the model aliases ``tensornetv2_alt``/``tensornet-nqe`` → tensornet2;
 * the old AceFF ``[N, F, 3, 3]`` layout: ``remix_linear`` of the
   ``linears_scalar`` weights, detected by ``check_errors`` in the
@@ -32,6 +34,8 @@ import warnings
 
 import numpy as np
 import torch
+
+from torchmdnet_tpu_torch.utils.jax_params import GN_FILTER_ALIAS
 
 CKPT_PREFIX = "model."  # the reference LNNP holds the model as ``model``
 
@@ -56,10 +60,13 @@ _SKIP_PATTERNS = [
 # JAX package writes the equivariant heads' blocks under their literal
 # flax names (its ``_flax_path_to_torch_key`` keeps ``output_network_0``);
 # upstream's ``ModuleList`` and the port write ``output_network.0``.
-# (JAX's own alias, GN's ``mlp`` → ``conv.net``, maps onto its flax
-# layout; the port keeps upstream's names.)
+# TorchMD-GN's filter network is one module that upstream registers twice,
+# as ``interactions.<i>.mlp`` and as its CFConv's ``conv.net``, so its
+# files hold both copies; the port and JAX's files hold ``mlp`` alone
+# (JAX maps it onto its flax ``conv/net`` on load, ``torch_ckpt.py:48-50``).
 _ALIAS_PATTERNS = [
     (r"^output_model\.output_network_(\d+)\.", r"output_model.output_network.\1."),
+    (GN_FILTER_ALIAS[0].pattern, GN_FILTER_ALIAS[1]),
 ]
 
 _PR314_PATTERNS = [

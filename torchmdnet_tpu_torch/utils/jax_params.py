@@ -8,10 +8,14 @@ becomes a list index (``layers_0`` → ``layers.0``) except on names whose
 suffix is literal (``charge_predict_0``), ``kernel`` becomes a transposed
 ``weight``, ``embedding``/``scale`` become ``weight``, and a trainable
 Atomref's table (``prior_models_<i>/atomref``) becomes
-``prior_model.<i>.atomref.weight`` (``torch_ckpt.py:135-136``, ``:234-239``).  This is a copy
-of that mapping, not an import of the JAX package.
+``prior_model.<i>.atomref.weight`` (``torch_ckpt.py:135-136``, ``:234-239``), and
+TorchMD-GN's filter network, which JAX keeps under its convolution
+(``interactions_<i>/conv/net_<j>``), becomes upstream's
+``interactions.<i>.mlp.<j>`` (``:241-243``).  This is a copy of that
+mapping, not an import of the JAX package.
 """
 
+import re
 from collections import OrderedDict
 from typing import Dict
 
@@ -20,6 +24,11 @@ import torch
 
 # names whose trailing _<int> is part of the torch attribute name
 _LITERAL = {"charge_predict_0", "output_network_0", "output_network_1"}
+# TorchMD-GN's filter network: ``conv.net.<j>`` (where upstream's CFConv
+# reads it, and JAX keeps it) → ``mlp.<j>`` (where upstream's
+# InteractionBlock owns it, and the port and JAX's files keep it)
+GN_FILTER_ALIAS = (re.compile(r"(interactions\.\d+)\.conv\.net\.(\d+)\."),
+                   r"\1.mlp.\2.")
 
 
 def flax_path_to_torch_key(path) -> str:
@@ -40,7 +49,7 @@ def flax_path_to_torch_key(path) -> str:
                       else leaf)
     if tokens[0] == "prior_models":
         tokens[0] = "prior_model"
-    return ".".join(tokens)
+    return GN_FILTER_ALIAS[0].sub(GN_FILTER_ALIAS[1], ".".join(tokens))
 
 
 def params_from_jax(flat: Dict[str, np.ndarray]) -> "OrderedDict[str, torch.Tensor]":
@@ -53,7 +62,10 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> "OrderedDict[str, torch.Tens
         arr = np.asarray(value, dtype=np.float32)
         if path[-1] == "kernel":
             arr = arr.T
-        key = flax_path_to_torch_key(path)
+        # the equivariant heads' blocks: JAX's files keep the literal
+        # ``output_network_0``, the port's ModuleList is ``output_network.0``
+        key = re.sub(r"(^|\.)output_network_(\d+)\.", r"\1output_network.\2.",
+                     flax_path_to_torch_key(path))
         if key in out:
             raise KeyError(f"two JAX parameters map to {key!r}")
         out[key] = torch.from_numpy(np.array(arr, copy=True, order="C"))
