@@ -115,6 +115,14 @@ a profile, ``profile_et_spice``; then ``examples/ET-QM9.yaml``, ET 8 x
 molecules, its gradients against float64, timed steps, ``Trainer.fit``
 and its checkpoint served; ``et_md``: ``run_md`` on one such molecule at
 300 K), and TorchMD-T and TorchMD-GN at upstream's defaults (``t_gn``).
+Last, ``data_cli``: ``examples/TensorNet-rMD17.yaml`` (TensorNet 2 x 128)
+trained through the CLI (``train.main``) from an rMD17-format file of
+100,000 seeded aspirin frames, processed into memory-mapped files and
+packed by the native packer, with kernels 1, 2 and 4 in the force pass;
+its restart from a checkpoint; ms a step and mol/s fed by the
+memory-mapped loader and by an in-memory dataset of the same frames; and
+kernels 1-4 at F = 30, R = 50 (widths they run padded to multiples of 4)
+against their plain versions, extra forms on the ``kernels`` line.
 
 Before the kernels phase, ``tc_attributes`` gives the tensor-core kernels
 (rows 1, 2, 3, 5, 7, 10, 11 and kernels A-D) as compiled: registers, spill bytes,
@@ -211,6 +219,14 @@ TRAIN_STEPS, TRAIN_LR, TRAIN_CUTOFF = 20, 1e-4, 5.0
 # fits the exact edge MLP to ~3e-6 relative (the JAX package's reading,
 # torchmdnet_tpu/models/tensornet.py:475-478); the limit leaves 30x room
 TAB_VS_EXACT_TOL = 1e-4
+# the Chebyshev sweep (cheb_seed_errors): kernels 5 and 7 on every case of
+# dhfr_shape_errors, drawn from the generators of CHEB_SEED0 + each seed,
+# each draw held to CHEB_TOL against the plain version, and each case's
+# worst error against float64 to CHEB_F64_RATIO times the plain
+# version's: the kernel no farther from the exact function than float32's
+# own chain (the two read within 1.11x of each other over 8 seeds, my
+# chip run 6, PR 21)
+CHEB_SEEDS, CHEB_SEED0, CHEB_F64_RATIO = tuple(range(8)), 7000, 1.5
 
 # Published peaks, NVIDIA data sheets (dense, no sparsity): float32 outside
 # the tensor cores in FLOP/s, device memory in B/s and TF32 on the tensor
@@ -492,6 +508,8 @@ def plain_versions():
 
 # ---------------------------------------------------------------- device
 def phase_device():
+    import importlib.util
+
     from torchmdnet_tpu_torch.ops import (
         blocked_mp, blocked_q, cheb_filter, edge_mlp, radial_embedding,
         windowed_coulomb)
@@ -521,7 +539,11 @@ def phase_device():
           "peak_tf32_tflops": peak[2] / 1e12,
           "tf32": bool(torch.backends.cuda.matmul.allow_tf32
                        or torch.backends.cudnn.allow_tf32),
-          "build_s": round(secs, 3), "ptxas": ptxas})
+          "build_s": round(secs, 3), "ptxas": ptxas,
+          # the data phase reads npz files and writes its config without
+          # either (find_spec imports nothing)
+          "find_spec": {m: importlib.util.find_spec(m) is not None
+                        for m in ("yaml", "h5py")}})
     return smi, name, peak
 
 
@@ -1093,25 +1115,71 @@ def dhfr_library(v):
             "edge_mlp": lambda: em.edge_mlp_ref(*mlp)}
 
 
-def float64_errors(v, name, got, plain):
-    """Kernel 5's or 7's output ``got`` and its plain version's ``plain``
-    against the same function in float64 on the same fp32 arguments
-    ``j·θ``: ``[kernel, plain]`` max abs error / max |float64|, so that
-    the kernel's error reads beside float32's own."""
+def float64_reference(v, name, hi=4.5, theta64=False):
+    """Kernel 5's or 7's function of ``v`` in float64: from the same fp32
+    arguments ``j·θ`` the plain version takes, or (``theta64``) from θ of
+    ``d`` in float64.  Returns ``(reference, scale)``: ``scale`` is max
+    |reference| for kernel 5, and for kernel 7 the largest Σ_c |filter ·
+    ct| of a slot, the size of the terms its channel sum adds."""
     from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs, cheb_theta
 
     series = v["coeffs"] if name == "cheb_filter" else cheb_deriv_coeffs(
         v["coeffs"])
+    theta = cheb_theta(v["d"].double() if theta64 else v["d"], 0.0, hi)
     j = torch.arange(series.shape[0], device=v["d"].device,
-                     dtype=torch.float32)
-    x = cheb_theta(v["d"], 0.0, 4.5)[..., None] * j
+                     dtype=theta.dtype)
+    x = theta[..., None] * j
     ref = (torch.cos(x.double()) @ series.double()) * v["fm"].double()[
         ..., None]
     del x
-    if name == "cheb_filter_dot":
-        ref = (ref * v["ct"].double()).sum(-1)
+    if name == "cheb_filter":
+        return ref, float(ref.abs().max())
+    terms = ref * v["ct"].double()
+    return terms.sum(-1), float(terms.abs().sum(-1).max())
+
+
+def float64_errors(v, name, got, plain, hi=4.5, theta64=False):
+    """Kernel 5's or 7's output ``got`` and its plain version's ``plain``
+    against the same function in float64 (:func:`float64_reference`):
+    ``[kernel, plain]`` max abs error / max |float64|, so that the
+    kernel's error reads beside float32's own."""
+    ref, _ = float64_reference(v, name, hi, theta64)
     top = float(ref.abs().max())
     return [float((t.double() - ref).abs().max()) / top for t in (got, plain)]
+
+
+def cheb_seed_errors(seeds=CHEB_SEEDS, cases=None):
+    """Kernels 5 and 7 on every case of :func:`dhfr_shape_errors` (or
+    ``cases``), drawn anew from a generator of each seed of ``seeds``: per
+    kernel, case and seed, ``vs_plain`` (max |kernel − plain| / max
+    |plain|), ``vs_float64`` ([kernel, plain] against float64 from θ in
+    float64, / max |float64|) and ``vs_float64_terms`` (the same errors /
+    the float64 scale of :func:`float64_reference`)."""
+    import inspect
+
+    cases = cases or inspect.signature(dhfr_shape_errors).parameters[
+        "cases"].default
+    hi = 4.5
+    out = {}
+    for seed in seeds:
+        gen = torch.Generator(device="cuda").manual_seed(CHEB_SEED0 + seed)
+        for n, k, t, f, r in cases:
+            v = shape_case_inputs(gen, n, k, t, f, r, hi)
+            calls = dhfr_calls(v, hi)
+            for name in ("cheb_filter", "cheb_filter_dot"):
+                kern, plain = calls[name]
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                ref, scale = float64_reference(v, name, hi, theta64=True)
+                top = float(ref.abs().max())
+                errs = [float((x.double() - ref).abs().max())
+                        for x in (got, want)]
+                key = f"{name}_n{n}_k{k}_t{t}_c{3 * f}_r{r}"
+                out.setdefault(key, []).append(dict(
+                    seed=seed, vs_plain=rel_err(got, want)[1],
+                    vs_float64=[e / top for e in errs],
+                    vs_float64_terms=[e / scale for e in errs]))
+    return out
 
 
 def project_float64_errors(v, got, plain, t=TRAIN_T, hi=TRAIN_CUTOFF):
@@ -1119,9 +1187,9 @@ def project_float64_errors(v, got, plain, t=TRAIN_T, hi=TRAIN_CUTOFF):
     same function in float64: ``{"same_theta": [kernel, plain],
     "float64_theta": [kernel, plain]}``, max abs error / max |float64|,
     the reference from the plain version's fp32 θ (the arguments ``j·θ``
-    the plain version takes), or from θ in float64.  The kernel's θ is
-    acosf's, one of the fp32 values near the true θ, and cos(j·θ) carries
-    its last bit ~j-fold: against the float64 θ both read alike."""
+    the plain version takes), or from θ in float64.  cos(j·θ) carries θ's
+    last bit ~j-fold, so the two references differ by float32's θ; the
+    kernel's θ is the plain version's float (``csrc/cheb_tile.cuh``)."""
     from torchmdnet_tpu_torch.ops.cheb import cheb_theta
 
     ct = v["ct"].double().reshape(-1, v["ct"].shape[-1])
@@ -1710,7 +1778,9 @@ def phase_kernels(peak, system, dhfr, seg, specs):
     return rows
 
 
-def edge_pre_shape_errors(gen):
+def edge_pre_shape_errors(gen, cases=((50, 45, 36), (37, 13, 36),
+                                      (9, 100, 132), (7, 96, 256),
+                                      (300, 40, 264), (11, 96, 512))):
     """Kernel 3 against its plain version where its tiles, windows and
     passes are ragged: F = 36 (2F and 3F end in partial 128-column passes)
     and F = 132 and 256 (a layer-1 pass held in registers), F = 264 and
@@ -1722,8 +1792,7 @@ def edge_pre_shape_errors(gen):
 
     dev = torch.device("cuda")
     worst = {}
-    for n, k, f in ((50, 45, 36), (37, 13, 36), (9, 100, 132), (7, 96, 256),
-                    (300, 40, 264), (11, 96, 512)):
+    for n, k, f in cases:
         shape = (n, k)
         cw = torch.rand(shape, generator=gen, device=dev) * (
             torch.rand(shape, generator=gen, device=dev) < 0.4)
@@ -1743,7 +1812,9 @@ def edge_pre_shape_errors(gen):
     return worst
 
 
-def fused_shape_errors(gen):
+def fused_shape_errors(gen, cases=((9, 61, 64, 256), (7, 45, 32, 512),
+                                   (5, 13, 4, 1024), (11, 29, 160, 256),
+                                   (300, 40, 36, 132), (3000, 100, 12, 20))):
     """Kernel 4 in each of its forms: (R, F) = (64, 256) narrow, (32, 512)
     and (4, 1024) wide (tiles in device memory), (160, 256) wide because
     its x tile would not fit a block, (36, 132) and (12, 20) narrow with
@@ -1756,9 +1827,7 @@ def fused_shape_errors(gen):
 
     dev = torch.device("cuda")
     worst = {}
-    for n, k, r, f in ((9, 61, 64, 256), (7, 45, 32, 512), (5, 13, 4, 1024),
-                       (11, 29, 160, 256), (300, 40, 36, 132),
-                       (3000, 100, 12, 20)):
+    for n, k, r, f in cases:
         def randn(*shape, scale):
             return torch.randn(shape, generator=gen, device=dev) * scale
 
@@ -1786,36 +1855,48 @@ def fused_shape_errors(gen):
     return worst
 
 
-def dhfr_shape_errors(gen):
+def shape_case_inputs(gen, n, k, t, f, r, hi=4.5):
+    """Kernels 4, 5 and 7's operands for one case of
+    :func:`dhfr_shape_errors` (``n`` rows of ``k`` slots, ``t`` series
+    terms, ``3f`` channels, ``r`` rbf), drawn from ``gen``: distances up to
+    1.2 hi with 0, hi and 1.1 hi in row 0, row 1 masked, random edge-MLP
+    weights and the series fitted from them, the rbf and a cotangent."""
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    d = torch.rand((n, k), generator=gen, device=dev) * 1.2 * hi
+    d[0, :3] = torch.tensor([0.0, hi, 1.1 * hi], device=dev)
+    mask = torch.rand((n, k), generator=gen, device=dev) < 0.8
+    mask[1] = False
+    mlp = [randn(r, f) * 0.3, randn(f) * 0.1, randn(f, 2 * f) * 0.2,
+           randn(2 * f) * 0.1, randn(2 * f, 3 * f) * 0.2,
+           randn(3 * f) * 0.1]
+    return dict(d=d, fm=((d < hi) & mask).float(),
+                cw=torch.where(mask & (d < hi),
+                               torch.cos(d * math.pi / hi) * 0.5 + 0.5, 0.0),
+                x=torch.rand((n, k, r), generator=gen, device=dev),
+                coeffs=fitted_coeffs(mlp, t, hi), ct=randn(n, k, 3 * f),
+                mlp=mlp)
+
+
+def dhfr_shape_errors(gen, cases=((37, 8, 16, 8, 8), (50, 33, 64, 32, 16),
+                                   (29, 96, 128, 128, 32),
+                                   (41, 64, 100, 64, 8),
+                                   (23, 360, 128, 128, 32),
+                                   (45, 40, 128, 128, 32),
+                                   (31, 64, 128, 68, 16))):
     """Kernels 4, 5 and 7 against their plain versions: slot counts not a
     multiple of a block's span or a 64-slot tile, K 8-360 (and 40, the
     training list's), T 16-128 (and 100, not a multiple of the 16-row
     stage), 3F 24-384 (and 204, not a multiple of the 128-column pass), R
     8-32, a row with fm = cw = 0 throughout, and d at 0, at hi and above
     hi; the fm = 0 slots of 5 and 7 exact zeros."""
-    dev = torch.device("cuda")
     worst = {}
-    for n, k, t, f, r in ((37, 8, 16, 8, 8), (50, 33, 64, 32, 16),
-                          (29, 96, 128, 128, 32), (41, 64, 100, 64, 8),
-                          (23, 360, 128, 128, 32), (45, 40, 128, 128, 32),
-                          (31, 64, 128, 68, 16)):
-        def randn(*shape):
-            return torch.randn(shape, generator=gen, device=dev)
-
-        hi = 4.5
-        d = torch.rand((n, k), generator=gen, device=dev) * 1.2 * hi
-        d[0, :3] = torch.tensor([0.0, hi, 1.1 * hi], device=dev)
-        mask = torch.rand((n, k), generator=gen, device=dev) < 0.8
-        mask[1] = False
-        mlp = [randn(r, f) * 0.3, randn(f) * 0.1, randn(f, 2 * f) * 0.2,
-               randn(2 * f) * 0.1, randn(2 * f, 3 * f) * 0.2,
-               randn(3 * f) * 0.1]
-        v = dict(d=d, fm=((d < hi) & mask).float(),
-                 cw=torch.where(mask & (d < hi),
-                                torch.cos(d * math.pi / hi) * 0.5 + 0.5, 0.0),
-                 x=torch.rand((n, k, r), generator=gen, device=dev),
-                 coeffs=fitted_coeffs(mlp, t, hi), ct=randn(n, k, 3 * f),
-                 mlp=mlp)
+    hi = 4.5
+    for n, k, t, f, r in cases:
+        v = shape_case_inputs(gen, n, k, t, f, r, hi)
         calls = dhfr_calls(v, hi)
         errs = [compare(*pair)[1] for pair in calls.values()]
         outs = {name: kern() for name, (kern, _) in calls.items()}
@@ -1829,7 +1910,9 @@ def dhfr_shape_errors(gen):
     return worst
 
 
-def project_shape_errors(gen):
+def project_shape_errors(gen, cases=((19, 7, 16, 8), (33, 13, 48, 20),
+                                     (70, 40, 128, 384), (11, 3, 130, 12),
+                                     (300, 40, 128, 384))):
     """Row 6 against its plain version: slot counts that are not a
     multiple of a 64-slot tile or a 256-slot span, T 16-130 (130: two
     series-row tiles), C 8-384, a row with fm = 0 throughout, fm weights
@@ -1837,8 +1920,7 @@ def project_shape_errors(gen):
     dev = torch.device("cuda")
     worst = {}
     hi = TRAIN_CUTOFF
-    for n, k, t, c in ((19, 7, 16, 8), (33, 13, 48, 20), (70, 40, 128, 384),
-                       (11, 3, 130, 12), (300, 40, 128, 384)):
+    for n, k, t, c in cases:
         d = torch.rand((n, k), generator=gen, device=dev) * 1.2 * hi
         d[0, :3] = torch.tensor([0.0, hi, 1.1 * hi], device=dev)
         fm = ((d < hi) & (torch.rand((n, k), generator=gen, device=dev)
@@ -1852,7 +1934,10 @@ def project_shape_errors(gen):
     return worst
 
 
-def blocked_shape_errors(gen):
+def blocked_shape_errors(gen, cases=((37, 8, 8, 16), (50, 33, 32, 64),
+                                     (29, 96, 128, 128), (41, 64, 64, 100),
+                                     (43, 224, 128, 128),
+                                     (19, 37, 132, 16))):
     """Rows 8-11 against their plain versions on synthetic lists: row
     counts not a multiple of a block's 4 rows or tasks, K 8-224 (K′ = 224
     as the dhfr grouped list, 37 and 33 not a multiple of the 32-slot
@@ -1866,9 +1951,7 @@ def blocked_shape_errors(gen):
     from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs
 
     hi = 4.5
-    for n, k, f, t in ((37, 8, 8, 16), (50, 33, 32, 64), (29, 96, 128, 128),
-                       (41, 64, 64, 100), (43, 224, 128, 128),
-                       (19, 37, 132, 16)):
+    for n, k, f, t in cases:
         def randn(*shape):
             return torch.randn(shape, generator=gen, device=dev)
 
@@ -1906,7 +1989,12 @@ def blocked_shape_errors(gen):
     return worst
 
 
-def q_shape_errors(gen):
+def q_shape_errors(gen, cases=((37, 13, 12, 8, 5), (50, 330, 32, 16, 7),
+                               (23, 40, 68, 16, 12), (21, 512, 128, 64, 32),
+                               (19, 520, 128, 64, 32),
+                               (23, 140, 132, 16, 12),
+                               (19, 120, 140, 64, 160),
+                               (17, 140, 256, 64, 32))):
     """Kernels A, A with du and B, both bases, on synthetic lists of
     grouped-tier widths: K′ not a multiple of 4 or 16, up to 512 slots a
     row (one compaction pass) and 520 (two), rbf widths not a multiple of
@@ -1920,10 +2008,7 @@ def q_shape_errors(gen):
     dev = torch.device("cuda")
     worst = {}
     hi = 4.5
-    for n, k, f, t, r in ((37, 13, 12, 8, 5), (50, 330, 32, 16, 7),
-                          (23, 40, 68, 16, 12), (21, 512, 128, 64, 32),
-                          (19, 520, 128, 64, 32), (23, 140, 132, 16, 12),
-                          (19, 120, 140, 64, 160), (17, 140, 256, 64, 32)):
+    for n, k, f, t, r in cases:
         def randn(*shape, scale=1.0):
             return torch.randn(shape, generator=gen, device=dev) * scale
 
@@ -1973,7 +2058,12 @@ def q_shape_errors(gen):
     return worst
 
 
-def emb_shape_errors(gen):
+def emb_shape_errors(gen, cases=((37, 13, 8, 64), (50, 20, 16, 256),
+                                 (33, 7, 32, 32), (21, 360, 32, 128),
+                                 (19, 520, 50, 36), (23, 40, 64, 48),
+                                 (17, 30, 64, 264), (9, 24, 50, 512),
+                                 (37, 70, 64, 128), (5, 9, 3, 4),
+                                 (18, 33, 130, 640))):
     """Kernels 1 and 2 in every form on small ragged shapes: rbf widths 3,
     8, 16, 32, 50, 64 and 130 (three 64-row blocks of dea and of dkall's
     columns), F from 4 to 640 (kernel 2's tiles in device memory above F =
@@ -1988,10 +2078,7 @@ def emb_shape_errors(gen):
     # (the fourth: the K′=360 grouped MD list of the dhfr blocked exact
     # path; then the rbf widths of the JAX CLI default and the examples,
     # 64, and channel widths the old kernels refused)
-    for n, k, r, f in ((37, 13, 8, 64), (50, 20, 16, 256), (33, 7, 32, 32),
-                       (21, 360, 32, 128), (19, 520, 50, 36),
-                       (23, 40, 64, 48), (17, 30, 64, 264), (9, 24, 50, 512),
-                       (37, 70, 64, 128), (5, 9, 3, 4), (18, 33, 130, 640)):
+    for n, k, r, f in cases:
         def randn(*shape):
             return torch.randn(shape, generator=gen, device=dev)
 
@@ -2024,6 +2111,22 @@ def emb_shape_errors(gen):
         check_launched(("radial_embedding_fwd", "radial_embedding_bwd"),
                        before)
         worst[f"radial_embedding_n{n}_k{k}_r{r}_f{f}"] = max(errs)
+    return worst
+
+
+def odd_shape_errors():
+    """Every kernel with a channel width at F = 30 (C = 90 for rows 5-7)
+    and R = 50, widths its wrapper pads to multiples of 4 (Queue 3 item
+    1), on the small ragged shapes of the functions above, from a
+    generator of its own (the cases above keep their inputs)."""
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    worst = emb_shape_errors(gen, ((21, 30, 50, 30),))
+    worst.update(edge_pre_shape_errors(gen, ((50, 45, 30),)))
+    worst.update(fused_shape_errors(gen, ((33, 40, 50, 30),)))
+    worst.update(q_shape_errors(gen, ((29, 60, 30, 16, 50),)))
+    worst.update(dhfr_shape_errors(gen, ((33, 40, 64, 30, 50),)))
+    worst.update(project_shape_errors(gen, ((27, 20, 64, 90),)))
+    worst.update(blocked_shape_errors(gen, ((23, 40, 30, 64),)))
     return worst
 
 
@@ -2099,6 +2202,7 @@ def phase_shapes():
     worst.update(dhfr_shape_errors(gen))
     worst.update(project_shape_errors(gen))
     worst.update(blocked_shape_errors(gen))
+    worst.update(odd_shape_errors())
     torch.cuda.synchronize()
     emit({"phase": "shapes", "max_rel_err": worst, "tolerance": TOL,
           "cheb_tolerance": CHEB_TOL, "edge_tolerance": EDGE_TOL,
@@ -2106,6 +2210,21 @@ def phase_shapes():
     for name, err in worst.items():
         check(err <= limit(name),
               f"{name}: a kernel disagrees at a small shape, {err:.3g}")
+    sweep = {key: dict(
+        vs_plain=max(r["vs_plain"] for r in rs),
+        vs_float64=[max(r["vs_float64"][i] for r in rs) for i in (0, 1)],
+        vs_float64_terms=[max(r["vs_float64_terms"][i] for r in rs)
+                          for i in (0, 1)])
+        for key, rs in cheb_seed_errors().items()}
+    emit({"phase": "cheb_seeds", "seeds": len(CHEB_SEEDS),
+          "cheb_tolerance": CHEB_TOL, "float64_ratio": CHEB_F64_RATIO,
+          "max_over_seeds": sweep})
+    for key, r in sweep.items():
+        check(r["vs_plain"] <= CHEB_TOL,
+              f"{key}: a seed's draw disagrees, {r['vs_plain']:.3g}")
+        check(r["vs_float64"][0] <= CHEB_F64_RATIO * r["vs_float64"][1],
+              f"{key}: the kernel is farther from float64 than the plain "
+              f"chain, {r['vs_float64']}")
 
 
 # ---------------------------------------------------------------- systems
@@ -4322,6 +4441,414 @@ def phase_t_gn():
               f"{r['vs_float64']}")
 
 
+# TensorNet on revised-MD17 aspirin (a copy of examples/TensorNet-rMD17.yaml:
+# the card's machine may have no yaml; tests/test_torch_recipe_args.py
+# holds the copy against the file)
+TENSORNET_RMD17_ARGS = dict(
+    activation="silu", atom_filter=-1, batch_size=8, charge=False,
+    cutoff_lower=0.0, cutoff_upper=4.5, dataset="MD17",
+    dataset_arg={"molecules": "revised_aspirin"}, dataset_root="~/data",
+    derivative=True, early_stopping_patience=300, ema_alpha_neg_dy=1.0,
+    ema_alpha_y=0.01, embedding_dimension=128,
+    equivariance_invariance_group="O(3)", gradient_clipping=40.0,
+    inference_batch_size=64, log_dir="logs/", lr=0.001, lr_factor=0.8,
+    lr_min=1e-08, lr_patience=25, lr_warmup_steps=500, max_num_neighbors=32,
+    max_z=100, model="tensornet", neg_dy_weight=0.5, ngpus=1,
+    num_epochs=10000, num_layers=2, num_nodes=1, num_rbf=32, num_workers=4,
+    output_model="Scalar", precision=32, rbf_type="expnorm", redirect=False,
+    reduce_op="add", save_interval=10, seed=1, spin=False, standardize=True,
+    test_interval=30, test_size=None, train_size=950, trainable_rbf=False,
+    val_size=50, weight_decay=0.0, y_weight=0.5)
+# the phase data_cli: rMD17 aspirin's frame count, the recipe's run cut to
+# one epoch (and one more on restart) and a test split of 1,000 frames
+# (the recipe tests on the other 99,000), through kernels 1, 2 and 4; the
+# loaders timed over one epoch each after DATA_CLI_WARMUP steps
+RMD17_FRAMES = 100_000
+DATA_CLI_CUTS = dict(num_epochs=1, test_size=1000, pallas_embedding=True,
+                     pallas_edge_mlp=True)
+DATA_CLI_WARMUP = 8
+DATA_CLI_KERNELS = ("radial_embedding_fwd", "radial_embedding_bwd",
+                    "edge_mlp")
+# the widths the kernels used to refuse (Queue 3 item 1): kernels 1-4 at F
+# = 30, R = 50 (run padded to 32 and 52), held at their rows' bars, and
+# the path odd_widths: TensorNet-rMD17 and the AceFF TensorNet2 at these
+# widths, one train step's loss and gradients each (ODD_ACE_MOLS molecules
+# for the AceFF model)
+ODD_F, ODD_R, ODD_N, ODD_K = 30, 50, 4096, 32
+ODD_ACE_MOLS = 4
+
+
+def write_rmd17(root, frames, seed):
+    """``root/raw/rmd17/npz_data/rmd17_aspirin.npz`` in the revised-MD17
+    keys: ``frames`` seeded aspirin conformers (C9H8O4, a
+    ``serve_molecule`` geometry jittered by 0.03 Å a frame) with random
+    energies (kcal/mol around −406,000, as the file's) and forces."""
+    rng = np.random.RandomState(seed)
+    base = serve_molecule(rng, len(ASPIRIN_Z))
+    d = Path(root) / "raw" / "rmd17" / "npz_data"
+    d.mkdir(parents=True, exist_ok=True)
+    path = d / "rmd17_aspirin.npz"
+    np.savez(path, nuclear_charges=np.array(ASPIRIN_Z),
+             coords=base + 0.03 * rng.randn(frames, len(ASPIRIN_Z), 3),
+             energies=-406_000.0 + 10.0 * rng.randn(frames),
+             forces=20.0 * rng.randn(frames, len(ASPIRIN_Z), 3))
+    return path
+
+
+class InMemory:
+    """Samples held in a list: the in-memory ``Dataset`` the loader packs
+    through ``pad_samples``."""
+
+    def __init__(self, samples):
+        self.samples = samples
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx):
+        return self.samples[int(idx)]
+
+
+def host_pack_ms(loader):
+    """Host ms to pack one batch: a whole epoch of ``loader``, no
+    device."""
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def timed_epoch(trainer, loader, steps=None):
+    """One epoch (or its first ``steps`` batches) of ``trainer``'s train
+    step fed by ``loader`` as ``Trainer.fit`` feeds it (the batches packed
+    and copied in a prefetch thread): ``(ms a step, steps)``."""
+    import itertools
+
+    from torchmdnet_tpu_torch.train.trainer import prefetch_to_device
+
+    batches = prefetch_to_device(
+        (trainer._to_device_batch(b)
+         for b in itertools.islice(loader, steps)), size=4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    for batch in batches:
+        trainer.state, _ = trainer._train_step(trainer.state, batch)
+        steps += 1
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps, steps
+
+
+def odd_width_rows(peak):
+    """Kernels 1, 2 (its dz and dk forms), 3 and 4 at ``F = ODD_F``, ``R =
+    ODD_R`` on ``ODD_N`` rows of ``ODD_K`` slots against their plain
+    versions: max error per output (held to their rows' bars), ms, plain
+    ms and the bound of the unpadded work."""
+    from torchmdnet_tpu_torch.ops import edge_mlp as em
+    from torchmdnet_tpu_torch.ops import radial_embedding as re_ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    n, k, r, f = ODD_N, ODD_K, ODD_R, ODD_F
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    count = torch.randint(8, k + 1, (n, 1), generator=gen, device=dev)
+    mask = (torch.arange(k, device=dev)[None, :] < count).float()
+    v = randn(n, k, 3)
+    v = v / v.norm(dim=-1, keepdim=True)
+    x = [torch.rand((n, k, r), generator=gen, device=dev),
+         torch.rand((n, k), generator=gen, device=dev) * mask,
+         v[..., 0].contiguous(), v[..., 1].contiguous(),
+         v[..., 2].contiguous(), randn(n, f), randn(n, k, f) * mask[..., None],
+         mask, randn(r, 3 * f, scale=1 / math.sqrt(r)), randn(3 * f, scale=0.1)]
+    g = randn(n, 9 * f)
+    valid = float(mask.sum())
+    form = f"F = {f}, R = {r} (run padded to F = 32, R = 52)"
+    rows = {}
+
+    def row(name, kern, plain, flops, nb, tc, library=False):
+        got, want = as_list(kern()), as_list(plain())
+        torch.cuda.synchronize()
+        check(all(torch.isfinite(t).all() for t in got if t is not None),
+              f"{name}: non-finite")
+        errs = [rel_err(a, b) for a, b in zip(got, want) if b is not None]
+        b_ms, b_by = bound(flops, nb, peak, tc)
+        plain_ms = time_ms(plain, reps=3, warmup=1)
+        rows[name] = dict(
+            form=form, max_abs_err=max(e[0] for e in errs),
+            max_rel_err=max(e[1] for e in errs), ms=time_ms(kern),
+            device_ms=device_ms(kern), plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=plain_ms if library else None,
+            gflop=flops / 1e9, gbytes=nb / 1e9)
+
+    out = re_ops.radial_embedding_fwd_cuda(*x)
+    tc = valid * 2 * r * 3 * f
+    row("radial_embedding_fwd@F30R50",
+        lambda: re_ops.radial_embedding_fwd_cuda(*x),
+        lambda: re_ops.radial_embedding_ref(*x), tc + valid * 23 * f,
+        emb_bytes(x, valid, out), tc)
+    for name, dz, dk in (("radial_embedding_bwd_dz@F30R50", True, False),
+                         ("radial_embedding_bwd_dkall@F30R50", True, True)):
+        needs = emb_needs(dz, dk)
+        outs = [t for t in re_ops.radial_embedding_bwd_cuda(x, g, dz, dk)
+                if t is not None]
+        tc = valid * 2 * (2 * r * 3 * f + ((r + 1) * 3 * f if dk else 0))
+        row(name, lambda: re_ops.radial_embedding_bwd_cuda(x, g, dz, dk),
+            lambda: re_ops.radial_embedding_bwd_ref(x, g, needs),
+            tc + valid * 50 * f, emb_bytes(x, valid, g, *outs), tc)
+    cw = x[1]
+    live = float((cw != 0).sum())
+    w = edge_pre_inputs(cw, 4322, f=f)
+    flops = live * 2 * (f * 2 * f + 2 * f * 3 * f)
+    nb = live * f * 4 + nbytes(*w[1:]) + n * k * 3 * f * 4
+    row("edge_mlp_pre@F30R50", lambda: em.edge_mlp_pre_cuda(*w),
+        lambda: em.edge_mlp_pre_ref(*w), flops, nb, flops, library=True)
+    w4 = [x[0], cw, randn(r, f, scale=1 / math.sqrt(r)), randn(f, scale=0.1),
+          *w[2:]]
+    flops = live * 2 * (r * f + f * 2 * f + 2 * f * 3 * f)
+    nb = live * r * 4 + nbytes(*w4[1:]) + n * k * 3 * f * 4
+    row("edge_mlp@F30R50", lambda: em.edge_mlp_cuda(*w4),
+        lambda: em.edge_mlp_ref(*w4), flops, nb, flops, library=True)
+    for name, r_ in rows.items():
+        check(r_["max_rel_err"] <= limit(name),
+              f"{name}: {r_['max_rel_err']:.3g} of max |plain| > "
+              f"{limit(name)}")
+    emit({"phase": "odd_widths", "n": n, "k": k, "rows": rows})
+    return rows
+
+
+def odd_width_path(batch, mean, std):
+    """The path ``odd_widths``: the widths the kernels used to refuse,
+    through the models.  TensorNet-rMD17 at ``F = ODD_F``, ``R = ODD_R``
+    with both flags (kernels 1, 2 and 4) on ``batch``, the data_cli batch
+    of aspirin (standardized by the train split's ``mean``, ``std``), and
+    the AceFF TensorNet2 at the same widths (kernels 1, 2
+    and 3) on ``ODD_ACE_MOLS`` seeded molecules with charges: one train
+    step's loss and every weight gradient each, counted (the counts set to
+    0 just before and read just after).  Then each against the same weights
+    with both flags off (the plain chains), held to ``TOL``.  Returns
+    ``(row, launches)``."""
+    from torchmdnet_tpu_torch.models.model import create_model
+
+    dev = torch.device("cuda")
+    odd = dict(embedding_dimension=ODD_F, num_rbf=ODD_R)
+    runs = {"tensornet_rmd17": (
+                dict(TENSORNET_RMD17_ARGS, **odd, **DATA_CLI_CUTS), batch,
+                dict(num_mols=TENSORNET_RMD17_ARGS["batch_size"],
+                     y_weight=TENSORNET_RMD17_ARGS["y_weight"],
+                     neg_dy_weight=TENSORNET_RMD17_ARGS["neg_dy_weight"])),
+            "tensornet2_aceff": (
+                dict(ACEFF_ARGS, **odd, **SERVE_KWARGS),
+                aceff_train_batch(ODD_ACE_MOLS, seed=63),
+                dict(num_mols=ODD_ACE_MOLS,
+                     neg_dy_weight=ACEFF_ARGS["neg_dy_weight"]))}
+    stats = {"tensornet_rmd17": dict(mean=mean, std=std)}
+    pots = {}
+    for name, (args, _, _) in runs.items():
+        pots[name] = create_model(args, device=dev, seed=8,
+                                  **stats.get(name, {}))
+        pots[name].module.requires_grad_(True)
+    _, launches = counted_run(lambda: {
+        name: loss_and_grads(pots[name], b, **kw)[0]
+        for name, (_, b, kw) in runs.items()})
+    row = {"phase": "odd_widths", "f": ODD_F, "r": ODD_R, "tolerance": TOL,
+           "launches": {k: v for k, v in launches.items() if v}}
+    for name, (args, b, kw) in runs.items():
+        plain = create_model(dict(args, pallas_embedding=False,
+                                  pallas_edge_mlp=False), device=dev, seed=8,
+                             **stats.get(name, {}))
+        plain.module.load_state_dict(pots[name].module.state_dict())
+        row[name] = grads_against(pots[name], plain, b, **kw)
+        del plain
+    del pots
+    torch.cuda.empty_cache()
+    for k in DATA_CLI_KERNELS + ("edge_mlp_pre",):
+        check(launches[k] > 0, f"odd_widths: kernel {k} was not launched")
+    for name in runs:
+        r = row[name]
+        check(r["loss_rel_err"] <= TOL and r["grad_rel_err"] <= TOL,
+              f"odd_widths {name}: kernels vs plain loss "
+              f"{r['loss_rel_err']:.3g}, gradient {r['grad_rel_err']:.3g} "
+              f"({r['worst_param']})")
+    return row, launches
+
+
+def phase_data_cli(smi, peak):
+    """``examples/TensorNet-rMD17.yaml`` (TensorNet 2 x 128, 32 expnorm
+    rbf, 4.5 Å, K = 32, batches of 8, ``standardize``, weights 0.5 / 0.5,
+    AdamW at 1e-3 after a 500-step warm-up) trained on the card through the
+    CLI, ``train.main(argv)``, from an rMD17-format file of
+    ``RMD17_FRAMES`` seeded aspirin frames (random targets): the file
+    processed by ``MD17(root, "revised_aspirin")`` into memory-mapped
+    files (timed), the recipe run with ``DATA_CLI_CUTS`` (kernels 1, 2 and
+    4 in the force pass; each must launch), its files and finite losses
+    checked, its model's mean and std those of the train split; a restart
+    from the last checkpoint for one more epoch continues the step and the
+    optimizer.  The checkpoint's loss and weight gradients on a batch of
+    the memory-mapped loader against the plain chains (``TOL``).  Then ms
+    a train step and mol/s fed by the memory-mapped loader (native packer)
+    and by an in-memory dataset of the same frames (``pad_samples``), one
+    epoch each after a few warm-up steps, the host ms to pack a batch both
+    ways, and peak memory.  The recipe's flags go in as ``to_argv`` gives
+    them (no YAML file).  Then the path ``odd_widths``
+    (:func:`odd_width_path`) and the odd-width kernel rows.  Returns
+    ``(launches of the odd_widths path, the odd-width kernel rows)``."""
+    import shutil
+    import tempfile
+
+    # the 100,000 frames' files (~70 MB) and the checkpoints live in a
+    # temporary directory, removed whatever happens
+    tmp = Path(tempfile.mkdtemp(prefix="data_cli_"))
+    try:
+        row, batch = data_cli_run(tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(row)
+    check(row["vs_plain"]["loss_rel_err"] <= TOL
+          and row["vs_plain"]["grad_rel_err"] <= TOL,
+          f"data_cli: kernels vs plain {row['vs_plain']}")
+    path_row, launches = odd_width_path(batch, *row["mean_std"])
+    emit(path_row)
+    return launches, odd_width_rows(peak)
+
+
+def data_cli_run(tmp, smi):
+    """``phase_data_cli``'s runs in the directory ``tmp``: its row."""
+    import csv
+
+    from torchmdnet_tpu_torch.data.collate import PaddedLoader
+    from torchmdnet_tpu_torch.data.datamodule import DataModule
+    from torchmdnet_tpu_torch.datasets import MD17
+    from torchmdnet_tpu_torch.models.model import load_model
+    from torchmdnet_tpu_torch.train import train as cli
+    from torchmdnet_tpu_torch.train.trainer import Trainer
+    from torchmdnet_tpu_torch.utils.config import to_argv
+
+    mols = TENSORNET_RMD17_ARGS["batch_size"]
+    raw = write_rmd17(tmp / "data", RMD17_FRAMES, 91)
+    t0 = time.perf_counter()
+    ds = MD17(str(tmp / "data"), "revised_aspirin")
+    process_s = time.perf_counter() - t0
+    check(len(ds) == RMD17_FRAMES, f"data_cli: {len(ds)} frames")
+    hp = dict(TENSORNET_RMD17_ARGS, dataset_root=str(tmp / "data"),
+              log_dir=str(tmp / "logs"), **DATA_CLI_CUTS)
+    row = {"phase": "data_cli", "nvidia_smi": smi, "frames": len(ds),
+           "reduced": {"num_epochs": [TENSORNET_RMD17_ARGS["num_epochs"], 1],
+                       "test_size": ["the rest (99,000)", 1000],
+                       "restart_epochs": 1,
+                       "timed": f"one epoch a loader after "
+                                f"{DATA_CLI_WARMUP} warm-up steps"},
+           "process_s": process_s,
+           "processed_mb": sum(p.stat().st_size for p in
+                               (tmp / "data" / "processed").iterdir()) / 1e6}
+    del ds
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)  # standardize
+        t0 = time.perf_counter()
+        results, launches = counted_run(lambda: cli.main(to_argv(hp)))
+        row["cli_s"] = time.perf_counter() - t0
+    row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    row["launches"] = {k: v for k, v in launches.items() if v}
+    for k in DATA_CLI_KERNELS:
+        check(launches[k] > 0, f"data_cli: kernel {k} was not launched")
+    logs = tmp / "logs"
+    names = sorted(os.listdir(logs))
+    for f in ("splits.npz", "metrics.csv", "input.yaml", "best.ckpt",
+              "best.ckpt.native"):
+        check(f in names, f"data_cli: no {f}")
+    last = [n for n in names if n.startswith("epoch=0")
+            and n.endswith(".ckpt")]
+    check(len(last) == 1, f"data_cli: checkpoints {names}")
+    with open(logs / "metrics.csv") as fh:
+        metrics = list(csv.DictReader(fh))
+    losses = [float(m[k]) for m in metrics for k in m
+              if k.endswith("_loss") and m[k] not in ("", None)]
+    row.update(results=results,
+               epochs=[{k: float(v) for k, v in m.items() if v}
+                       for m in metrics],
+               losses_finite=bool(losses) and all(map(math.isfinite,
+                                                      losses)))
+    check(row["losses_finite"] and all(map(math.isfinite, results.values())),
+          "data_cli: a loss is not finite")
+    # mean and std of the train split's energies, as the model carries them
+    npz = np.load(raw)
+    train_idx = np.load(logs / "splits.npz")["idx_train"]
+    check(len(train_idx) == 950, f"data_cli: {len(train_idx)} train frames")
+    y = npz["energies"][train_idx]
+    served = load_model(logs / last[0], device="cuda")
+    row["mean_std"] = [served.module.mean, served.module.std]
+    row["train_split_mean_std"] = [float(y.mean()), float(y.std(ddof=1))]
+    check(all(math.isclose(a, b, rel_tol=1e-6) for a, b in zip(
+        row["mean_std"], row["train_split_mean_std"])),
+          f"data_cli: the model's mean/std {row['mean_std']} are not the "
+          f"train split's {row['train_split_mean_std']}")
+
+    # the restart: one more epoch from the last checkpoint
+    before = torch.load(logs / (last[0] + ".native"), weights_only=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        resumed, relaunch = counted_run(lambda: cli.main(
+            ["--load-model", str(logs / last[0])] + to_argv(dict(
+                hp, log_dir=str(tmp / "logs2"), num_epochs=1))))
+    after_name = [n for n in os.listdir(tmp / "logs2")
+                  if n.startswith("epoch=0") and n.endswith(".native")]
+    check(len(after_name) == 1, f"data_cli: restart wrote {after_name}")
+    after = torch.load(tmp / "logs2" / after_name[0], weights_only=True)
+    steps = math.ceil(950 / TENSORNET_RMD17_ARGS["batch_size"])
+    row["restart"] = dict(
+        step_before=before["step"], step_after=after["step"],
+        adam_step_before=float(before["optimizer"]["state"][0]["step"]),
+        adam_step_after=float(after["optimizer"]["state"][0]["step"]),
+        results=resumed, launches={k: v for k, v in relaunch.items() if v})
+    check(before["step"] == steps and after["step"] == 2 * steps
+          and row["restart"]["adam_step_after"]
+          == row["restart"]["adam_step_before"] + steps,
+          f"data_cli: the restart did not continue the step "
+          f"{row['restart']}")
+
+    # the loaders: memory-mapped (native packer) against in memory
+    dm = DataModule(dict(hp, log_dir=None))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        dm.setup("fit")
+    mm_loader = dm.train_dataloader()
+    check(mm_loader._memmap_base()[0] is not None,
+          "data_cli: the loader does not take the memory-mapped path")
+    mem = InMemory([dm.dataset[int(i)] for i in dm.idx_train])
+    mem_loader = PaddedLoader(mem, mm_loader.batch_size, shuffle=True,
+                              seed=mm_loader.seed,
+                              max_atoms=mm_loader.max_atoms)
+    row["host_pack_ms"] = {"memmap_native": host_pack_ms(mm_loader),
+                           "in_memory_pad_samples": host_pack_ms(mem_loader)}
+    trainer = Trainer(served, dict(hp, log_dir=str(tmp / "timing")), dm)
+    trainer._init_state()
+
+    # the served model's loss (weights 0.5 / 0.5) and every weight gradient
+    # on a batch of the memory-mapped loader, against the same weights with
+    # both flags off (the plain chains)
+    batch = trainer._to_device_batch(next(iter(mm_loader)))
+    plain = load_model(logs / last[0], device="cuda", pallas_embedding=False,
+                       pallas_edge_mlp=False)
+    before = launch_counts()
+    row["vs_plain"] = dict(tolerance=TOL, **grads_against(
+        served, plain, batch, num_mols=mols,
+        y_weight=TENSORNET_RMD17_ARGS["y_weight"],
+        neg_dy_weight=TENSORNET_RMD17_ARGS["neg_dy_weight"]))
+    check_launched(DATA_CLI_KERNELS, before)
+    del plain
+
+    timed_epoch(trainer, mm_loader, DATA_CLI_WARMUP)  # warm-up
+    times = {name: timed_epoch(trainer, loader)[0] for name, loader in (
+        ("memmap_native", mm_loader), ("in_memory_pad_samples", mem_loader))}
+    row["ms_per_step"] = times
+    row["mol_per_s"] = {k: mols / (v / 1e3) for k, v in times.items()}
+    row["peak_gb_all"] = torch.cuda.max_memory_allocated() / 1e9
+    return row, batch
+
+
 def zip_checkpoints(out, paths):
     """``out/aceff.zip`` holding the checkpoints ``paths``."""
     import zipfile
@@ -4415,6 +4942,8 @@ def main():
     phase_et_md(phase_et_train())
     torch.cuda.empty_cache()
     phase_t_gn()
+    torch.cuda.empty_cache()
+    odd_launches, odd_rows = phase_data_cli(smi, peak)
     launches = {k: by_path[path][1][k] for k, (_, _, path) in KERNELS.items()}
     emit({"phase": "launches", "md_steps": {p: s for p, (s, _) in
                                             by_path.items()},
@@ -4453,6 +4982,18 @@ def main():
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **({"form": row["form"]} if "form" in row else {})})
+    # the odd-width forms: launches of the kernel at F = 30, R = 50 on the
+    # path odd_widths (kernel 2's dz and dk forms share one count)
+    for name, row in odd_rows.items():
+        kern = name.split("@")[0].replace("_dkall", "").replace("_dz", "")
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNELS[kern][0],
+            "replaces": KERNELS[kern][1], "path": "odd_widths",
+            "launches": odd_launches[kern],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "form": row["form"]})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

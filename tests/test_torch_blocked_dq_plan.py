@@ -144,9 +144,10 @@ def test_dq_plan_refuses_wide_channels(f):
 
 
 def test_dq_plan_refuses_ragged_widths():
-    """F must be a positive multiple of 4 and t at least 1; any rbf width
-    launches (W1aᵀ's cotangent product runs in 128-column passes)."""
-    assert bq.plan_error(126, 64) is not None
+    """F and t must be at least 1: an F that is not a multiple of 4 runs
+    padded to one (126 as 128); any rbf width launches (W1aᵀ's cotangent
+    product runs in 128-column passes)."""
+    assert bq.plan_error(126, 64) is None
     assert bq.plan_error(0, 64) is not None
     assert bq.plan_error(128, 0) is not None
     assert bq.plan_error(128, 129, rbf=True) is None

@@ -272,16 +272,17 @@ def test_kernel4_shared_memory_fits(r, f):
 # bytes are the kernels' layouts (edge_mlp.cu::chain_smem: kernel 3's
 # tiles leave shared memory above F = 256, kernel 4's too and also where
 # its x tile would pass the block; both hold a 1,024-slot window's lists
-# and 64 slots carried to the next); what still refuses is a width that
-# is not a multiple of 4
+# and 64 slots carried to the next); a width that is not a multiple of 4
+# is padded to the next one (F = 130 runs as 132, R = 30 as 32), so no
+# width is refused
 PLAN_CASES = [("tensornet2", 128, 32, 125504, False),
               ("tensornet2", 512, 32, 58944, False),
-              ("tensornet2", 130, 32, None, True),
+              ("tensornet2", 130, 32, 127552, False),
               ("tensornet", 128, 32, 134720, False),
               ("tensornet", 256, 64, 208448, False),
               ("tensornet", 512, 32, 58944, False),
               ("tensornet", 1024, 4, 58944, False),
-              ("tensornet", 256, 30, None, True)]
+              ("tensornet", 256, 30, 200256, False)]
 
 
 @pytest.mark.parametrize("model, f, r, smem, refused", PLAN_CASES)
@@ -291,26 +292,29 @@ def test_models_keep_the_kernel_where_its_plan_cannot_launch(
     (TensorNet, ``r`` rbf) at every width: the JAX op leaves its kernel
     only for a row count its tile does not divide or a dtype other than
     float32, never for a width, so no model switches to the plain chain.
-    Every width that is a multiple of 4 has a plan within a block's
-    shared memory; at any other the wrapper raises, before it looks at
-    the device."""
+    Every width has a plan within a block's shared memory (one that is
+    not a multiple of 4 at the padded width, ``padded``); the wrapper
+    raises a plan's error before it looks at the device, and on these CPU
+    tensors it raises for the device alone."""
     from torchmdnet_tpu_torch.models.tensornet import Interaction
     from torchmdnet_tpu_torch.models.tensornet2 import Interaction2
     from torchmdnet_tpu_torch.ops.edge_mlp import (
         fused_plan_error, fused_smem, pre_plan_error, pre_smem)
 
+    from torchmdnet_tpu_torch.ops.kernels import lane_width
+
     if model == "tensornet2":
         layer = Interaction2(f, r, 16, pallas_edge_mlp=True)
         error = pre_plan_error(f)
         if smem:
-            assert pre_smem(f) == smem
+            assert pre_smem(lane_width(f)) == smem
         args = _inputs(n=2, k=3, f=f, seed=6)
         wrapper = edge_mlp_pre_cuda
     else:
         layer = Interaction(f, r, pallas_edge_mlp=True)
         error = fused_plan_error(r, f)
         if smem:
-            assert fused_smem(r, f) == smem
+            assert fused_smem(lane_width(r), lane_width(f)) == smem
         args = _inputs4(n=2, k=3, r=r, f=f, seed=6)
         wrapper = edge_mlp_cuda
     assert layer.fused

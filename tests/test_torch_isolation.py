@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``torchmdnet_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, flax, optax, the JAX package, yaml or
-h5py, and the entry points never fall back to the CPU on their own."""
+``chip_smoke.py`` imports JAX, flax, optax, the JAX package or the
+repo-root ``csrc`` build helper, and none imports yaml or h5py but the
+readers of those formats, inside the functions that read them; the entry
+points never fall back to the CPU on their own."""
 
 import ast
 from pathlib import Path
@@ -19,9 +21,21 @@ from torchmdnet_tpu_torch.ops.config import resolve_device, set_matmul_precision
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = Path(__file__).resolve().parent.parent
-# yaml and h5py too: the card's machine may have neither
+# yaml and h5py too: the card's machine may have neither; build_ext is the
+# JAX package's packer build (the port builds its own copy)
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torchmdnet_tpu", "yaml",
-             "h5py")
+             "h5py", "build_ext", "csrc")
+# the readers of HDF5 files and of YAML, each of which may import that
+# module inside a function (never at a module's or a class's top level);
+# every other port file, and chip_smoke.py, keeps the whole FORBIDDEN list
+ALLOWED_IN_FUNCTIONS = {
+    ("torchmdnet_tpu_torch/datasets/hdf.py", "h5py"),
+    ("torchmdnet_tpu_torch/datasets/ani.py", "h5py"),
+    ("torchmdnet_tpu_torch/datasets/spice.py", "h5py"),
+    ("torchmdnet_tpu_torch/datasets/ace.py", "h5py"),
+    ("torchmdnet_tpu_torch/utils/io.py", "h5py"),
+    ("torchmdnet_tpu_torch/utils/config.py", "yaml"),
+}
 
 
 def _port_files():
@@ -32,27 +46,66 @@ def _port_files():
     return files + probes + [ROOT / "chip_smoke.py"]
 
 
-def _imported_modules(path):
+def _imports(path):
+    """``(module, inside a function)`` of every import in ``path``, lazy
+    ones and ``__import__``/``import_module`` calls too."""
     tree = ast.parse(path.read_text(), filename=str(path))
+    in_function = set()
     for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            in_function.update(id(n) for n in ast.walk(node) if n is not node)
+    for node in ast.walk(tree):
+        inside = id(node) in in_function
         if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
+            yield from ((a.name, inside) for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+            yield node.module, inside
         elif isinstance(node, ast.Call) and (
                 getattr(node.func, "id", None) == "__import__"
                 or getattr(node.func, "attr", None) == "import_module"):
-            yield from (a.value for a in node.args
+            yield from ((a.value, inside) for a in node.args
                         if isinstance(a, ast.Constant))
+
+
+def _imported_modules(path):
+    return [m for m, _ in _imports(path)]
 
 
 def test_port_imports_no_jax():
     files = _port_files()
     assert len(files) > 10 and all(f.exists() for f in files)
-    bad = [(str(f.relative_to(ROOT)), m) for f in files
-           for m in _imported_modules(f)
-           if m.split(".")[0] in FORBIDDEN]
+    bad = []
+    for f in files:
+        name = str(f.relative_to(ROOT))
+        for module, inside in _imports(f):
+            top = module.split(".")[0]
+            if top in FORBIDDEN and not (
+                    inside and (name, top) in ALLOWED_IN_FUNCTIONS):
+                bad.append((name, module, "in a function" if inside
+                            else "at the top level"))
     assert not bad, bad
+
+
+def test_yaml_and_h5py_only_where_allowed():
+    """Each allowed reader really imports its module, inside a function
+    only; the data files and the CLI are among the files walked, and
+    chip_smoke.py gets no exception."""
+    files = {str(f.relative_to(ROOT)): f for f in _port_files()}
+    for name, module in ALLOWED_IN_FUNCTIONS:
+        found = [inside for m, inside in _imports(files[name])
+                 if m.split(".")[0] == module]
+        assert found and all(found), (name, module, found)
+    for name in ("torchmdnet_tpu_torch/datasets/md17.py",
+                 "torchmdnet_tpu_torch/datasets/qm9.py",
+                 "torchmdnet_tpu_torch/datasets/maceoff.py",
+                 "torchmdnet_tpu_torch/datasets/memdataset.py",
+                 "torchmdnet_tpu_torch/data/_native.py",
+                 "torchmdnet_tpu_torch/data/collate.py",
+                 "torchmdnet_tpu_torch/train/train.py", "chip_smoke.py"):
+        assert name in files
+    assert not any(name.startswith("chip_smoke")
+                   for name, _ in ALLOWED_IN_FUNCTIONS)
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):

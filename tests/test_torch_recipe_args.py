@@ -21,7 +21,8 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = Path(__file__).resolve().parent.parent
 COPIES = {"TensorNet2-AceFF": "ACEFF_ARGS", "ET-SPICE": "ET_SPICE_ARGS",
-          "ET-QM9": "ET_QM9_ARGS", "ET-MD17": "ET_MD17_ARGS"}
+          "ET-QM9": "ET_QM9_ARGS", "ET-MD17": "ET_MD17_ARGS",
+          "TensorNet-rMD17": "TENSORNET_RMD17_ARGS"}
 # what create_model, the heads, the priors and make_train_step read
 READ = ("model", "embedding_dimension", "num_layers", "num_rbf", "rbf_type",
         "trainable_rbf", "activation", "cutoff_lower", "cutoff_upper",

@@ -338,9 +338,7 @@ __device__ __forceinline__ void q_chain(const QParams& p) {
           sJ[tid] = (int)p.idx[g];
           sCw[tid] = p.cw[g];
           if (!RBF) {
-            float x = 2.0f * (p.d[g] - p.lo) / p.span - 1.0f;
-            x = fminf(fmaxf(x, -1.0f), 1.0f);
-            sTheta[tid] = acosf(x);
+            sTheta[tid] = acosf(cheb_x(p.d[g], p.lo, p.span));
           }
         } else {
           sRow[tid] = -1;

@@ -68,10 +68,9 @@
 // One chunk writes the output directly.  Folding in the last block of
 // each tile would read the tile's 44 partials with one SM; the second
 // launch reads them with all of them.
-// Error: θ is acosf's, which may differ from the plain version's fp32 θ in
-// the last bit, and cos(j·θ) carries that ~j-fold (j ≤ T − 1): ~1.7e-5 of
-// max |out| against the plain version at T = 128, what two fp32 θ of the
-// same d give; the product's own error in 3xTF32 is ~1e-6.
+// Error: θ is the plain version's fp32 θ on the card, bit for bit
+// (tc_tile.cuh::cheb_x; a θ an ulp off moved cos(j·θ) ~j-fold, ~1.7e-5
+// of max |out| at T = 128); the product's own error in 3xTF32 is ~1e-6.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -7,6 +7,8 @@
 
 #include <cuda_runtime.h>
 
+#include "tc_tile.cuh"
+
 namespace {
 
 constexpr int kTileN = 128;    // channels a row 8 or 9 warp owns
@@ -14,11 +16,10 @@ constexpr int kThreads = 256;  // threads of every block
 constexpr int kWarps = kThreads / 32;
 
 // θ = acos(clip(2(d − lo)/(hi − lo) − 1, −1, 1)), finite for any d: the
-// clip comes before acosf.
+// clip comes before acosf; the float θ of the plain version on the card
+// (tc_tile.cuh::cheb_x).
 __device__ __forceinline__ float cheb_theta(float d, float lo, float hi) {
-  float x = 2.0f * (d - lo) / (hi - lo) - 1.0f;
-  x = fminf(fmaxf(x, -1.0f), 1.0f);
-  return acosf(x);
+  return acosf(cheb_x(d, lo, hi - lo));
 }
 
 }  // namespace

@@ -263,6 +263,16 @@ __device__ __forceinline__ void tc_copy_half(const float* __restrict__ src, floa
   }
 }
 
+// clip(2(d − lo)/span − 1, −1, 1), the argument of θ = acos(·) of the
+// Chebyshev bases, as the plain version forms it on the card: PyTorch
+// divides a tensor by a scalar as a product with its reciprocal and rounds
+// the product and the − 1 apart (no fma).  θ is then its float bit for
+// bit; a θ an ulp off would move cos(j·θ) by ~j ulps.
+__device__ __forceinline__ float cheb_x(float d, float lo, float span) {
+  const float x = __fsub_rn(__fmul_rn(2.0f * (d - lo), 1.0f / span), 1.0f);
+  return fminf(fmaxf(x, -1.0f), 1.0f);
+}
+
 // cos(x) for x = j·θ ∈ [0, (T − 1)π], the fp32 product the plain version
 // takes the cosine of: x less k·2π in two fp32 parts (Cody-Waite; the fma
 // keeps each step to one rounding, |y| ≤ π + 1e-6), then __cosf, whose

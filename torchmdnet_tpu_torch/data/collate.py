@@ -1,4 +1,4 @@
-"""Static-shape batch packing (counterpart of the numpy path of
+"""Static-shape batch packing (counterpart of
 ``torchmdnet_tpu/data/collate.py``).
 
 Samples are packed into fixed ``(max_atoms, max_mols)`` buffers: atoms
@@ -6,8 +6,11 @@ are concatenated along one axis and padded with ghost atoms whose segment
 id is ``max_mols`` (dropped by every segment reduction and by the loss
 masks); per-molecule arrays (y, q, s, dp, box) are padded with zeros and
 masked by ``mol_mask``.  Every batch of a loader has the same shapes, as
-in the JAX package.  The C packer and the memory-mapped fast path are not
-ported yet (ROADMAP Queue 1 item 18).
+in the JAX package.  :func:`pad_samples` is the plain numpy version, which
+in-memory datasets use; a :class:`~torchmdnet_tpu_torch.datasets.
+memdataset.MemmappedDataset` (or a ``Subset`` of one) with no transform is
+packed straight from its mapped files by the native packer
+(``data/_native.py::pack_from_memmap``).
 """
 
 import math
@@ -70,37 +73,75 @@ def pad_samples(samples: List[Dict[str, np.ndarray]], max_atoms: int,
 class PaddedLoader:
     """Iterates a dataset as padded static-shape batches.
 
-    ``max_atoms`` defaults to ``batch_size ×`` the largest sample among
-    the first 1,000, rounded up to a multiple of 64; with ``shuffle`` the
-    order of epoch ``e`` is ``default_rng(seed + e).permutation``, as in
-    the JAX package.
+    ``max_atoms`` defaults to ``batch_size ×`` the largest sample (of the
+    whole mapped dataset, read from its index file, for a memory-mapped
+    one; of the first 1,000 of ``indices`` otherwise), rounded up to a
+    multiple of 64; with ``shuffle`` the order of epoch ``e`` is
+    ``default_rng(seed + e).permutation`` of ``indices`` (default: all),
+    as in the JAX package.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 seed: int = 0, max_atoms: Optional[int] = None):
+                 seed: int = 0, max_atoms: Optional[int] = None,
+                 drop_last: bool = False,
+                 indices: Optional[np.ndarray] = None):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.seed = seed
+        self.drop_last = drop_last
+        self.indices = (np.asarray(indices, np.int64) if indices is not None
+                        else np.arange(len(dataset), dtype=np.int64))
         if max_atoms is None:
-            sizes = [len(dataset[i]["z"])
-                     for i in range(min(len(dataset), 1000))]
-            max_atoms = self.batch_size * int(max(sizes))
+            max_atoms = self.batch_size * self._max_sample_size()
         self.max_atoms = int(math.ceil(max_atoms / 64) * 64)
         self._epoch = 0
 
+    def _max_sample_size(self) -> int:
+        base = getattr(self.dataset, "dataset", self.dataset)
+        if hasattr(base, "mmaps"):  # a MemmappedDataset: from its index
+            return int(np.max(np.diff(np.asarray(base.mmaps["idx"]))))
+        return int(max(len(self.dataset[int(i)]["z"])
+                       for i in self.indices[:1000]))
+
     def __len__(self):
-        return math.ceil(len(self.dataset) / self.batch_size)
+        n = len(self.indices)
+        return (n // self.batch_size if self.drop_last
+                else math.ceil(n / self.batch_size))
 
     def set_epoch(self, epoch: int):
         self._epoch = int(epoch)
 
+    def _memmap_base(self):
+        """``(base MemmappedDataset, index map or None)`` where the native
+        memmap packer applies (no transform in the chain), else
+        ``(None, None)``."""
+        from torchmdnet_tpu_torch.datasets.memdataset import (
+            MemmappedDataset, Subset)
+
+        ds, remap = self.dataset, None
+        if isinstance(ds, Subset):
+            ds, remap = ds.dataset, ds.indices
+        if isinstance(ds, MemmappedDataset) and ds.transform is None:
+            return ds, remap
+        return None, None
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        order = np.arange(len(self.dataset), dtype=np.int64)
+        order = self.indices
         if self.shuffle:
             order = np.random.default_rng(self.seed + self._epoch).permutation(
                 order)
+        base, remap = self._memmap_base()
         for start in range(0, len(order), self.batch_size):
             chunk = order[start:start + self.batch_size]
-            yield pad_samples([self.dataset[int(i)] for i in chunk],
-                              self.max_atoms, self.batch_size)
+            if self.drop_last and len(chunk) < self.batch_size:
+                break
+            if base is not None:
+                from torchmdnet_tpu_torch.data._native import pack_from_memmap
+
+                ids = remap[chunk] if remap is not None else chunk
+                yield pack_from_memmap(base, ids, self.max_atoms,
+                                       self.batch_size)
+            else:
+                yield pad_samples([self.dataset[int(i)] for i in chunk],
+                                  self.max_atoms, self.batch_size)

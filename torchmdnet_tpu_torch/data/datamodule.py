@@ -1,10 +1,10 @@
 """DataModule (counterpart of ``torchmdnet_tpu/data/datamodule.py``,
-reference ``torchmdnet/data.py:18-176``) for a dataset given in memory:
-splits with ``splits.npz``, cached padded loaders and the (deprecated)
-``standardize`` mean/std, with the atomref energies taken out under the
-Atomref prior.  Datasets named in the hyperparameters are not ported
-yet."""
+reference ``torchmdnet/data.py:18-176``): the dataset given, or built by
+its name in the hyperparameters, splits with ``splits.npz``, cached padded
+loaders and the (deprecated) ``standardize`` mean/std, with the atomref
+energies taken out under the Atomref prior."""
 
+import json
 import os
 import warnings
 from typing import Optional
@@ -27,10 +27,7 @@ class DataModule:
     def setup(self, stage: Optional[str] = None):
         hp = self.hparams
         if self.dataset is None:
-            raise NotImplementedError(
-                f"dataset={hp.get('dataset')!r}: named datasets are not "
-                "ported yet (ROADMAP Queue 1 item 18, 'Data'); pass "
-                "dataset=")
+            self.dataset = self._named_dataset(hp)
         split_file = (os.path.join(hp["log_dir"], "splits.npz")
                       if hp.get("log_dir") else None)
         self.idx_train, self.idx_val, self.idx_test = make_splits(
@@ -45,6 +42,32 @@ class DataModule:
             warnings.warn("The standardize option is deprecated and will be "
                           "removed in the future.", DeprecationWarning)
             self._standardize()
+
+    @staticmethod
+    def _named_dataset(hp):
+        """The dataset ``hp["dataset"]`` names (JAX ``:30-52``): ``Custom``
+        from the file globs, ``HDF5`` at ``dataset_root`` with the preload
+        limit, any other with ``dataset_root`` and ``dataset_arg``.  A
+        ``dataset_arg`` given as a string (on the command line, where the
+        JAX package keeps the string and fails) is read as JSON."""
+        from torchmdnet_tpu_torch import datasets
+
+        limit = hp.get("dataset_preload_limit", 1024)
+        if hp["dataset"] == "Custom":
+            return datasets.Custom(hp["coord_files"], hp["embed_files"],
+                                   hp["energy_files"], hp["force_files"],
+                                   limit)
+        dataset_arg = hp.get("dataset_arg") or {}
+        if isinstance(dataset_arg, str):
+            dataset_arg = json.loads(dataset_arg)
+        dataset_arg = dict(dataset_arg)
+        if hp["dataset"] == "HDF5":
+            dataset_arg["dataset_preload_limit"] = limit
+        if hp["dataset"] not in datasets.__all__:
+            raise ValueError(f"Unknown dataset {hp['dataset']!r}: choose "
+                             f"from {', '.join(datasets.__all__)}")
+        return getattr(datasets, hp["dataset"])(hp["dataset_root"],
+                                                **dataset_arg)
 
     @property
     def atomref(self):

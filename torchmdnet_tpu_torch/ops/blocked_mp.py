@@ -60,8 +60,8 @@ from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs
 from torchmdnet_tpu_torch.ops.cheb_filter import (
     cheb_filter_dot_ref, cheb_filter_ref)
 from torchmdnet_tpu_torch.ops.kernels import (
-    F32, I32, P, CudaSource, Kernel, first_order_only, neighbour_sum_out,
-    ptr)
+    F32, I32, P, CudaSource, Kernel, first_order_only, lane_width,
+    neighbour_sum_out, pad_runs, ptr, unpad_lanes)
 from torchmdnet_tpu_torch.ops.message_passing import _pns_dattr, row_chunk
 from torchmdnet_tpu_torch.ops.tc_tile import REGION, SMEM_LIMIT
 from torchmdnet_tpu_torch.ops.tc_tile import image_floats as tc_image_floats
@@ -242,21 +242,29 @@ def _check(name, tensors, smem):
                              f"expected {shapes[key]}")
         if x.data_ptr() % 16:  # read as float4
             raise ValueError(f"{name}: {key} is not 16-byte aligned")
-    if f % 4 or tensors["feats9"].shape[1] % 9:
-        raise ValueError(f"{name}: feats9 width must be 9F with F a multiple "
-                         f"of 4, got {tensors['feats9'].shape[1]}")
+    if tensors["feats9"].shape[1] % 9:
+        raise ValueError(f"{name}: feats9 width must be 9F, got "
+                         f"{tensors['feats9'].shape[1]}")
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: K={k}, F={f}, T={t} needs {smem} bytes of "
                          f"shared memory (> {SMEM_LIMIT})")
     return dev, n, k, f, t
 
 
+# the F-runs of each operand, ((dim, runs), …): an F that is not a
+# multiple of 4 is padded with zero channels in each (exact: a zero channel
+# of attr and of the features adds nothing to any real output)
+RUNS = {"attr3f": ((-1, 3),), "feats9": ((-1, 9),), "g9": ((-1, 9),),
+        "coeffs": ((-1, 3),), "dser": ((-1, 3),)}
+
+
 def neighbor_sum_cuda(attr3f, feats9, idx, mask):
     """Row 8 on CUDA tensors: ``[N, 9F]``."""
-    n, k = idx.shape
-    dev, n, k, f, _ = _check(
-        "blocked_neighbor_sum",
-        dict(idx=idx, mask=mask, attr3f=attr3f, feats9=feats9), 0)
+    tensors = dict(idx=idx, mask=mask, attr3f=attr3f, feats9=feats9)
+    dev, n, k, f, _ = _check("blocked_neighbor_sum", tensors, 0)
+    if f % 4:
+        return unpad_lanes(neighbor_sum_cuda(**pad_runs(
+            tensors, RUNS, lane_width(f))), -1, 9, f)
     out = torch.empty((n, 9 * f), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         SUM(ptr(idx), ptr(mask), ptr(attr3f), ptr(feats9), ptr(out), n, k, f)
@@ -265,8 +273,11 @@ def neighbor_sum_cuda(attr3f, feats9, idx, mask):
 
 def dattr_cuda(g9, feats9, idx, mask):
     """Row 9 on CUDA tensors: ``[N, K, 3F]``."""
-    dev, n, k, f, _ = _check("blocked_dattr",
-                             dict(idx=idx, mask=mask, g9=g9, feats9=feats9), 0)
+    tensors = dict(idx=idx, mask=mask, g9=g9, feats9=feats9)
+    dev, n, k, f, _ = _check("blocked_dattr", tensors, 0)
+    if f % 4:
+        return unpad_lanes(dattr_cuda(**pad_runs(
+            tensors, RUNS, lane_width(f))), -1, 3, f)
     out = torch.empty((n, k, 3 * f), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         DATTR(ptr(idx), ptr(mask), ptr(g9), ptr(feats9), ptr(out), n, k, f)
@@ -275,11 +286,13 @@ def dattr_cuda(g9, feats9, idx, mask):
 
 def neighbor_sum_cheb_cuda(coeffs, d, fm, feats9, idx, lo: float, hi: float):
     """Row 10 on CUDA tensors: ``[N, 9F]``."""
-    n, k = idx.shape
-    dev, n, k, f, t = _check(
-        "blocked_neighbor_sum_cheb",
-        dict(idx=idx, d=d, fm=fm, coeffs=coeffs, feats9=feats9),
-        sum_cheb_smem(k, feats9.shape[1] // 9))
+    tensors = dict(idx=idx, d=d, fm=fm, coeffs=coeffs, feats9=feats9)
+    dev, n, k, f, t = _check("blocked_neighbor_sum_cheb", tensors,
+                             sum_cheb_smem(idx.shape[1],
+                                           feats9.shape[1] // 9))
+    if f % 4:
+        return unpad_lanes(neighbor_sum_cheb_cuda(**pad_runs(
+            tensors, RUNS, lane_width(f)), lo=lo, hi=hi), -1, 9, f)
     out = torch.empty((n, 9 * f), dtype=torch.float32, device=dev)
     image = torch.empty(tc_image_floats(t, 3 * f), dtype=torch.float32,
                         device=dev)
@@ -291,11 +304,13 @@ def neighbor_sum_cheb_cuda(coeffs, d, fm, feats9, idx, lo: float, hi: float):
 
 def dd_cheb_cuda(dser, d, fm, g9, feats9, idx, lo: float, hi: float):
     """Row 11 on CUDA tensors: ``[N, K]``."""
-    n, k = idx.shape
-    dev, n, k, f, t = _check(
-        "blocked_dd_cheb",
-        dict(idx=idx, d=d, fm=fm, dser=dser, g9=g9, feats9=feats9),
-        dd_cheb_smem(k, feats9.shape[1] // 9))
+    tensors = dict(idx=idx, d=d, fm=fm, dser=dser, g9=g9, feats9=feats9)
+    dev, n, k, f, t = _check("blocked_dd_cheb", tensors,
+                             dd_cheb_smem(idx.shape[1],
+                                          feats9.shape[1] // 9))
+    if f % 4:
+        return dd_cheb_cuda(**pad_runs(tensors, RUNS, lane_width(f)), lo=lo,
+                            hi=hi)
     out = torch.empty((n, k), dtype=torch.float32, device=dev)
     image = torch.empty(tc_image_floats(t, 3 * f), dtype=torch.float32,
                         device=dev)

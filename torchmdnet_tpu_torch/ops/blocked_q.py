@@ -43,8 +43,13 @@ base's cotangent) in a scratch the wrapper allocates
 not fit its shared memory: each resident block keeps them in its region
 of a second scratch (:func:`q_tile_floats`), and the grid is one block
 an SM.  :func:`launch_plan` holds the grid, shared memory and both
-scratches; every width the JAX op computes launches (:func:`plan_error`
-refuses only a width that is not a positive multiple of 4).
+scratches; every width the JAX op computes launches (:func:`plan_error`):
+the kernels read float4 rows, so for an F that is not a multiple of 4
+:func:`_launch` pads every F-run of the operands (the base weight, u, the
+window and fold rows, W2, W3 and the biases) with zero channels to the
+next multiple and slices the outputs.  That is exact: a padded channel's
+pre-activation is 0, silu(0) = 0 at every layer, and the zero weight rows
+keep it out of every real output and cotangent.
 """
 
 import ctypes
@@ -54,8 +59,8 @@ import torch.nn.functional as F_
 
 from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs, cheb_theta, cos_basis
 from torchmdnet_tpu_torch.ops.kernels import (
-    F32, I32, I64, P, CudaSource, Kernel, first_order_only, neighbour_sum_out,
-    null_or_ptr, ptr)
+    F32, I32, I64, P, CudaSource, Kernel, first_order_only, lane_width,
+    neighbour_sum_out, null_or_ptr, pad_runs, ptr, unpad_lanes)
 from torchmdnet_tpu_torch.ops.message_passing import row_chunk
 from torchmdnet_tpu_torch.ops.tc_tile import H100_SMS, REGION
 from torchmdnet_tpu_torch.ops.tc_tile import image_floats as tc_image_floats
@@ -141,13 +146,14 @@ def launch_plan(n: int, k: int, f: int, t: int, rbf: bool = False,
 
 def plan_error(f: int, t: int, rbf: bool = False):
     """Why kernels A and B cannot launch at ``F = f`` with ``t`` series
-    terms or rbf channels, or None: F a positive multiple of 4 and ``t``
-    at least 1.  Any K and every such width launches: the plan's shared
-    memory stays within a block's 232,448 B (:func:`q_smem`; the tiles of
-    F > 128 go to device memory), and a scratch larger than the card's
-    free memory fails at its allocation."""
-    if f % 4 or f < 4:
-        return f"channels {f} must be a positive multiple of 4"
+    terms or rbf channels, or None: F and ``t`` at least 1.  Any K and
+    every such width launches: F that is not a multiple of 4 is padded to
+    one (:func:`_launch`), the plan's shared memory stays within a block's
+    232,448 B (:func:`q_smem`; the tiles of F > 128 go to device memory),
+    and a scratch larger than the card's free memory fails at its
+    allocation."""
+    if f < 1:
+        return f"channels {f} must be >= 1"
     if t < 1:
         return f"{'rbf width' if rbf else 'series terms'} {t} must be >= 1"
     return None
@@ -339,12 +345,34 @@ def _check(name, tensors):
     return dev, n, k, f, T
 
 
+# the F-runs of each operand, as :func:`_check` names them: ((dim, runs),
+# …), padded where F is not a multiple of 4
+RUNS = {"urow": ((-1, 1),), "ucol": ((-1, 1),), "xwin": ((-1, 9),),
+         "grow": ((-1, 9),), "coeffs": ((-1, 1),), "dser": ((-1, 1),),
+         "w2": ((0, 1), (1, 2)), "b2": ((0, 2),), "w3": ((0, 2), (1, 3)),
+         "b3": ((0, 3),)}
+
+
 def _launch(kernel, mode, tensors, outs, scalars):
     """Checks ``tensors`` (their order is the entry point's), allocates
     the outputs ``outs(n, k, f, T)`` and the two scratches of
     :func:`launch_plan`, and launches ``kernel`` with ``scalars(n, k, f,
-    T)`` before the grid.  Returns the outputs."""
+    T)`` before the grid.  Returns the outputs.  An F that is not a
+    multiple of 4 runs padded (see the module docstring)."""
     rbf = "rbf" in tensors
+    T, f = tensors["coeffs"].shape
+    if f % 4 and not plan_error(f, T, rbf):
+        fp = lane_width(f)
+        got = _launch(kernel, mode, pad_runs(tensors, RUNS, fp), outs,
+                      scalars)
+        got = got if isinstance(got, tuple) else (got,)
+        n, k = tensors["idx"].shape
+        # an output whose shape depends on F is sliced back run by run
+        got = tuple(
+            unpad_lanes(t, -1, wide[-1] // fp, f) if wide != want else t
+            for t, wide, want in zip(got, outs(n, k, fp, T),
+                                     outs(n, k, f, T)))
+        return got[0] if len(got) == 1 else got
     dev, n, k, f, T = _check(kernel.symbol, tensors)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     (grid, _, _, _, image_n, tiles_n), = launch_plan(

@@ -38,7 +38,11 @@ in a scratch the wrapper allocates (:func:`image_floats`); each block owns
 a span of 256 slots (:func:`launch_plan`).  Row 6 runs its product on the
 tensor cores in 3xTF32 too, the slots as the reduction: a block owns a 64
 × 128 output tile and a chunk of slots (:func:`project_chunks`), and a
-second launch sums the chunks' partials in order.
+second launch sums the chunks' partials in order.  The kernels read
+float4 rows: for a channel count C that is not a multiple of 4 the
+wrappers pad the series and the cotangent with zero channels to the next
+multiple and slice the outputs (exact: the channels are independent, and
+a zero channel adds nothing to kernel 7's sum).
 """
 
 import ctypes
@@ -47,7 +51,8 @@ import torch
 
 from torchmdnet_tpu_torch.ops.cheb import cheb_deriv_coeffs, cheb_theta, cos_basis
 from torchmdnet_tpu_torch.ops.kernels import (
-    F32, I32, I64, P, CudaSource, Kernel, check_cuda_args, ptr)
+    F32, I32, I64, P, CudaSource, Kernel, check_cuda_args, lane_width,
+    pad_runs, ptr, unpad_lanes)
 from torchmdnet_tpu_torch.ops.tc_tile import REGION, SMEM_LIMIT, image_floats
 
 SOURCE = CudaSource("cheb_filter.cu")
@@ -151,11 +156,16 @@ def _check(name, tensors, t, c, smem):
                              f"expected {want[key]}")
         if ten.data_ptr() % 16:
             raise ValueError(f"{name}: {key} is not 16-byte aligned")
-    if c % 4 or t < 1 or smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: channels {c} must be a multiple of 4, "
-                         f"series terms {t} at least 1, and {smem} bytes of "
-                         f"shared memory at most {SMEM_LIMIT}")
+    if c < 1 or t < 1 or smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: channels {c} and series terms {t} must be "
+                         f"at least 1, and {smem} bytes of shared memory at "
+                         f"most {SMEM_LIMIT}")
     return dev
+
+
+# the C-runs of each operand, ((dim, runs), …): a C that is not a multiple
+# of 4 is padded with zero channels (see the module docstring)
+RUNS = {"coeffs": ((-1, 1),), "ct": ((-1, 1),)}
 
 
 def filter_tc(coeffs, d, fmask, ct, lo: float, hi: float):
@@ -168,6 +178,10 @@ def filter_tc(coeffs, d, fmask, ct, lo: float, hi: float):
         tensors["ct"] = ct
     dev = _check("cheb_filter_dot" if dot else "cheb_filter", tensors, t, c,
                  tc_smem(dot))
+    if c % 4:
+        p = pad_runs(tensors, RUNS, lane_width(c))
+        out = filter_tc(p["coeffs"], d, fmask, p.get("ct"), lo, hi)
+        return out if dot else unpad_lanes(out, -1, 1, c)
     out = torch.empty(tuple(d.shape) + (() if dot else (c,)),
                       dtype=torch.float32, device=dev)
     image = torch.empty(image_floats(t, c), dtype=torch.float32, device=dev)
@@ -227,8 +241,11 @@ def project_plan(e: int, t: int, c: int, sms: int = 132) -> dict:
 def cheb_project_cuda(d, fmask, ct, T: int, lo: float, hi: float):
     """Row 6 on CUDA tensors: returns ``[T, C]``."""
     c = ct.shape[-1]
-    dev = _check("cheb_project", dict(d=d, fmask=fmask, ct=ct), T, c,
-                 project_smem())
+    tensors = dict(d=d, fmask=fmask, ct=ct)
+    dev = _check("cheb_project", tensors, T, c, project_smem())
+    if c % 4:
+        return unpad_lanes(cheb_project_cuda(**pad_runs(
+            tensors, RUNS, lane_width(c)), T=T, lo=lo, hi=hi), -1, 1, c)
     plan = project_plan(d.numel(), T, c, torch.cuda.get_device_properties(
         dev).multi_processor_count)
     partial = torch.empty(max(plan["partial_floats"], 1), dtype=torch.float32,

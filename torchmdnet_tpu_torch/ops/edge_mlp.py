@@ -28,8 +28,14 @@ from a first pass's live count of each 256-slot chunk), in whole tiles.
 Where the tiles do not fit a block (kernel 3 above F = 256, kernel 4 also
 where its x tile would pass the block's shared memory, :func:`chain_wide`)
 they go to a second device-memory scratch, one region for each resident
-block.  Every width that is a positive multiple of 4 launches
-(:func:`pre_plan_error`, :func:`fused_plan_error`).
+block.  Every width launches (:func:`pre_plan_error`,
+:func:`fused_plan_error`): the kernels read float4 rows, so for an F or R
+that is not a multiple of 4 the wrappers pad the operands with zero lanes
+to the next multiple (:func:`padded`: pre1's or x's columns, W1's rows
+and columns, each F-run of the other weights and biases) and slice the
+output.  That is exact: silu(0) = 0, so a padded lane's activation is
+zero at every layer, and the zero weight rows keep it out of every real
+lane.
 
 The backward recomputes through the plain chain, as the JAX
 ``_bwd``/``_bwd_pre`` (``:118``, ``:237``) do (the JAX package has no
@@ -54,7 +60,8 @@ import torch
 import torch.nn.functional as F_
 
 from torchmdnet_tpu_torch.ops.kernels import (
-    I32, I64, P, CudaSource, Kernel, check_cuda_args, null_or_ptr, ptr)
+    I32, I64, P, CudaSource, Kernel, check_cuda_args, lane_width,
+    null_or_ptr, pad_runs, ptr, unpad_lanes)
 from torchmdnet_tpu_torch.ops.message_passing import row_chunk
 from torchmdnet_tpu_torch.ops.tc_tile import H100_SMS, REGION, SMEM_LIMIT
 from torchmdnet_tpu_torch.ops.tc_tile import image_floats as tc_image_floats
@@ -136,22 +143,39 @@ def fused_smem(r: int, f: int) -> int:
 
 
 def pre_plan_error(f: int):
-    """Why kernel 3 cannot launch at ``F = f``, or None: F a positive
-    multiple of 4.  Every such width launches (the tiles of F > 256 go to
-    device memory); a scratch larger than the card's free memory fails at
-    its allocation."""
-    if f % 4 or f < 4:
-        return f"F = {f} must be a positive multiple of 4"
+    """Why kernel 3 cannot launch at ``F = f``, or None: F ≥ 1.  Every
+    such width launches (one not a multiple of 4 padded to one,
+    :func:`padded`; the tiles of F > 256 go to device memory); a scratch
+    larger than the card's free memory fails at its allocation."""
+    if f < 1:
+        return f"F = {f} must be >= 1"
     return None
 
 
 def fused_plan_error(r: int, f: int):
-    """Why kernel 4 cannot launch at ``R = r``, ``F = f``, or None: both
-    positive multiples of 4.  Every such pair launches (its tiles go to
-    device memory where they do not fit a block)."""
-    if r % 4 or f % 4 or r < 4 or f < 4:
-        return f"widths R = {r}, F = {f} must be positive multiples of 4"
+    """Why kernel 4 cannot launch at ``R = r``, ``F = f``, or None: both ≥
+    1.  Every such pair launches (widths padded to multiples of 4,
+    :func:`padded`; the tiles go to device memory where they do not fit
+    a block)."""
+    if r < 1 or f < 1:
+        return f"widths R = {r}, F = {f} must be >= 1"
     return None
+
+
+# the F-runs and R-runs of each operand, ((dim, runs), …): a width that is
+# not a multiple of 4 is padded with zero lanes in each (see the module
+# docstring)
+F_RUNS = {"pre1": ((-1, 1),), "w1": ((1, 1),), "b1": ((0, 1),),
+          "w2": ((0, 1), (1, 2)), "b2": ((0, 2),), "w3": ((0, 2), (1, 3)),
+          "b3": ((0, 3),)}
+R_RUNS = {"x": ((-1, 1),), "w1": ((0, 1),)}
+
+
+def padded(tensors: dict, f: int, r: int = 4) -> list:
+    """``tensors`` (kernel 3's or 4's operands by name) with F and R
+    widened to multiples of 4 (:data:`F_RUNS`, :data:`R_RUNS`)."""
+    tensors = pad_runs(tensors, R_RUNS, lane_width(r))
+    return list(pad_runs(tensors, F_RUNS, lane_width(f)).values())
 
 
 def chain_ranges(counts, e: int, grid: int) -> list:
@@ -263,6 +287,8 @@ def edge_mlp_cuda(x, cw, w1, b1, w2, b2, w3, b3):
     shapes = dict(x=(n, k, r), cw=(n, k), w1=(r, f), b1=(f,), w2=(f, 2 * f),
                   b2=(2 * f,), w3=(2 * f, 3 * f), b3=(3 * f,))
     dev = _check("edge_mlp", tensors, shapes, fused_plan_error(r, f))
+    if r % 4 or f % 4:
+        return unpad_lanes(edge_mlp_cuda(*padded(tensors, f, r)), -1, 3, f)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     grid, chunks, _, image_n, tiles_n = launch_plan(n * k, f, sms,
                                                     r)["edge_mlp"]
@@ -291,6 +317,8 @@ def edge_mlp_pre_cuda(pre1, cw, w2, b2, w3, b3):
     shapes = dict(pre1=(n, k, f), cw=(n, k), w2=(f, 2 * f), b2=(2 * f,),
                   w3=(2 * f, 3 * f), b3=(3 * f,))
     dev = _check("edge_mlp_pre", tensors, shapes, pre_plan_error(f))
+    if f % 4:
+        return unpad_lanes(edge_mlp_pre_cuda(*padded(tensors, f)), -1, 3, f)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     grid, chunks, _, image_n, tiles_n = launch_plan(n * k, f,
                                                     sms)["edge_mlp_pre"]

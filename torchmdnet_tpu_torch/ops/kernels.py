@@ -145,6 +145,63 @@ def check_cuda_args(name, tensors: dict, device) -> None:
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
+def lane_width(n: int, multiple: int = 4) -> int:
+    """``n`` rounded up to a multiple of ``multiple``: the width the
+    kernels that read float4 rows take, where an op's wrapper pads an
+    operand of another width (:func:`pad_lanes`)."""
+    return -(-n // multiple) * multiple
+
+
+def pad_lanes(t: torch.Tensor, dim: int, blocks: int, to: int):
+    """``t`` with its axis ``dim``, ``blocks`` runs of ``w`` lanes each,
+    widened to ``blocks`` runs of ``to`` lanes: zeros after each run's
+    ``w`` (a contiguous copy; ``t`` itself where ``w == to``)."""
+    dim %= t.dim()
+    w = t.shape[dim] // blocks
+    if w == to:
+        return t
+    v = t.unflatten(dim, (blocks, w))
+    shape = list(v.shape)
+    shape[dim + 1] = to
+    out = t.new_zeros(shape)
+    out.narrow(dim + 1, 0, w).copy_(v)
+    return out.flatten(dim, dim + 1)
+
+
+def pad_runs(tensors: dict, runs: dict, to: int) -> dict:
+    """``tensors`` with the lane runs ``runs[key]`` of each, ``((dim,
+    blocks), …)``, widened to ``to`` lanes by zeros (:func:`pad_lanes`);
+    the keys without runs as they are."""
+    out = {}
+    for key, t in tensors.items():
+        for dim, blocks in runs.get(key, ()):
+            t = pad_lanes(t, dim, blocks, to)
+        out[key] = t
+    return out
+
+
+def unpad_lanes(t: torch.Tensor, dim: int, blocks: int, w: int):
+    """The inverse of :func:`pad_lanes`: the first ``w`` lanes of each of
+    the ``blocks`` runs of axis ``dim``, contiguous."""
+    dim %= t.dim()
+    if t.shape[dim] == blocks * w:
+        return t
+    to = t.shape[dim] // blocks
+    return t.unflatten(dim, (blocks, to)).narrow(dim + 1, 0, w) \
+        .flatten(dim, dim + 1).contiguous()
+
+
+def unpad_runs(tensors: dict, runs: dict, w: int) -> dict:
+    """The inverse of :func:`pad_runs`: each run of ``runs[key]`` cut back
+    to its first ``w`` lanes (:func:`unpad_lanes`); None stays None."""
+    out = {}
+    for key, t in tensors.items():
+        for dim, blocks in runs.get(key, ()) if t is not None else ():
+            t = unpad_lanes(t, dim, blocks, w)
+        out[key] = t
+    return out
+
+
 def ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 

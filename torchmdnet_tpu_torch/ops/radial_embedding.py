@@ -27,8 +27,13 @@ backward above F = 128) each resident block keeps them in its region of a
 scratch the wrapper allocates (:func:`emb_tile_floats`) and the grid is
 one block an SM (the wide form; a kernel takes it where it is given a tile
 scratch).  :func:`launch_plan` holds the grid, shared memory and scratches;
-every rbf width and every F that is a positive multiple of 4 launches
-(:func:`emb_plan_error`).
+every rbf width and every F launches (:func:`emb_plan_error`): the kernels
+read float4 rows, so for an F that is not a multiple of 4 the wrappers pad
+the channel operands (zw1, zw2g, each F-run of kall, ball and g) with zero
+lanes to the next multiple (:data:`RUNS`) and slice the outputs.  That
+is exact: a zero lane of zw1 and zw2g zeroes the pair factor cz there and
+a zero lane of kall and ball the projection dp, so no padded lane reaches
+a real output or cotangent, and the padded lanes' outputs are dropped.
 """
 
 import ctypes
@@ -37,7 +42,7 @@ import torch
 
 from torchmdnet_tpu_torch.ops.kernels import (
     I32, I64, P, CudaSource, Kernel, check_cuda_args, first_order_only,
-    null_or_ptr, ptr)
+    lane_width, null_or_ptr, pad_runs, ptr, unpad_lanes, unpad_runs)
 from torchmdnet_tpu_torch.ops.message_passing import row_chunk
 from torchmdnet_tpu_torch.ops.tc_tile import H100_SMS, SMEM_LIMIT
 
@@ -131,14 +136,14 @@ def launch_plan(n: int, k: int, r: int, f: int, mode: int = 1,
 
 def emb_plan_error(k: int, r: int, f: int):
     """Why kernels 1 and 2 cannot launch at ``K = k`` slots, ``R = r``,
-    ``F = f``, or None: F a positive multiple of 4 (the kernels read
-    float4 rows) and at least one rbf channel.  Every such width and any K
-    launch: the plan's shared memory stays within a block's 232,448 B
-    (:func:`emb_smem`; the tiles of wide F go to device memory), and a
-    scratch larger than the card's free memory fails at its
-    allocation."""
-    if f % 4 or f < 4:
-        return f"channels {f} must be a positive multiple of 4"
+    ``F = f``, or None: at least one channel and one rbf channel.  Every
+    such width and any K launch: an F that is not a multiple of 4 is
+    padded to one (:data:`RUNS`), the plan's shared memory stays within
+    a block's 232,448 B (:func:`emb_smem`; the tiles of wide F go to
+    device memory), and a scratch larger than the card's free memory fails
+    at its allocation."""
+    if f < 1:
+        return f"channels {f} must be >= 1"
     if r < 1:
         return f"rbf width {r} must be >= 1"
     return None
@@ -267,6 +272,14 @@ def _check_cuda(name, tensors, n, k, r, f):
     return dev
 
 
+# the F-runs of each operand and cotangent, ((dim, runs), …): an F that is
+# not a multiple of 4 is padded with zero lanes in each (see the module
+# docstring); kernel 2's cotangents carry their operands' runs
+RUNS = {"zw1": ((-1, 1),), "zw2g": ((-1, 1),), "kall": ((-1, 3),),
+        "ball": ((-1, 3),), "g": ((-1, 9),)}
+_GRADS = ("edge_attr", "C", "vx", "vy", "vz", "zw1", "zw2g", "kall", "ball")
+
+
 def _scratch(dev, n, k, r, f, mode, wide):
     """The plan's grid and its tile and partial scratch on dev."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -288,6 +301,10 @@ def radial_embedding_fwd_cuda(edge_attr, C, vx, vy, vz, zw1, zw2g, emask_f,
     inputs = (edge_attr, C, vx, vy, vz, zw1, zw2g, emask_f, kall, ball)
     dev = _check_cuda("radial_embedding_fwd", dict(zip(_NAMES, inputs)),
                       n, k, r, f)
+    if f % 4:
+        padded = pad_runs(dict(zip(_NAMES, inputs)), RUNS, lane_width(f))
+        return unpad_lanes(radial_embedding_fwd_cuda(*padded.values(),
+                                                     wide=wide), -1, 9, f)
     out = torch.empty((n, 9 * f), dtype=torch.float32, device=dev)
     if n == 0:
         return out
@@ -309,6 +326,12 @@ def radial_embedding_bwd_cuda(inputs, g, want_dz: bool, want_dk: bool,
     f = zw1.shape[-1]
     tensors = dict(zip(_NAMES, inputs), g=g)
     dev = _check_cuda("radial_embedding_bwd", tensors, n, k, r, f)
+    if f % 4:
+        padded = pad_runs(tensors, RUNS, lane_width(f))
+        g = padded.pop("g")
+        grads = radial_embedding_bwd_cuda(tuple(padded.values()), g, want_dz,
+                                          want_dk, wide=wide)
+        return tuple(unpad_runs(dict(zip(_GRADS, grads)), RUNS, f).values())
 
     def new(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)

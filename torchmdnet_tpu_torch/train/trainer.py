@@ -222,7 +222,13 @@ def read_checkpoint(path):
 class Trainer:
     def __init__(self, potential, hparams: dict, datamodule):
         hp = dict(hparams)
-        if int(hp.get("ngpus", 1) or 1) != 1:
+        # -1 (the CLI's default) uses every device there is, as in JAX
+        # (trainer.py:212-216)
+        ngpus = int(hp.get("ngpus", 1) or 1)
+        if ngpus == -1:
+            ngpus = (torch.cuda.device_count()
+                     if potential.device.type == "cuda" else 1)
+        if ngpus != 1:
             _not_ported("ngpus != 1 (data parallelism)",
                         "Queue 1 item 19, 'Multi-GPU'")
         self.potential = potential
@@ -263,6 +269,20 @@ class Trainer:
             ema_alpha_neg_dy=hp.get("ema_alpha_neg_dy", 1.0),
             train_loss=self.train_loss,
             gradient_clipping=hp.get("gradient_clipping", 0.0) or 0.0)
+
+    def restore(self, saved: dict):
+        """Continue from a checkpoint's ``.native`` sidecar (what
+        :meth:`_save_checkpoint` writes): the optimizer state, the step,
+        the base LR and the loss EMAs."""
+        if self.state is None:
+            self._init_state()
+        st = self.state
+        st.optimizer.load_state_dict(saved["optimizer"])
+        st.step = int(saved["step"])
+        st.base_lr = float(saved["base_lr"])
+        dev = st.ema_y.device
+        st.ema_y = torch.tensor(float(saved["ema_y"]), device=dev)
+        st.ema_neg_dy = torch.tensor(float(saved["ema_neg_dy"]), device=dev)
 
     def _to_device_batch(self, batch):
         dev = self.device
