@@ -123,6 +123,19 @@ its restart from a checkpoint; ms a step and mol/s fed by the
 memory-mapped loader and by an in-memory dataset of the same frames; and
 kernels 1-4 at F = 30, R = 50 (widths they run padded to multiples of 4)
 against their plain versions, extra forms on the ``kernels`` line.
+Before it, ``adapters``: the TorchMD ``External`` calculator on 16
+replicas of one seeded AceFF molecule (phase ``serve``'s seed-0
+checkpoint), eager and captured into a CUDA graph (the graph against
+eager to 1e-5, the card against the CPU to 1e-4, ms a call both ways,
+the kernels' launches a capture), ``optimize`` on the dhfr system
+(TensorNet exact, kernels 1, 2 and 4) rebuilding its lists every call
+and every 25 calls at a 1 Å skin (each graphed; against a direct
+``Potential.apply`` to 1e-5, ms a call), and the AceFF potential
+exported with ``torch.export`` at 16 molecules and loaded back (against
+the direct call to 1e-5, the kernels it launches, ms a call); then
+``data_parallel``: a world of 1 over NCCL steps AceFF through
+``make_data_parallel_train_step`` to the single-device step's weights
+(1e-6), and ``Trainer`` with ``ngpus=2`` trains on this one card.
 
 Before the kernels phase, ``tc_attributes`` gives the tensor-core kernels
 (rows 1, 2, 3, 5, 7, 10, 11 and kernels A-D) as compiled: registers, spill bytes,
@@ -543,7 +556,7 @@ def phase_device():
           # the data phase reads npz files and writes its config without
           # either (find_spec imports nothing)
           "find_spec": {m: importlib.util.find_spec(m) is not None
-                        for m in ("yaml", "h5py")}})
+                        for m in ("yaml", "h5py", "ase")}})
     return smi, name, peak
 
 
@@ -4052,6 +4065,257 @@ def phase_train_aceff():
           f"module {row['served_vs_trained']}")
 
 
+# ---------------------------------------------------------------- adapters
+# External over replicas of one molecule, optimize on dhfr, the exported
+# AceFF program
+ADAPTER_REPLICAS = 16
+ADAPTER_WARMUP = 3  # External's cuda_graph_warmup_steps
+GRAPH_TOL = 1e-5  # graph against eager, exported against direct
+OPT_CALLS = 50
+OPT_KERNELS = ("radial_embedding_fwd", "radial_embedding_bwd", "edge_mlp")
+
+
+def adapter_external(ckpt, row, checks):
+    """``External`` on ``ADAPTER_REPLICAS`` jittered replicas of one seeded
+    AceFF molecule: eager, with ``use_cuda_graph=True`` and on the CPU;
+    the graph's launches a capture, ms a call both ways."""
+    from torchmdnet_tpu_torch.md.calculators import External
+
+    rng = np.random.RandomState(91)
+    mol = serve_molecule(rng, 48)
+    z = spice_z(rng, len(mol))
+    emb = np.tile(z, (ADAPTER_REPLICAS, 1))
+    pos = (mol[None] + rng.uniform(-0.05, 0.05, (ADAPTER_REPLICAS,
+                                                 len(mol), 3))
+           ).astype(np.float32)
+    pos_t = torch.as_tensor(pos, device="cuda")
+    eager = External(ckpt, emb, device="cuda", **SERVE_KWARGS)
+    graphed = External(ckpt, emb, device="cuda", use_cuda_graph=True,
+                       cuda_graph_warmup_steps=ADAPTER_WARMUP,
+                       **SERVE_KWARGS)
+    cpu = External(ckpt, emb, device="cpu", **SERVE_KWARGS)
+    (e, f), eager_counts = counted_run(lambda: eager.calculate(pos_t))
+    # the first graphed call: the warm-up calls and the capture
+    (e_g, f_g), first = counted_run(lambda: graphed.calculate(pos_t))
+    (e_g, f_g), replayed = counted_run(lambda: graphed.calculate(pos_t))
+    e_c, f_c = cpu.calculate(pos)
+    per_capture = {k: first[k] // (ADAPTER_WARMUP + 1) for k in SERVE_KERNELS}
+    r = {"replicas": ADAPTER_REPLICAS, "atoms": int(emb.size),
+         "graph_vs_eager": [rel_err(e_g, e)[1], rel_err(f_g, f)[1]],
+         "card_vs_cpu": [rel_err(e.cpu(), e_c)[1], rel_err(f.cpu(), f_c)[1]],
+         "eager_launches": {k: eager_counts[k] for k in SERVE_KERNELS},
+         # a replay issues the captured launches again without Python: the
+         # path's launches are these per capture times the replays
+         "graph_launches_per_capture": per_capture,
+         "launches_counted_in_a_replay": {k: replayed[k]
+                                          for k in SERVE_KERNELS},
+         "eager_ms": time_ms(lambda: eager.calculate(pos_t), reps=10),
+         "graph_ms": time_ms(lambda: graphed.calculate(pos_t), reps=10)}
+    r["graph_replays"] = graphed._graphs[False].replays
+    r["eager_over_graph"] = r["eager_ms"] / r["graph_ms"]
+    row["external"] = r
+    checks += [
+        (max(r["graph_vs_eager"]) <= GRAPH_TOL,
+         f"adapters: graph vs eager {r['graph_vs_eager']}"),
+        (max(r["card_vs_cpu"]) <= TOL,
+         f"adapters: External card vs CPU {r['card_vs_cpu']}"),
+        (all(per_capture[k] > 0 and per_capture[k] == eager_counts[k]
+             for k in SERVE_KERNELS)
+         and not any(replayed[k] for k in SERVE_KERNELS),
+         f"adapters: graph launches {r['graph_launches_per_capture']} a "
+         f"capture, eager {r['eager_launches']}, a replay "
+         f"{r['launches_counted_in_a_replay']}")]
+    return per_capture
+
+
+def adapter_optimize(row, checks):
+    """``optimize`` on the dhfr system (TensorNet 2 x 128 exact: kernels
+    1, 2 and 4): ``rebuild_every=1`` and ``25`` (skin 1 Å, K = 128 at
+    5.5 Å) over ``OPT_CALLS`` seeded positions within 0.1 Å of the start
+    (ms a call, timed after the first), then five of them again against
+    a direct ``Potential.apply`` (K = 64 at 4.5 Å); the direct call's
+    ms."""
+    from torchmdnet_tpu_torch.models.model import create_model
+    from torchmdnet_tpu_torch.optimize import optimize
+    from torchmdnet_tpu_torch.utils.graphs import WARMUP_STEPS
+
+    (z, pos, _, box, _), seg = dhfr_system()
+    pot = create_model(dhfr_args(**DHFR_EXACT), device="cuda", seed=0)
+    dev = torch.device("cuda")
+    zt, st, bt = (torch.as_tensor(a, device=dev) for a in (z, seg, box))
+    rng = np.random.RandomState(93)
+    moves = [torch.as_tensor(pos + rng.uniform(-0.1, 0.1, pos.shape)
+                             .astype(np.float32), device=dev)
+             for _ in range(OPT_CALLS)]
+    out = {}
+    per_capture = {}
+    for every in (1, 25):
+        kw = {} if every == 1 else dict(rebuild_every=25, skin=1.0,
+                                        k_max=DHFR_MD_K)
+        step = optimize(pot, zt, st, num_mols=1, box=bt, **kw)
+        # the first call: the graph's warm-up calls and its capture
+        _, first = counted_run(lambda: step(moves[0]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in moves[1:]:
+            step(p)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (OPT_CALLS - 1)
+        errs = []
+        for p in moves[::10]:
+            y, f = step(p)
+            y_d, f_d = pot.apply(zt, p, st, num_mols=1, box=bt)
+            errs.append(max(rel_err(y, y_d)[1], rel_err(f, f_d)[1]))
+        per_capture[every] = {k: first[k] // (WARMUP_STEPS + 1)
+                              for k in OPT_KERNELS}
+        out[f"rebuild_every_{every}"] = {
+            "ms_per_call": ms,
+            "max_rel_err_vs_direct": max(errs), "overflow": step.overflow(),
+            "launches_first_call": {k: first[k] for k in OPT_KERNELS},
+            "graph_launches_per_capture": per_capture[every],
+            "graph_replays": step.runner.graph.replays}
+        checks += [(max(errs) <= GRAPH_TOL and not step.overflow(),
+                    f"adapters: optimize rebuild_every={every} vs direct "
+                    f"{max(errs):.3g}, overflow {step.overflow()}"),
+                   (all(first[k] > 0 for k in OPT_KERNELS),
+                    f"adapters: optimize launches {per_capture[every]}")]
+    out["direct_ms"] = wall_ms(lambda: pot.apply(zt, moves[1], st,
+                                                 num_mols=1, box=bt))
+    out["atoms"], out["args"] = int((seg == 0).sum()), "dhfr_args(DHFR_EXACT)"
+    row["optimize"] = out
+    return per_capture
+
+
+def adapter_export(ckpt, row, checks):
+    """``export_potential`` / ``load_exported`` of the AceFF potential at
+    16 seeded molecules: the loaded program against the direct call, the
+    kernels it launches, ms a call, the export's seconds and bytes."""
+    from torchmdnet_tpu_torch.models.model import load_model
+    from torchmdnet_tpu_torch.utils.export import (
+        export_potential, load_exported)
+
+    pot = load_model(ckpt, device="cuda", **SERVE_KWARGS)
+    z, pos, seg, q = serve_inputs(serve_batch(16, seed=95), "cuda")
+    t0 = time.perf_counter()
+    blob = export_potential(pot, z, seg, num_mols=16, q=q)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = load_exported(blob)
+    load_s = time.perf_counter() - t0
+    (y, f), counts = counted_run(lambda: run(pos))
+    y_d, f_d = pot.apply(z, pos, seg, num_mols=16, q=q)
+    ops = sorted({str(n.target) for n in run.program.graph.nodes
+                  if "tmdnet" in str(n.target)})
+    r = {"mols": 16, "atoms": int(z.shape[0]), "export_s": export_s,
+         "load_s": load_s, "bytes": len(blob), "operators": ops,
+         "vs_direct": [rel_err(y, y_d)[1], rel_err(f, f_d)[1]],
+         "launches": {k: counts[k] for k in SERVE_KERNELS},
+         "ms": time_ms(lambda: run(pos), reps=10),
+         "direct_ms": time_ms(serve_run(pot, (z, pos, seg, q)), reps=10)}
+    row["export"] = r
+    checks += [(max(r["vs_direct"]) <= GRAPH_TOL,
+                f"adapters: exported vs direct {r['vs_direct']}"),
+               (all(r["launches"][k] > 0 for k in SERVE_KERNELS),
+                f"adapters: the exported program launched {r['launches']}")]
+    return r["launches"]
+
+
+def phase_adapters():
+    """The inference adapters on the card: ``External`` (eager, CUDA
+    graph, CPU), ``optimize`` on dhfr and the exported AceFF program, on
+    phase ``serve``'s AceFF checkpoint (``save_checkpoint`` of the seed-0
+    model); returns each path's launches (``kernels`` line)."""
+    from torchmdnet_tpu_torch.models.model import create_model
+    from torchmdnet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    out = OUT_DIR / "adapters"
+    out.mkdir(parents=True, exist_ok=True)
+    flags = dict(ACEFF_ARGS, pallas_embedding=True, pallas_edge_mlp=True)
+    ckpt = save_checkpoint(out / "aceff_0.ckpt",
+                           create_model(flags, device="cuda", seed=0),
+                           hparams=ACEFF_ARGS)
+    row, checks = {"phase": "adapters", "tolerance": GRAPH_TOL}, []
+    t0 = time.perf_counter()
+    paths = {"external_graph_per_capture": adapter_external(ckpt, row,
+                                                            checks)}
+    torch.cuda.empty_cache()
+    opt = adapter_optimize(row, checks)
+    paths["optimize_graph_per_capture"] = opt[25]
+    torch.cuda.empty_cache()
+    paths["exported_program"] = adapter_export(ckpt, row, checks)
+    row["phase_s"] = time.perf_counter() - t0
+    emit(row)
+    os.remove(ckpt)
+    for cond, what in checks:
+        check(cond, what)
+    return paths
+
+
+# ---------------------------------------------------------------- data_parallel
+def phase_data_parallel():
+    """Data parallelism on one card: a world of 1 over NCCL steps the
+    AceFF recipe through ``make_data_parallel_train_step``, whose updated
+    weights must equal the single-device step's on the same batch from
+    the same weights (1e-6 of each weight's max); ``Trainer`` with
+    ``ngpus=2`` on this one card trains single-device (JAX's clamp)."""
+    import torch.distributed as dist
+
+    from torchmdnet_tpu_torch.data.datamodule import DataModule
+    from torchmdnet_tpu_torch.models.model import create_model
+    from torchmdnet_tpu_torch.parallel.dp import (
+        free_port, make_data_parallel_train_step)
+    from torchmdnet_tpu_torch.train.step import (
+        create_train_state, make_train_step)
+    from torchmdnet_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda")
+    flags = dict(ACEFF_ARGS, **SERVE_KWARGS)
+    batch = aceff_train_batch(ACEFF_ARGS["batch_size"], seed=97)
+    kw = dict(num_mols=ACEFF_ARGS["batch_size"],
+              neg_dy_weight=ACEFF_ARGS["neg_dy_weight"])
+    weights = {}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        for name, make in (("single", make_train_step),
+                           ("nccl_world_1", make_data_parallel_train_step)):
+            pot = create_model(flags, device=dev, seed=7)
+            state = create_train_state(pot, lr=ACEFF_ARGS["lr"])
+            with deterministic():
+                _, metrics = make(pot, **kw)(state, batch)
+            weights[name] = ({k: v.detach().clone() for k, v in
+                              pot.module.state_dict().items()},
+                             float(metrics["loss"]))
+            del pot, state
+    finally:
+        dist.destroy_process_group()
+    (w1, l1), (w2, l2) = weights["single"], weights["nccl_world_1"]
+    diff = max(rel_err(w2[k], w1[k])[1] for k in w1)
+    log_dir = OUT_DIR / "data_parallel"
+    hp = dict(flags, ngpus=2, num_epochs=1, lr_warmup_steps=0,
+              save_interval=1, train_size=32, val_size=16, test_size=0,
+              log_dir=str(log_dir), train_loss="mse_loss", splits=None,
+              num_workers=0)
+    trainer = Trainer(create_model(hp, device=dev, seed=8), hp,
+                      DataModule(hp, dataset=AceMolecules(48, 99)))
+    trainer.dm.setup("fit")
+    state = trainer.fit()
+    row = {"phase": "data_parallel", "world_1_weights_rel_err": diff,
+           "losses": [l1, l2], "trainer_ngpus_2": {
+               "n_devices": trainer.n_devices, "steps": state.step,
+               "world_size": trainer.world_size,
+               "cards": torch.cuda.device_count()}}
+    emit(row)
+    for name in os.listdir(log_dir):
+        if name.endswith(".ckpt") or name.endswith(".native"):
+            os.remove(log_dir / name)
+    check(diff <= 1e-6 and abs(l1 - l2) <= 1e-6 * abs(l1),
+          f"data_parallel: world 1 vs single {diff:.3g}, losses {l1} {l2}")
+    check(trainer.n_devices == min(2, torch.cuda.device_count())
+          and state.step == 2,
+          f"data_parallel: Trainer(ngpus=2) {row['trainer_ngpus_2']}")
+
+
 # ---------------------------------------------------------------- et
 # examples/ET-SPICE.yaml, ET-QM9.yaml and ET-MD17.yaml, copied (the port
 # imports no yaml; tests/test_torch_recipe_args.py holds each copy, and
@@ -4943,6 +5207,10 @@ def main():
     torch.cuda.empty_cache()
     phase_t_gn()
     torch.cuda.empty_cache()
+    adapter_paths = phase_adapters()
+    torch.cuda.empty_cache()
+    phase_data_parallel()
+    torch.cuda.empty_cache()
     odd_launches, odd_rows = phase_data_cli(smi, peak)
     launches = {k: by_path[path][1][k] for k, (_, _, path) in KERNELS.items()}
     emit({"phase": "launches", "md_steps": {p: s for p, (s, _) in
@@ -4981,7 +5249,12 @@ def main():
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            **({"form": row["form"]} if "form" in row else {})})
+            **({"form": row["form"]} if "form" in row else {}),
+            # the adapters' paths: a CUDA graph's counts are a capture's
+            # (each replay launches them again); the exported program's
+            # are one call's
+            **{path: counts[k] for path, counts in adapter_paths.items()
+               if k in counts}})
     # the odd-width forms: launches of the kernel at F = 30, R = 50 on the
     # path odd_widths (kernel 2's dz and dk forms share one count)
     for name, row in odd_rows.items():

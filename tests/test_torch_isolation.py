@@ -1,8 +1,10 @@
 """The port stands alone: no module of ``torchmdnet_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax, optax, the JAX package or the
-repo-root ``csrc`` build helper, and none imports yaml or h5py but the
-readers of those formats, inside the functions that read them; the entry
-points never fall back to the CPU on their own."""
+repo-root ``csrc`` build helper, and none imports yaml, h5py or ase but
+the readers of those formats and the ASE calculator, inside the
+functions that use them; the entry points never fall back to the CPU on
+their own; and every module of the JAX package has a counterpart of the
+same path in the port, but those listed as not to port."""
 
 import ast
 from pathlib import Path
@@ -11,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import SMALL_ARGS, one_torch_thread  # noqa: F401
+from torch_parity import (  # noqa: F401
+    SMALL_ARGS, TENSORNET_ARGS, one_torch_thread)
 from torchmdnet_tpu_torch.md.integrators import (
     make_adaptive_md_step, make_md_step, run_md)
 from torchmdnet_tpu_torch.models.model import create_model
@@ -24,7 +27,7 @@ ROOT = Path(__file__).resolve().parent.parent
 # yaml and h5py too: the card's machine may have neither; build_ext is the
 # JAX package's packer build (the port builds its own copy)
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torchmdnet_tpu", "yaml",
-             "h5py", "build_ext", "csrc")
+             "h5py", "ase", "build_ext", "csrc")
 # the readers of HDF5 files and of YAML, each of which may import that
 # module inside a function (never at a module's or a class's top level);
 # every other port file, and chip_smoke.py, keeps the whole FORBIDDEN list
@@ -34,7 +37,24 @@ ALLOWED_IN_FUNCTIONS = {
     ("torchmdnet_tpu_torch/datasets/spice.py", "h5py"),
     ("torchmdnet_tpu_torch/datasets/ace.py", "h5py"),
     ("torchmdnet_tpu_torch/utils/io.py", "h5py"),
+    ("torchmdnet_tpu_torch/datasets/comp6.py", "h5py"),
+    ("torchmdnet_tpu_torch/datasets/qm9q.py", "h5py"),
+    ("torchmdnet_tpu_torch/datasets/mdcath.py", "h5py"),
     ("torchmdnet_tpu_torch/utils/config.py", "yaml"),
+    ("torchmdnet_tpu_torch/md/calculators.py", "ase"),
+}
+# the JAX package's modules with no module of the same path in the port:
+# its download helper (the port downloads nothing), the Pallas kernels
+# (ported as csrc/ and the ops that launch them), its JAX tooling
+# (chip_smoke.py times and profiles the port) and its checkpoint
+# converter (the port's utils/checkpoint.py and utils/jax_params.py)
+NOT_TO_PORT = {
+    "datasets/_download.py",
+    "ops/pallas_blocked_mp.py", "ops/pallas_cheb.py",
+    "ops/pallas_coulomb.py", "ops/pallas_embedding.py",
+    "ops/pallas_kernels.py",
+    "utils/compile_cache.py", "utils/profiling.py",
+    "utils/torch_ckpt.py",
 }
 
 
@@ -171,3 +191,64 @@ def test_tf32_is_off_after_create_model():
     create_model(dict(SMALL_ARGS, matmul_precision="high"), device="cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+def test_every_jax_module_has_a_counterpart():
+    """A JAX module left out of the port (and off :data:`NOT_TO_PORT`)
+    fails here; so does a stale entry of the list."""
+    jax_pkg, port = ROOT / "torchmdnet_tpu", ROOT / "torchmdnet_tpu_torch"
+    jax_files = {str(f.relative_to(jax_pkg))
+                 for f in jax_pkg.rglob("*.py")}
+    port_files = {str(f.relative_to(port)) for f in port.rglob("*.py")}
+    assert NOT_TO_PORT <= jax_files
+    assert sorted(jax_files - port_files - NOT_TO_PORT) == []
+    assert not NOT_TO_PORT & port_files
+
+
+def test_adapters_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
+    """``External``, ``TMDNETCalculator`` (under a stand-in ``ase``),
+    ``optimize``, ``export_potential``/``load_exported`` and the
+    data-parallel step: a checkpoint is read onto the card unless the CPU
+    is asked for, a CUDA graph is refused or not taken off the card, and a
+    potential on the CPU serves there."""
+    import sys
+    import types
+
+    from torchmdnet_tpu_torch.md.calculators import (
+        External, TMDNETCalculator)
+    from torchmdnet_tpu_torch.optimize import optimize
+    from torchmdnet_tpu_torch.parallel.dp import (
+        make_data_parallel_train_step)
+    from torchmdnet_tpu_torch.utils.checkpoint import save_checkpoint
+    from torchmdnet_tpu_torch.utils.export import (
+        export_potential, load_exported)
+
+    args = dict(TENSORNET_ARGS, embedding_dimension=8, num_layers=1,
+                num_rbf=8, max_num_neighbors=8)
+    pot = create_model(args, device="cpu")
+    ckpt = save_checkpoint(tmp_path / "m.ckpt", pot, hparams=args)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    z = np.array([1, 6, 8, 1])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        External(ckpt, z)
+    ext = External(ckpt, z, device="cpu")
+    pos = np.random.RandomState(0).uniform(-1.5, 1.5, (4, 3))
+    e, f = ext.calculate(pos)
+    assert e.device.type == f.device.type == "cpu"
+    with pytest.raises(ValueError, match="CUDA"):
+        External(pot, z, use_cuda_graph=True)
+    calc = types.ModuleType("ase.calculators.calculator")
+    calc.Calculator, calc.all_changes = object, []
+    monkeypatch.setitem(sys.modules, "ase.calculators.calculator", calc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TMDNETCalculator(ckpt)
+    assert TMDNETCalculator(ckpt, device="cpu").potential.device.type == \
+        "cpu"
+    for kw in ({}, {"rebuild_every": 2, "skin": 0.5}):
+        step = optimize(pot, z, np.zeros(4), num_mols=1, **kw)
+        assert step(pos)[0].device.type == "cpu"
+        assert not step.runner.graphed  # a CUDA graph on the card only
+    run = load_exported(export_potential(pot, z, np.zeros(4), num_mols=1))
+    assert run(torch.as_tensor(pos, dtype=torch.float32))[1].device.type \
+        == "cpu"
+    assert callable(make_data_parallel_train_step(pot, num_mols=1))

@@ -3,7 +3,7 @@
 (written without ``yaml``) loads to the dict JAX writes, ``to_argv``
 carries a recipe without a YAML file, ``DataModule.setup`` builds the
 named datasets with JAX's ``standardize`` mean/std (and under Atomref),
-and the 13 parsers not ported yet raise.  Then ``main`` trains TensorNet 1
+and the 13 parsers ported last raise naming a missing raw file.  Then ``main`` trains TensorNet 1
 x 16 on a 40-frame revised-MD17 file on the CPU, writes its checkpoints,
 splits, metrics and ``input.yaml``, and a restart from a checkpoint
 continues the step and the optimizer.  No JAX model is compiled."""
@@ -188,13 +188,33 @@ def test_datamodule_builds_by_name(tmp_path, case):
         np.testing.assert_array_equal(port.atomref, jax.atomref)
 
 
-@pytest.mark.parametrize("name", NOT_PORTED)
+# the names whose parsers were the last to be ported, and the raw file
+# each names when it is missing
+LAST_PARSERS = {
+    "ANIMD": "ani_md_bench.h5", "COMP6v1": "ani_md_bench.h5",
+    "COMP6v2": "COMP6v2_wB97X-631Gd.h5", "DrugBank": "drugbank_testset.h5",
+    "GDB07to09": "gdb11_07_test500.h5", "GDB10to13": "gdb11_10_test500.h5",
+    "Tripeptides": "tripeptide_full.h5", "S66X8": "s66x8_wb97x6-31gd.h5",
+    "MD22": "md22_DHA.npz", "MDCATH": "mdcath_source.h5",
+    "QM9q": "qm9q_files", "WaterBox": "dataset_1593.xyz",
+    "GenentechTorsions": "CCSD_T_CBS_baseline.sdf"}
+LAST_PARSER_ARGS = {"MD22": {"molecules": "DHA"},
+                    "QM9q": {"paths": "qm9q_files"}}
+
+
+@pytest.mark.parametrize("name", LAST_PARSERS)
 def test_unported_dataset_raises(tmp_path, name):
+    """Every name the JAX package registers builds by its name now
+    (``NOT_PORTED`` is empty); without its raw files it raises naming the
+    file to place, since nothing is downloaded."""
     from torchmdnet_tpu_torch.data.datamodule import DataModule
 
-    assert len(NOT_PORTED) == 13
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 18\(b\)"):
-        DataModule(hparams(tmp_path, name)).setup("fit")
+    assert NOT_PORTED == ()
+    with pytest.raises(RuntimeError, match="downloads nothing") as err:
+        DataModule(hparams(tmp_path, name,
+                           dataset_arg=LAST_PARSER_ARGS.get(name))
+                   ).setup("fit")
+    assert LAST_PARSERS[name] in str(err.value)
 
 
 CLI_ARGS = dict(

@@ -110,16 +110,16 @@ def test_datamodule_matches_jax(tmp_path):
 
 
 def test_named_dataset_raises(tmp_path):
-    """Named datasets are built since the data slice: one whose raw files
-    are absent raises naming them (nothing is downloaded), and one whose
-    parser is not ported yet raises naming its ROADMAP item."""
+    """Named datasets are built by name: one whose raw files are absent
+    raises naming them (nothing is downloaded), QM9 and MD22 alike."""
     with pytest.raises(RuntimeError, match="gdb9.tar.gz"):
         DataModule(_hparams(tmp_path, dataset="QM9",
                             dataset_root=str(tmp_path),
                             dataset_arg={"label": "energy_U0"})).setup("fit")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 18"):
+    with pytest.raises(RuntimeError, match="md22_DHA.npz"):
         DataModule(_hparams(tmp_path, dataset="MD22",
-                            dataset_root=str(tmp_path))).setup("fit")
+                            dataset_root=str(tmp_path),
+                            dataset_arg={"molecules": "DHA"})).setup("fit")
 
 
 @pytest.mark.parametrize("name", ["mse_loss", "l1_loss", "huber_loss"])
@@ -260,8 +260,10 @@ def test_prefetch_matches_sync(tmp_path):
 
 @pytest.mark.parametrize("option", [dict(ngpus=2), dict(wandb_use=True)])
 def test_unported_options_raise(option, tmp_path, monkeypatch):
-    """Data parallelism raises naming its ROADMAP item.  ``wandb_use``,
-    which raised so until the loggers were ported, works as the JAX
+    """``ngpus=2``, which raised until data parallelism was ported, clamps
+    to the one device of the CPU as JAX's trainer does and trains there
+    (``test_torch_data_parallel.py`` has the rest).  ``wandb_use``,
+    which raised until the loggers were ported, works as the JAX
     trainer's (``trainer.py:160-178``), whether or not ``wandb`` is
     installed: without the package (an import that fails) a warning and
     no logger; with it (a stand-in module recording its calls) ``init``
@@ -270,8 +272,10 @@ def test_unported_options_raise(option, tmp_path, monkeypatch):
     hp = _hparams(tmp_path, num_epochs=1, tabulated_edge_mlp=0, **option)
     pot = create_model(hp, device="cpu", seed=0)
     if "ngpus" in option:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(pot, hp, DataModule(hp, dataset=DummyDataset(20)))
+        tr = Trainer(pot, hp, DataModule(hp, dataset=DummyDataset(20)))
+        assert tr.n_devices == 1
+        tr.dm.setup("fit")
+        assert tr.fit().step == 3 and tr.dropped_batches == 0
         return
     monkeypatch.setitem(sys.modules, "wandb", None)
     with pytest.warns(UserWarning, match="wandb is not installed"):

@@ -54,7 +54,10 @@ class Subset(Dataset):
         return self.dataset[int(self.indices[idx])]
 
     def __getattr__(self, name):
-        # metadata (atomref, scales) comes from the base dataset
+        # metadata (atomref, scales) comes from the base dataset; an
+        # unpickled copy has no base yet when it is asked for its state
+        if name == "dataset" or name.startswith("__"):
+            raise AttributeError(name)
         return getattr(self.dataset, name)
 
 
@@ -214,6 +217,17 @@ class MemmappedDataset(Dataset):
         if idx[0] != 0 or idx[-1] != num_atoms:
             raise RuntimeError(f"{self.name}: corrupt index file "
                                f"{fnames['idx']}")
+
+    def __getstate__(self):
+        # a pickled copy (a data-parallel rank's) reopens the files rather
+        # than carrying their contents
+        state = dict(self.__dict__)
+        state.pop("mmaps", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._open()
 
     def __len__(self):
         return len(self.mmaps["idx"]) - 1

@@ -173,10 +173,6 @@ class Potential:
         return y.detach(), -dy
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 REPRESENTATIONS = ("tensornet", "tensornet2", "equivariant-transformer",
                    "transformer", "graph-network")
 

@@ -367,12 +367,48 @@ def _recompute_vjp(ref, inputs, needs, g, width):
     return tuple(grads)
 
 
+# kernels 4 and 3 as operators of the dispatcher (``tmdnet::``), which is
+# how the autograd functions below launch them on CUDA tensors: a traced
+# program (``utils/export.py``) records the operator and its shape
+# function, and runs the kernel when it is run on the card.  On CPU
+# tensors each is its plain chain (``torch.library.opcheck`` holds them
+# without a card).
+@torch.library.custom_op("tmdnet::edge_mlp", mutates_args=())
+def edge_mlp_op(x: torch.Tensor, cw: torch.Tensor, w1: torch.Tensor,
+                b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                w3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
+    """Kernel 4 on CUDA tensors, the plain chain on CPU ones."""
+    if x.is_cuda:
+        return edge_mlp_cuda(x, cw, w1, b1, w2, b2, w3, b3)
+    return edge_mlp_ref(x, cw, w1, b1, w2, b2, w3, b3)
+
+
+@edge_mlp_op.register_fake
+def _(x, cw, w1, b1, w2, b2, w3, b3):
+    return x.new_empty((*cw.shape, 3 * w1.shape[-1]))
+
+
+@torch.library.custom_op("tmdnet::edge_mlp_pre", mutates_args=())
+def edge_mlp_pre_op(pre1: torch.Tensor, cw: torch.Tensor, w2: torch.Tensor,
+                    b2: torch.Tensor, w3: torch.Tensor,
+                    b3: torch.Tensor) -> torch.Tensor:
+    """Kernel 3 on CUDA tensors, the plain chain on CPU ones."""
+    if pre1.is_cuda:
+        return edge_mlp_pre_cuda(pre1, cw, w2, b2, w3, b3)
+    return edge_mlp_pre_ref(pre1, cw, w2, b2, w3, b3)
+
+
+@edge_mlp_pre_op.register_fake
+def _(pre1, cw, w2, b2, w3, b3):
+    return pre1.new_empty((*cw.shape, 3 * pre1.shape[-1]))
+
+
 class _EdgeMlp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *inputs):
         ctx.save_for_backward(*inputs)
         if inputs[0].is_cuda:
-            return edge_mlp_cuda(*inputs)
+            return edge_mlp_op(*inputs)
         return edge_mlp_ref(*inputs)
 
     @staticmethod
@@ -396,7 +432,7 @@ class _EdgeMlpPre(torch.autograd.Function):
     def forward(ctx, pre1, cw, w2, b2, w3, b3):
         ctx.save_for_backward(pre1, cw, w2, b2, w3, b3)
         if pre1.is_cuda:
-            return edge_mlp_pre_cuda(pre1, cw, w2, b2, w3, b3)
+            return edge_mlp_pre_op(pre1, cw, w2, b2, w3, b3)
         return edge_mlp_pre_ref(pre1, cw, w2, b2, w3, b3)
 
     @staticmethod

@@ -211,9 +211,9 @@ def null_or_ptr(t):
 
 
 SECOND_ORDER_MISSING = (
-    "a second derivative through {} (force training) is not ported yet "
-    "(ROADMAP Queue 1 item 17, 'Training, the rest': the blocked ops' "
-    "second order)")
+    "a second derivative through {} (force training) is not implemented: "
+    "the JAX package has none either (ROADMAP item 17, after the "
+    "benchmark: the blocked ops' second order)")
 
 
 def first_order_only(what: str, message: str = SECOND_ORDER_MISSING):

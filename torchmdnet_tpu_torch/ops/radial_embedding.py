@@ -400,6 +400,66 @@ def radial_embedding_double_vjp(inputs, g, first, cts, needs):
     return tuple(grads)
 
 
+# kernels 1 and 2 as operators of the dispatcher (``tmdnet::``), which is
+# how the autograd functions below launch them on CUDA tensors: a traced
+# program (``utils/export.py``) records the operator and its shape
+# function, and runs the kernel when it is run on the card.  Kernel 1's
+# operator takes CPU tensors too (the plain chain), so that
+# ``torch.library.opcheck`` can hold it without a card; kernel 2's plain
+# backward needs autograd, which an operator's body has not, so it is a
+# CUDA operator only.
+@torch.library.custom_op("tmdnet::radial_embedding_fwd", mutates_args=())
+def radial_embedding_fwd_op(edge_attr: torch.Tensor, C: torch.Tensor,
+                            vx: torch.Tensor, vy: torch.Tensor,
+                            vz: torch.Tensor, zw1: torch.Tensor,
+                            zw2g: torch.Tensor, emask_f: torch.Tensor,
+                            kall: torch.Tensor,
+                            ball: torch.Tensor) -> torch.Tensor:
+    """Kernel 1 on CUDA tensors, the plain chain on CPU ones."""
+    inputs = (edge_attr, C, vx, vy, vz, zw1, zw2g, emask_f, kall, ball)
+    if edge_attr.is_cuda:
+        return radial_embedding_fwd_cuda(*inputs)
+    return radial_embedding_ref(*inputs)
+
+
+@radial_embedding_fwd_op.register_fake
+def _(edge_attr, C, vx, vy, vz, zw1, zw2g, emask_f, kall, ball):
+    return edge_attr.new_empty((edge_attr.shape[0], 9 * zw1.shape[-1]))
+
+
+@torch.library.custom_op("tmdnet::radial_embedding_bwd", mutates_args=(),
+                         device_types="cuda")
+def radial_embedding_bwd_op(
+        edge_attr: torch.Tensor, C: torch.Tensor, vx: torch.Tensor,
+        vy: torch.Tensor, vz: torch.Tensor, zw1: torch.Tensor,
+        zw2g: torch.Tensor, emask_f: torch.Tensor, kall: torch.Tensor,
+        ball: torch.Tensor, g: torch.Tensor, want_dz: bool,
+        want_dk: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 2: :func:`radial_embedding_bwd_cuda`'s nine cotangents,
+    an empty tensor for each one not asked for."""
+    inputs = (edge_attr, C, vx, vy, vz, zw1, zw2g, emask_f, kall, ball)
+    out = radial_embedding_bwd_cuda(inputs, g, want_dz, want_dk)
+    return tuple(g.new_empty(0) if t is None else t for t in out)
+
+
+@radial_embedding_bwd_op.register_fake
+def _(edge_attr, C, vx, vy, vz, zw1, zw2g, emask_f, kall, ball, g, want_dz,
+      want_dk):
+    n, k, r = edge_attr.shape
+    f = zw1.shape[-1]
+
+    def new(*shape):
+        return edge_attr.new_empty(shape)
+
+    return (new(n, k, r), new(n, k), new(n, k), new(n, k), new(n, k),
+            new(n, f) if want_dz else new(0),
+            new(n, k, f) if want_dz else new(0),
+            new(r, 3 * f) if want_dk else new(0),
+            new(3 * f) if want_dk else new(0))
+
+
 class _RadialEmbeddingBwd(torch.autograd.Function):
     """The embedding's first-order cotangents ``first`` (input indices)
     of ``g`` as an op: kernel 2 on CUDA tensors (its dz form where zw1 or
@@ -413,9 +473,11 @@ class _RadialEmbeddingBwd(torch.autograd.Function):
         # an output no loss reads gets None, not zeros to differentiate
         ctx.set_materialize_grads(False)
         if g.is_cuda:
-            out = radial_embedding_bwd_cuda(
-                inputs, g, want_dz=5 in first or 6 in first,
-                want_dk=8 in first or 9 in first)
+            want_dz = 5 in first or 6 in first
+            want_dk = 8 in first or 9 in first
+            keep = (True,) * 5 + (want_dz,) * 2 + (want_dk,) * 2
+            out = tuple(t if k else None for t, k in zip(
+                radial_embedding_bwd_op(*inputs, g, want_dz, want_dk), keep))
         else:
             out = radial_embedding_bwd_ref(
                 inputs, g, [i in first for i in range(10)])
@@ -439,7 +501,7 @@ class _RadialEmbedding(torch.autograd.Function):
     def forward(ctx, *inputs):
         ctx.save_for_backward(*inputs)
         if inputs[0].is_cuda:
-            return radial_embedding_fwd_cuda(*inputs)
+            return radial_embedding_fwd_op(*inputs)
         return radial_embedding_ref(*inputs)
 
     @staticmethod

@@ -117,11 +117,15 @@ def make_train_step(potential, *, num_mols: int, y_weight: float = 1.0,
                     neg_dy_weight: float = 1.0, lr_warmup_steps: int = 0,
                     ema_alpha_y: float = 1.0, ema_alpha_neg_dy: float = 1.0,
                     train_loss: str = "mse_loss",
-                    gradient_clipping: float = 0.0):
+                    gradient_clipping: float = 0.0, average=None):
     """``(state, batch) -> (state, metrics)``: one update of
     ``state.module``'s parameters in place (see the module docstring).
     ``metrics`` holds 0-d tensors ``loss``, ``loss_y``, ``loss_neg_dy``
-    and the float ``lr`` the update used."""
+    and the float ``lr`` the update used.  ``average`` (data parallelism,
+    ``parallel/dp.py``) replaces a list of tensors by their means over
+    the replicas in place; it gets the gradients and the step's scalars
+    (the losses, the total and the new EMAs) before the clipping, where
+    JAX ``pmean``s them (``:152-154``)."""
     clip = float(gradient_clipping or 0.0)
 
     def train_step(state: TrainState, batch):
@@ -136,6 +140,11 @@ def make_train_step(potential, *, num_mols: int, y_weight: float = 1.0,
         # a weight the loss does not reach gets a zero gradient, as in JAX
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        if average is not None:
+            aux = [t.detach().clone() for t in (loss_y, loss_neg_dy, total,
+                                                ema_y, ema_neg)]
+            average(grads + aux)
+            loss_y, loss_neg_dy, total, ema_y, ema_neg = aux
         if clip > 0:
             clip_by_global_norm_(grads, clip)
         scale = (min(1.0, (state.step + 1.0) / lr_warmup_steps)

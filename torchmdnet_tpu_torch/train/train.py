@@ -11,7 +11,10 @@ checkpoint's weights.
 ``.native`` sidecar the optimizer state, the step, the base LR and the
 loss EMAs, unless ``--reset-trainer`` (JAX ``:53-80``).  Training runs on
 the CUDA card; ``main(argv, device="cpu")`` runs it on the CPU (there is
-no flag for the device).
+no flag for the device).  ``--ngpus N`` (or -1) trains data-parallel on N
+of this host's cards, one process each (``train/trainer.py``);
+``--num-nodes N`` joins N hosts at ``MASTER_ADDR``:``MASTER_PORT``, this
+one as ``NODE_RANK``.
 """
 
 import os
@@ -26,7 +29,7 @@ def main(argv=None, device=None):
 
     from torchmdnet_tpu_torch.data.datamodule import DataModule
     from torchmdnet_tpu_torch.models.model import (
-        _not_ported, create_model, create_prior_models, load_model)
+        create_model, create_prior_models, load_model)
     from torchmdnet_tpu_torch.train.trainer import Trainer, read_checkpoint
     from torchmdnet_tpu_torch.utils.config import get_args
 
@@ -34,8 +37,12 @@ def main(argv=None, device=None):
     # the open --conf file is no hyperparameter (input.yaml leaves it out)
     hp = {k: v for k, v in vars(args).items() if k != "conf"}
     if int(hp.get("num_nodes", 1) or 1) > 1:
-        _not_ported("num_nodes > 1 (several hosts)",
-                    "Queue 1 item 19, 'Multi-GPU'")
+        # several hosts meet at MASTER_ADDR:MASTER_PORT (JAX :30-35 calls
+        # jax.distributed.initialize() here); the trainer's launch joins
+        # this host's ranks there (parallel/dp.py)
+        from torchmdnet_tpu_torch.parallel.dp import env_init_method
+
+        env_init_method()
     seed = int(hp.get("seed", 1) or 0)
     np.random.seed(seed)
     torch.manual_seed(seed)

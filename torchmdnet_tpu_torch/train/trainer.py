@@ -24,13 +24,26 @@ trainer.py``; reference ``torchmdnet/module.py``, ``scripts/train.py:
   ``trainer.py:242-255``).
 
 Everything runs on the potential's device (CUDA unless it was built with
-``device="cpu"``), batches in the potential's dtype.  Not ported yet:
-data parallelism (``ngpus > 1``, ROADMAP Queue 1 item 19).
+``device="cpu"``), batches in the potential's dtype.  Data parallelism
+(JAX ``trainer.py:212-229``, ``:273-285``, ``:301-330``): ``ngpus`` cards
+(-1: every visible one; otherwise ``min(max(ngpus, 1), available)``, so
+that more than the host has clamps to what it has, one on the CPU),
+each a process with a replica (``parallel/dp.py``).  ``fit`` in a process
+outside a process group launches them, and afterwards loads rank 0's
+final weights and optimizer state; a process already in a group of
+several (the CLI's launch, or a caller's) trains as its rank.  Each rank
+steps on its share of each group of loader batches, the steps average
+their gradients and losses, a last group too small for every rank is
+dropped with a warning (``dropped_batches``), the validation and test
+metrics are rank 0's, and only rank 0 writes logs and checkpoints.
+Fewer train batches than cards: one card, with JAX's warning.
 """
 
+import copy
 import csv
 import os
 import queue
+import tempfile
 import threading
 import time
 import warnings
@@ -39,7 +52,8 @@ from typing import Optional
 
 import torch
 
-from torchmdnet_tpu_torch.models.model import _not_ported, prior_specs
+from torchmdnet_tpu_torch.models.model import Potential, prior_specs
+from torchmdnet_tpu_torch.parallel import dp
 from torchmdnet_tpu_torch.train.step import (
     TrainState, batch_losses, create_train_state, make_train_step)
 from torchmdnet_tpu_torch.utils.checkpoint import (
@@ -86,6 +100,10 @@ class CSVLogger:
         self._fieldnames = None
 
     def log(self, metrics: dict):
+        if self._fieldnames is None and os.path.exists(self.path):
+            # a file the ranks of a data-parallel fit wrote: append
+            with open(self.path, newline="") as fh:
+                self._fieldnames = next(csv.reader(fh), None)
         write_header = self._fieldnames is None
         if write_header:
             self._fieldnames = list(metrics.keys())
@@ -219,25 +237,52 @@ def read_checkpoint(path):
     return sd, hp
 
 
+def _fit_rank(rank, world_size, model, hp, datamodule, device_type,
+              final_path, final_rank):
+    """One rank of a data-parallel ``fit`` launched by :class:`Trainer`:
+    the replica ``model`` (a :class:`Potential`'s fields, on the CPU)
+    moved to this rank's device and trained; rank ``final_rank`` (this
+    host's first) saves the final weights and optimizer state to
+    ``final_path``."""
+    module, derivative, hparams, dtype = model
+    dev = torch.device(device_type, torch.cuda.current_device()) \
+        if device_type == "cuda" else torch.device("cpu")
+    pot = Potential(module.to(dev), dev, derivative=derivative,
+                    hparams=hparams, dtype=dtype)
+    trainer = Trainer(pot, hp, datamodule)
+    trainer.fit()
+    if rank == final_rank:
+        st = trainer.state
+        torch.save({"state_dict": pot.module.state_dict(),
+                    "optimizer": st.optimizer.state_dict(),
+                    "step": st.step, "base_lr": st.base_lr,
+                    "ema_y": float(st.ema_y),
+                    "ema_neg_dy": float(st.ema_neg_dy),
+                    "dropped_batches": trainer.dropped_batches}, final_path)
+
+
 class Trainer:
     def __init__(self, potential, hparams: dict, datamodule):
         hp = dict(hparams)
-        # -1 (the CLI's default) uses every device there is, as in JAX
-        # (trainer.py:212-216)
-        ngpus = int(hp.get("ngpus", 1) or 1)
-        if ngpus == -1:
-            ngpus = (torch.cuda.device_count()
-                     if potential.device.type == "cuda" else 1)
-        if ngpus != 1:
-            _not_ported("ngpus != 1 (data parallelism)",
-                        "Queue 1 item 19, 'Multi-GPU'")
         self.potential = potential
         self.device = potential.device
         self.hp = hp
         self.dm = datamodule
+        # data parallelism (JAX trainer.py:212-216): -1 = every card there
+        # is, otherwise as many as asked and the host has; a process of a
+        # group of several trains as its rank
+        self.rank, self.world_size = dp.world()
+        ngpus = int(hp.get("ngpus", 1) or 1)
+        avail = (torch.cuda.device_count() if self.device.type == "cuda"
+                 else 1)
+        self.n_devices = (self.world_size if self.world_size > 1
+                          else avail if ngpus == -1
+                          else min(max(ngpus, 1), avail))
+        self.dropped_batches = 0  # remainder batches dropped this run
         self.log_dir = hp.get("log_dir", "logs")
-        self.logger = CSVLogger(self.log_dir)
-        self.extra_loggers = extra_loggers(hp, self.log_dir)
+        self.logger = CSVLogger(self.log_dir) if self.rank == 0 else None
+        self.extra_loggers = (extra_loggers(hp, self.log_dir)
+                              if self.rank == 0 else [])
         self.plateau = ReduceLROnPlateau(factor=hp.get("lr_factor", 0.8),
                                          patience=hp.get("lr_patience", 10),
                                          min_lr=hp.get("lr_min", 1e-6))
@@ -260,7 +305,9 @@ class Trainer:
         self.state = create_train_state(
             self.potential, lr=hp["lr"],
             weight_decay=hp.get("weight_decay", 0.0))
-        self._train_step = make_train_step(
+        make_step = (dp.make_data_parallel_train_step if self.world_size > 1
+                     else make_train_step)
+        self._train_step = make_step(
             self.potential, num_mols=int(hp["batch_size"]),
             y_weight=hp.get("y_weight", 1.0),
             neg_dy_weight=hp.get("neg_dy_weight", 1.0),
@@ -320,11 +367,67 @@ class Trainer:
     def _mean(values):
         return float(torch.stack(values).mean())
 
+    # -- data parallelism --------------------------------------------------
+    def _single_device_fallback(self, train_loader):
+        """One device where a step group would lack batches (JAX
+        ``trainer.py:219-229``): True when the fit must run alone."""
+        n_batches = len(train_loader)
+        if self.n_devices > 1 and n_batches < self.n_devices:
+            warnings.warn(f"only {n_batches} train batches per epoch < "
+                          f"{self.n_devices} devices; running "
+                          "single-device")
+            self.n_devices = 1
+        return self.n_devices == 1
+
+    def _fit_launched(self):
+        """``fit`` on ``n_devices`` new processes (``parallel/dp.py::
+        launch``), then rank 0's final weights and optimizer state here."""
+        module = copy.deepcopy(self.potential.module).cpu()
+        model = (module, self.potential.derivative, self.potential.hparams,
+                 self.potential.dtype)
+        num_nodes = int(self.hp.get("num_nodes", 1) or 1)
+        first = (int(os.environ.get("NODE_RANK", 0)) * self.n_devices
+                 if num_nodes > 1 else 0)
+        with tempfile.TemporaryDirectory() as tmp:
+            final_path = os.path.join(tmp, "final.pt")
+            dp.launch(_fit_rank, self.n_devices, model, self.hp, self.dm,
+                      self.device.type, final_path, first,
+                      device_type=self.device.type, num_nodes=num_nodes)
+            final = torch.load(final_path, map_location=self.device,
+                               weights_only=True)
+        self.potential.module.load_state_dict(final["state_dict"])
+        self.state = None
+        self.restore(final)
+        self.dropped_batches = final["dropped_batches"]
+        return self.state
+
+    def _dropped(self, count):
+        self.dropped_batches += count
+        warnings.warn(
+            f"data-parallel epoch dropped {count} remainder batch(es) "
+            f"(< {self.world_size} device group); {self.dropped_batches} "
+            "dropped so far this run")
+
+    def _train_batches(self, train_loader):
+        """This rank's train batches: its share of each group of
+        ``world_size`` (:func:`parallel.dp.shard_batch`), or all of them
+        on one device or where the group lacks batches."""
+        if self.world_size == 1 or self.n_devices == 1:
+            return iter(train_loader)
+        return dp.shard_batch(train_loader, self.rank, self.world_size,
+                              self._dropped)
+
     # -- loops -------------------------------------------------------------
     def fit(self):
         hp = self.hp
         train_loader = self.dm.train_dataloader()
         val_loader = self.dm.val_dataloader()
+        # in a group that lacks batches every rank steps on all of them
+        # (averaging identical gradients), so the replicas stay in step
+        alone = self._single_device_fallback(train_loader)
+        if self.world_size == 1 and (
+                not alone or int(hp.get("num_nodes", 1) or 1) > 1):
+            return self._fit_launched()
         if self.state is None:
             self._init_state()
         y_w = hp.get("y_weight", 1.0)
@@ -336,7 +439,8 @@ class Trainer:
             train_loader.set_epoch(epoch)
             tmetrics = defaultdict(list)
             last_lr = self.state.base_lr
-            batches = (self._to_device_batch(b) for b in train_loader)
+            batches = (self._to_device_batch(b)
+                       for b in self._train_batches(train_loader))
             n_prefetch = int(hp.get("num_workers", 0) or 0)
             if n_prefetch > 0:
                 batches = prefetch_to_device(batches, size=min(n_prefetch, 4))
@@ -366,7 +470,14 @@ class Trainer:
             test_interval = hp.get("test_interval", -1) or -1
             if test_interval > 0 and epoch > 0 and epoch % test_interval == 0:
                 row.update(self._test_metrics(self.dm.test_dataloader()))
-            self.logger.log(row)
+            if self.world_size > 1:
+                # rank 0's metrics decide the LR, the checkpoints and the
+                # stop on every rank
+                rows = [row]
+                torch.distributed.broadcast_object_list(rows, src=0)
+                row = rows[0]
+            if self.rank == 0:
+                self.logger.log(row)
             for log in self.extra_loggers:
                 log(row)
 
@@ -406,11 +517,14 @@ class Trainer:
         if self.state is None:
             self._init_state()
         out = self._test_metrics(loader or self.dm.test_dataloader())
-        self.logger.log({"epoch": -1.0, "lr": 0.0, **out})
+        if self.rank == 0:
+            self.logger.log({"epoch": -1.0, "lr": 0.0, **out})
         return out
 
     # -- checkpoints ---------------------------------------------------------
     def _save_checkpoint(self, epoch, monitor_val, best_only=False):
+        if self.rank != 0:
+            return
         if best_only:
             if monitor_val >= self.best_metric:
                 return
